@@ -62,3 +62,37 @@ def build_library(name: str, sources: Sequence[str]
             if os.path.exists(tmp):
                 os.remove(tmp)
     return ctypes.CDLL(out), log
+
+
+class KernelLibrary:
+    """One kernel's library, built at first use, and its launch count.
+
+    ``load()`` builds ``csrc/<name>.cu`` and returns its C entry point
+    ``symbol`` with ``argtypes`` and an int result (a CUDA error code).
+    ``launches`` goes up by one for every launch of the CUDA kernel and for
+    nothing else: the wrapper calls ``count`` after a launch succeeds, and
+    callers ``reset_counts()`` to count the launches of one run.
+    """
+
+    def __init__(self, name: str, symbol: str, argtypes: Sequence):
+        self.name, self.symbol, self.argtypes = name, symbol, list(argtypes)
+        self.lib = None
+        self.fn = None
+        self.build_log = ""
+        self.launches = 0
+
+    def load(self):
+        if self.fn is None:
+            self.lib, self.build_log = build_library(self.name,
+                                                     [f"{self.name}.cu"])
+            fn = getattr(self.lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self.fn = fn
+        return self.fn
+
+    def count(self):
+        self.launches += 1
+
+    def reset_counts(self):
+        self.launches = 0

@@ -2,7 +2,9 @@
 ``enarf_gan_tpu/models/generator.py``).
 
 ``make_dso_full_renderer`` is the entry point: it returns a function that
-renders one full frame from a pose, the camera intrinsics and a frame time.
+renders one full frame from a pose, the camera intrinsics and a frame time,
+through the patch-tiled renderer for ``tile_patch`` models and the exact one
+otherwise.
 The JAX package's ``variables`` and ``rng`` arguments become the module's
 own weights and an explicit ``torch.Generator`` (or the fine sampler's
 draws, given per ray chunk).
@@ -15,13 +17,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from enarf_gan_tpu_torch import DEFAULT_DEVICE
 from enarf_gan_tpu_torch.geometry.encoding import scalar_positional_encoding
 from enarf_gan_tpu_torch.geometry.pose import (transform_canonical_pose,
                                                transform_pose)
-from enarf_gan_tpu_torch.models.narf import (NARFParams, TriPlaneNARF,
-                                             params_use_candidate_sampling)
+from enarf_gan_tpu_torch.models.narf import NARFParams, TriPlaneNARF
 from enarf_gan_tpu_torch.nerf.rendering import (Draws, RenderConfig,
                                                 render_entire_img)
+from enarf_gan_tpu_torch.nerf.tiled import render_entire_img_tiled
 from enarf_gan_tpu_torch.nn.layers import init_parameters
 
 
@@ -41,10 +44,11 @@ class DSONARFGenerator(nn.Module):
     """Dynamic-scene-overfitting generator: time (and/or pose) conditioned
     tri-plane NARF (the JAX ``use_triplane=True`` model; the MLP baselines
     are ROADMAP Queue 1, item 7). Weights are drawn from ``generator``
-    (seed 0 when none is given) as the JAX initializers draw them."""
+    (seed 0 when none is given) as the JAX initializers draw them, and
+    built on ``device``: the GPU unless the caller names another."""
 
     def __init__(self, nerf_params: NARFParams, num_bone: int,
-                 parent_id: Sequence[int], device=None,
+                 parent_id: Sequence[int], device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.nerf_params = nerf_params
@@ -88,7 +92,8 @@ class DSONARFGenerator(nn.Module):
         p = self.nerf_params
         return RenderConfig(Nc=p.Nc, Nf=p.Nf,
                             coordinate_scale=p.coordinate_scale,
-                            view_dependent=p.view_dependent)
+                            view_dependent=p.view_dependent,
+                            tile_coarse_corners=p.tile_coarse_corners)
 
     def compute_tri_plane_feature(self, z, bone_length_t):
         return self.nerf.compute_tri_plane_feature(z, bone_length_t)
@@ -100,6 +105,16 @@ class DSONARFGenerator(nn.Module):
                            z_or_planes, z_rend, ray_direction):
         return self.nerf.density_color(points, pose_scaled, bone_length_t,
                                        z_or_planes, z_rend, ray_direction)
+
+    def pack_planes_tiled(self, planes):
+        return self.nerf.pack_planes_tiled(planes)
+
+    def nerf_density_color_tiled(self, points, pose_scaled, bone_length_t,
+                                 tables, z_rend, n_patch, m, S,
+                                 ray_direction=None, with_stats=False):
+        return self.nerf.density_color_tiled(
+            points, pose_scaled, bone_length_t, tables, z_rend, n_patch, m,
+            S, ray_direction, with_stats)
 
 
 def register_canonical_pose(gen: DSONARFGenerator, canonical_pose: np.ndarray,
@@ -140,25 +155,53 @@ def dso_render_entire_img(gen: DSONARFGenerator, pose_to_camera, inv_intrinsics,
                              generator=generator)
 
 
+@torch.no_grad()
+def dso_render_entire_img_tiled(gen: DSONARFGenerator, pose_to_camera,
+                                inv_intrinsics, frame_time, bone_length,
+                                camera_pose=None, render_size: int = 128,
+                                ray_batchsize: Optional[int] = None,
+                                draws: Optional[Sequence[Draws]] = None,
+                                generator: Optional[torch.Generator] = None):
+    """Patch-tiled full-image DSO inference (nerf/tiled.py +
+    ops/tilewin.py): planes computed and packed into window tables once per
+    frame, then the chunked patch render. Same outputs as
+    ``dso_render_entire_img`` up to the sampling-pattern change. ``draws``
+    holds one (u, jitter) pair per chunk, each (patches per chunk, Nf)."""
+    P = gen.nerf_params.tile_patch
+    z = gen.get_latents(frame_time, pose_to_camera)
+    pose_t, bl_t = gen.transform_pose(pose_to_camera, bone_length)
+    tables = gen.pack_planes_tiled(gen.compute_tri_plane_feature(z, bl_t))
+
+    def fn(points, ray_dir, pose_scaled, n_patch, m, S):
+        return gen.nerf_density_color_tiled(points, pose_scaled, bl_t, tables,
+                                            z, n_patch, m, S, ray_dir)
+
+    rb = ray_batchsize or gen.nerf_params.render_bs
+    return render_entire_img_tiled(fn, pose_t, inv_intrinsics,
+                                   gen.render_cfg(), render_size, P,
+                                   ray_batchsize=rb, camera_pose=camera_pose,
+                                   draws=draws, generator=generator)
+
+
 def make_dso_full_renderer(gen: DSONARFGenerator, render_size: int,
                            ray_batchsize: Optional[int] = None):
     """Full-image DSO renderer:
     ``render(pose_to_camera, inv_intrinsics, frame_time, bone_length,
     camera_pose=None, draws=None, generator=None)`` → (color, mask,
-    disparity). Fine-sampler uniforms come from ``draws`` (one (u, jitter)
-    pair per ray chunk) or from ``generator``. Pixel-unit intrinsics only;
-    the JAX package's normalized-intrinsics and crop options come with the
-    port's DSO_demo CLI (ROADMAP Queue 1, item 2)."""
-    if (gen.nerf_params.tile_patch
-            and params_use_candidate_sampling(gen.nerf_params,
-                                              gen.model_num_bone)):
-        raise NotImplementedError(
-            "the patch-tiled (tile_patch) renderer is ROADMAP Queue 1, "
-            "item 4 (slice 2)")
+    disparity). Models with ``tile_patch`` on the candidate-sparse path
+    render through the patch-tiled renderer, all others through the exact
+    one, as the JAX factory routes them. Fine-sampler uniforms come from
+    ``draws`` (one (u, jitter) pair per chunk: (rays, Nf) on the exact
+    path, (patches, Nf) on the tiled one) or from ``generator``.
+    Pixel-unit intrinsics only; the JAX package's normalized-intrinsics and
+    crop options come with the port's DSO_demo CLI (ROADMAP Queue 1,
+    item 2)."""
+    full = dso_render_entire_img_tiled if gen.nerf.supports_tiled_sampling() \
+        else dso_render_entire_img
 
     def render(pose_to_camera, inv_intrinsics, frame_time, bone_length,
                camera_pose=None, draws=None, generator=None):
-        return dso_render_entire_img(
+        return full(
             gen, pose_to_camera, inv_intrinsics, frame_time, bone_length,
             camera_pose=camera_pose, render_size=render_size,
             ray_batchsize=ray_batchsize, draws=draws, generator=generator)

@@ -3,9 +3,10 @@
 
 Ported: the ``deformation_field`` variant (constant planes warped by a
 generated flow) and the ``constant_triplane`` variant, sampled through the
-candidate-sparse unirow path (``ops/unirow.py``, bf16 table). Other variants
-and samplers raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+candidate-sparse unirow path (``ops/unirow.py``, bf16 table) or, for
+``tile_patch`` models on the patch-tiled renderer, the patch-window path
+(``ops/tilewin.py``). Other variants and samplers raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Parameter and buffer names are the reference's (``tri_plane``,
 ``flow_generator.*``, ``mlp.layers.*``, ``density_fc.*``,
@@ -22,12 +23,16 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from enarf_gan_tpu_torch import DEFAULT_DEVICE, resolve_device
 from enarf_gan_tpu_torch.geometry.encoding import (
     in_cube, multi_part_positional_encoding, positional_encoding, to_local)
 from enarf_gan_tpu_torch.nn.layers import StyledConv1d, StyledMLP
 from enarf_gan_tpu_torch.nn.stylegan2 import StyleGAN2Generator
 from enarf_gan_tpu_torch.ops.activation import density_relu
 from enarf_gan_tpu_torch.ops.grid_sample import grid_sample_2d
+from enarf_gan_tpu_torch.ops.tilewin import (pack_tilewin,
+                                             sample_tilewin_fused,
+                                             select_patch_slots)
 from enarf_gan_tpu_torch.ops.triplane import select_candidate_bones
 from enarf_gan_tpu_torch.ops.unirow import (MASK_BLOCK, pack_unirow,
                                             sample_candidates_unirow)
@@ -81,8 +86,9 @@ class TriPlaneNARF(nn.Module):
     """Tri-plane articulated NeRF with per-bone mask planes."""
 
     def __init__(self, params: NARFParams, z_dim: int, z2_dim: int,
-                 num_bone: int, device=None):
+                 num_bone: int, device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         p = self.params = params
         self.num_bone = num_bone
         ts = p.tri_plane_size
@@ -168,6 +174,11 @@ class TriPlaneNARF(nn.Module):
     def uses_candidate_sampling(self) -> bool:
         return params_use_candidate_sampling(self.params, self.num_bone)
 
+    def supports_tiled_sampling(self) -> bool:
+        """tile_patch only accelerates the candidate-sparse tri-plane-mask
+        path; the selector variants render through the exact renderer."""
+        return self.params.tile_patch > 0 and self.uses_candidate_sampling()
+
     def _check_unirow(self) -> None:
         p = self.params
         if not self.uses_candidate_sampling():
@@ -203,6 +214,23 @@ class TriPlaneNARF(nn.Module):
         cd = self.mlp(feature, z_rend)
         return cd[:, 3:], torch.tanh(cd[:, :3])
 
+    def _canonical_validity(self, position, pose_to_camera, bone_length):
+        """Canonical coordinates (B, K, 3, n) and whether each point lies
+        in each bone's cube (B, K, n)."""
+        local, canonical = self.to_local_and_canonical(position, pose_to_camera,
+                                                       bone_length)
+        return canonical, in_cube(local) & (canonical.abs() < 1).all(dim=2)
+
+    def _density_color(self, feature, weight_max, validity, z_rend,
+                       ray_direction):
+        """Heads on the sampled feature; density zero outside every cube."""
+        density, color = self.heads(feature, z_rend, ray_direction)
+        if self.params.multiply_density_with_triplane_weight:
+            density = density_relu(density) * (10 * weight_max)
+        else:
+            density = density_relu(density) * 10
+        return density * validity.any(dim=1, keepdim=True), color
+
     def density_color(self, position, pose_to_camera, bone_length,
                       tri_plane_feature, z_rend, ray_direction=None):
         """Density + color at camera-frame positions.
@@ -221,9 +249,8 @@ class TriPlaneNARF(nn.Module):
         p = self.params
         K = self.num_bone
         ts = p.tri_plane_size
-        local, canonical = self.to_local_and_canonical(position, pose_to_camera,
-                                                       bone_length)
-        validity = in_cube(local) & (canonical.abs() < 1).all(dim=2)  # (B,K,n)
+        canonical, validity = self._canonical_validity(
+            position, pose_to_camera, bone_length)
         if isinstance(tri_plane_feature, tuple):
             (table,) = tri_plane_feature
         else:
@@ -234,10 +261,45 @@ class TriPlaneNARF(nn.Module):
             table, cand_pos, cand_idx, cand_valid, p.feat_dim, K, ts, ts,
             clamp_mask=p.clamp_mask)
         weight_max = (cand_w * cand_valid).amax(dim=2)[:, None]   # (B, 1, n)
+        return self._density_color(feature, weight_max, validity, z_rend,
+                                   ray_direction)
 
-        density, color = self.heads(feature, z_rend, ray_direction)
-        if p.multiply_density_with_triplane_weight:
-            density = density_relu(density) * (10 * weight_max)
-        else:
-            density = density_relu(density) * 10
-        return density * validity.any(dim=1, keepdim=True), color
+    def pack_planes_tiled(self, tri_plane_feature: torch.Tensor):
+        """Pack planes once per frame into the patch-window tables."""
+        if not self.uses_candidate_sampling():
+            raise ValueError(
+                "tile_patch needs the candidate-sparse tri-plane-mask path "
+                "(not no_selector / selector_mlp / max_bones_per_point >= "
+                "num_bone)")
+        return pack_tilewin(tri_plane_feature, self.params.feat_dim,
+                            self.num_bone)
+
+    def density_color_tiled(self, position, pose_to_camera, bone_length,
+                            tables, z_rend, n_patch: int, m: int, S: int,
+                            ray_direction=None, with_stats: bool = False):
+        """Patch-window path of ``density_color``.
+
+        Same math as the candidate branch, but candidates are chosen per
+        (pixel patch, sample) and the tri-plane reads are one shared window
+        row per (patch, sample, slot, plane). ``position`` (B, 3, n) is in
+        tiled point order ((patch*m + member)*S + sample), see
+        ``nerf/tiled.py``; ``tables`` come from ``pack_planes_tiled``.
+        Returns (density (B, 1, n), color (B, 3, n) | None), plus the
+        sampler's stats ({"clamped": share}) with ``with_stats``.
+        """
+        p = self.params
+        B, _, n = position.shape
+        canonical, validity = self._canonical_validity(
+            position, pose_to_camera, bone_length)
+        slot_idx, cand_pos, cand_valid = select_patch_slots(
+            canonical, validity, n_patch, m, S, p.max_bones_per_point)
+        out = sample_tilewin_fused(tables, cand_pos, slot_idx, cand_valid,
+                                   clamp_mask=p.clamp_mask,
+                                   with_stats=with_stats)
+        feature, cand_w = out[0], out[1]
+        weight_max = (cand_w * cand_valid).amax(dim=1).reshape(B, 1, n)
+        density, color = self._density_color(feature, weight_max, validity,
+                                             z_rend, ray_direction)
+        if with_stats:
+            return density, color, out[2]
+        return density, color

@@ -32,6 +32,8 @@ class RenderConfig:
     render_scale: float = 1.0
     coordinate_scale: float = 1.0
     view_dependent: bool = False
+    tile_coarse_corners: bool = False   # nerf/tiled.py: coarse pass on the
+                                        # patch's 4 corner rays
 
 
 def _linspace(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Tensor:

@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from enarf_gan_tpu_torch import DEFAULT_DEVICE
+
 
 def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """bias (along the last axis) + LeakyReLU(0.2) * sqrt(2)."""
@@ -47,7 +49,8 @@ class EqualLinear(nn.Module):
     """Equalized linear layer, optionally with the fused leaky ReLU."""
 
     def __init__(self, in_dim: int, out_dim: int, bias_init: float = 0.0,
-                 lr_mul: float = 1.0, activation: bool = False, device=None):
+                 lr_mul: float = 1.0, activation: bool = False,
+                 device=DEFAULT_DEVICE):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim, device=device))
         self.bias = nn.Parameter(torch.empty(out_dim, device=device))
@@ -71,7 +74,8 @@ class EqualConv1d(nn.Module):
     """Equalized grouped 1x1 conv over (B, C, n); weight (groups, out/g, in/g)."""
 
     def __init__(self, in_channels: int, out_channels: int, groups: int = 1,
-                 bias_init: float = 0.0, lr_mul: float = 1.0, device=None):
+                 bias_init: float = 0.0, lr_mul: float = 1.0,
+                 device=DEFAULT_DEVICE):
         super().__init__()
         self.groups = groups
         in_per, out_per = in_channels // groups, out_channels // groups
@@ -99,7 +103,7 @@ class ModulatedConv1d(nn.Module):
     the L2 norm of each modulated weight row (eps 1e-12)."""
 
     def __init__(self, in_channels: int, out_channels: int, style_dim: int,
-                 device=None):
+                 device=DEFAULT_DEVICE):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(1, out_channels, in_channels, 1,
                                                device=device))
@@ -122,7 +126,7 @@ class StyledConv1d(nn.Module):
     """ModulatedConv1d + bias + LeakyReLU(0.2)*sqrt(2)."""
 
     def __init__(self, in_channels: int, out_channels: int, style_dim: int,
-                 device=None):
+                 device=DEFAULT_DEVICE):
         super().__init__()
         self.conv = ModulatedConv1d(in_channels, out_channels, style_dim,
                                     device=device)
@@ -140,7 +144,8 @@ class StyledMLP(nn.Module):
     """Stack of StyledConv1d, kept in ``layers`` as the reference names it."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 style_dim: int = 512, num_layers: int = 3, device=None):
+                 style_dim: int = 512, num_layers: int = 3,
+                 device=DEFAULT_DEVICE):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
         self.layers = nn.ModuleList(

@@ -24,6 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from enarf_gan_tpu_torch import DEFAULT_DEVICE
+
 from enarf_gan_tpu_torch.nn.layers import EqualLinear, _normal_, pixel_norm
 from enarf_gan_tpu_torch.ops.upfirdn import make_blur_kernel, upfirdn2d
 
@@ -44,7 +46,7 @@ class MappingNetwork(nn.Module):
     equalized layers at learning-rate multiplier 0.01."""
 
     def __init__(self, z_dim: int, style_dim: int, num_layers: int = 8,
-                 c_dim: int = 0, device=None):
+                 c_dim: int = 0, device=DEFAULT_DEVICE):
         super().__init__()
         self.c_dim = c_dim
         if c_dim > 0:
@@ -75,7 +77,7 @@ class _ModulatedConv2d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, style_dim: int,
                  kernel_size: int = 3, demodulate: bool = True,
-                 upsample: bool = False, device=None):
+                 upsample: bool = False, device=DEFAULT_DEVICE):
         super().__init__()
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k,
@@ -111,7 +113,8 @@ class StyledConv2d(_ModulatedConv2d):
     """Modulated conv + bias + LeakyReLU(0.2)*sqrt(2), no noise input."""
 
     def __init__(self, in_channels: int, out_channels: int, style_dim: int,
-                 kernel_size: int = 3, upsample: bool = False, device=None):
+                 kernel_size: int = 3, upsample: bool = False,
+                 device=DEFAULT_DEVICE):
         super().__init__(in_channels, out_channels, style_dim, kernel_size,
                          upsample=upsample, device=device)
         self.bias = nn.Parameter(torch.empty(out_channels, device=device))
@@ -130,7 +133,7 @@ class ToRGB(_ModulatedConv2d):
     """1x1 modulated conv (no demodulation) + bias, plus the upsampled skip."""
 
     def __init__(self, in_channels: int, out_channels: int, style_dim: int,
-                 device=None):
+                 device=DEFAULT_DEVICE):
         super().__init__(in_channels, out_channels, style_dim, 1,
                          demodulate=False, device=device)
         self.bias = nn.Parameter(torch.empty(out_channels, device=device))
@@ -156,7 +159,7 @@ class _SynthesisBlock(nn.Module):
     ``conv1`` and ``torgb``."""
 
     def __init__(self, res: int, in_ch: int, out_ch: int, out_channels: int,
-                 style_dim: int, device=None):
+                 style_dim: int, device=DEFAULT_DEVICE):
         super().__init__()
         if res == 4:
             self.const = nn.Parameter(torch.empty(1, out_ch, 4, 4, device=device))
@@ -175,7 +178,7 @@ class SynthesisNetwork(nn.Module):
     """Skip-architecture synthesis; blocks ``b4``, ``b8``, ... ``b{size}``."""
 
     def __init__(self, size: int, style_dim: int, out_channels: int = 3,
-                 channel_max: int = 512, device=None):
+                 channel_max: int = 512, device=DEFAULT_DEVICE):
         super().__init__()
         ch = channels_dict(channel_max=channel_max)
         self.log_size = int(math.log2(size))
@@ -211,7 +214,7 @@ class StyleGAN2Generator(nn.Module):
 
     def __init__(self, size: int, z_dim: int, style_dim: int, n_mlp: int,
                  out_channels: int = 3, c_dim: int = 0, channel_max: int = 512,
-                 device=None):
+                 device=DEFAULT_DEVICE):
         super().__init__()
         self.mapping = MappingNetwork(z_dim, style_dim, n_mlp, c_dim=c_dim,
                                       device=device)

@@ -26,6 +26,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from enarf_gan_tpu_torch.cuda_build import KernelLibrary
 from enarf_gan_tpu_torch.ops.activation import straight_through_clamp
 from enarf_gan_tpu_torch.ops.quadtable import (_quad_cells_weights,
                                                quad_pack_corners)
@@ -92,32 +93,9 @@ def gather_combine_plain(table, rows, wq4, cand_idx, valid, feat_dim: int,
     return feature, cand_wn
 
 
-class _UnirowKernel:
-    """The compiled kernel library, built at first use, and its launch count.
-
-    ``launches`` goes up by one for every launch of the CUDA kernel and for
-    nothing else; callers reset it to 0 to count the launches of one run.
-    """
-
-    def __init__(self):
-        self.fn = None
-        self.build_log = ""
-        self.launches = 0
-
-    def load(self):
-        if self.fn is None:
-            from enarf_gan_tpu_torch.cuda_build import build_library
-            lib, self.build_log = build_library("unirow_combine",
-                                                ["unirow_combine.cu"])
-            fn = lib.unirow_combine_bf16
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
-                [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self.fn = fn
-        return self.fn
-
-
-KERNEL = _UnirowKernel()
+KERNEL = KernelLibrary("unirow_combine", "unirow_combine_bf16",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
 
 
 def _check_inputs(table, rows, wq4, cand_idx, valid, feat_dim):
@@ -171,7 +149,7 @@ def _launch_kernel(table, rows, wq4, cand_idx, valid, feat_dim, clamp_mask):
     if err != 0:
         raise RuntimeError(f"unirow_combine kernel launch failed: CUDA error "
                            f"{err}")
-    KERNEL.launches += 1
+    KERNEL.count()
     return feature, cand_w
 
 

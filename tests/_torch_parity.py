@@ -57,7 +57,7 @@ def build_pair(size=16, ray_batchsize=64, seed=7, **overrides):
                                         np.asarray(SMPL_PARENTS))
     variables = perturbed(variables, seed)
     port = tgen.DSONARFGenerator(TNARFParams(**kw), num_bone=24,
-                                 parent_id=PARENTS)
+                                 parent_id=PARENTS, device="cpu")
     load_reference_state_dict(port, export_reference_state_dict(variables))
     return gen, variables, port, scene
 

@@ -25,7 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(enarf_gan_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -34,4 +34,9 @@ def test_port_imports_without_jax_flax_yaml_pil():
     proc = subprocess.run([sys.executable, "-c", GUARD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 15, proc.stdout
+    names = set(proc.stdout.split())
+    assert len(names) >= 27, proc.stdout
+    for module in ("ops.unirow", "ops.tilewin", "ops.tilewin_kernel",
+                   "nerf.rendering", "nerf.tiled", "nerf.ray_sampler",
+                   "models.generator"):
+        assert f"enarf_gan_tpu_torch.{module}" in names, module

@@ -147,3 +147,28 @@ def test_register_canonical_pose_matches_jax(pair):
                                   np.asarray(buffers["canonical_pose"]))
     np.testing.assert_array_equal(port.nerf.canonical_bone_length.numpy(),
                                   np.asarray(buffers["canonical_bone_length"]))
+
+
+def test_models_default_to_the_gpu():
+    """A model built without ``device`` is built on the GPU; without one,
+    building it fails instead of falling back to the CPU."""
+    from enarf_gan_tpu_torch import DEFAULT_DEVICE
+    from enarf_gan_tpu_torch.models import generator as tgen
+    from enarf_gan_tpu_torch.models.narf import NARFParams as TNARFParams
+    from _torch_parity import PARENTS, SMALL
+    assert DEFAULT_DEVICE == torch.device("cuda")
+
+    def build():
+        return tgen.DSONARFGenerator(TNARFParams(**SMALL), num_bone=24,
+                                     parent_id=PARENTS)
+
+    if torch.cuda.is_available():
+        gen = build()
+        assert all(p.device.type == "cuda" for p in gen.parameters())
+        assert all(b.device.type == "cuda" for b in gen.buffers())
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    cpu = tgen.DSONARFGenerator(TNARFParams(**SMALL), num_bone=24,
+                                parent_id=PARENTS, device="cpu")
+    assert all(p.device.type == "cpu" for p in cpu.parameters())

@@ -167,7 +167,7 @@ def test_equal_conv1d(groups, lr_mul):
     bias = rs.normal(size=(12,)).astype(np.float32)
     ref = jm.apply({"params": {"weight": params["weight"],
                                "bias": jnp.asarray(bias)}}, jnp.asarray(x))
-    m = EqualConv1d(6, 12, groups=groups, lr_mul=lr_mul)
+    m = EqualConv1d(6, 12, groups=groups, lr_mul=lr_mul, device="cpu")
     m.load_state_dict({"weight": torch.from_numpy(np.array(params["weight"])),
                        "bias": torch.from_numpy(bias)})
     close(m(torch.from_numpy(x)), ref)
