@@ -8,11 +8,15 @@ NVIDIA GPU.
    source, all started together), with each kernel's ptxas report.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (unirow: one full fine chunk; tilewin: one full
-   fine chunk, m = 16, and one full coarse-corner chunk, m = 4), times both
-   with CUDA events in turns, and computes each kernel's bound from this
-   run's inputs: the distinct table bytes the function needs (64-byte
-   texels or row segments and 32-byte mask sectors that valid members
-   touch), each coordinate and output once.
+   fine chunk, m = 16, and one full coarse-corner chunk, m = 4; kernel 3 in
+   each mode at the fine chunk; the backward kernels 1b and 2b at one
+   training fine pass of 4 images, against autograd through the plain
+   versions), times both with CUDA events in turns, and computes each
+   kernel's bound from this run's inputs: the distinct table bytes the
+   function needs (64-byte texels or row segments and 32-byte mask sectors
+   that valid members touch; kernel 3 computes kernel 2's function and is
+   held to its bound, with the whole 4 KB rows it reads printed beside),
+   each coordinate and output once.
 3. Builds the DSO model at the full width the JAX ``bench.py`` times
    (24 joints, 256² tri-planes, w_dim 512, deformation field, bf16
    sampling) with seeded, perturbed random weights, and renders 128² frames
@@ -28,10 +32,30 @@ NVIDIA GPU.
 5. Shows where a frame's time goes: the per-frame plane stages on the host
    clock, one frame's device time by kernel class (torch.profiler), and the
    tiled frame's distinct texels and bytes bound per launch.
+6. Trains the model of ``configs/DSO_train/ZJU/313_denarf_tpu.yml`` (512²
+   images, batch 16, 4096 rays an image, 256² planes, w_dim 512, pose and
+   time conditioning, Nc 48 + Nf 64, "mae" loss, lr 1e-3) through the
+   port's ``training.dso`` on synthetic 512² frames: the exact path
+   (kernels 1 and 1b) and the tiled path (2 and 2b), each 1 warm-up and 3
+   timed steps at the smallest micro-batch split that fits, with s/iter,
+   peak memory and a profile of one step; then one tiled step in each of
+   kernel 3's modes on the hat step's batch and draws, whose loss must
+   match.
+7. Overfits one 64² frame for 200 iterations on both paths at full width:
+   the PSNR must beat the blank frame's by more than 2 dB.
 
 The second-to-last line is a JSON record of the kernels, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that line; so does a machine without a CUDA device.
+
+    python3 chip_smoke.py --learn-spread | --learn-collapse | --learn-gradcheck
+
+run only phase 1 and one study of phase 7's spread from run to run (3-8
+minutes each on an H100): each path learning twice from each of three seeds
+(PSNR through its own and the exact renderer, the loss trajectories'
+divergence); repeated runs from one seed with the kernels and with the plain
+combine; and the parameter gradients along learning, kernels against the
+plain combine.
 """
 import json
 import subprocess
@@ -50,11 +74,44 @@ RAY_CHUNK = 4096
 NC, NF = 48, 64
 TILE_PATCH = 4
 FINE_CHUNK_POINTS = RAY_CHUNK * NF       # one full fine chunk
-N_FRAMES = 3
+N_FRAMES = 2
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM HBM3
 F32_FLOPS = 67e12                        # H100 SXM float32, no tensor cores
+BF16_FLOPS = 989e12                      # H100 SXM bf16 tensor cores, dense
 RTOL, ATOL = 1e-4, 1e-5   # kernel vs plain: both f32 from the same bf16 rows;
                           # only the order of the sums and the exp differ
+GRAD_REL_L2 = 1e-4        # backward kernel vs autograd through the plain
+                          # version: the atomics add in a varying order
+TRAIN_IMAGES = 4          # images of a training fine pass in the 1b/2b checks
+MODES = ("dot", "vpu", "bdiag")
+# configs/DSO_train/ZJU/313_denarf_tpu.yml over configs/DSO_train/default.yml
+# (written out, so that the script needs no YAML reader); the model widths not
+# in the files are NARFParams' defaults (256² planes, feat 32, w_dim 512)
+TRAIN_CONFIG = {
+    "out": "DSO/ZJU/313_denarf_tpu",
+    "dataset": {"bs": 16, "image_size": 512, "bg_color": -1,
+                "train": {"n_frames": 1176}},
+    "generator_params": {
+        "use_triplane": True, "ray_batchsize": 4096,
+        "nerf_params": {
+            "plane_sample_dtype": "bfloat16", "tile_patch": 4,
+            "tile_coarse_corners": True, "hidden_size": 256, "Nc": 48,
+            "Nf": 64, "no_ray_direction": True,
+            "origin_location": "center_fixed", "coordinate_scale": 3,
+            "deformation_field": True, "time_conditional": True,
+            "pose_conditional": True, "render_bs": 16384,
+            "model_type": "narf",
+            "multiply_density_with_triplane_wieght": False,
+            "clamp_mask": False, "constant_triplane": False,
+            "constant_trimask": False, "selector_mlp": False,
+            "no_selector": False, "constant_trimask_lr_mul": 1}},
+    "loss": {"color_coef": 1, "mask_coef": 1, "nerf_loss_type": "mae"},
+    "num_iter": 150000, "lr": 0.001, "scheduler_gamma": 0.99995,
+    "val_interval": 500, "print_interval": 10, "tensorboard_interval": 100,
+    "save_interval": 500, "resume": None, "resume_latest": False}
+TRAIN_SOURCE_IMAGES = 4   # distinct synthetic 512² frames, repeated to 16
+TIMED_STEPS = 3
+LEARN_SIZE, LEARN_ITERS = 64, 200
 
 
 def _cuda_time_ms(fn, reps):
@@ -69,11 +126,12 @@ def _cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, rate=F32_FLOPS):
     """The least time the card could take: the larger of bytes over the HBM
-    rate and float32 operations over the float32 peak."""
+    rate and the operations over the peak ``rate`` of their type (float32
+    unless given)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS * 1e3
+    by_ops = flops / rate * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops \
         else "operations"
 
@@ -162,7 +220,10 @@ def phase_setup():
     torch.backends.cudnn.allow_tf32 = False
     print("allow_tf32: matmul False, cudnn False")
     kernels = {"unirow_combine": unirow.KERNEL,
-               "tilewin_combine": tilewin_kernel.KERNEL}
+               "unirow_combine_bwd": unirow.KERNEL_BWD,
+               "tilewin_combine": tilewin_kernel.KERNEL,
+               "tilewin_combine_bwd": tilewin_kernel.KERNEL_BWD,
+               "tilewin_combine_modes": tilewin_kernel.KERNEL_MODES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for f in [pool.submit(k.load) for k in kernels.values()]:
@@ -173,9 +234,16 @@ def phase_setup():
         for line in k.build_log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 print(f"  ptxas {name}:", line.strip())
-    print("  tilewin_combine dynamic shared memory (Mp=4): m=16 "
-          f"{tilewin_kernel.KERNEL.smem_bytes(4, 16)} B, m=4 "
-          f"{tilewin_kernel.KERNEL.smem_bytes(4, 4)} B")
+    tw = tilewin_kernel
+    smem = {"tilewin_combine m=16": tw.KERNEL.lib.tilewin_combine_smem_bytes(
+                4, 16),
+            "m=4": tw.KERNEL.lib.tilewin_combine_smem_bytes(4, 4),
+            "tilewin_combine_bwd":
+                tw.KERNEL_BWD.lib.tilewin_combine_bwd_smem_bytes(4),
+            "tilewin_combine_modes":
+                tw.KERNEL_MODES.lib.tilewin_combine_modes_smem_bytes(4)}
+    print("  dynamic shared memory a block (Mp=4): "
+          + "; ".join(f"{k} {v} B" for k, v in smem.items()))
 
 
 def phase_unirow_check(device):
@@ -210,47 +278,255 @@ def phase_unirow_check(device):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def phase_tilewin_check(device, m, S, label):
-    """Kernel 2 vs plain at one full chunk of the tiled path: 256² planes,
-    4096 rays in 256 patches, S samples, 4 slots; members clustered within
-    ~1.5 texels per (patch, sample, slot), ~20% invalid."""
+def _tilewin_inputs(device, m, S, B=1, seed_offset=0):
+    """Window tables and plan of one full chunk of the tiled path: 256²
+    planes, 4096 rays in 256 patches, S samples, 4 slots; members clustered
+    within ~1.5 texels per (patch, sample, slot), ~20% invalid."""
     import torch
-    from enarf_gan_tpu_torch.ops import tilewin, tilewin_kernel
+    from enarf_gan_tpu_torch.ops import tilewin
     F_, K, Mp, H = 32, 23, 4, TRI_PLANE_SIZE
     n_patch = RAY_CHUNK // (TILE_PATCH * TILE_PATCH)
-    g = torch.Generator().manual_seed(SEED + m)
-    planes = torch.randn((1, (F_ + K) * 3, H, H), generator=g).to(device)
+    g = torch.Generator().manual_seed(SEED + m + seed_offset)
+    planes = torch.randn((B, (F_ + K) * 3, H, H), generator=g).to(device)
     tables = tilewin.pack_tilewin(planes, F_, K)
-    centers = torch.rand((1, 3, Mp, n_patch, 1, S), generator=g) * 1.7 - 0.85
-    jitter = (torch.rand((1, 3, Mp, n_patch, m, S), generator=g) * 2 - 1) \
+    centers = torch.rand((B, 3, Mp, n_patch, 1, S), generator=g) * 1.7 - 0.85
+    jitter = (torch.rand((B, 3, Mp, n_patch, m, S), generator=g) * 2 - 1) \
         * (1.5 / H)
     pos = (centers + jitter).clamp(-0.99, 0.99).to(device)
-    slot_idx = torch.randint(0, K, (1, Mp, n_patch, S), generator=g,
+    slot_idx = torch.randint(0, K, (B, Mp, n_patch, S), generator=g,
                              dtype=torch.int32).to(device)
-    valid = (torch.rand((1, Mp, n_patch, m, S), generator=g) < 0.8).to(device)
+    valid = (torch.rand((B, Mp, n_patch, m, S), generator=g) < 0.8).to(device)
     plan = tilewin._fused_plan(tables, pos, slot_idx, valid)
-    args = (tables.feat, tables.mask, plan.frows, plan.mrows, plan.xt,
+    return (tables.feat, tables.mask, plan.frows, plan.mrows, plan.xt,
             plan.xs, plan.valid, F_, S, False)
+
+
+def _tilewin_io_bytes(args, m):
+    """Coordinates, validity and row indices read, outputs written."""
+    frows = args[2]
+    B, _, Mp, U = frows.shape
+    coords = sum(t.numel() * t.element_size() for t in args[2:7])
+    return coords + B * (args[7] + Mp) * U * m * 4
+
+
+def _tilewin_bound(args, m):
+    """The tilewin combine's bound on one launch's inputs: the distinct
+    texels and mask sectors its valid members need, coordinates and
+    outputs; the float32 operations of its valid members. Kernels 2 and 3
+    compute this one function, so both are held to it. Returns (bound ms,
+    bound by, bytes, operations, the table-bytes triple)."""
+    F_ = args[7]
+    table = _tilewin_table_bytes(F_, *args[2:7])
+    nbytes = table[0] + _tilewin_io_bytes(args, m)
+    n_valid = int((args[6] != 0).sum())
+    flops = 3 * n_valid * (4 * F_ * 2 + 4 * 2) + n_valid * F_ * 2
+    return _bound(nbytes, flops) + (nbytes, flops, table)
+
+
+def phase_tilewin_check(device, m, S, label):
+    """Kernel 2 vs plain at one full chunk of the tiled path."""
+    import torch
+    from enarf_gan_tpu_torch.ops import tilewin_kernel
+    args = _tilewin_inputs(device, m, S)
+    Mp = args[2].shape[2]
     err, kern_ms, plain_ms = _compare_and_time(
         lambda: tilewin_kernel.tilewin_combine(*args),
         lambda: tilewin_kernel.tilewin_combine_plain(*args),
-        f"tilewin_combine {label} at U={n_patch * S} m={m} Mp={Mp}")
-    U = n_patch * S
-    table_bytes, d_tex, d_sec = _tilewin_table_bytes(F_, *args[2:7])
-    coords = sum(t.numel() * t.element_size() for t in args[2:7])
-    outputs = (F_ * U * m + Mp * U * m) * 4
-    nbytes = table_bytes + coords + outputs
-    n_valid = int((plan.valid != 0).sum())
-    flops = 3 * n_valid * (4 * F_ * 2 + 4 * 2) + n_valid * F_ * 2
-    bound_ms, bound_by = _bound(nbytes, flops)
+        f"tilewin_combine {label} at U={args[2].shape[3]} m={m} Mp={Mp}")
+    bound_ms, bound_by, nbytes, flops, (table_bytes, d_tex, d_sec) = \
+        _tilewin_bound(args, m)
     print(f"  kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms; "
-          f"{plan.frows.numel()} window-row reads on "
-          f"{int(torch.unique(plan.frows).numel())} distinct feature rows; "
-          f"valid members {n_valid} of {plan.valid.numel()} touch {d_tex} "
-          f"distinct texels and {d_sec} distinct mask sectors: table "
-          f"{table_bytes / 1e6:.1f} MB, coordinates {coords / 1e6:.1f} MB, "
-          f"outputs {outputs / 1e6:.1f} MB; bound {bound_ms:.4f} ms by "
+          f"{args[2].numel()} window-row reads on "
+          f"{int(torch.unique(args[2]).numel())} distinct feature rows; "
+          f"valid members {int((args[6] != 0).sum())} of {args[6].numel()} "
+          f"touch {d_tex} distinct texels and {d_sec} distinct mask sectors: "
+          f"table {table_bytes / 1e6:.1f} MB, coordinates and outputs "
+          f"{(nbytes - table_bytes) / 1e6:.1f} MB; bound {bound_ms:.4f} ms by "
           f"{bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_modes_check(device):
+    """Kernel 3 in each mode vs its plain version at kernel 2's full fine
+    chunk. Its bound is kernel 2's: the same function on the same inputs
+    (the bf16 rounding of the t-weights changes no byte or operation the
+    function needs). What its formulation does is printed beside it:
+    whole 4 KB window rows read once each, and the (32 x 16) @ (16 x 128)
+    t-contraction per (unit, slot, plane), on the bf16 tensor cores ("dot",
+    "bdiag") or in float32 ("vpu", the parity's 16 nonzero rows)."""
+    import torch
+    from enarf_gan_tpu_torch.ops import tilewin_kernel
+    args = _tilewin_inputs(device, 16, NF)
+    Mp, U = args[2].shape[2], args[2].shape[3]
+    bound_ms, bound_by, nbytes, flops, (table_bytes, _, d_sec) = \
+        _tilewin_bound(args, 16)
+    d_rows = int(torch.unique(args[2]).numel())
+    form_bytes = nbytes - table_bytes + d_rows * 4096 + d_sec * 32
+    out = {}
+    for mode in MODES:
+        err, kern_ms, plain_ms = _compare_and_time(
+            lambda: tilewin_kernel.tilewin_combine(*args, mode=mode),
+            lambda: tilewin_kernel.tilewin_combine_plain(
+                *args, round_t=mode != "vpu"),
+            f"tilewin_combine_modes {mode} at U={U} m=16 Mp={Mp}")
+        if mode == "vpu":
+            form_flops, rate = U * Mp * 3 * 2 * 16 * 8 * 128 * 2, F32_FLOPS
+        else:
+            form_flops, rate = U * Mp * 3 * 32 * 16 * 128 * 2, BF16_FLOPS
+        form_ms, form_by = _bound(form_bytes, form_flops, rate)
+        print(f"  kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP), kernel 2's; its formulation: "
+              f"{d_rows} distinct 4 KB rows and {d_sec} mask sectors, "
+              f"{form_bytes / 1e6:.1f} MB, {form_flops / 1e9:.2f} GFLOP "
+              f"({'float32' if mode == 'vpu' else 'bf16 tensor cores'}), "
+              f"least {form_ms:.4f} ms by {form_by}")
+        out[mode] = {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "formulation_bytes": form_bytes,
+                     "formulation_ms": form_ms}
+    return out
+
+
+def _grad_check(label, kern, plain, names):
+    """A backward kernel vs autograd through the plain version: relative L2
+    per gradient, then times (plain, kernel, kernel, plain)."""
+    import torch
+    got = kern()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(names, got, ref):
+        errs[name] = float((a.float() - b.float()).norm()
+                           / b.float().norm().clamp_min(1e-30))
+    del got, ref
+    print(f"{label} vs autograd through the plain version: relative L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bound {GRAD_REL_L2})")
+    assert max(errs.values()) <= GRAD_REL_L2, errs
+    times = [_cuda_time_ms(plain, 1), _cuda_time_ms(kern, 5),
+             _cuda_time_ms(kern, 5), _cuda_time_ms(plain, 1)]
+    print("  times (plain, kernel, kernel, plain) ms: "
+          + ", ".join(f"{x:.4f}" for x in times))
+    return max(errs.values()), (times[1] + times[2]) / 2, \
+        (times[0] + times[3]) / 2
+
+
+def phase_unirow_bwd_check(device):
+    """Kernel 1b at one training fine pass: 4 images x 4096 rays x Nf 64,
+    4 candidates. The plain reference runs image by image (the gathered
+    float32 rows of all 4 are 13 GB); images share no table rows, so the
+    per-image gradients are the batch's. The kernel's time includes zeroing
+    the dense float32 table gradient, which the bound counts as written."""
+    import torch
+    from enarf_gan_tpu_torch.ops import unirow
+    F_, K, M, H, B = 32, 23, 4, 256, TRAIN_IMAGES
+    n = FINE_CHUNK_POINTS
+    g = torch.Generator().manual_seed(SEED + 5)
+    planes = torch.randn((B, (F_ + K) * 3, H, H), generator=g).to(device)
+    pos = (torch.rand((B, n, M, 3), generator=g) * 2.4 - 1.2).to(device)
+    idx = torch.randint(0, K, (B, n, M), generator=g,
+                        dtype=torch.int32).to(device)
+    valid = (torch.rand((B, n, M), generator=g) > 0.3).to(device)
+    table = unirow.pack_unirow(planes, F_, K)
+    rows, wq4, ci, cv = unirow.candidate_rows(pos, idx, valid, H, H)
+    dfeature = torch.randn((B, F_, n), generator=g).to(device)
+    dcand_w = torch.randn((B, M, n), generator=g).to(device)
+
+    def kern():
+        return unirow.launch_backward(table, rows, wq4, ci, cv, dfeature,
+                                      dcand_w, F_, False)
+
+    def plain():
+        dts, dws = [], []
+        for b in range(B):
+            tf = table[b:b + 1].float().requires_grad_(True)
+            wf = wq4[b:b + 1].clone().requires_grad_(True)
+            f, w = unirow.gather_combine_plain(tf, rows[b:b + 1], wf,
+                                               ci[b:b + 1], cv[b:b + 1], F_,
+                                               False)
+            dt, dw = torch.autograd.grad(
+                (f * dfeature[b:b + 1]).sum() + (w * dcand_w[b:b + 1]).sum(),
+                [tf, wf])
+            dts.append(dt)
+            dws.append(dw)
+        return torch.cat(dts), torch.cat(dws)
+
+    err, kern_ms, plain_ms = _grad_check(
+        f"unirow_combine_bwd at B={B} n={n} M={M}", kern, plain,
+        ("table", "wq4"))
+    table_bytes, d_rows, d_sec = _unirow_table_bytes(table, rows, ci, cv)
+    inputs = sum(t.numel() * t.element_size()
+                 for t in (rows, wq4, ci, cv, dfeature, dcand_w))
+    outputs = table.numel() * 4 + wq4.numel() * 4
+    nbytes = table_bytes + inputs + outputs
+    flops = 3 * (n * M * 3 * (4 * F_ * 2 + 4 * 2) + n * M * F_ * 2) * B
+    bound_ms, bound_by = _bound(nbytes, flops)
+    print(f"  kernel {kern_ms:.4f} ms (with the zeroed float32 table), plain "
+          f"{plain_ms:.4f} ms; table reads {table_bytes / 1e6:.1f} MB, other "
+          f"inputs {inputs / 1e6:.1f} MB, outputs {outputs / 1e6:.1f} MB; "
+          f"bound {bound_ms:.4f} ms by {bound_by}")
+    return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_tilewin_bwd_check(device):
+    """Kernel 2b at one training fine pass: 4 images x 256 patches x 64
+    samples, m = 16, 4 slots. The plain reference runs image by image into
+    float32 copies of the tables; the kernel's time includes zeroing the
+    dense float32 table gradients, which the bound counts as written."""
+    import torch
+    from enarf_gan_tpu_torch.ops import tilewin_kernel
+    B = TRAIN_IMAGES
+    args = _tilewin_inputs(device, 16, NF, B=B, seed_offset=7)
+    feat, mask, frows, mrows, xt, xs, valid, F_, S, clamp = args
+    g = torch.Generator().manual_seed(SEED + 9)
+    n = xt.shape[3] * xt.shape[4]
+    Mp = frows.shape[2]
+    dfeature = torch.randn((B, F_, n), generator=g).to(device)
+    dcand_w = torch.randn((B, Mp, n // (16 * S), 16, S), generator=g) \
+        .to(device)
+
+    def kern():
+        return tilewin_kernel.launch_backward(feat, mask, frows, mrows, xt,
+                                              xs, valid, dfeature, dcand_w,
+                                              F_, S, clamp)
+
+    def plain():
+        ff = feat.float().requires_grad_(True)
+        mf = mask.float().requires_grad_(True)
+        dxt, dxs = [], []
+        for b in range(B):
+            sl = slice(b, b + 1)
+            xtb = xt[sl].clone().requires_grad_(True)
+            xsb = xs[sl].clone().requires_grad_(True)
+            f, w = tilewin_kernel.tilewin_combine_plain(
+                ff, mf, frows[sl], mrows[sl], xtb, xsb, valid[sl], F_, S,
+                clamp)
+            ((f * dfeature[sl]).sum() + (w * dcand_w[sl]).sum()).backward()
+            dxt.append(xtb.grad)
+            dxs.append(xsb.grad)
+        return ff.grad, mf.grad, torch.cat(dxt), torch.cat(dxs)
+
+    err, kern_ms, plain_ms = _grad_check(
+        f"tilewin_combine_bwd at B={B} U={frows.shape[3]} m=16 Mp={Mp}",
+        kern, plain, ("feat_table", "mask_table", "xt", "xs"))
+    table_bytes, d_tex, d_sec = _tilewin_table_bytes(F_, frows, mrows, xt, xs,
+                                                     valid)
+    inputs = _tilewin_io_bytes(args, 16) - B * (F_ + Mp) * n * 4 \
+        + (dfeature.numel() + dcand_w.numel()) * 4
+    outputs = (feat.numel() + mask.numel() + xt.numel() + xs.numel()) * 4
+    nbytes = table_bytes + inputs + outputs
+    n_valid = int((valid != 0).sum())
+    flops = 3 * (3 * n_valid * (4 * F_ * 2 + 4 * 2) + n_valid * F_ * 2)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    print(f"  kernel {kern_ms:.4f} ms (with the zeroed float32 tables), plain "
+          f"{plain_ms:.4f} ms; table reads {table_bytes / 1e6:.1f} MB "
+          f"({d_tex} texels, {d_sec} mask sectors), other inputs "
+          f"{inputs / 1e6:.1f} MB, outputs {outputs / 1e6:.1f} MB; bound "
+          f"{bound_ms:.4f} ms by {bound_by}")
     return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -296,12 +572,6 @@ def build_models(device):
     return gen, tiled, (to(pose_cam), to(inv_K), to(bl))
 
 
-def _reset_counts():
-    from enarf_gan_tpu_torch.ops import tilewin_kernel, unirow
-    unirow.KERNEL.reset_counts()
-    tilewin_kernel.KERNEL.reset_counts()
-
-
 def phase_render(gen, scene, device, label, own, other):
     """N frames through make_dso_full_renderer; ``own`` must launch, the
     ``other`` kernel must not."""
@@ -318,7 +588,7 @@ def phase_render(gen, scene, device, label, own, other):
     frame(0.5, 1)                        # warm-up (cuDNN algorithm choice)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
+    _reset_all_counts()
     t0 = time.perf_counter()
     outs = [frame(ft, 1) for ft in np.linspace(0.25, 0.75, N_FRAMES)]
     torch.cuda.synchronize()
@@ -383,7 +653,8 @@ def phase_tiled_rows(frame):
     real = tilewin.tilewin_combine
     census = []
 
-    def counting(feat, mask, frows, mrows, xt, xs, valid, F_, S, clamp):
+    def counting(feat, mask, frows, mrows, xt, xs, valid, F_, S, clamp,
+                 mode=None):
         B, _, Mp, U = frows.shape
         m = xt.shape[3]
         table_bytes, d_tex, d_sec = _tilewin_table_bytes(F_, frows, mrows,
@@ -395,7 +666,8 @@ def phase_tiled_rows(frame):
                        int(torch.unique(frows).numel()),
                        float((valid != 0).float().mean()), d_tex, d_sec,
                        table_bytes, coords + outputs))
-        return real(feat, mask, frows, mrows, xt, xs, valid, F_, S, clamp)
+        return real(feat, mask, frows, mrows, xt, xs, valid, F_, S, clamp,
+                    mode=mode)
 
     with mock.patch.object(tilewin, "tilewin_combine", counting):
         frame(0.5, 1)
@@ -413,7 +685,6 @@ def phase_profile(gen, scene, frame, ms_frame, device, label, pack):
     """Where a frame's time goes: the per-frame plane stages timed alone,
     and the device time of one whole frame by kernel (torch.profiler)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     pose_cam, _, bl = scene
     ft = torch.tensor([0.5], device=device)
 
@@ -433,8 +704,16 @@ def phase_profile(gen, scene, frame, ms_frame, device, label, pack):
         ms_pack, _ = timed(lambda: getattr(gen, pack)(planes))
     print(f"{label} profile: of a {ms_frame:.2f} ms frame, flow StyleGAN2 + "
           f"warp {ms_planes:.2f} ms and {pack} {ms_pack:.2f} ms (host clock)")
+    _profile(lambda: frame(0.5, 1), f"{label} profile", ms_frame, "frame")
+
+
+def _profile(fn, label, ms_host, what):
+    """Device time of one call of ``fn`` by kernel class (torch.profiler),
+    and its share of ``ms_host``, the call's time on the host clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        frame(0.5, 1)
+        fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = [e for e in events
@@ -444,8 +723,8 @@ def phase_profile(gen, scene, frame, ms_frame, device, label, pack):
     for e in kernels:
         if e.self_device_time_total > 0:
             name = e.key.lower()
-            key = ("unirow kernel" if "unirow" in name else
-                   "tilewin kernel" if "tilewin" in name else
+            key = ("unirow kernels" if "unirow" in name else
+                   "tilewin kernels" if "tilewin" in name else
                    "convolution" if "conv" in name or "cudnn" in name
                    or "xmma" in name or "sm90" in name else
                    "gemm" if "gemm" in name or "cutlass" in name else
@@ -454,61 +733,539 @@ def phase_profile(gen, scene, frame, ms_frame, device, label, pack):
                    or "scatter" in name else
                    "reduce" if "reduce" in name else "elementwise/other")
             groups[key] = groups.get(key, 0.0) + e.self_device_time_total
-    print(f"{label} profile: device time {device_us / 1e3:.2f} ms in a "
-          f"{ms_frame:.2f} ms frame (busy share {device_us / 1e3 / ms_frame:.3f})")
+    print(f"{label}: device time {device_us / 1e3:.2f} ms in a "
+          f"{ms_host:.2f} ms {what} (busy share {device_us / 1e3 / ms_host:.3f})")
     for key, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {key}: {us / 1e3:.2f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
+    return device_us / 1e3
+
+
+def _all_kernels():
+    from enarf_gan_tpu_torch.ops import tilewin_kernel, unirow
+    return (unirow.KERNEL, unirow.KERNEL_BWD, tilewin_kernel.KERNEL,
+            tilewin_kernel.KERNEL_BWD, tilewin_kernel.KERNEL_MODES)
+
+
+def _reset_all_counts():
+    for k in _all_kernels():
+        k.reset_counts()
+
+
+def _train_config(**overrides):
+    """TRAIN_CONFIG with nested overrides (keys as "a.b.c")."""
+    import copy
+    from enarf_gan_tpu_torch.config import AttrDict
+    raw = copy.deepcopy(TRAIN_CONFIG)
+    for key, value in overrides.items():
+        node = raw
+        *path, leaf = key.split(".")
+        for k in path:
+            node = node[k]
+        node[leaf] = value
+    return AttrDict(raw)
+
+
+def build_training(device, root):
+    """The 313_denarf_tpu model (tiled) and the same weights on the exact
+    path, seeded and perturbed (a fresh model renders an all-zero mask and
+    has zero feature gradients), and a batch of 16 of 4 distinct synthetic
+    512² frames."""
+    import torch
+    from enarf_gan_tpu_torch.data.datasets import SSODataset
+    from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
+    from enarf_gan_tpu_torch.data.loader import collate
+    from enarf_gan_tpu_torch.training import dso
+    size = TRAIN_CONFIG["dataset"]["image_size"]
+    t0 = time.perf_counter()
+    make_synthetic_human_cache(root, size=size, n_frames=2, n_camera=2)
+    print(f"synthetic {size}² cache of {TRAIN_SOURCE_IMAGES} frames (numpy "
+          f"rasteriser): {time.perf_counter() - t0:.2f} s")
+    config = _train_config(**{"dataset.train.data_root": root,
+                              "dataset.train.n_frames": 2})
+    ds = SSODataset(config.dataset.train, size=size, return_bone_params=True,
+                    num_repeat_in_epoch=1)
+    bs = config.dataset.bs
+    batch = collate([ds[i % TRAIN_SOURCE_IMAGES] for i in range(bs)])
+    batch = dso.prepare_batch(batch, device)
+    g = torch.Generator().manual_seed(SEED + 11)
+    tiled = dso.build_generator(config, ds.num_bone, ds.parents, device,
+                                generator=g)
+    with torch.no_grad():
+        for p in tiled.parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=g).to(device))
+    exact_cfg = _train_config(**{"generator_params.nerf_params.tile_patch": 0})
+    exact = dso.build_generator(exact_cfg, ds.num_bone, ds.parents, device)
+    exact.load_state_dict(tiled.state_dict())
+    n_params = sum(p.numel() for p in tiled.parameters())
+    print(f"training model (configs/DSO_train/ZJU/313_denarf_tpu.yml): "
+          f"{n_params} parameters, tri-plane "
+          f"{tuple(tiled.nerf.tri_plane.shape)}, z_dim {tiled.z_dim}; batch "
+          f"{bs} x {size}², {config.generator_params.ray_batchsize} rays an "
+          f"image")
+    return config, ds, batch, tiled, exact
+
+
+def _is_oom(err):
+    import torch
+    return isinstance(err, torch.cuda.OutOfMemoryError) or \
+        "out of memory" in str(err)
+
+
+def phase_train(gen, config, ds, batch, device, label, own):
+    """1 warm-up and TIMED_STEPS steps of ``label``'s path at the smallest
+    micro-batch split in (1, 2, 4, 8, 16) that fits; ``own`` are the
+    kernels the path must launch."""
+    import gc
+    import torch
+    from enarf_gan_tpu_torch.training import dso
+    rng = torch.Generator(device=device).manual_seed(SEED + 13)
+    step = None
+    for n_accum in (1, 2, 4, 8, 16):
+        opt = dso.init_state(config, gen, ds.canonical_pose)
+        step = dso.make_train_step(gen, opt, config.loss,
+                                   config.dataset.bg_color, n_accum)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = step(batch, rng)
+            torch.cuda.synchronize()
+            print(f"{label} training: n_accum_step {n_accum} fits (warm-up "
+                  f"{time.perf_counter() - t0:.2f} s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+            break
+        except RuntimeError as err:
+            if not _is_oom(err):
+                raise
+            print(f"{label} training: n_accum_step {n_accum} runs out of "
+                  f"memory")
+        step = opt = None
+        gen.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert step is not None, f"{label} training fits no micro-batch split"
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    metrics = [step(batch, rng) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    s_iter = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = {k.name: k.launches for k in _all_kernels()}
+    launches_by_m = dict(_all_kernels()[2].launches_by)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    assert all(np.isfinite(losses)) and all(m["applied"] for m in metrics), \
+        metrics
+    for k in own:
+        assert k.launches > 0, f"{label} training did not launch {k.name}"
+    print(f"{label} training: {s_iter:.3f} s/iter over {TIMED_STEPS} steps "
+          f"(batch {batch['img'].shape[0]}, n_accum_step {n_accum}), peak "
+          f"{peak / 2**30:.2f} GiB allocated, losses "
+          + ", ".join(f"{x:.5f}" for x in losses) + f"; kernel launches "
+          f"{launches}")
+    t0 = time.perf_counter()
+    step(batch, rng)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3
+    device_ms = _profile(lambda: step(batch, rng), f"{label} training profile",
+                         ms_step, "step")
+    return {"s_iter": s_iter, "peak": peak, "n_accum": n_accum,
+            "launches": launches, "launches_by_m": launches_by_m,
+            "device_ms": device_ms, "ms_step": ms_step}
+
+
+def phase_train_modes(gen, config, ds, batch, device, n_accum):
+    """One tiled step in each of kernel 3's modes on the batch and draws of
+    a hat step, from the same weights: each must launch kernel 3 in its
+    mode, and its loss must match the hat step's within 1e-3 relative."""
+    import os
+    import torch
+    from enarf_gan_tpu_torch.ops import tilewin_kernel
+    from enarf_gan_tpu_torch.training import dso
+    P = config.generator_params.nerf_params.tile_patch
+    size = config.dataset.image_size
+    mb = batch["img"].shape[0] // n_accum
+    n_patch = config.generator_params.ray_batchsize // (P * P)
+    Nf = config.generator_params.nerf_params.Nf
+    g = torch.Generator(device=device).manual_seed(SEED + 17)
+    randoms = [{"ray_noise": torch.rand((mb, (size // P) ** 2), generator=g,
+                                        device=device),
+                "draws": tuple(torch.rand((mb * n_patch, Nf), generator=g,
+                                          device=device) for _ in range(2))}
+               for _ in range(n_accum)]
+    state = {k: v.clone() for k, v in gen.state_dict().items()}
+    out = {}
+    for mode in ("hat",) + MODES:
+        gen.load_state_dict(state)
+        opt = dso.init_state(config, gen, ds.canonical_pose)
+        step = dso.make_train_step(gen, opt, config.loss,
+                                   config.dataset.bg_color, n_accum)
+        _reset_all_counts()
+        with mock.patch.dict(os.environ, {"ENARF_TILEWIN_KERNEL": mode}):
+            m = step(batch, randoms=randoms)
+        torch.cuda.synchronize()
+        out[mode] = (m["loss"], dict(tilewin_kernel.KERNEL_MODES.launches_by),
+                     tilewin_kernel.KERNEL_BWD.launches)
+    gen.load_state_dict(state)
+    ref = out["hat"][0]
+    for mode in MODES:
+        loss, by_mode, bwd = out[mode]
+        rel = abs(loss - ref) / abs(ref)
+        print(f"tiled training step in mode {mode}: loss {loss:.6f} vs hat "
+              f"{ref:.6f} (relative {rel:.2e}, bound 1e-3); kernel 3 "
+              f"launches {by_mode}, backward (2b) launches {bwd}")
+        assert by_mode[mode] > 0, f"mode {mode} did not launch kernel 3"
+        assert rel <= 1e-3, (mode, loss, ref)
+    return {mode: out[mode][1][mode] for mode in MODES}
+
+
+def _learn_setup(device, root, label, tile, seed):
+    """The learning config, dataset, loader and fresh model from ``seed``
+    on the one LEARN_SIZE² frame of the cache at ``root``."""
+    import torch
+    from enarf_gan_tpu_torch.data.datasets import SSODataset
+    from enarf_gan_tpu_torch.data.loader import DataLoader
+    from enarf_gan_tpu_torch.training import dso
+    config = _train_config(**{
+        "out_root": root, "out": f"learn_{label}",
+        "dataset.image_size": LEARN_SIZE, "dataset.bs": 1,
+        "dataset.train.data_root": root, "dataset.train.n_frames": 1,
+        "generator_params.nerf_params.tile_patch": tile,
+        "num_iter": LEARN_ITERS, "print_interval": 10 ** 9,
+        "val_interval": 10 ** 9, "save_interval": 10 ** 9})
+    ds = SSODataset(config.dataset.train, size=LEARN_SIZE,
+                    return_bone_params=True, num_repeat_in_epoch=LEARN_ITERS)
+    loader = DataLoader(ds, 1, seed=0)
+    gen = dso.build_generator(config, ds.num_bone, ds.parents, device,
+                              generator=torch.Generator().manual_seed(seed))
+    return config, ds, loader, gen
+
+
+def _learn(device, root, label, tile, seed, exact_psnr=False):
+    """Overfit the one LEARN_SIZE² frame of the cache at ``root`` for
+    LEARN_ITERS iterations on ``label``'s path from a fresh model made from
+    ``seed``. Returns (PSNR through the path's own renderer, blank frame's
+    PSNR, loss history, seconds, and with ``exact_psnr`` the PSNR of the
+    same weights through the exact renderer)."""
+    import torch
+    from enarf_gan_tpu_torch.eval_lib.metrics import psnr
+    from enarf_gan_tpu_torch.training import dso
+    config, ds, loader, gen = _learn_setup(device, root, label, tile, seed)
+    t0 = time.perf_counter()
+    gen, _, history = dso.train_loop(
+        config, gen, (ds, {}), (loader, {}), ds.canonical_pose, verbose=False,
+        generator=torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+
+    def val_psnr(model):
+        return dso.validate(model, config, {"train": loader},
+                            torch.Generator(device=device).manual_seed(5),
+                            num_data=1)["train"]["color_PSNR"]
+
+    got = val_psnr(gen)
+    if exact_psnr:
+        config.generator_params.nerf_params.tile_patch = 0
+        exact = dso.build_generator(config, ds.num_bone, ds.parents, device)
+        exact.load_state_dict(gen.state_dict())
+        got = (got, val_psnr(exact))
+    item = ds[0]
+    blank = psnr(item["img"][None], np.full_like(item["img"][None], -1.0))
+    assert np.isfinite(history).all(), (label, seed)
+    return got, blank, history, secs
+
+
+def phase_learn(device, root):
+    """Overfit one 64² frame for LEARN_ITERS iterations at lr 1e-3 on both
+    paths, at the training model's full width, from a fresh model: the
+    PSNR must beat the blank frame's by more than 2 dB."""
+    from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
+    make_synthetic_human_cache(root, size=LEARN_SIZE, n_frames=1, n_camera=1)
+    out = {}
+    for label, tile in (("exact", 0), ("tiled", TILE_PATCH)):
+        got, blank, history, secs = _learn(device, root, label, tile, SEED)
+        print(f"{label} learning: {LEARN_ITERS} iterations on one "
+              f"{LEARN_SIZE}² frame in {secs:.1f} s, loss {history[0]:.4f} -> "
+              f"{history[-1]:.4f}; PSNR {got:.3f} dB, blank frame "
+              f"{blank:.3f} dB")
+        assert got > blank + 2.0, (label, got, blank)
+        out[label] = (got, blank)
+    return out
+
+
+def learn_spread(device, root, seeds=(0, 1, 2)):
+    """Where the learning PSNR's spread from run to run comes from: each
+    path learns twice from each seed (same weights, same draws). The two
+    runs of a seed differ only in the order the backward kernels' atomics
+    add in; a tiled model is also rendered through the exact renderer, to
+    tell its learning from its render. Prints per run the PSNRs and the
+    loss trajectories' divergence, and one JSON line of all of it."""
+    from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
+    make_synthetic_human_cache(root, size=LEARN_SIZE, n_frames=1, n_camera=1)
+    rows = []
+    for label, tile in (("exact", 0), ("tiled", TILE_PATCH)):
+        for seed in seeds:
+            runs = [_learn(device, root, label, tile, seed, exact_psnr=True)
+                    for _ in range(2)]
+            h = np.asarray([r[2] for r in runs], np.float64)
+            rel = np.abs(h[0] - h[1]) / np.abs(h[0])
+            first = int(np.argmax(rel > 0)) + 1 if (rel > 0).any() else None
+            row = {"path": label, "seed": seed,
+                   "psnr": [r[0][0] for r in runs],
+                   "psnr_exact_render": [r[0][1] for r in runs],
+                   "blank": runs[0][1],
+                   "final_loss": [float(x[-1]) for x in h],
+                   "mean_loss_last_20": [float(x[-20:].mean()) for x in h],
+                   "first_differing_iteration": first,
+                   "loss_rel_diff_at": {str(i): float(rel[i - 1])
+                                        for i in (1, 2, 5, 20, 50, 100, 200)
+                                        if i <= len(rel)}}
+            print(f"learn spread: {label} seed {seed}: PSNR "
+                  + " / ".join(f"{p:.3f}" for p in row["psnr"])
+                  + " dB (exact render "
+                  + " / ".join(f"{p:.3f}" for p in row["psnr_exact_render"])
+                  + f" dB), blank {row['blank']:.3f} dB; losses first differ "
+                  f"at iteration {first}; relative difference by iteration "
+                  f"{row['loss_rel_diff_at']}")
+            rows.append(row)
+    print(json.dumps({"learn_spread": rows}))
+
+
+def learn_collapse(device, root, seed=2, runs=4):
+    """Whether a learning run that falls back to the empty frame (the fresh
+    model's render) points at kernel 2b: from one seed, ``runs`` tiled runs
+    with kernels 2 and 2b, as many with the plain combine under autograd in
+    their place, and as many exact runs. Prints each run's PSNR and the
+    iteration from which its loss stays within 1% of the empty frame's."""
+    from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
+    from enarf_gan_tpu_torch.ops import tilewin, tilewin_kernel
+    make_synthetic_human_cache(root, size=LEARN_SIZE, n_frames=1, n_camera=1)
+
+    def plain(*args, mode=None):
+        return tilewin_kernel.tilewin_combine_plain(*args)
+
+    rows = []
+    for variant, tile in (("tiled, kernels", TILE_PATCH),
+                          ("tiled, plain combine", TILE_PATCH),
+                          ("exact, kernels", 0)):
+        for _ in range(runs):
+            before = tilewin_kernel.KERNEL_BWD.launches
+            if variant == "tiled, plain combine":
+                with mock.patch.object(tilewin, "tilewin_combine", plain):
+                    got, blank, history, _ = _learn(device, root, variant,
+                                                    tile, seed)
+                assert tilewin_kernel.KERNEL_BWD.launches == before
+            else:
+                got, blank, history, _ = _learn(device, root, variant, tile,
+                                                seed)
+            h = np.asarray(history)
+            empty = np.abs(h / h[0] - 1) <= 0.01
+            tail = np.flatnonzero(~empty)
+            since = None if not empty[-1] else \
+                (int(tail[-1]) + 2 if tail.size else 1)
+            print(f"learn collapse: {variant}, seed {seed}: PSNR {got:.3f} dB "
+                  f"(blank {blank:.3f}); loss {h[-1]:.4f}, at the empty "
+                  f"frame's from iteration {since}")
+            rows.append({"variant": variant, "seed": seed, "psnr": got,
+                         "final_loss": float(h[-1]), "empty_since": since})
+    print(json.dumps({"learn_collapse": rows}))
+
+
+def learn_gradcheck(device, root, seeds=(0, 1, 2), every=10):
+    """The backward kernels on the inputs that learning gives them: along a
+    learning run of each path (with the kernels) from each seed, every
+    ``every`` iterations, the gradient of the step's loss with respect to
+    every parameter is taken three times on the same weights, batch and
+    draws: twice with the kernels, once with the plain combine under
+    autograd in their place. Prints the largest relative L2 difference
+    over the parameters, kernel vs kernel (the atomics' order) and kernel
+    vs plain, per checked iteration."""
+    import torch
+    from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
+    from enarf_gan_tpu_torch.ops import tilewin, tilewin_kernel, unirow
+    from enarf_gan_tpu_torch.training import dso
+    from enarf_gan_tpu_torch.training.losses import photometric_loss
+    make_synthetic_human_cache(root, size=LEARN_SIZE, n_frames=1, n_camera=1)
+
+    def plain_tilewin(*args, mode=None):
+        return tilewin_kernel.tilewin_combine_plain(*args)
+
+    def max_rel(a, b):
+        rel = {n: float((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30))
+               for n in b}
+        worst = max(rel, key=rel.get)
+        return rel[worst], worst
+
+    rows = []
+    for label, tile, module, name, plain in (
+            ("tiled", TILE_PATCH, tilewin, "tilewin_combine", plain_tilewin),
+            ("exact", 0, unirow, "unirow_combine",
+             unirow.gather_combine_plain)):
+        for seed in seeds:
+            config, ds, loader, gen = _learn_setup(device, root, label, tile,
+                                                   seed)
+            opt = dso.init_state(config, gen, ds.canonical_pose)
+            step = dso.make_train_step(gen, opt, config.loss,
+                                       config.dataset.bg_color)
+            rng = torch.Generator(device=device).manual_seed(seed)
+
+            def grads(b, draw_seed):
+                opt.zero_grad()
+                color, nerf_mask, ray_idx = gen(
+                    b["pose_3d"], b["camera_rotation"], b["mask"],
+                    b["frame_time"], b["bone_length"], b["inv_intrinsics"],
+                    background=config.dataset.bg_color,
+                    generator=torch.Generator(device=device).manual_seed(
+                        draw_seed))
+                lc, lm = photometric_loss(
+                    ray_idx, color, nerf_mask, b["img"], b["mask"],
+                    config.loss.nerf_loss_type,
+                    float(config.loss.color_coef),
+                    float(config.loss.mask_coef))
+                (lc + lm).backward()
+                return float((lc + lm).detach()), {
+                    n: p.grad.detach().clone()
+                    for n, p in gen.named_parameters() if p.grad is not None}
+
+            checks = []
+            for it, batch in enumerate(loader):
+                if it >= LEARN_ITERS:
+                    break
+                b = dso.prepare_batch(batch, device)
+                if it % every == 0:
+                    loss, g1 = grads(b, 1000 + it)
+                    _, g2 = grads(b, 1000 + it)
+                    with mock.patch.object(module, name, plain):
+                        loss_p, g3 = grads(b, 1000 + it)
+                    noise, noise_at = max_rel(g2, g1)
+                    vs_plain, vs_plain_at = max_rel(g1, g3)
+                    checks.append({"iteration": it + 1, "loss": loss,
+                                   "loss_plain": loss_p,
+                                   "kernel_vs_kernel": noise,
+                                   "kernel_vs_kernel_at": noise_at,
+                                   "kernel_vs_plain": vs_plain,
+                                   "kernel_vs_plain_at": vs_plain_at})
+                step(b, rng)
+            worst = max(checks, key=lambda c: c["kernel_vs_plain"])
+            print(f"learn gradcheck: {label} seed {seed}: {len(checks)} "
+                  f"checks; kernel vs kernel up to "
+                  f"{max(c['kernel_vs_kernel'] for c in checks):.3e}; kernel "
+                  f"vs plain up to {worst['kernel_vs_plain']:.3e} "
+                  f"({worst['kernel_vs_plain_at']}, iteration "
+                  f"{worst['iteration']}); last loss {checks[-1]['loss']:.4f}")
+            rows.append({"path": label, "seed": seed, "checks": checks})
+            del gen, opt, step
+            torch.cuda.empty_cache()
+    print(json.dumps({"learn_gradcheck": rows}))
 
 
 def main():
+    import os
+    import tempfile
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs the port on "
                  "an NVIDIA GPU")
     from enarf_gan_tpu_torch.ops import tilewin, tilewin_kernel, unirow
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     phase_setup()
+    studies = {"--learn-spread": learn_spread,
+               "--learn-collapse": learn_collapse,
+               "--learn-gradcheck": learn_gradcheck}
+    if sys.argv[1:2] and sys.argv[1] in studies:
+        with tempfile.TemporaryDirectory() as root:
+            studies[sys.argv[1]](device, root)
+        print(f"{sys.argv[1]} done in {time.perf_counter() - t_start:.1f} s")
+        return
     k1 = phase_unirow_check(device)
     k2 = {m: phase_tilewin_check(device, m, S, label)
           for m, S, label in ((16, NF, "fine"), (4, NC, "coarse-corner"))}
+    k3 = phase_modes_check(device)
+    k1b = phase_unirow_bwd_check(device)
+    k2b = phase_tilewin_bwd_check(device)
+    torch.cuda.empty_cache()
     gen, tiled, scene = build_models(device)
 
     exact_frame, ms_exact, _ = phase_render(gen, scene, device, "exact",
                                             unirow.KERNEL,
                                             tilewin_kernel.KERNEL)
-    k1["launches"] = unirow.KERNEL.launches
     tiled_frame, ms_tiled, _ = phase_render(tiled, scene, device, "tiled",
                                             tilewin_kernel.KERNEL,
                                             unirow.KERNEL)
-    launches_by_m = dict(tilewin_kernel.KERNEL.launches_by_m)
-    print(f"tiled: tilewin launches by member count {launches_by_m}")
+    print(f"tiled: tilewin launches by member count "
+          f"{dict(tilewin_kernel.KERNEL.launches_by)}")
 
     ref_e = phase_plain_render(exact_frame, unirow, "unirow_combine",
                                unirow.gather_combine_plain, unirow.KERNEL,
                                "exact")
-    ref_t = phase_plain_render(tiled_frame, tilewin, "tilewin_combine",
-                               tilewin_kernel.tilewin_combine_plain,
-                               tilewin_kernel.KERNEL, "tiled")
+    ref_t = phase_plain_render(
+        tiled_frame, tilewin, "tilewin_combine",
+        lambda *a, mode=None: tilewin_kernel.tilewin_combine_plain(*a),
+        tilewin_kernel.KERNEL, "tiled")
     phase_tiled_vs_exact(ref_t, ref_e)
     phase_profile(gen, scene, exact_frame, ms_exact, device, "exact",
                   "pack_planes")
     phase_profile(tiled, scene, tiled_frame, ms_tiled, device, "tiled",
                   "pack_planes_tiled")
     phase_tiled_rows(tiled_frame)
+    del gen, tiled, exact_frame, tiled_frame, ref_e, ref_t
+    torch.cuda.empty_cache()
+    print(f"rendering phases done at {time.perf_counter() - t_start:.1f} s")
 
-    entries = [{"name": "unirow_combine", "route": "cuda",
-                "source": "enarf_gan_tpu_torch/csrc/unirow_combine.cu",
-                "replaces": "enarf_gan_tpu/ops/unirow.py:115", **k1,
-                "library_ms": None}]
+    with tempfile.TemporaryDirectory() as root:
+        config, ds, batch, tiled_t, exact_t = build_training(
+            device, os.path.join(root, "train"))
+        te = phase_train(exact_t, config, ds, batch, device, "exact",
+                         (unirow.KERNEL, unirow.KERNEL_BWD))
+        assert te["launches"]["tilewin_combine"] == 0 and \
+            te["launches"]["tilewin_combine_bwd"] == 0, te["launches"]
+        del exact_t
+        torch.cuda.empty_cache()
+        tt = phase_train(tiled_t, config, ds, batch, device, "tiled",
+                         (tilewin_kernel.KERNEL, tilewin_kernel.KERNEL_BWD))
+        by_m = dict(tt["launches_by_m"])
+        assert tt["launches"]["unirow_combine"] == 0 and by_m[4] > 0 \
+            and by_m[16] > 0, tt
+        k3_launches = phase_train_modes(tiled_t, config, ds, batch, device,
+                                        tt["n_accum"])
+        del tiled_t, batch
+        torch.cuda.empty_cache()
+        print(f"training phases done at {time.perf_counter() - t_start:.1f} s")
+        phase_learn(device, os.path.join(root, "learn"))
+    print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
+
+    def entry(name, source, replaces, launches, numbers):
+        return {"name": name, "route": "cuda",
+                "source": f"enarf_gan_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, **numbers,
+                "library_ms": None}
+
+    entries = [
+        entry("unirow_combine", "unirow_combine.cu",
+              "enarf_gan_tpu/ops/unirow.py:115",
+              te["launches"]["unirow_combine"], k1),
+        entry("unirow_combine_bwd (4 images' fine pass)",
+              "unirow_combine_bwd.cu", "enarf_gan_tpu/ops/unirow.py:234",
+              te["launches"]["unirow_combine_bwd"], k1b)]
     for m, shape in ((16, "fine chunk, m=16"), (4, "coarse-corner chunk, m=4")):
-        entries.append({
-            "name": f"tilewin_combine ({shape})", "route": "cuda",
-            "source": "enarf_gan_tpu_torch/csrc/tilewin_combine.cu",
-            "replaces": "enarf_gan_tpu/ops/tilewin_kernel.py:166",
-            "launches": launches_by_m[m], **k2[m], "library_ms": None})
+        entries.append(entry(f"tilewin_combine ({shape})",
+                             "tilewin_combine.cu",
+                             "enarf_gan_tpu/ops/tilewin_kernel.py:166",
+                             by_m[m], k2[m]))
+    entries.append(entry("tilewin_combine_bwd (4 images' fine pass, m=16)",
+                         "tilewin_combine_bwd.cu",
+                         "enarf_gan_tpu/ops/tilewin.py:447",
+                         tt["launches"]["tilewin_combine_bwd"], k2b))
+    for mode in MODES:
+        entries.append(entry(
+            f"tilewin_combine_modes ({mode}, fine chunk)",
+            "tilewin_combine_modes.cu",
+            "enarf_gan_tpu/ops/tilewin_kernel.py:"
+            + ("317" if mode == "bdiag" else "65"),
+            k3_launches[mode], k3[mode]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,18 +6,21 @@ each function here has a counterpart of the same name there. Plain tensor
 code is PyTorch; every Pallas kernel on a ported path is a hand-written
 Hopper kernel under ``csrc/`` with a plain PyTorch twin beside its wrapper.
 
-Ported so far: DSO full-image rendering with the exact (unirow) sampler and
-with the patch-tiled (tilewin) sampler, both entered through
-``models.generator.make_dso_full_renderer``. Weights load from the
+Ported so far: DSO training (``training.dso.train_loop``) and DSO
+full-image rendering (``models.generator.make_dso_full_renderer``), each
+with the exact (unirow) sampler and with the patch-tiled (tilewin) sampler;
+the combines' kernels have backward kernels. Weights load from the
 reference-named state dict that
 ``enarf_gan_tpu.training.checkpoint.export_reference_state_dict`` writes
-(``interop.load_reference_state_dict``).
+(``interop.load_reference_state_dict``), and the port's ``torch.save``
+snapshots use the same names.
 
 Models and layers are built on ``DEFAULT_DEVICE``, the GPU, unless the
 caller names another device (``device="cpu"``); without a GPU, building
 on the default fails. Nothing falls back to the CPU.
 
-Nothing here imports jax, flax, yaml or PIL.
+Nothing here imports jax, flax or PIL; ``config.yaml_config`` imports yaml
+when it is called, and nothing else does.
 """
 import torch
 

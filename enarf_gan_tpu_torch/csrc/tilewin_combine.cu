@@ -1,4 +1,5 @@
-// Patch-window (tilewin) gather + combine for Hopper (sm_90a), forward only.
+// Patch-window (tilewin) gather + combine for Hopper (sm_90a), forward (the
+// backward is tilewin_combine_bwd.cu).
 //
 // Replaces the TPU Pallas kernel
 // enarf_gan_tpu/ops/tilewin_kernel.py::_combine_kernel_hat (launched by

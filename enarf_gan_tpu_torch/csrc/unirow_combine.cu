@@ -1,4 +1,5 @@
-// Unirow gather + combine for Hopper (sm_90a), forward only.
+// Unirow gather + combine for Hopper (sm_90a), forward (the backward is
+// unirow_combine_bwd.cu).
 //
 // Replaces the TPU Pallas kernel enarf_gan_tpu/ops/unirow.py::_combine_kernel
 // (launched by _combine_pallas) and also does the row gather that the JAX

@@ -71,15 +71,19 @@ class KernelLibrary:
     ``symbol`` with ``argtypes`` and an int result (a CUDA error code).
     ``launches`` goes up by one for every launch of the CUDA kernel and for
     nothing else: the wrapper calls ``count`` after a launch succeeds, and
-    callers ``reset_counts()`` to count the launches of one run.
+    callers ``reset_counts()`` to count the launches of one run. A library
+    built for several variants (member counts, modes) names them in
+    ``keys``; ``count(key)`` then also adds one to ``launches_by[key]``.
     """
 
-    def __init__(self, name: str, symbol: str, argtypes: Sequence):
+    def __init__(self, name: str, symbol: str, argtypes: Sequence,
+                 keys: Sequence = ()):
         self.name, self.symbol, self.argtypes = name, symbol, list(argtypes)
+        self.keys = tuple(keys)
         self.lib = None
         self.fn = None
         self.build_log = ""
-        self.launches = 0
+        self.reset_counts()
 
     def load(self):
         if self.fn is None:
@@ -91,8 +95,11 @@ class KernelLibrary:
             self.fn = fn
         return self.fn
 
-    def count(self):
+    def count(self, key=None):
         self.launches += 1
+        if self.keys:
+            self.launches_by[key] += 1
 
     def reset_counts(self):
         self.launches = 0
+        self.launches_by = {k: 0 for k in self.keys}

@@ -1,13 +1,20 @@
-"""Synthetic articulated scene in numpy (port of the scene half of
+"""Synthetic articulated scene and dataset cache in numpy (port of
 ``enarf_gan_tpu/data/fixtures.py`` and ``__graft_entry__._tiny_scene``).
 
 A deterministic 24-joint SMPL-topology skeleton, smooth per-joint motion and
-a camera ring: enough to drive the renderer without a dataset.
+a camera ring: enough to drive the renderer without a dataset, and, with
+bone-mask images, to train on (``make_synthetic_human_cache``).
 """
 from __future__ import annotations
 
+import os
+from typing import Dict
+
 import numpy as np
 
+from enarf_gan_tpu_torch.data.cache import save_cache_npz
+from enarf_gan_tpu_torch.data.mask2d import (SMPLProperty, add_blank_part,
+                                             create_mask, pose_to_image_coord)
 from enarf_gan_tpu_torch.geometry.smpl import (SMPL_PARENTS,
                                                canonical_pose_from_rest_joints,
                                                rigid_transform, rodrigues)
@@ -84,3 +91,46 @@ def tiny_scene(B: int, size: int, focal_scale: float = 1.2):
     canonical = canonical_pose_from_rest_joints(rest)
     return (pose_cam, world.astype(np.float32), bl, np.linalg.inv(K),
             canonical, K)
+
+
+def make_synthetic_human_cache(data_root: str, size: int = 64,
+                               n_frames: int = 4, n_camera: int = 3,
+                               seed: int = 0) -> Dict:
+    """Write a cache.npz of the synthetic articulated human seen from a
+    camera ring, and its canonical.npy.
+
+    Images are bone-mask renderings (grey in the mask, the mask as alpha):
+    consistent across views, enough to overfit and to test the data path.
+    """
+    rest = synthetic_rest_joints(seed)
+    world_poses = synthetic_pose_sequence(rest, n_frames, seed + 1)
+    extrinsics = camera_ring(n_camera)
+    focal = size * 1.2
+    K = np.array([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]],
+                 np.float32)
+    hpp = SMPLProperty()
+    imgs, intr, poses, rots, trans, frame_ids = [], [], [], [], [], []
+    for f in range(n_frames):
+        for c in range(n_camera):
+            pose_cam = extrinsics[c][None] @ world_poses[f]
+            jpi = pose_to_image_coord(pose_cam, K)
+            jm, jp = add_blank_part(pose_cam[None], jpi)
+            _, mask, _, _ = create_mask(hpp, jm, jp, size,
+                                        thickness=max(size / 64, 1.0))
+            gray = (mask * 200).astype(np.uint8)
+            imgs.append(np.stack([gray, gray, gray,
+                                  (mask * 255).astype(np.uint8)]))
+            intr.append(K)
+            poses.append(world_poses[f])
+            rots.append(extrinsics[c][:3, :3])
+            trans.append(extrinsics[c][:3, 3:])
+            frame_ids.append(f)
+    save_cache_npz(data_root, imgs=np.stack(imgs),
+                   camera_intrinsic=np.stack(intr), smpl_pose=np.stack(poses),
+                   camera_rotation=np.stack(rots),
+                   camera_translation=np.stack(trans),
+                   frame_id=np.array(frame_ids, np.int64))
+    canonical = canonical_pose_from_rest_joints(rest)
+    np.save(os.path.join(data_root, "canonical.npy"), canonical)
+    return {"canonical_pose": canonical, "n_frames": n_frames,
+            "n_camera": n_camera, "rest_joints": rest}

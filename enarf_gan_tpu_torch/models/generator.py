@@ -1,10 +1,11 @@
 """DSO generator and its full-image renderer (port of the DSO half of
 ``enarf_gan_tpu/models/generator.py``).
 
-``make_dso_full_renderer`` is the entry point: it returns a function that
-renders one full frame from a pose, the camera intrinsics and a frame time,
-through the patch-tiled renderer for ``tile_patch`` models and the exact one
-otherwise.
+``DSONARFGenerator.forward`` is the training render: a ray batch sampled
+from the foreground mask, rendered differentiably. ``make_dso_full_renderer``
+returns a function that renders one full frame from a pose, the camera
+intrinsics and a frame time. Both take the patch-tiled path for
+``tile_patch`` models and the exact one otherwise.
 The JAX package's ``variables`` and ``rng`` arguments become the module's
 own weights and an explicit ``torch.Generator`` (or the fine sampler's
 draws, given per ray chunk).
@@ -22,9 +23,13 @@ from enarf_gan_tpu_torch.geometry.encoding import scalar_positional_encoding
 from enarf_gan_tpu_torch.geometry.pose import (transform_canonical_pose,
                                                transform_pose)
 from enarf_gan_tpu_torch.models.narf import NARFParams, TriPlaneNARF
+from enarf_gan_tpu_torch.nerf.ray_sampler import (mask_based_sampler,
+                                                  patch_based_sampler)
 from enarf_gan_tpu_torch.nerf.rendering import (Draws, RenderConfig,
-                                                render_entire_img)
-from enarf_gan_tpu_torch.nerf.tiled import render_entire_img_tiled
+                                                draw_fine_uniforms,
+                                                render_entire_img, render_rays)
+from enarf_gan_tpu_torch.nerf.tiled import (render_entire_img_tiled,
+                                            render_rays_tiled)
 from enarf_gan_tpu_torch.nn.layers import init_parameters
 
 
@@ -45,14 +50,17 @@ class DSONARFGenerator(nn.Module):
     tri-plane NARF (the JAX ``use_triplane=True`` model; the MLP baselines
     are ROADMAP Queue 1, item 7). Weights are drawn from ``generator``
     (seed 0 when none is given) as the JAX initializers draw them, and
-    built on ``device``: the GPU unless the caller names another."""
+    built on ``device``: the GPU unless the caller names another.
+    ``ray_batchsize`` is the rays an image of a training batch renders."""
 
     def __init__(self, nerf_params: NARFParams, num_bone: int,
                  parent_id: Sequence[int], device=DEFAULT_DEVICE,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 ray_batchsize: int = 4096):
         super().__init__()
         self.nerf_params = nerf_params
         self.num_bone = num_bone
+        self.ray_batchsize = ray_batchsize
         self.parent_id = tuple(int(x) for x in parent_id)
         self.nerf = TriPlaneNARF(nerf_params, z_dim=self.z_dim,
                                  z2_dim=self.z_dim,
@@ -115,6 +123,69 @@ class DSONARFGenerator(nn.Module):
         return self.nerf.density_color_tiled(
             points, pose_scaled, bone_length_t, tables, z_rend, n_patch, m,
             S, ray_direction, with_stats)
+
+    def forward(self, pose_to_camera, camera_pose, mask, frame_time,
+                bone_length, inv_intrinsics, background: Optional[float] = None,
+                ray_noise: Optional[torch.Tensor] = None,
+                draws: Optional[Draws] = None,
+                generator: Optional[torch.Generator] = None):
+        """The training render of a batch (the JAX ``__call__``).
+
+        Samples ``ray_batchsize`` rays an image from the dilated mask (B, H,
+        W): whole 4x4 patches on the tiled path, pixels on the exact one;
+        packs the planes once; renders the rays; composites over
+        ``background`` (-1 when None). Random numbers: the sampler's noise
+        (``ray_noise``: (B, H*W) exact, (B, patches of the image) tiled) and
+        the fine sampler's (u, jitter) pair (``draws``: each (B*n, Nf) exact,
+        (B*n_patch, Nf) tiled), or both from ``generator``.
+        Returns (color (B, 3, n), mask (B, n), ray_idx (B, n)).
+        """
+        if generator is None and (ray_noise is None or draws is None):
+            raise ValueError("the training render needs ray_noise and draws, "
+                             "or a generator")
+        z = self.get_latents(frame_time, pose_to_camera)
+        pose_t, bl_t = self.transform_pose(pose_to_camera, bone_length)
+        B = mask.shape[0]
+        Nf = self.nerf_params.Nf
+        if self.nerf.supports_tiled_sampling():
+            P = self.nerf_params.tile_patch
+            ray_idx, img_coord = patch_based_sampler(
+                mask, self.ray_batchsize, P, noise=ray_noise,
+                generator=generator)
+            tables = self.pack_planes_tiled(
+                self.compute_tri_plane_feature(z, bl_t))
+
+            def fn_t(points, ray_dir, pose_scaled, n_patch, m, S):
+                return self.nerf_density_color_tiled(
+                    points, pose_scaled, bl_t, tables, z, n_patch, m, S,
+                    ray_dir)
+
+            if draws is None:
+                draws = draw_fine_uniforms(
+                    B * ray_idx.shape[1] // (P * P), Nf, generator,
+                    mask.device)
+            color, nerf_mask, _ = render_rays_tiled(
+                fn_t, img_coord, pose_t, inv_intrinsics, self.render_cfg(), P,
+                draws, camera_pose=camera_pose)
+        else:
+            ray_idx, img_coord = mask_based_sampler(
+                mask, self.ray_batchsize, noise=ray_noise, generator=generator)
+            cond = self.pack_planes(self.compute_tri_plane_feature(z, bl_t))
+
+            def fn(points, ray_dir, pose_scaled):
+                return self.nerf_density_color(points, pose_scaled, bl_t,
+                                               cond, z, ray_dir)
+
+            if draws is None:
+                draws = draw_fine_uniforms(B * ray_idx.shape[1], Nf,
+                                           generator, mask.device)
+            color, nerf_mask, _ = render_rays(
+                fn, img_coord, pose_t, inv_intrinsics, self.render_cfg(),
+                draws, camera_pose=camera_pose)
+        if background is None:
+            background = -1.0
+        color = color + background * (1 - nerf_mask[:, None])
+        return color, nerf_mask, ray_idx
 
 
 def register_canonical_pose(gen: DSONARFGenerator, canonical_pose: np.ndarray,

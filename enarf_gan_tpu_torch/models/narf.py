@@ -69,6 +69,51 @@ class NARFParams:
     tile_patch: int = 0
     tile_coarse_corners: bool = False
 
+    @classmethod
+    def from_config(cls, nerf_params, view_dependent=None) -> "NARFParams":
+        """From a merged config's ``generator_params.nerf_params`` (a dict
+        or an object with attributes), with the JAX package's defaults. The
+        reference's config key ``multiply_density_with_triplane_wieght``
+        keeps its spelling."""
+        def get(k, d):
+            if hasattr(nerf_params, "get"):
+                return nerf_params.get(k, d)
+            return getattr(nerf_params, k, d)
+
+        if view_dependent is None:
+            view_dependent = not get("no_ray_direction", False)
+        return cls(
+            origin_location=get("origin_location", "center_fixed"),
+            coordinate_scale=float(get("coordinate_scale", 1)),
+            hidden_size=int(get("hidden_size", 256)),
+            Nc=int(get("Nc", 48)),
+            Nf=int(get("Nf", 64)),
+            render_bs=int(get("render_bs", 16384)),
+            num_frequency_for_position=int(get("num_frequency_for_position",
+                                               10)),
+            num_frequency_for_other=int(get("num_frequency_for_other", 4)),
+            view_dependent=view_dependent,
+            model_type=get("model_type", "narf"),
+            multiply_density_with_triplane_weight=bool(
+                get("multiply_density_with_triplane_wieght", False)),
+            clamp_mask=bool(get("clamp_mask", False)),
+            constant_triplane=bool(get("constant_triplane", False)),
+            constant_trimask=bool(get("constant_trimask", False)),
+            constant_trimask_lr_mul=float(get("constant_trimask_lr_mul", 1)),
+            deformation_field=bool(get("deformation_field", False)),
+            selector_mlp=bool(get("selector_mlp", False)),
+            no_selector=bool(get("no_selector", False)),
+            max_bones_per_point=int(get("max_bones_per_point", 4)),
+            plane_sample_dtype=get("plane_sample_dtype", "float32"),
+            time_conditional=bool(get("time_conditional", False)),
+            pose_conditional=bool(get("pose_conditional", False)),
+            tri_plane_size=int(get("tri_plane_size", 256)),
+            feat_dim=int(get("feat_dim", 32)),
+            w_dim=int(get("w_dim", 512)),
+            tile_patch=int(get("tile_patch", 0)),
+            tile_coarse_corners=bool(get("tile_coarse_corners", False)),
+        )
+
 
 def params_use_candidate_sampling(params: NARFParams, model_num_bone: int) -> bool:
     return (params.max_bones_per_point < model_num_bone
@@ -243,8 +288,8 @@ class TriPlaneNARF(nn.Module):
             z_rend: (B, z2_dim); ray_direction: (B, 3, n_rays) or None.
         Returns:
             (density (B, 1, n), color (B, 3, n) | None). (The JAX function's
-            per-candidate weights, an input of the training losses, come
-            with DSO training.)
+            per-candidate weights feed only the GAN's losses and come with
+            the GAN slice.)
         """
         p = self.params
         K = self.num_bone
@@ -293,9 +338,13 @@ class TriPlaneNARF(nn.Module):
             position, pose_to_camera, bone_length)
         slot_idx, cand_pos, cand_valid = select_patch_slots(
             canonical, validity, n_patch, m, S, p.max_bones_per_point)
+        # the fine pass (m = 16) takes ENARF_TILEWIN_KERNEL's formulation;
+        # the coarse-corner pass (m = 4) stays on the hat kernel, as the JAX
+        # one never reached the matrix modes
         out = sample_tilewin_fused(tables, cand_pos, slot_idx, cand_valid,
                                    clamp_mask=p.clamp_mask,
-                                   with_stats=with_stats)
+                                   with_stats=with_stats,
+                                   mode=None if m == 16 else "hat")
         feature, cand_w = out[0], out[1]
         weight_max = (cand_w * cand_valid).amax(dim=1).reshape(B, 1, n)
         density, color = self._density_color(feature, weight_max, validity,

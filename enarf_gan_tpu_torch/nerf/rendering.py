@@ -188,8 +188,10 @@ def render_rays(density_color_fn, image_coord, pose_to_camera, inv_intrinsics,
                 frustum=None, pose_prescaled: bool = False):
     """Render one chunk of rays → (color (B,3,n), mask (B,n),
     disparity (B,n)). ``draws`` is the (u, jitter) pair of the fine
-    sampler, each (B*n, Nf). (The JAX function's training outputs, fine
-    weights and depths, come with DSO training.)"""
+    sampler, each (B*n, Nf). The coarse pass runs without gradients; the
+    fine pass is differentiable, so this is also the training render.
+    (The JAX function's aux outputs, fine weights and depths, feed only the
+    GAN's losses and come with the GAN slice.)"""
     B, _, _, n = image_coord.shape
     if cfg.coordinate_scale != 1 and not pose_prescaled:
         pose_to_camera = pose_to_camera.clone()

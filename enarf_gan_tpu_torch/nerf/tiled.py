@@ -62,8 +62,10 @@ def render_rays_tiled(fn, image_coord, pose_to_camera, inv_intrinsics,
     ``draws`` is the fine sampler's (u, jitter) pair, each (B*n_patch, Nf).
     ``ray_chunk`` renders fixed-size chunks of whole patches one after the
     other, with the same results. Returns (color (B,3,n), mask (B,n),
-    disparity (B,n)). (The JAX function's training outputs come with DSO
-    training.)
+    disparity (B,n)). The coarse pass runs without gradients; the fine pass
+    is differentiable, so this is also the training render. (The JAX
+    function's aux outputs feed only the GAN's losses and come with the GAN
+    slice.)
     """
     B, _, _, n = image_coord.shape
     m = P * P

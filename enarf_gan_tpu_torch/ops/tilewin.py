@@ -13,7 +13,8 @@ each other, so one 8x8-texel window row serves the whole group:
 * ``_fused_plan`` picks each group's window row and the members' in-window
   coordinates;
 * ``tilewin_combine`` (``ops/tilewin_kernel.py``) gathers the rows and
-  combines them: the CUDA kernel on the card, its plain twin on the CPU.
+  combines them: a CUDA kernel on the card (with a backward kernel), its
+  plain twin on the CPU.
 
 ``sample_tilewin_fused`` is that chain and the one sampler the renderer
 calls; ``sample_tilewin`` is the same chain with the plain combine, for CPU
@@ -22,6 +23,7 @@ rounds the bilinear weights to bf16).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -277,10 +279,13 @@ def sample_tilewin(tables: TilewinTables, cand_pos, slot_idx, cand_valid,
 
 def sample_tilewin_fused(tables: TilewinTables, cand_pos, slot_idx,
                          cand_valid, clamp_mask: bool = False,
-                         with_stats: bool = False):
-    """``sample_tilewin`` through ``tilewin_combine``: the CUDA kernel for
+                         with_stats: bool = False,
+                         mode: Optional[str] = None):
+    """``sample_tilewin`` through ``tilewin_combine`` in ``mode`` (None
+    reads ``ENARF_TILEWIN_KERNEL``, default "hat"): the CUDA kernels for
     CUDA tensors (m of 4 or 16, F = 32, else it raises), the plain combine
-    for CPU tensors. With ``with_stats`` the clamped share comes from the
-    plan in plain PyTorch and the combine still runs the kernel."""
-    return _sample(tilewin_combine, tables, cand_pos, slot_idx, cand_valid,
-                   clamp_mask, with_stats)
+    for CPU tensors; differentiable in the tables and ``cand_pos`` at m = 16.
+    With ``with_stats`` the clamped share comes from the plan in plain
+    PyTorch and the combine still runs the kernel."""
+    return _sample(functools.partial(tilewin_combine, mode=mode), tables,
+                   cand_pos, slot_idx, cand_valid, clamp_mask, with_stats)

@@ -15,8 +15,13 @@ over planes, and the candidate-weighted feature sum. On a CUDA tensor it
 launches the hand-written Hopper kernel ``csrc/unirow_combine.cu`` (which
 replaces the Pallas kernel ``_combine_kernel``); on a CPU tensor it runs
 ``gather_combine_plain``, the plain PyTorch twin of the JAX package's
-``jnp.take`` + ``_combine_xla``. Forward only: the backward kernel waits
-for DSO training.
+``jnp.take`` + ``_combine_xla``, which autograd differentiates.
+
+On the card ``unirow_combine`` is a ``torch.autograd.Function``: its
+backward is the hand-written kernel ``csrc/unirow_combine_bwd.cu`` (which
+replaces the JAX package's XLA VJP ``_combine_bwd``), so gradients reach the
+table and ``wq4`` (and through ``candidate_rows`` the candidate positions)
+without the gathered rows ever being built.
 """
 from __future__ import annotations
 
@@ -68,24 +73,27 @@ def gather_combine_plain(table, rows, wq4, cand_idx, valid, feat_dim: int,
     """Plain PyTorch gather + combine (the twin of the kernel).
 
     Same arguments and results as ``unirow_combine``. Materialises the
-    gathered rows (B, 3, M, n, 4F+128) and computes in float32, as the TPU
-    kernel does (the JAX ``_combine_xla`` forms the feature products in
-    bf16).
+    gathered feature lanes (B, 3, M, n, 4F) and computes in float32, as the
+    TPU kernel does (the JAX ``_combine_xla`` forms the feature products in
+    bf16). Under autograd it gathers from a float32 copy of the table, so
+    the table gradient accumulates in float32, as the backward kernel's does.
     """
     F_ = feat_dim
+    if torch.is_grad_enabled() and table.requires_grad:
+        table = table.float()
     B, R, RW = table.shape
-    _, _, M, n = rows.shape
     flat = rows.long() + (torch.arange(B, device=rows.device) * R).view(B, 1, 1, 1)
-    g = table.reshape(B * R, RW)[flat.reshape(-1)].reshape(B, 3, M, n, RW)
-    feat = sum(g[..., q * F_:(q + 1) * F_].float() * wq4[:, q, ..., None]
-               for q in range(4))
-    feat = feat.sum(dim=1)                                     # (B, M, n, F)
-    sel = cand_idx.long()[:, None, :, :, None].expand(B, 3, M, n, 1)
-    base = 4 * F_
-    logit = sum(
-        g[..., base + q * MASK_BLOCK: base + (q + 1) * MASK_BLOCK]
-        .gather(-1, sel)[..., 0].float() * wq4[:, q]
-        for q in range(4))                                     # (B, 3, M, n)
+    tab = table.reshape(B * R, RW)
+    wq = wq4.movedim(1, -1)                                    # (B, 3, M, n, 4)
+    # the feature lanes and the candidates' mask logits are gathered apart,
+    # and nothing gathered is sliced: autograd would zero-fill a gradient of
+    # the gathered rows' size for every slice
+    fq = tab[:, :4 * F_][flat].unflatten(-1, (4, F_))          # (…, 4, F)
+    feat = (fq.float() * wq[..., None]).sum(dim=-2).sum(dim=1)  # (B, M, n, F)
+    lane = flat * RW + 4 * F_ + cand_idx.long()[:, None]       # (B, 3, M, n)
+    quad = MASK_BLOCK * torch.arange(4, device=rows.device)
+    logit = (tab.reshape(-1)[lane[..., None] + quad].float() * wq) \
+        .sum(dim=-1)                                           # (B, 3, M, n)
     if clamp_mask:
         logit = straight_through_clamp(logit)
     cand_wn = torch.sigmoid(logit).prod(dim=1)                 # (B, M, n)
@@ -96,6 +104,9 @@ def gather_combine_plain(table, rows, wq4, cand_idx, valid, feat_dim: int,
 KERNEL = KernelLibrary("unirow_combine", "unirow_combine_bf16",
                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
+KERNEL_BWD = KernelLibrary("unirow_combine_bwd", "unirow_combine_bwd_bf16",
+                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
 
 
 def _check_inputs(table, rows, wq4, cand_idx, valid, feat_dim):
@@ -118,24 +129,27 @@ def _check_inputs(table, rows, wq4, cand_idx, valid, feat_dim):
         if t.device != table.device:
             raise ValueError(f"{name} is on {t.device}, table on "
                              f"{table.device}")
+    if torch.is_grad_enabled() and valid.requires_grad:
+        raise ValueError("valid takes no gradient (it comes from a bool); "
+                         "detach it")
 
 
-def _launch_kernel(table, rows, wq4, cand_idx, valid, feat_dim, clamp_mask):
-    inputs = (table, rows, wq4, cand_idx, valid)
+def _check_kernel_shapes(table, rows, feat_dim):
     if feat_dim != KERNEL_FEAT_DIM:
         raise ValueError(f"the CUDA kernel takes feat_dim "
                          f"{KERNEL_FEAT_DIM}, got {feat_dim}")
-    if not all(t.is_contiguous() for t in inputs):
-        raise ValueError("the CUDA kernel takes contiguous tensors")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        raise NotImplementedError(
-            "unirow_combine has no backward kernel yet (ROADMAP Queue 2, "
-            "kernel 1b); render under torch.no_grad()")
     B, R, _ = table.shape
     M, n = rows.shape[2:]
     if R >= 2 ** 31 or n >= 2 ** 31 or B > 65535:
         raise ValueError(f"shape too large for the kernel: B={B} R={R} "
                          f"M={M} n={n}")
+
+
+def _launch_kernel(table, rows, wq4, cand_idx, valid, feat_dim, clamp_mask):
+    """Kernel 1: feature (B, F, n), cand_w (B, M, n)."""
+    _check_kernel_shapes(table, rows, feat_dim)
+    B, R, _ = table.shape
+    M, n = rows.shape[2:]
     feature = torch.empty((B, feat_dim, n), dtype=torch.float32,
                           device=table.device)
     cand_w = torch.empty((B, M, n), dtype=torch.float32, device=table.device)
@@ -153,6 +167,54 @@ def _launch_kernel(table, rows, wq4, cand_idx, valid, feat_dim, clamp_mask):
     return feature, cand_w
 
 
+def launch_backward(table, rows, wq4, cand_idx, valid, dfeature, dcand_w,
+                    feat_dim, clamp_mask):
+    """Kernel 1b: the gradients of ``unirow_combine``'s two outputs with
+    respect to the table, (B, R, 4F+128) float32, and to ``wq4``."""
+    _check_kernel_shapes(table, rows, feat_dim)
+    B, R, RW = table.shape
+    M, n = rows.shape[2:]
+    dtable = torch.zeros((B, R, RW), dtype=torch.float32, device=table.device)
+    dwq4 = torch.empty_like(wq4)
+    if n == 0:
+        return dtable, dwq4
+    dfeature = dfeature.float().contiguous()
+    dcand_w = dcand_w.float().contiguous()
+    fn = KERNEL_BWD.load()
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = fn(table.data_ptr(), rows.data_ptr(), wq4.data_ptr(),
+             cand_idx.data_ptr(), valid.data_ptr(), dfeature.data_ptr(),
+             dcand_w.data_ptr(), dtable.data_ptr(), dwq4.data_ptr(),
+             B, R, M, n, int(clamp_mask), stream)
+    if err != 0:
+        raise RuntimeError(f"unirow_combine backward kernel launch failed: "
+                           f"CUDA error {err}")
+    KERNEL_BWD.count()
+    return dtable, dwq4
+
+
+class _UnirowCombine(torch.autograd.Function):
+    """Kernel 1 forward, kernel 1b backward."""
+
+    @staticmethod
+    def forward(ctx, table, rows, wq4, cand_idx, valid, feat_dim, clamp_mask):
+        ctx.save_for_backward(table, rows, wq4, cand_idx, valid)
+        ctx.feat_dim, ctx.clamp_mask = feat_dim, clamp_mask
+        return _launch_kernel(table, rows, wq4, cand_idx, valid, feat_dim,
+                              clamp_mask)
+
+    @staticmethod
+    def backward(ctx, dfeature, dcand_w):
+        table, rows, wq4, cand_idx, valid = ctx.saved_tensors
+        dtable, dwq4 = launch_backward(table, rows, wq4, cand_idx, valid,
+                                       dfeature, dcand_w, ctx.feat_dim,
+                                       ctx.clamp_mask)
+        # dtable is float32; autograd rounds it to the bf16 table's type
+        # here, and the table's own backward (pack_unirow) carries it on to
+        # the planes
+        return dtable, None, dwq4, None, None, None, None
+
+
 def unirow_combine(table, rows, wq4, cand_idx, valid, feat_dim: int,
                    clamp_mask: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather + combine unirow rows.
@@ -166,13 +228,17 @@ def unirow_combine(table, rows, wq4, cand_idx, valid, feat_dim: int,
     Returns:
         feature (B, F, n) f32 and cand_w (B, M, n) f32.
 
-    CUDA tensors go to the kernel (or raise); CPU tensors to
-    ``gather_combine_plain``.
+    Differentiable in ``table`` and ``wq4``; ``valid`` takes no gradient
+    (asking for one raises). CUDA tensors go to kernel 1, and its gradient
+    to kernel 1b (or raise); CPU tensors to ``gather_combine_plain``.
     """
     _check_inputs(table, rows, wq4, cand_idx, valid, feat_dim)
     if table.is_cuda:
-        return _launch_kernel(table, rows, wq4, cand_idx, valid, feat_dim,
-                              clamp_mask)
+        if not all(t.is_contiguous()
+                   for t in (table, rows, wq4, cand_idx, valid)):
+            raise ValueError("the CUDA kernel takes contiguous tensors")
+        return _UnirowCombine.apply(table, rows, wq4, cand_idx, valid,
+                                    feat_dim, clamp_mask)
     return gather_combine_plain(table, rows, wq4, cand_idx, valid, feat_dim,
                                 clamp_mask)
 

@@ -76,3 +76,44 @@ def jax_fine_draws(rng, n_chunks, chunk, Nf):
 
 def t(x):
     return torch.from_numpy(np.array(x, np.float32))
+
+
+def jax_train_randoms(rng, noise_shape, fine_rows, Nf):
+    """The random numbers JAX's DSO training render draws from ``rng``:
+    the ray sampler's noise (``noise_shape``) and the fine sampler's
+    (u, jitter), each (fine_rows, Nf), as the port's ``forward`` takes
+    them."""
+    rng_rays, rng_fine = jax.random.split(rng)
+    k_bin, k_jit = jax.random.split(rng_fine)
+    draw = lambda k, s: torch.from_numpy(np.array(  # noqa: E731
+        jax.random.uniform(k, s, jnp.float32)))
+    return {"ray_noise": draw(rng_rays, noise_shape),
+            "draws": (draw(k_bin, (fine_rows, Nf)),
+                      draw(k_jit, (fine_rows, Nf)))}
+
+
+def tiny_dso_config(root, out_root, **nerf_overrides):
+    """tests/test_training.py's tiny DSO config, with bf16 plane sampling
+    (the port's samplers), as a plain dict for either package's AttrDict."""
+    nerf = {"w_dim": 32, "hidden_size": 16, "Nc": 6, "Nf": 8,
+            "no_ray_direction": True, "origin_location": "center_fixed",
+            "coordinate_scale": 3, "render_bs": 256, "model_type": "narf",
+            "multiply_density_with_triplane_wieght": False,
+            "clamp_mask": False, "constant_triplane": False,
+            "constant_trimask": False, "selector_mlp": False,
+            "deformation_field": True, "no_selector": False,
+            "time_conditional": True, "pose_conditional": False,
+            "constant_trimask_lr_mul": 1, "tri_plane_size": 16,
+            "plane_sample_dtype": "bfloat16", **nerf_overrides}
+    return {
+        "out_root": out_root, "out": "smoke_dso",
+        "dataset": {"bs": 2, "image_size": 32, "bg_color": -1,
+                    "num_workers": 1,
+                    "train": {"data_root": root, "n_frames": 3}},
+        "generator_params": {"use_triplane": True, "ray_batchsize": 128,
+                             "nerf_params": nerf},
+        "loss": {"color_coef": 1, "mask_coef": 1, "nerf_loss_type": "mse"},
+        "num_iter": 40, "lr": 0.001, "scheduler_gamma": 0.99995,
+        "val_interval": 1000, "print_interval": 1000,
+        "tensorboard_interval": 20, "save_interval": 20,
+        "resume": None, "resume_latest": False}

@@ -8,12 +8,16 @@ machine with a GPU and no jax; there, skip the JAX test configuration:
 
 Tolerance, kernel vs plain: both compute in float32 from the same bf16
 rows; the sums run in another order and the exp is another
-implementation, so 1e-4 relative / 1e-5 absolute (both kernels).
+implementation, so 1e-4 relative / 1e-5 absolute (the forward kernels).
+The backward kernels add into the table gradients with atomics, in an
+order that changes from run to run, and the plain gradients come from
+autograd's scatter-adds: relative L2 error 1e-4 per gradient.
 """
 import numpy as np
 import pytest
 import torch
 
+from enarf_gan_tpu_torch.cuda_build import KernelLibrary
 from enarf_gan_tpu_torch.ops import tilewin, tilewin_kernel, unirow
 
 
@@ -75,10 +79,51 @@ def test_unirow_kernel_matches_plain_on_card(cuda_device, B, n, M, clamp):
 
 @pytest.mark.cuda
 def test_unirow_kernel_refuses_a_gradient(cuda_device):
+    """valid comes from a bool and takes no gradient; the table and wq4
+    do (kernel 1b)."""
     table, rows, wq4, idx, valid = _combine_args(1, 40, 4, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="backward"):
-        unirow.unirow_combine(table, rows, wq4.requires_grad_(True), idx,
-                              valid, 32, False)
+    with pytest.raises(ValueError, match="valid takes no gradient"):
+        unirow.unirow_combine(table, rows, wq4, idx, valid.requires_grad_(True),
+                              32, False)
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _cotangents(outs, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(o.shape, generator=g).to(o.device) for o in outs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,M,clamp", [(1, 1000, 4, False), (2, 333, 3, True)])
+def test_unirow_backward_kernel_matches_plain_on_card(cuda_device, B, n, M,
+                                                      clamp):
+    table, rows, wq4, idx, valid = _combine_args(B, n, M, device=cuda_device)
+    table.requires_grad_(True)
+    wq4.requires_grad_(True)
+    outs = unirow.unirow_combine(table, rows, wq4, idx, valid, 32, clamp)
+    cots = _cotangents(outs, 5)
+    before = unirow.KERNEL_BWD.launches
+    dtable, dwq4 = unirow.launch_backward(table.detach(), rows, wq4.detach(),
+                                          idx, valid, *cots, 32, clamp)
+    torch.cuda.synchronize()
+    assert unirow.KERNEL_BWD.launches == before + 1
+    # the plain twin under autograd, on a float32 copy of the table
+    tf = table.detach().float().requires_grad_(True)
+    wf = wq4.detach().clone().requires_grad_(True)
+    ref = unirow.gather_combine_plain(tf, rows, wf, idx, valid, 32, clamp)
+    r_table, r_wq4 = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(ref, cots)), [tf, wf])
+    assert _rel_l2(dtable, r_table) <= 1e-4
+    assert _rel_l2(dwq4, r_wq4) <= 1e-4
+    # and through the autograd Function: the table gradient in its bf16 type
+    g_table, g_wq4 = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(outs, cots)), [table, wq4])
+    assert g_table.dtype == torch.bfloat16
+    assert unirow.KERNEL_BWD.launches == before + 2
+    torch.testing.assert_close(g_wq4, dwq4, rtol=1e-4, atol=1e-5)
 
 
 def _tilewin_args(m, n_patch, S, Mp=3, B=2, ts=16, F=32, K=6, seed=3,
@@ -121,26 +166,29 @@ def test_tilewin_kernel_matches_plain_on_card(cuda_device, m, n_patch, S,
                                               clamp):
     args = _tilewin_args(m, n_patch, S, device=cuda_device)
     k = tilewin_kernel.KERNEL
-    before, before_m = k.launches, k.launches_by_m[m]
+    before, before_m = k.launches, k.launches_by[m]
     with torch.no_grad():
         f, w = tilewin_kernel.tilewin_combine(*args, 32, S, clamp)
         torch.cuda.synchronize()
         f_ref, w_ref = tilewin_kernel.tilewin_combine_plain(*args, 32, S,
                                                             clamp)
-    assert k.launches == before + 1 and k.launches_by_m[m] == before_m + 1
+    assert k.launches == before + 1 and k.launches_by[m] == before_m + 1
     torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(f, f_ref, rtol=1e-4, atol=1e-5)
 
 
 def test_tilewin_launch_counts_go_up_and_reset_together():
-    k = tilewin_kernel._TilewinKernel()
+    k = KernelLibrary("tilewin_combine", "tilewin_combine_bf16", [],
+                      keys=tilewin_kernel.KERNEL_MEMBERS)
     assert k.fn is None                  # counting builds nothing
     k.count(16)
     k.count(4)
     k.count(16)
-    assert k.launches == 3 and k.launches_by_m == {4: 1, 16: 2}
+    assert k.launches == 3 and k.launches_by == {4: 1, 16: 2}
     k.reset_counts()
-    assert k.launches == 0 and k.launches_by_m == {4: 0, 16: 0}
+    assert k.launches == 0 and k.launches_by == {4: 0, 16: 0}
+    with pytest.raises(KeyError):
+        k.count()                        # a keyed library counts by key
 
 
 @pytest.mark.cuda
@@ -160,10 +208,116 @@ def test_plain_sampler_refuses_cuda_tensors(cuda_device):
 
 @pytest.mark.cuda
 def test_tilewin_kernel_refuses_a_gradient(cuda_device):
-    args = list(_tilewin_args(16, 3, 5, device=cuda_device))
+    """The coarse-corner pass (m = 4) has no backward: it runs under
+    torch.no_grad(), as the JAX one runs under stop_gradient."""
+    args = list(_tilewin_args(4, 3, 5, device=cuda_device))
     args[4] = args[4].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(ValueError, match="backward for m = 16 only"):
         tilewin_kernel.tilewin_combine(*args, 32, 5, False)
+
+
+def _device():
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def test_tilewin_input_checks_refuse_what_no_kernel_takes(monkeypatch):
+    """Checked before the dispatch, so the same on the CPU and the card:
+    an unknown mode, a matrix mode at m = 4, a gradient at m = 4, and a
+    gradient for valid."""
+    dev = _device()
+    args16 = list(_tilewin_args(16, 3, 5, device=dev))
+    args4 = list(_tilewin_args(4, 3, 5, device=dev))
+    with pytest.raises(ValueError, match="mode must be one of"):
+        tilewin_kernel.tilewin_combine(*args16, 32, 5, False, mode="mxu")
+    monkeypatch.setenv("ENARF_TILEWIN_KERNEL", "mxu")
+    with pytest.raises(ValueError, match="mode must be one of"):
+        tilewin_kernel.tilewin_combine(*args16, 32, 5, False)
+    monkeypatch.delenv("ENARF_TILEWIN_KERNEL")
+    for mode in tilewin_kernel.MATRIX_MODES:
+        with pytest.raises(ValueError, match="takes m = 16"):
+            tilewin_kernel.tilewin_combine(*args4, 32, 5, False, mode=mode)
+    xs = args4[5].clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="backward for m = 16 only"):
+        tilewin_kernel.tilewin_combine(*args4[:5], xs, args4[6], 32, 5, False)
+    valid = args16[6].clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="valid takes no gradient"):
+        tilewin_kernel.tilewin_combine(*args16[:6], valid, 32, 5, False)
+    with torch.no_grad():                # the coarse pass as the renderer runs it
+        tilewin_kernel.tilewin_combine(*args4[:5], xs, args4[6], 32, 5, False)
+
+
+def test_unirow_input_checks_refuse_a_gradient_for_valid():
+    table, rows, wq4, idx, valid = _combine_args(1, 40, 4, device=_device())
+    with pytest.raises(ValueError, match="valid takes no gradient"):
+        unirow.unirow_combine(table, rows, wq4, idx, valid.requires_grad_(True),
+                              32, False)
+
+
+def test_plain_modes_on_cpu():
+    """On the CPU every mode runs the plain twin: "vpu" is "hat", "dot" and
+    "bdiag" round the t-weights to bf16 (within 1e-2 of "hat")."""
+    args = _tilewin_args(16, 3, 5)
+    out = {m: tilewin_kernel.tilewin_combine(*args, 32, 5, False, mode=m)
+           for m in tilewin_kernel.MODES}
+    for a, b in zip(out["vpu"], out["hat"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(out["bdiag"], out["dot"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(out["dot"][1], out["hat"][1], rtol=0, atol=0)
+    assert 0 < float((out["dot"][0] - out["hat"][0]).abs().max()) < 1e-1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dot", "vpu", "bdiag"])
+@pytest.mark.parametrize("n_patch,S,clamp", [(3, 5, False), (37, 7, True)])
+def test_tilewin_modes_kernel_matches_plain_on_card(cuda_device, mode,
+                                                    n_patch, S, clamp):
+    args = _tilewin_args(16, n_patch, S, device=cuda_device)
+    k = tilewin_kernel.KERNEL_MODES
+    before = k.launches_by[mode]
+    with torch.no_grad():
+        f, w = tilewin_kernel.tilewin_combine(*args, 32, S, clamp, mode=mode)
+        torch.cuda.synchronize()
+        f_ref, w_ref = tilewin_kernel.tilewin_combine_plain(
+            *args, 32, S, clamp, round_t=mode != "vpu")
+    assert k.launches_by[mode] == before + 1
+    torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(f, f_ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_patch,S,clamp", [(3, 5, False), (37, 7, True)])
+def test_tilewin_backward_kernel_matches_plain_on_card(cuda_device, n_patch,
+                                                       S, clamp):
+    feat, mask, frows, mrows, xt, xs, valid = _tilewin_args(
+        16, n_patch, S, device=cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (feat, mask, xt, xs)]
+    outs = tilewin_kernel.tilewin_combine(leaves[0], leaves[1], frows, mrows,
+                                          leaves[2], leaves[3], valid, 32, S,
+                                          clamp)
+    cots = _cotangents(outs, 6)
+    before = tilewin_kernel.KERNEL_BWD.launches
+    grads = tilewin_kernel.launch_backward(feat, mask, frows, mrows, xt, xs,
+                                           valid, *cots, 32, S, clamp)
+    torch.cuda.synchronize()
+    assert tilewin_kernel.KERNEL_BWD.launches == before + 1
+    ref_leaves = [feat.float().requires_grad_(True),
+                  mask.float().requires_grad_(True),
+                  xt.clone().requires_grad_(True),
+                  xs.clone().requires_grad_(True)]
+    ref = tilewin_kernel.tilewin_combine_plain(
+        ref_leaves[0], ref_leaves[1], frows, mrows, ref_leaves[2],
+        ref_leaves[3], valid, 32, S, clamp)
+    refs = torch.autograd.grad(sum((o * c).sum() for o, c in zip(ref, cots)),
+                               ref_leaves)
+    for name, got, want in zip(("feat", "mask", "xt", "xs"), grads, refs):
+        assert _rel_l2(got, want) <= 1e-4, name
+    # through the autograd Function: tables in their bf16 type
+    g = torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cots)),
+                            leaves)
+    assert g[0].dtype == g[1].dtype == torch.bfloat16
+    assert tilewin_kernel.KERNEL_BWD.launches == before + 2
+    torch.testing.assert_close(g[2], grads[2], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
