@@ -17,6 +17,14 @@ NVIDIA GPU.
    that valid members touch; kernel 3 computes kernel 2's function and is
    held to its bound, with the whole 4 KB rows it reads printed beside),
    each coordinate and output once.
+   Then the probes of ``enarf_gan_tpu_torch/tools`` (the TPU probe kernels
+   of ``tools/`` as Hopper microbenchmarks: row and lane gathers, tensor-core
+   gathers and products, stage ablations of kernels 2 and 3, one-construct
+   kernels and launch cost): each kernel and variant against its plain twin
+   at a small size, then at its probe's main size once more and timed with
+   its plain twin, the one PyTorch call of the same function where there is
+   one, and its bound; one line a probe, and the launch cost of each
+   argument roster (host and device microseconds a launch).
 3. Builds the DSO model at the full width the JAX ``bench.py`` times
    (24 joints, 256² tri-planes, w_dim 512, deformation field, bf16
    sampling) with seeded, perturbed random weights, and renders 128² frames
@@ -30,8 +38,10 @@ NVIDIA GPU.
    place and bounds the difference; prints the tiled frame's PSNR and mask
    difference against the exact frame.
 5. Shows where a frame's time goes: the per-frame plane stages on the host
-   clock, one frame's device time by kernel class (torch.profiler), and the
-   tiled frame's distinct texels and bytes bound per launch.
+   clock, one frame's device time by kernel class and its launches
+   (torch.profiler), the host cost of those launches at the probes' cost a
+   launch beside the frame's idle time, and the tiled frame's distinct
+   texels and bytes bound per launch.
 6. Trains the model of ``configs/DSO_train/ZJU/313_denarf_tpu.yml`` (512²
    images, batch 16, 4096 rays an image, 256² planes, w_dim 512, pose and
    time conditioning, Nc 48 + Nf 64, "mae" loss, lr 1e-3) through the
@@ -56,6 +66,12 @@ minutes each on an H100): each path learning twice from each of three seeds
 divergence); repeated runs from one seed with the kernels and with the plain
 combine; and the parameter gradients along learning, kernels against the
 plain combine.
+
+    python3 chip_smoke.py --probes
+
+runs phase 1 and every probe module's full sweep (row widths x table sizes
+x index order, lane gathers by table height, ring depths, every one-hot
+shape with its direct gather), one JSON line a measurement.
 """
 import json
 import subprocess
@@ -160,26 +176,10 @@ def _unirow_table_bytes(table, rows, cand_idx, valid):
 
 
 def _tilewin_table_bytes(feat_dim, frows, mrows, xt, xs, valid):
-    """Bytes of the window tables one tilewin launch must read: each
-    distinct 64-byte feature texel (F bf16 channels) and each distinct
-    32-byte mask sector in the 2x2 quad of a valid member (an invalid
-    member's feature is weighted by 0 and its logit is 0). Returns (bytes,
-    distinct texels, distinct mask sectors)."""
-    import torch
-    from enarf_gan_tpu_torch.ops.tilewin_kernel import NTEX, WIN, texel_cells
-    i, _ = texel_cells(xt)                                    # (B,3,Mp,m,U)
-    k, _ = texel_cells(xs)
-    keep = (valid != 0)[:, None].expand_as(i)
-    cell = (i * WIN + k)[keep]
-    quad = torch.tensor([0, 1, WIN, WIN + 1], device=cell.device)
-
-    def texels(rows):
-        base = rows.long()[:, :, :, None, :].expand_as(i)[keep] * NTEX + cell
-        return (base[:, None] + quad).reshape(-1)
-
-    d_tex = int(torch.unique(texels(frows)).numel())
-    d_sec = int(torch.unique(texels(mrows) // 16).numel())   # 16 bf16 a sector
-    return d_tex * feat_dim * 2 + d_sec * 32, d_tex, d_sec
+    """The distinct texels and mask sectors one tilewin launch must read
+    (``tools/ablate.py::table_bytes``): (bytes, texels, sectors)."""
+    from enarf_gan_tpu_torch.tools.ablate import table_bytes
+    return table_bytes(feat_dim, frows, mrows, xt, xs, valid)
 
 
 def _compare_and_time(kern, plain, label):
@@ -209,6 +209,7 @@ def _compare_and_time(kern, plain, label):
 def phase_setup():
     import torch
     from enarf_gan_tpu_torch.ops import tilewin_kernel, unirow
+    from enarf_gan_tpu_torch.tools import ablate
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -223,13 +224,16 @@ def phase_setup():
                "unirow_combine_bwd": unirow.KERNEL_BWD,
                "tilewin_combine": tilewin_kernel.KERNEL,
                "tilewin_combine_bwd": tilewin_kernel.KERNEL_BWD,
-               "tilewin_combine_modes": tilewin_kernel.KERNEL_MODES}
+               "tilewin_combine_modes": tilewin_kernel.KERNEL_MODES,
+               **{k.name: k for k in _probe_kernels()}}
+    assert ablate.KERNEL_STAGES in kernels.values()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         for f in [pool.submit(k.load) for k in kernels.values()]:
             f.result()
     print(f"built {', '.join(kernels)} in {time.perf_counter() - t0:.2f} s "
-          f"(in parallel)")
+          f"(in parallel); nvcc seconds: "
+          + ", ".join(f"{n} {k.build_seconds:.2f}" for n, k in kernels.items()))
     for name, k in kernels.items():
         for line in k.build_log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
@@ -279,34 +283,18 @@ def phase_unirow_check(device):
 
 
 def _tilewin_inputs(device, m, S, B=1, seed_offset=0):
-    """Window tables and plan of one full chunk of the tiled path: 256²
-    planes, 4096 rays in 256 patches, S samples, 4 slots; members clustered
-    within ~1.5 texels per (patch, sample, slot), ~20% invalid."""
-    import torch
-    from enarf_gan_tpu_torch.ops import tilewin
-    F_, K, Mp, H = 32, 23, 4, TRI_PLANE_SIZE
-    n_patch = RAY_CHUNK // (TILE_PATCH * TILE_PATCH)
-    g = torch.Generator().manual_seed(SEED + m + seed_offset)
-    planes = torch.randn((B, (F_ + K) * 3, H, H), generator=g).to(device)
-    tables = tilewin.pack_tilewin(planes, F_, K)
-    centers = torch.rand((B, 3, Mp, n_patch, 1, S), generator=g) * 1.7 - 0.85
-    jitter = (torch.rand((B, 3, Mp, n_patch, m, S), generator=g) * 2 - 1) \
-        * (1.5 / H)
-    pos = (centers + jitter).clamp(-0.99, 0.99).to(device)
-    slot_idx = torch.randint(0, K, (B, Mp, n_patch, S), generator=g,
-                             dtype=torch.int32).to(device)
-    valid = (torch.rand((B, Mp, n_patch, m, S), generator=g) < 0.8).to(device)
-    plan = tilewin._fused_plan(tables, pos, slot_idx, valid)
-    return (tables.feat, tables.mask, plan.frows, plan.mrows, plan.xt,
-            plan.xs, plan.valid, F_, S, False)
+    """Window tables and plan of one full chunk of the tiled path
+    (``tools/ablate.py::chunk_inputs``): 256² planes, 4096 rays in 256
+    patches, S samples, 4 slots; members clustered within ~1.5 texels per
+    (patch, sample, slot), ~20% invalid."""
+    from enarf_gan_tpu_torch.tools.ablate import chunk_inputs
+    return chunk_inputs(device, m, S, B=B, seed=SEED + m + seed_offset)
 
 
 def _tilewin_io_bytes(args, m):
     """Coordinates, validity and row indices read, outputs written."""
-    frows = args[2]
-    B, _, Mp, U = frows.shape
-    coords = sum(t.numel() * t.element_size() for t in args[2:7])
-    return coords + B * (args[7] + Mp) * U * m * 4
+    from enarf_gan_tpu_torch.tools.ablate import io_bytes
+    return io_bytes(args, m)
 
 
 def _tilewin_bound(args, m):
@@ -531,6 +519,96 @@ def phase_tilewin_bwd_check(device):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+PROBE_MODULES = ("gather", "mma", "ablate", "constructs")
+PROBE_BUDGET_MS = 20.0     # CUDA-event time a probe's kernel, plain, library
+
+
+def _probe_modules():
+    import importlib
+    return [importlib.import_module(f"enarf_gan_tpu_torch.tools.{m}")
+            for m in PROBE_MODULES]
+
+
+def _probe_kernels():
+    """The probes' libraries: the three probe sources and the stage builds
+    of kernels 2 and 3."""
+    from enarf_gan_tpu_torch.tools import ablate, constructs, gather, mma
+    return (gather.KERNEL, mma.KERNEL, constructs.KERNEL, ablate.KERNEL_STAGES,
+            ablate.KERNEL_MODES_STAGES)
+
+
+def phase_probes(device):
+    """The probe kernels of ``enarf_gan_tpu_torch/tools`` (families A-D):
+    every kernel and variant held to its plain twin at a small size
+    (ragged shapes), then at its probe's own main size held once more and
+    timed (kernel, plain, library call) against its bound; the launch cost
+    of each argument roster. Each entry's ``launches`` are the kernel's
+    launches while it was timed (its comparisons excluded). Kernel 2's and
+    3's stage variants are timed at the probes' U = 12288 and at the fine
+    chunk; the entry holds the former and ``fine_chunk_ms`` the latter."""
+    import torch
+    from enarf_gan_tpu_torch.tools import constructs, timing
+    t0 = time.perf_counter()
+    n = 0
+    for mod in _probe_modules():
+        for case in mod.cases(device, "check"):
+            timing.check(case)
+            n += 1
+    torch.cuda.synchronize()
+    print(f"probes: {n} kernels and variants held to their plain twins at "
+          f"small sizes in {time.perf_counter() - t0:.1f} s")
+    for k in _probe_kernels():
+        k.reset_counts()
+    entries = {}
+    for mod in _probe_modules():
+        for case in mod.cases(device, "main"):
+            err = timing.check(case)
+            lib, key = case.counter
+            before = lib.launches_by[key]
+            t = timing.measure(case, PROBE_BUDGET_MS)
+            launches = lib.launches_by[key] - before
+            assert launches > 0, f"{case.name} did not launch its kernel"
+            name = case.name.replace(", fine chunk", "") \
+                .replace(", U=12288 probe inputs", "")
+            line = (f"  {case.name}: max|d| {err:.2e}, kernel {t['ms']:.4f} ms,"
+                    f" plain {t['plain_ms']:.4f} ms, library "
+                    + (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
+                       else "none")
+                    + f", bound {t['bound_ms']:.4f} ms by {t['bound_by']}")
+            if case.nbytes and t["ms"] > 0:
+                line += f"; {case.nbytes / t['ms'] / 1e9:.3f} TB/s"
+            if case.flops and t["ms"] > 0:
+                line += f", {case.flops / t['ms'] / 1e9:.1f} TFLOP/s"
+            print(line)
+            if case.info.get("inputs") == "fine chunk":
+                entries[name].update(fine_chunk_ms=t["ms"],
+                                     fine_chunk_bound_ms=t["bound_ms"])
+                continue
+            assert name not in entries, name
+            entries[name] = {
+                "name": name, "route": "cuda", "source": case.source,
+                "replaces": case.replaces, "launches": launches,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
+    for name in constructs.ROSTERS:
+        host_us, device_us = constructs.launch_cost(name, device)
+        entries[f"D launch roster {name}"].update(host_us=host_us,
+                                                  device_us=device_us)
+        print(f"  launch cost, roster {name} {constructs.ROSTERS[name]}: host "
+              f"{host_us:.2f} us a call through the ctypes wrapper, device "
+              f"{device_us:.2f} us a launch")
+    print(f"probe phase done in {time.perf_counter() - t0:.1f} s")
+    return list(entries.values())
+
+
+def probe_sweeps(device):
+    """``--probes``: each probe module's full sweep (its CLI), one JSON line
+    a measurement."""
+    for mod in _probe_modules():
+        mod.main(["--device", str(device)])
+
+
 def build_models(device):
     """The exact-path model, and the same weights with tile_patch=4 and
     coarse corners (bench.py's tilewin4)."""
@@ -704,7 +782,8 @@ def phase_profile(gen, scene, frame, ms_frame, device, label, pack):
         ms_pack, _ = timed(lambda: getattr(gen, pack)(planes))
     print(f"{label} profile: of a {ms_frame:.2f} ms frame, flow StyleGAN2 + "
           f"warp {ms_planes:.2f} ms and {pack} {ms_pack:.2f} ms (host clock)")
-    _profile(lambda: frame(0.5, 1), f"{label} profile", ms_frame, "frame")
+    return _profile(lambda: frame(0.5, 1), f"{label} profile", ms_frame,
+                    "frame")
 
 
 def _profile(fn, label, ms_host, what):
@@ -733,14 +812,31 @@ def _profile(fn, label, ms_host, what):
                    or "scatter" in name else
                    "reduce" if "reduce" in name else "elementwise/other")
             groups[key] = groups.get(key, 0.0) + e.self_device_time_total
+    n_launches = sum(e.count for e in kernels)
     print(f"{label}: device time {device_us / 1e3:.2f} ms in a "
-          f"{ms_host:.2f} ms {what} (busy share {device_us / 1e3 / ms_host:.3f})")
+          f"{ms_host:.2f} ms {what} (busy share {device_us / 1e3 / ms_host:.3f}),"
+          f" {n_launches} kernel launches")
     for key, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {key}: {us / 1e3:.2f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
-    return device_us / 1e3
+    return device_us / 1e3, n_launches
+
+
+def phase_launch_cost(probes, frames, ms_host):
+    """The host cost of a launch through the port's ctypes wrappers (the
+    probe phase's 7-in / 2-out roster, the tilewin kernel's) times the
+    kernel launches of a 128² frame, beside the frame's idle time (host
+    time less device time)."""
+    roster = next(e for e in probes if e["name"] == "D launch roster 7in_2out")
+    for label, (device_ms, n_launches) in frames.items():
+        idle = ms_host[label] - device_ms
+        cost = roster["host_us"] * n_launches / 1e3
+        print(f"{label} frame: {n_launches} launches x {roster['host_us']:.2f} "
+              f"us a launch (host) = {cost:.2f} ms, beside an idle "
+              f"{idle:.2f} ms of a {ms_host[label]:.2f} ms frame "
+              f"({cost / max(idle, 1e-9):.2f} of it)")
 
 
 def _all_kernels():
@@ -869,8 +965,8 @@ def phase_train(gen, config, ds, batch, device, label, own):
     step(batch, rng)
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3
-    device_ms = _profile(lambda: step(batch, rng), f"{label} training profile",
-                         ms_step, "step")
+    device_ms, _ = _profile(lambda: step(batch, rng),
+                            f"{label} training profile", ms_step, "step")
     return {"s_iter": s_iter, "peak": peak, "n_accum": n_accum,
             "launches": launches, "launches_by_m": launches_by_m,
             "device_ms": device_ms, "ms_step": ms_step}
@@ -1174,7 +1270,8 @@ def main():
     phase_setup()
     studies = {"--learn-spread": learn_spread,
                "--learn-collapse": learn_collapse,
-               "--learn-gradcheck": learn_gradcheck}
+               "--learn-gradcheck": learn_gradcheck,
+               "--probes": lambda device, root: probe_sweeps(device)}
     if sys.argv[1:2] and sys.argv[1] in studies:
         with tempfile.TemporaryDirectory() as root:
             studies[sys.argv[1]](device, root)
@@ -1186,6 +1283,8 @@ def main():
     k3 = phase_modes_check(device)
     k1b = phase_unirow_bwd_check(device)
     k2b = phase_tilewin_bwd_check(device)
+    torch.cuda.empty_cache()
+    probes = phase_probes(device)
     torch.cuda.empty_cache()
     gen, tiled, scene = build_models(device)
 
@@ -1206,10 +1305,12 @@ def main():
         lambda *a, mode=None: tilewin_kernel.tilewin_combine_plain(*a),
         tilewin_kernel.KERNEL, "tiled")
     phase_tiled_vs_exact(ref_t, ref_e)
-    phase_profile(gen, scene, exact_frame, ms_exact, device, "exact",
-                  "pack_planes")
-    phase_profile(tiled, scene, tiled_frame, ms_tiled, device, "tiled",
-                  "pack_planes_tiled")
+    frames = {
+        "exact": phase_profile(gen, scene, exact_frame, ms_exact, device,
+                               "exact", "pack_planes"),
+        "tiled": phase_profile(tiled, scene, tiled_frame, ms_tiled, device,
+                               "tiled", "pack_planes_tiled")}
+    phase_launch_cost(probes, frames, {"exact": ms_exact, "tiled": ms_tiled})
     phase_tiled_rows(tiled_frame)
     del gen, tiled, exact_frame, tiled_frame, ref_e, ref_t
     torch.cuda.empty_cache()
@@ -1266,7 +1367,7 @@ def main():
             "enarf_gan_tpu/ops/tilewin_kernel.py:"
             + ("317" if mode == "bdiag" else "65"),
             k3_launches[mode], k3[mode]))
-    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"kernels": entries + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

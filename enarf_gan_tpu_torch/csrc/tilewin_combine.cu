@@ -90,6 +90,24 @@ __device__ __forceinline__ float bilinear(const __nv_bfloat16* q, int dt,
          ft * ((1.f - fs) * v10 + fs * v11);
 }
 
+// Stage ablations (the Hopper counterparts of tools/probe_hat_ablate.py's
+// variants). The main entry point instantiates kFull only; built with
+// -DTILEWIN_STAGE_ENTRY the library also exports tilewin_combine_stage_bf16,
+// whose doctored variants replace one stage each and still write what they
+// read into the outputs (so nvcc drops no load the variant keeps):
+//   kStream     no table reads: a feature texel reads as (frow & 255) / 256
+//               and a mask texel as (mrow & 255) / 256 (coordinates,
+//               validity and row indices are read, outputs written);
+//   kNoWeights  the texels are read, the bilinear fractions are 0.5;
+//   kNoMask     no mask row read: logit 0, so cand_w = 0.5^3;
+//   kNoFeat     no feature texel read: every texel reads as 1.
+enum Stage { kFull = 0, kStream = 1, kNoWeights = 2, kNoMask = 3, kNoFeat = 4 };
+
+// bilinear() of four equal texels v
+__device__ __forceinline__ float bilinear_const(float v, float ft, float fs) {
+  return (1.f - ft) * ((1.f - fs) * v + fs * v) + ft * ((1.f - fs) * v + fs * v);
+}
+
 size_t smem_bytes(int Mp, int M) {
   const size_t coords = 2 * 3 * (size_t)Mp * M * kUnits;   // xt, xs
   const size_t slots = 2 * (size_t)Mp * M * kUnits;        // valid, cand_w
@@ -97,7 +115,7 @@ size_t smem_bytes(int Mp, int M) {
   return (coords + slots + feat) * sizeof(float);
 }
 
-template <int M>
+template <int M, int kStage = kFull>
 __global__ void __launch_bounds__(kUnits * 32)
 tilewin_combine_kernel(const __nv_bfloat16* __restrict__ feat_table,
                        const __nv_bfloat16* __restrict__ mask_table,
@@ -156,10 +174,10 @@ tilewin_combine_kernel(const __nv_bfloat16* __restrict__ feat_table,
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
         const int64_t ri = (((int64_t)b * 3 + p) * Mp + g) * U + u;
-        const __nv_bfloat16* frow =
-            feat_table + (int64_t)__ldg(frows + ri) * kRow + lane;
-        const __nv_bfloat16* mrow =
-            mask_table + (int64_t)__ldg(mrows + ri) * kNTex;
+        const int32_t fr = __ldg(frows + ri);
+        const __nv_bfloat16* frow = feat_table + (int64_t)fr * kRow + lane;
+        const int32_t mr = kStage == kNoMask ? 0 : __ldg(mrows + ri);
+        const __nv_bfloat16* mrow = mask_table + (int64_t)mr * kNTex;
         const float* cx = s_xt + (p * Mp + g) * M * kUnits + warp;
         const float* cy = s_xs + (p * Mp + g) * M * kUnits + warp;
 #pragma unroll
@@ -168,14 +186,29 @@ tilewin_combine_kernel(const __nv_bfloat16* __restrict__ feat_table,
           float ft, fs;
           texel_cell(cx[j * kUnits], i, ft);
           texel_cell(cy[j * kUnits], k, fs);
-          sg[j] += bilinear(frow + (i * kWin + k) * kF, kWin * kF, kF, ft, fs);
+          if constexpr (kStage == kNoWeights) ft = fs = 0.5f;
+          if constexpr (kStage == kStream)
+            sg[j] += bilinear_const((float)(fr & 255) * (1.f / 256.f), ft, fs);
+          else if constexpr (kStage == kNoFeat)
+            sg[j] += bilinear_const(1.f, ft, fs);
+          else
+            sg[j] += bilinear(frow + (i * kWin + k) * kF, kWin * kF, kF, ft,
+                              fs);
         }
         if (lane < M) {
           int i, k;
           float ft, fs;
           texel_cell(cx[lane * kUnits], i, ft);
           texel_cell(cy[lane * kUnits], k, fs);
-          float logit = v_lane * bilinear(mrow + i * kWin + k, kWin, 1, ft, fs);
+          if constexpr (kStage == kNoWeights) ft = fs = 0.5f;
+          float logit;
+          if constexpr (kStage == kNoMask)
+            logit = 0.f;
+          else if constexpr (kStage == kStream)
+            logit = v_lane *
+                    bilinear_const((float)(mr & 255) * (1.f / 256.f), ft, fs);
+          else
+            logit = v_lane * bilinear(mrow + i * kWin + k, kWin, 1, ft, fs);
           if (clamp) logit = fminf(fmaxf(logit, -2.f), 5.f);
           cw *= 1.f / (1.f + expf(-logit));
         }
@@ -219,7 +252,7 @@ tilewin_combine_kernel(const __nv_bfloat16* __restrict__ feat_table,
   }
 }
 
-template <int M>
+template <int M, int kStage = kFull>
 int launch(const void* feat_table, const void* mask_table, const void* frows,
            const void* mrows, const void* xt, const void* xs,
            const void* valid, void* feature, void* cand_w, int B, int Mp,
@@ -227,12 +260,12 @@ int launch(const void* feat_table, const void* mask_table, const void* frows,
   const size_t smem = smem_bytes(Mp, M);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tilewin_combine_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        tilewin_combine_kernel<M, kStage>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((U + kUnits - 1) / kUnits, B);
-  tilewin_combine_kernel<M><<<grid, kUnits * 32, smem, stream>>>(
+  tilewin_combine_kernel<M, kStage><<<grid, kUnits * 32, smem, stream>>>(
       (const __nv_bfloat16*)feat_table, (const __nv_bfloat16*)mask_table,
       (const int32_t*)frows, (const int32_t*)mrows, (const float*)xt,
       (const float*)xs, (const float*)valid, (float*)feature, (float*)cand_w,
@@ -270,3 +303,45 @@ extern "C" int tilewin_combine_bf16(const void* feat_table,
                      feature, cand_w, B, Mp, U, S, clamp, st);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef TILEWIN_STAGE_ENTRY
+namespace {
+template <int M>
+int launch_stage(int stage, const void* feat_table, const void* mask_table,
+                 const void* frows, const void* mrows, const void* xt,
+                 const void* xs, const void* valid, void* feature,
+                 void* cand_w, int B, int Mp, int U, int S, int clamp,
+                 cudaStream_t st) {
+#define TILEWIN_STAGE_CASE(K)                                               \
+  case K:                                                                   \
+    return launch<M, K>(feat_table, mask_table, frows, mrows, xt, xs, valid, \
+                        feature, cand_w, B, Mp, U, S, clamp, st);
+  switch (stage) {
+    TILEWIN_STAGE_CASE(kFull)
+    TILEWIN_STAGE_CASE(kStream)
+    TILEWIN_STAGE_CASE(kNoWeights)
+    TILEWIN_STAGE_CASE(kNoMask)
+    TILEWIN_STAGE_CASE(kNoFeat)
+  }
+#undef TILEWIN_STAGE_CASE
+  return (int)cudaErrorInvalidValue;
+}
+}  // namespace
+
+// The stage ablations: tilewin_combine_bf16's arguments and outputs, with
+// `stage` one of Stage (0 full, 1 stream, 2 noweights, 3 nomask, 4 nofeat).
+extern "C" int tilewin_combine_stage_bf16(
+    const void* feat_table, const void* mask_table, const void* frows,
+    const void* mrows, const void* xt, const void* xs, const void* valid,
+    void* feature, void* cand_w, int B, int Mp, int M, int U, int S,
+    int clamp, int stage, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (M == 16)
+    return launch_stage<16>(stage, feat_table, mask_table, frows, mrows, xt,
+                            xs, valid, feature, cand_w, B, Mp, U, S, clamp, st);
+  if (M == 4)
+    return launch_stage<4>(stage, feat_table, mask_table, frows, mrows, xt, xs,
+                           valid, feature, cand_w, B, Mp, U, S, clamp, st);
+  return (int)cudaErrorInvalidValue;
+}
+#endif  // TILEWIN_STAGE_ENTRY

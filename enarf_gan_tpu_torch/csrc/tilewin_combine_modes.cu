@@ -119,6 +119,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Stage ablations (the Hopper counterparts of tools/probe_tilewin_bdiag.py's
+// variants), in both paths. The main entry point instantiates kFull only;
+// built with -DTILEWIN_STAGE_ENTRY the library also exports
+// tilewin_combine_modes_stage_bf16. Every variant still stages the whole
+// window rows by cp.async and writes what it reads into the outputs:
+//   kStream  S[j, f] += W[0, f] + xt_j + xs_j (no A, no s-weights, no
+//            product), logit_j = valid_j * mask[mrow, texel 0];
+//   kFeatA   the t-weights are 1 at every t (no valid, no rounding);
+//   kFeatD   D[h, lambda] = sum_t W[2t + h, lambda] + sum_t A[j, t] (the
+//            product replaced by a sum of the staged rows, A unrounded);
+//   kFeatB   the s-weights are 1;
+//   kFeat    no mask rows read: cand_w = 1;
+//   kMask    no feature product: S[j, f] += sum over the row's 64 texels of
+//            channel f (no weights).
+enum Stage { kFull = 0, kStream = 1, kFeatA = 2, kFeatD = 3, kFeatB = 4,
+             kFeat = 5, kMask = 6 };
+
 size_t smem_bytes(int Mp) {
   const size_t rows = (size_t)kUnits * 2 * kBufElems * sizeof(__nv_bfloat16);
   const size_t coords = 2 * 3 * (size_t)Mp * kM * kUnits;  // xt, xs
@@ -127,7 +144,7 @@ size_t smem_bytes(int Mp) {
   return rows + (coords + slots + feat) * sizeof(float);
 }
 
-template <bool kTensor>
+template <bool kTensor, int kStage = kFull>
 __global__ void __launch_bounds__(kUnits * 32)
 tilewin_combine_modes_kernel(const __nv_bfloat16* __restrict__ feat_table,
                              const __nv_bfloat16* __restrict__ mask_table,
@@ -234,17 +251,83 @@ tilewin_combine_modes_kernel(const __nv_bfloat16* __restrict__ feat_table,
         for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
           for (int s = 0; s < 8; ++s)
-            hs[mi][s] = axis_weight(s, is_[mi], fs_[mi]);
+            hs[mi][s] = kStage == kFeatB ? 1.f
+                                         : axis_weight(s, is_[mi], fs_[mi]);
 
-        if (kTensor) {
+        if constexpr (kStage == kStream) {
+          // channel of sg[.][k]: (k / 2) * 8 + 2c + k % 2, at texel 0
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float w =
+                __bfloat162float(W[(k >> 1) * 8 + 2 * c + (k & 1)]);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+              sg[mi][k] += w + cx[(g4 + 8 * mi) * kUnits] +
+                           cy[(g4 + 8 * mi) * kUnits];
+          }
+        } else if constexpr (kStage == kMask) {
+#pragma unroll
+          for (int nt = 0; nt < 16; ++nt) {
+            const __nv_bfloat16* col = W + nt * 8 + 2 * c;
+            float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+            for (int sig = 0; sig < kSig; ++sig) {
+              const float2 v = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(col + sig * kPitchW));
+              s0 += v.x;
+              s1 += v.y;
+            }
+            const int k = (nt & 3) * 2;
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              sg[mi][k] += s0;
+              sg[mi][k + 1] += s1;
+            }
+          }
+        } else if constexpr (kStage == kFeatD) {
+          float asum[2] = {0.f, 0.f};
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int t = 0; t < 8; ++t)
+              asum[mi] += axis_weight(t, it_[mi], ft_[mi]) * vm[mi];
+#pragma unroll
+          for (int nt = 0; nt < 16; ++nt) {
+            const __nv_bfloat16* col = W + nt * 8 + 2 * c;
+            float d0[2] = {0.f, 0.f}, d1[2] = {0.f, 0.f};
+#pragma unroll
+            for (int t = 0; t < 8; ++t) {
+              const float2 we = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(col + (2 * t) * kPitchW));
+              const float2 wo = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(
+                      col + (2 * t + 1) * kPitchW));
+              d0[0] += we.x;
+              d0[1] += we.y;
+              d1[0] += wo.x;
+              d1[1] += wo.y;
+            }
+            const int q = nt >> 2;
+            const int k = (nt & 3) * 2;
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                sg[mi][k + e] += (d0[e] + asum[mi]) * hs[mi][q] +
+                                 (d1[e] + asum[mi]) * hs[mi][4 + q];
+          }
+        } else if constexpr (kTensor) {
           // A fragments of the two parity tiles (rows: members g4, g4 + 8;
           // columns sigma = 2c + {0, 1} and 2c + 8 + {0, 1}, i.e. t = c and
           // t = c + 4 of parity 0 and 1)
           float w0[2], w4[2];
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi) {
-            w0[mi] = axis_weight(c, it_[mi], ft_[mi]) * vm[mi];
-            w4[mi] = axis_weight(c + 4, it_[mi], ft_[mi]) * vm[mi];
+            w0[mi] = kStage == kFeatA ? 1.f
+                                      : axis_weight(c, it_[mi], ft_[mi]) * vm[mi];
+            w4[mi] = kStage == kFeatA
+                         ? 1.f
+                         : axis_weight(c + 4, it_[mi], ft_[mi]) * vm[mi];
           }
           const uint32_t a0[4] = {pack_bf16(w0[0], 0.f), pack_bf16(w0[1], 0.f),
                                   pack_bf16(w4[0], 0.f), pack_bf16(w4[1], 0.f)};
@@ -280,7 +363,9 @@ tilewin_combine_modes_kernel(const __nv_bfloat16* __restrict__ feat_table,
           for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
             for (int t = 0; t < 8; ++t)
-              wt[mi][t] = axis_weight(t, it_[mi], ft_[mi]) * vm[mi];
+              wt[mi][t] = kStage == kFeatA
+                              ? 1.f
+                              : axis_weight(t, it_[mi], ft_[mi]) * vm[mi];
 #pragma unroll
           for (int nt = 0; nt < 16; ++nt) {
             float d0[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
@@ -314,7 +399,7 @@ tilewin_combine_modes_kernel(const __nv_bfloat16* __restrict__ feat_table,
         }
 
         // member `lane`'s mask logit, float32 on the CUDA cores
-        if (lane < kM) {
+        if (kStage != kFeat && lane < kM) {
           const int64_t ri = (((int64_t)b * 3 + p) * Mp + g) * U + u;
           const __nv_bfloat16* mrow =
               mask_table + (int64_t)__ldg(mrows + ri) * kNTex;
@@ -324,10 +409,12 @@ tilewin_combine_modes_kernel(const __nv_bfloat16* __restrict__ feat_table,
           texel_cell(cy[lane * kUnits], k, fs);
           const __nv_bfloat16* q = mrow + i * kWin + k;
           const float bil =
-              (1.f - ft) * ((1.f - fs) * __bfloat162float(q[0]) +
-                            fs * __bfloat162float(q[1])) +
-              ft * ((1.f - fs) * __bfloat162float(q[kWin]) +
-                    fs * __bfloat162float(q[kWin + 1]));
+              kStage == kStream
+                  ? __bfloat162float(mrow[0])
+                  : (1.f - ft) * ((1.f - fs) * __bfloat162float(q[0]) +
+                                  fs * __bfloat162float(q[1])) +
+                        ft * ((1.f - fs) * __bfloat162float(q[kWin]) +
+                              fs * __bfloat162float(q[kWin + 1]));
           float logit = v_lane * bil;
           if (clamp) logit = fminf(fmaxf(logit, -2.f), 5.f);
           cw *= 1.f / (1.f + expf(-logit));
@@ -381,7 +468,7 @@ tilewin_combine_modes_kernel(const __nv_bfloat16* __restrict__ feat_table,
   }
 }
 
-template <bool kTensor>
+template <bool kTensor, int kStage = kFull>
 int launch(const void* feat_table, const void* mask_table, const void* frows,
            const void* mrows, const void* xt, const void* xs,
            const void* valid, void* feature, void* cand_w, int B, int Mp,
@@ -389,12 +476,13 @@ int launch(const void* feat_table, const void* mask_table, const void* frows,
   const size_t smem = smem_bytes(Mp);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tilewin_combine_modes_kernel<kTensor>,
+        tilewin_combine_modes_kernel<kTensor, kStage>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((U + kUnits - 1) / kUnits, B);
-  tilewin_combine_modes_kernel<kTensor><<<grid, kUnits * 32, smem, stream>>>(
+  tilewin_combine_modes_kernel<kTensor, kStage>
+      <<<grid, kUnits * 32, smem, stream>>>(
       (const __nv_bfloat16*)feat_table, (const __nv_bfloat16*)mask_table,
       (const int32_t*)frows, (const int32_t*)mrows, (const float*)xt,
       (const float*)xs, (const float*)valid, (float*)feature, (float*)cand_w,
@@ -428,3 +516,48 @@ extern "C" int tilewin_combine_modes_bf16(
   return launch<false>(feat_table, mask_table, frows, mrows, xt, xs, valid,
                        feature, cand_w, B, Mp, U, S, clamp, st);
 }
+
+#ifdef TILEWIN_STAGE_ENTRY
+namespace {
+template <bool kTensor>
+int launch_stage(int stage, const void* feat_table, const void* mask_table,
+                 const void* frows, const void* mrows, const void* xt,
+                 const void* xs, const void* valid, void* feature,
+                 void* cand_w, int B, int Mp, int U, int S, int clamp,
+                 cudaStream_t st) {
+#define MODES_STAGE_CASE(K)                                                 \
+  case K:                                                                   \
+    return launch<kTensor, K>(feat_table, mask_table, frows, mrows, xt, xs, \
+                              valid, feature, cand_w, B, Mp, U, S, clamp, st);
+  switch (stage) {
+    MODES_STAGE_CASE(kFull)
+    MODES_STAGE_CASE(kStream)
+    MODES_STAGE_CASE(kFeatA)
+    MODES_STAGE_CASE(kFeatD)
+    MODES_STAGE_CASE(kFeatB)
+    MODES_STAGE_CASE(kFeat)
+    MODES_STAGE_CASE(kMask)
+  }
+#undef MODES_STAGE_CASE
+  return (int)cudaErrorInvalidValue;
+}
+}  // namespace
+
+// The stage ablations: tilewin_combine_modes_bf16's arguments and outputs,
+// with `stage` one of Stage (0 full, 1 stream, 2 featA, 3 featD, 4 featB,
+// 5 feat, 6 mask).
+extern "C" int tilewin_combine_modes_stage_bf16(
+    const void* feat_table, const void* mask_table, const void* frows,
+    const void* mrows, const void* xt, const void* xs, const void* valid,
+    void* feature, void* cand_w, int B, int Mp, int U, int S, int clamp,
+    int tensor, int stage, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tensor)
+    return launch_stage<true>(stage, feat_table, mask_table, frows, mrows, xt,
+                              xs, valid, feature, cand_w, B, Mp, U, S, clamp,
+                              st);
+  return launch_stage<false>(stage, feat_table, mask_table, frows, mrows, xt,
+                             xs, valid, feature, cand_w, B, Mp, U, S, clamp,
+                             st);
+}
+#endif  // TILEWIN_STAGE_ENTRY

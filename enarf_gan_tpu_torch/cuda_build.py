@@ -14,7 +14,8 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Sequence, Tuple
+import time
+from typing import Optional, Sequence, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -35,13 +36,13 @@ def _nvcc() -> str:
     return path
 
 
-def build_library(name: str, sources: Sequence[str]
+def build_library(name: str, sources: Sequence[str], flags: Sequence[str] = ()
                   ) -> Tuple[ctypes.CDLL, str]:
     """Compile ``sources`` (paths relative to csrc/) into one shared library
-    and load it. Returns (library, compiler log); the log is empty when the
-    library was already built."""
+    with ``flags`` added to ``NVCC_FLAGS``, and load it. Returns (library,
+    compiler log); the log is empty when the library was already built."""
     paths = [os.path.join(_HERE, "csrc", s) for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     for p in paths:
         with open(p, "rb") as f:
             digest.update(f.read())
@@ -52,7 +53,8 @@ def build_library(name: str, sources: Sequence[str]
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp,
+                                   *paths],
                                   capture_output=True, text=True)
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
@@ -67,8 +69,12 @@ def build_library(name: str, sources: Sequence[str]
 class KernelLibrary:
     """One kernel's library, built at first use, and its launch count.
 
-    ``load()`` builds ``csrc/<name>.cu`` and returns its C entry point
-    ``symbol`` with ``argtypes`` and an int result (a CUDA error code).
+    ``load()`` builds ``csrc/<name>.cu`` (or ``source``, with the extra nvcc
+    ``flags``) and returns its C entry point ``symbol`` with ``argtypes``
+    and an int result (a CUDA error code); a library with more entry points
+    names them in ``symbols`` ({name: argtypes}), and ``load(name)`` returns
+    that one. ``build_seconds`` is the time of its nvcc run (0 when it was
+    already built).
     ``launches`` goes up by one for every launch of the CUDA kernel and for
     nothing else: the wrapper calls ``count`` after a launch succeeds, and
     callers ``reset_counts()`` to count the launches of one run. A library
@@ -77,23 +83,34 @@ class KernelLibrary:
     """
 
     def __init__(self, name: str, symbol: str, argtypes: Sequence,
-                 keys: Sequence = ()):
+                 keys: Sequence = (), symbols: Optional[dict] = None,
+                 source: Optional[str] = None, flags: Sequence[str] = ()):
         self.name, self.symbol, self.argtypes = name, symbol, list(argtypes)
+        self.symbols = {symbol: self.argtypes, **(symbols or {})}
+        self.source = source or f"{name}.cu"
+        self.flags = tuple(flags)
         self.keys = tuple(keys)
         self.lib = None
         self.fn = None
+        self.fns = {}
         self.build_log = ""
+        self.build_seconds = 0.0
         self.reset_counts()
 
-    def load(self):
-        if self.fn is None:
-            self.lib, self.build_log = build_library(self.name,
-                                                     [f"{self.name}.cu"])
-            fn = getattr(self.lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self.fn = fn
-        return self.fn
+    def load(self, symbol: Optional[str] = None):
+        if self.lib is None:
+            t0 = time.perf_counter()
+            self.lib, self.build_log = build_library(self.name, [self.source],
+                                                     self.flags)
+            if self.build_log:
+                self.build_seconds = time.perf_counter() - t0
+            for sym, argtypes in self.symbols.items():
+                fn = getattr(self.lib, sym)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                self.fns[sym] = fn
+            self.fn = self.fns[self.symbol]
+        return self.fns[symbol or self.symbol]
 
     def count(self, key=None):
         self.launches += 1

@@ -44,6 +44,8 @@ KERNEL_MEMBERS = (4, 16)        # member counts kernel 2 is built for
 GRAD_MEMBERS = 16               # the member count with a backward (kernel 2b)
 MODES = ("hat", "dot", "vpu", "bdiag")
 MATRIX_MODES = ("dot", "vpu", "bdiag")    # kernel 3: m = 16 only
+# kernel 2's stage ablations (tools/ablate.py), in the order of the C enum
+HAT_STAGES = ("full", "stream", "noweights", "nomask", "nofeat")
 
 
 # launches counted by member count (kernel 2) and by mode (kernel 3)
@@ -79,7 +81,7 @@ def texel_cells(x: torch.Tensor):
 
 def tilewin_combine_plain(feat_table, mask_table, frows, mrows, xt, xs, valid,
                           feat_dim: int, S: int, clamp_mask: bool,
-                          round_t: bool = False):
+                          round_t: bool = False, stage: str = "full"):
     """Plain PyTorch gather + combine (the twin of the kernels).
 
     Same arguments and results as ``tilewin_combine``. Gathers each member's
@@ -89,6 +91,12 @@ def tilewin_combine_plain(feat_table, mask_table, frows, mrows, xt, xs, valid,
     ``A.astype(jnp.bfloat16)``). Under autograd it gathers from float32
     copies of the tables, so the table gradients accumulate in float32, as
     the backward kernel's do.
+
+    ``stage`` other than "full" is the twin of one of kernel 2's stage
+    ablations (``csrc/tilewin_combine.cu``, ``tools/ablate.py``): "stream"
+    reads a feature texel as (frow & 255) / 256 and a mask texel as
+    (mrow & 255) / 256, "noweights" sets both bilinear fractions to 0.5,
+    "nomask" sets every logit to 0 and "nofeat" every feature texel to 1.
     """
     F_ = feat_dim
     if torch.is_grad_enabled() and feat_table.requires_grad:
@@ -101,8 +109,12 @@ def tilewin_combine_plain(feat_table, mask_table, frows, mrows, xt, xs, valid,
     tex = feat_table.reshape(feat_table.shape[0], -1)[:, :NTEX * F_] \
         .reshape(-1, F_)                                   # (R*64, F)
     msk = mask_table.reshape(-1)                           # (Rm*64,)
+    if stage not in HAT_STAGES:
+        raise ValueError(f"stage must be one of {HAT_STAGES}, got {stage!r}")
     i, ft = texel_cells(xt)                                # (B,3,Mp,m,U)
     k, fs = texel_cells(xs)
+    if stage == "noweights":
+        ft = fs = torch.full_like(ft, 0.5)
     cell = i * WIN + k
     frow = frows.long()[:, :, :, None, :] * NTEX + cell
     mrow = mrows.long()[:, :, :, None, :] * NTEX + cell
@@ -111,15 +123,24 @@ def tilewin_combine_plain(feat_table, mask_table, frows, mrows, xt, xs, valid,
         vm = valid[:, None, :, :, :]
         wt = tuple((w * vm).to(torch.bfloat16).float() for w in wt)
     feat = 0.0
-    logit = 0.0
+    logit = torch.zeros_like(ft)
     for dt, ds, w, wf in ((0, 0, (1 - ft) * (1 - fs), wt[0] * (1 - fs)),
                           (0, 1, (1 - ft) * fs, wt[0] * fs),
                           (1, 0, ft * (1 - fs), wt[1] * (1 - fs)),
                           (1, 1, ft * fs, wt[1] * fs)):
         off = dt * WIN + ds
-        v = tex[(frow + off).reshape(-1)].reshape(*frow.shape, F_)
+        if stage == "stream":
+            v = ((frows[:, :, :, None, :] & 255).float() / 256)[..., None] \
+                * torch.ones(F_, device=ft.device)
+        elif stage == "nofeat":
+            v = torch.ones(F_, device=ft.device)
+        else:
+            v = tex[(frow + off).reshape(-1)].reshape(*frow.shape, F_)
         feat = feat + v.float() * wf[..., None]
-        logit = logit + msk[mrow + off].float() * w
+        if stage == "stream":
+            logit = logit + (mrows[:, :, :, None, :] & 255).float() / 256 * w
+        elif stage != "nomask":
+            logit = logit + msk[mrow + off].float() * w
     feat = feat.sum(dim=1)                                 # (B,Mp,m,U,F)
     logit = logit * valid[:, None]
     if clamp_mask:

@@ -1,0 +1,348 @@
+"""Family C of the probes: stage ablations of the port's kernels 2 and 3.
+
+Where the tilewin combine's time goes on this card, asked of the kernels it
+runs (``csrc/tilewin_combine.cu``, ``csrc/tilewin_combine_modes.cu``), as
+``tools/probe_hat_ablate.py`` and ``tools/probe_tilewin_bdiag.py`` asked it
+of the TPU kernels. Each source takes a compile-time stage; its main entry
+point instantiates only the full kernel, and the same source built with
+``-DTILEWIN_STAGE_ENTRY`` is a second library that exports the doctored
+variants. Each variant's plain twin does the doctored work in PyTorch, and
+the card holds kernel and twin together, which shows that the variant does
+that work and no less (nvcc drops a load whose value goes unused).
+
+Kernel 2 (``hat_stage``; twin ``tilewin_combine_plain(..., stage=)``):
+"full", "stream" (no table reads), "noweights" (bilinear fractions 0.5),
+"nomask" (no mask read, cand_w = 0.5^3), "nofeat" (feature texels 1).
+Kernel 3 (``modes_stage``, "dot" or "vpu" path; twin ``modes_stage_plain``):
+"full", "stream", "featA" (t-weights 1), "featD" (product replaced by a sum
+of the staged rows), "featB" (s-weights 1), "feat" (no mask), "mask" (no
+feature product). The build of each library prints each instantiation's
+ptxas line (``chip_smoke.py``), the counterpart of
+``tools/probe_kernel_stages.py`` and ``tools/probe_kernel_variants.py``.
+
+    python -m enarf_gan_tpu_torch.tools.ablate [--device cpu]
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from enarf_gan_tpu_torch.cuda_build import KernelLibrary
+from enarf_gan_tpu_torch.ops import tilewin
+from enarf_gan_tpu_torch.ops.tilewin_kernel import (HAT_STAGES, NTEX, WIN,
+                                                    _check_inputs,
+                                                    _check_kernel_shapes,
+                                                    texel_cells,
+                                                    tilewin_combine_plain)
+from enarf_gan_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, Case,
+                                              run_cli)
+
+MODES_STAGES = ("full", "stream", "featA", "featD", "featB", "feat", "mask")
+PATHS = ("dot", "vpu")
+STAGE_FLAGS = ("-DTILEWIN_STAGE_ENTRY",)
+_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+KERNEL_STAGES = KernelLibrary(
+    "tilewin_combine_stages", "tilewin_combine_stage_bf16", _ARGS,
+    keys=HAT_STAGES, source="tilewin_combine.cu", flags=STAGE_FLAGS)
+KERNEL_MODES_STAGES = KernelLibrary(
+    "tilewin_combine_modes_stages", "tilewin_combine_modes_stage_bf16", _ARGS,
+    keys=tuple(f"{p}/{s}" for p in PATHS for s in MODES_STAGES),
+    source="tilewin_combine_modes.cu", flags=STAGE_FLAGS)
+F_ = 32
+TRI_PLANE_SIZE, RAY_CHUNK, TILE_PATCH = 256, 4096, 4
+
+
+def _launch(lib, key, args, S, extra):
+    """One launch of a stage library: outputs allocated as
+    ``tilewin_combine`` allocates them; ``extra`` the entry's int
+    arguments."""
+    feat_table, frows, xt = args[0], args[2], args[4]
+    _check_kernel_shapes(feat_table, frows, xt, F_)
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("the CUDA kernel takes contiguous tensors")
+    B, _, Mp, U = frows.shape
+    m = xt.shape[3]
+    feature = torch.empty((B, F_, U * m), dtype=torch.float32,
+                          device=feat_table.device)
+    cand_w = torch.empty((B, Mp, U // S, m, S), dtype=torch.float32,
+                         device=feat_table.device)
+    if U == 0:
+        return feature, cand_w
+    stream = torch.cuda.current_stream(feat_table.device).cuda_stream
+    ptrs = [t.data_ptr() for t in args] + [feature.data_ptr(),
+                                           cand_w.data_ptr()]
+    err = lib.load()(*ptrs, *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{lib.name} ({key}) launch failed: CUDA error {err}")
+    lib.count(key)
+    return feature, cand_w
+
+
+def hat_stage(feat_table, mask_table, frows, mrows, xt, xs, valid, S,
+              clamp_mask, stage):
+    """Kernel 2 with one stage doctored (``HAT_STAGES``): feature (B, 32, n)
+    and cand_w (B, Mp, n_patch, m, S), as ``tilewin_combine``."""
+    if stage not in HAT_STAGES:
+        raise ValueError(f"stage must be one of {HAT_STAGES}, got {stage!r}")
+    args = (feat_table, mask_table, frows, mrows, xt, xs, valid)
+    _check_inputs(*args, F_, S, "hat")
+    if not feat_table.is_cuda:
+        return tilewin_combine_plain(*args, F_, S, clamp_mask, stage=stage)
+    B, _, Mp, U = frows.shape
+    return _launch(KERNEL_STAGES, stage, args, S,
+                   (B, Mp, xt.shape[3], U, S, int(clamp_mask),
+                    HAT_STAGES.index(stage)))
+
+
+def modes_stage(feat_table, mask_table, frows, mrows, xt, xs, valid, S,
+                clamp_mask, path, stage):
+    """Kernel 3 in its "dot" (tensor-core) or "vpu" path with one stage
+    doctored (``MODES_STAGES``)."""
+    if path not in PATHS or stage not in MODES_STAGES:
+        raise ValueError(f"path in {PATHS} and stage in {MODES_STAGES}, got "
+                         f"{path!r}, {stage!r}")
+    args = (feat_table, mask_table, frows, mrows, xt, xs, valid)
+    _check_inputs(*args, F_, S, path)
+    if not feat_table.is_cuda:
+        return modes_stage_plain(*args, S, clamp_mask, path, stage)
+    B, _, Mp, U = frows.shape
+    return _launch(KERNEL_MODES_STAGES, f"{path}/{stage}", args, S,
+                   (B, Mp, U, S, int(clamp_mask), int(path == "dot"),
+                    MODES_STAGES.index(stage)))
+
+
+def _axis_weights(i, frac):
+    """(..., 8) weights of the 8 texels along one axis: 1 - f at i, f at
+    i + 1."""
+    t = torch.arange(WIN, device=i.device)
+    return (t == i[..., None]) * (1 - frac)[..., None] \
+        + (t == i[..., None] + 1) * frac[..., None]
+
+
+def modes_stage_plain(feat_table, mask_table, frows, mrows, xt, xs, valid, S,
+                      clamp_mask, path="dot", stage="full"):
+    """Kernel 3's formulation in PyTorch, with ``stage`` doctored as the
+    kernel's: per (slot g, plane p) the t-contraction D = A @ W over the
+    whole window row W (16 x 128, sublane 2t + h, lane 32q + f), then
+    S[j, f] += sum_{h,q} D[j, h, 32q + f] ws_j(4h + q). "full" is
+    ``tilewin_combine_plain(..., round_t=path == "dot")``."""
+    B, _, Mp, U = frows.shape
+    m = xt.shape[3]
+    i, ft = texel_cells(xt)                               # (B,3,Mp,m,U)
+    k, fs = texel_cells(xs)
+    vm = valid[:, None, :, :, :, None]
+    if stage == "featA":
+        A = torch.ones(i.shape + (WIN,), device=xt.device)
+    else:
+        A = _axis_weights(i, ft) * vm
+        if path == "dot" and stage != "featD":
+            A = A.to(torch.bfloat16).float()
+    ws = _axis_weights(k, fs)
+    if stage == "featB":
+        ws = torch.ones_like(ws)
+    rows = feat_table.reshape(-1, 16, 128)
+    sg = torch.zeros((B, Mp, m, U, F_), device=xt.device)
+    for g in range(Mp):
+        for p in range(3):
+            W = rows[frows[:, p, g].long()].float()       # (B, U, 16, 128)
+            Wr = W.view(B, U, WIN, 2, 4, F_)              # [t, h, q, f]
+            if stage == "stream":
+                s = W[:, None, :, 0, :F_] \
+                    + (xt[:, p, g] + xs[:, p, g])[..., None]
+            elif stage == "mask":
+                s = Wr.sum((2, 3, 4))[:, None].expand(B, m, U, F_)
+            else:
+                if stage == "featD":
+                    D = Wr.sum(2)[:, None] \
+                        + A[:, p, g].sum(-1)[..., None, None, None]
+                else:
+                    D = torch.einsum("bjut,buthqf->bjuhqf", A[:, p, g], Wr)
+                wsv = ws[:, p, g].reshape(B, m, U, 2, 4)  # s = 4h + q
+                s = (D * wsv[..., None]).sum((3, 4))
+            sg[:, g] += s
+    if stage == "feat":
+        cand_w = torch.ones((B, Mp, m, U), device=xt.device)
+    else:
+        msk = mask_table.reshape(-1)
+        if stage == "stream":
+            logit = msk[mrows.long() * NTEX].float()[:, :, :, None, :] \
+                .expand(B, 3, Mp, m, U)
+        else:
+            mrow = mrows.long()[:, :, :, None, :] * NTEX + i * WIN + k
+            logit = sum(msk[mrow + dt * WIN + ds].float() * w
+                        for dt, ds, w in ((0, 0, (1 - ft) * (1 - fs)),
+                                          (0, 1, (1 - ft) * fs),
+                                          (1, 0, ft * (1 - fs)),
+                                          (1, 1, ft * fs)))
+        logit = logit * valid[:, None]
+        if clamp_mask:
+            logit = logit.clamp(-2.0, 5.0)
+        cand_w = torch.sigmoid(logit).prod(dim=1)         # (B,Mp,m,U)
+    feature = (sg * (cand_w * valid)[..., None]).sum(dim=1)   # (B,m,U,F)
+    n_patch = U // S
+    feature = feature.reshape(B, m, n_patch, S, F_).permute(0, 4, 2, 1, 3) \
+        .reshape(B, F_, n_patch * m * S)
+    cand_w = cand_w.reshape(B, Mp, m, n_patch, S).permute(0, 1, 3, 2, 4)
+    return feature, cand_w.contiguous()
+
+
+# ------------------------------------------------------------ inputs, bytes
+
+def chunk_inputs(device, m, S, B=1, seed=0, H=TRI_PLANE_SIZE,
+                 n_patch=RAY_CHUNK // (TILE_PATCH * TILE_PATCH)):
+    """Window tables and plan of one full chunk of the tiled path (by
+    default 256² planes, 4096 rays in 256 patches), S samples, 4 slots;
+    members clustered within ~1.5 texels per (patch, sample, slot), ~20%
+    invalid. Returns (feat, mask, frows, mrows, xt, xs, valid, F, S,
+    clamp)."""
+    K, Mp = 23, 4
+    g = torch.Generator().manual_seed(seed)
+    planes = torch.randn((B, (F_ + K) * 3, H, H), generator=g).to(device)
+    tables = tilewin.pack_tilewin(planes, F_, K)
+    centers = torch.rand((B, 3, Mp, n_patch, 1, S), generator=g) * 1.7 - 0.85
+    jitter = (torch.rand((B, 3, Mp, n_patch, m, S), generator=g) * 2 - 1) \
+        * (1.5 / H)
+    pos = (centers + jitter).clamp(-0.99, 0.99).to(device)
+    slot_idx = torch.randint(0, K, (B, Mp, n_patch, S), generator=g,
+                             dtype=torch.int32).to(device)
+    valid = (torch.rand((B, Mp, n_patch, m, S), generator=g) < 0.8).to(device)
+    plan = tilewin._fused_plan(tables, pos, slot_idx, valid)
+    return (tables.feat, tables.mask, plan.frows, plan.mrows, plan.xt,
+            plan.xs, plan.valid, F_, S, False)
+
+
+def probe_inputs(device, U=12288, S=48, Mp=4, m=16, seed=0):
+    """The TPU probes' inputs (probe_hat_ablate.py, probe_tilewin_bdiag.py):
+    every (plane, slot, unit) its own random window row, coordinates
+    uniform in [0, 7), 90% valid."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_rows = 3 * Mp * U
+    feat = torch.randn((n_rows, 16, 128), generator=g, device=device) \
+        .to(torch.bfloat16)
+    mask = torch.randn((n_rows, NTEX), generator=g, device=device) \
+        .to(torch.bfloat16)
+    rows = torch.arange(n_rows, device=device, dtype=torch.int32) \
+        .view(1, 3, Mp, U)
+    xt = torch.rand((1, 3, Mp, m, U), generator=g, device=device) * (WIN - 1)
+    xs = torch.rand((1, 3, Mp, m, U), generator=g, device=device) * (WIN - 1)
+    valid = (torch.rand((1, Mp, m, U), generator=g, device=device) < 0.9) \
+        .float()
+    return feat, mask, rows, rows.clone(), xt, xs, valid, F_, S, False
+
+
+def table_bytes(feat_dim, frows, mrows, xt, xs, valid):
+    """Bytes of the window tables one tilewin launch must read: each
+    distinct 64-byte feature texel (F bf16 channels) and each distinct
+    32-byte mask sector in the 2x2 quad of a valid member (an invalid
+    member's feature is weighted by 0 and its logit is 0). Returns (bytes,
+    distinct texels, distinct mask sectors)."""
+    i, _ = texel_cells(xt)                                    # (B,3,Mp,m,U)
+    k, _ = texel_cells(xs)
+    keep = (valid != 0)[:, None].expand_as(i)
+    cell = (i * WIN + k)[keep]
+    quad = torch.tensor([0, 1, WIN, WIN + 1], device=cell.device)
+
+    def texels(rows):
+        base = rows.long()[:, :, :, None, :].expand_as(i)[keep] * NTEX + cell
+        return (base[:, None] + quad).reshape(-1)
+
+    d_tex = int(torch.unique(texels(frows)).numel())
+    d_sec = int(torch.unique(texels(mrows) // 16).numel())   # 16 bf16 a sector
+    return d_tex * feat_dim * 2 + d_sec * 32, d_tex, d_sec
+
+
+def io_bytes(args, m):
+    """Coordinates, validity and row indices read, outputs written."""
+    frows = args[2]
+    B, _, Mp, U = frows.shape
+    coords = sum(t.numel() * t.element_size() for t in args[2:7])
+    return coords + B * (args[7] + Mp) * U * m * 4
+
+
+def _hat_bytes(args, stage):
+    m = args[4].shape[3]
+    io = io_bytes(args, m)
+    if stage == "stream":
+        return float(io)
+    _, d_tex, d_sec = table_bytes(F_, *args[2:7])
+    feat = 0 if stage == "nofeat" else d_tex * F_ * 2
+    mask = 0 if stage == "nomask" else d_sec * 32
+    return float(io + feat + mask)
+
+
+def _modes_work(args, path, stage):
+    """Bytes and operations of kernel 3's formulation of one variant: each
+    distinct 4 KB window row once (every variant stages whole rows), the
+    mask sectors its logits read, coordinates and outputs; the products'
+    operations (tensor or float32) where the variant multiplies."""
+    frows, mrows = args[2], args[3]
+    m = args[4].shape[3]
+    rows = int(torch.unique(frows).numel())
+    if stage == "feat":
+        mask = 0
+    elif stage == "stream":
+        mask = int(torch.unique(mrows).numel()) * 32
+    else:
+        mask = table_bytes(F_, *args[2:7])[2] * 32
+    nbytes = float(io_bytes(args, m) + rows * 4096 + mask)
+    units = frows.numel()                    # (batch, plane, slot, unit)
+    if stage in ("stream", "mask", "featD"):
+        return nbytes, 0.0, F32_FLOPS
+    if path == "dot":
+        return nbytes, float(units) * 32 * 16 * 128 * 2, BF16_FLOPS
+    return nbytes, float(units) * 2 * 16 * 8 * 128 * 2, F32_FLOPS
+
+
+def cases(device, size="main"):
+    """Every variant of kernels 2 and 3 at the TPU probes' U = 12288 (random
+    rows) and at chip_smoke.py's fine chunk (a tiled render's plan, U =
+    16384); "check" at small sizes."""
+    if size == "check":
+        shapes = (("small probe inputs", probe_inputs(device, U=96, S=12)),
+                  ("small chunk", chunk_inputs(device, 16, 5, H=16, n_patch=3)))
+    else:
+        shapes = (("U=12288 probe inputs", probe_inputs(device)),
+                  ("fine chunk", chunk_inputs(device, 16, 64)))
+    for label, args in shapes:
+        a7, S = args[:7], args[8]
+        U = args[2].shape[3]
+        for stage in HAT_STAGES:
+            # the full hat kernel is also probe_tilewin_bdiag.py's "v4"
+            yield Case(
+                f"C kernel 2 {stage}, {label}",
+                "tools/probe_tilewin_bdiag.py:211" if stage == "full"
+                else "tools/probe_hat_ablate.py:145",
+                "enarf_gan_tpu_torch/csrc/tilewin_combine.cu",
+                kernel=lambda st=stage: hat_stage(*a7, S, False, st),
+                plain=lambda st=stage: tilewin_combine_plain(*a7, F_, S, False,
+                                                             stage=st),
+                counter=(KERNEL_STAGES, stage),
+                nbytes=_hat_bytes(args, stage), rtol=1e-4, atol=1e-5,
+                info={"kernel": 2, "stage": stage, "U": U, "inputs": label})
+        for path in PATHS:
+            for stage in MODES_STAGES:
+                nbytes, flops, rate = _modes_work(args, path, stage)
+                yield Case(
+                    f"C kernel 3 {path} {stage}, {label}",
+                    "tools/probe_tilewin_bdiag.py:246",
+                    "enarf_gan_tpu_torch/csrc/tilewin_combine_modes.cu",
+                    kernel=lambda p=path, st=stage: modes_stage(
+                        *a7, S, False, p, st),
+                    plain=lambda p=path, st=stage: modes_stage_plain(
+                        *a7, S, False, p, st),
+                    counter=(KERNEL_MODES_STAGES, f"{path}/{stage}"),
+                    nbytes=nbytes, flops=flops, rate=rate,
+                    # float32 sums in another order (the "mask" and
+                    # "stream" variants add up whole rows)
+                    rtol=1e-4, atol=1e-5,
+                    info={"kernel": 3, "path": path, "stage": stage, "U": U,
+                          "inputs": label})
+
+
+def main(argv=None):
+    return run_cli(cases, argv, __doc__)
+
+
+if __name__ == "__main__":
+    main()

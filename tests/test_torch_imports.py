@@ -1,6 +1,7 @@
 """The port imports none of jax, flax, yaml or PIL, directly or through the
-JAX package: a fresh interpreter that refuses those imports must import
-every module of ``enarf_gan_tpu_torch`` and ``chip_smoke.py``."""
+JAX package or the JAX probes of ``tools/``: a fresh interpreter that
+refuses those imports must import every module of ``enarf_gan_tpu_torch``
+(its ``tools`` subpackage included) and ``chip_smoke.py``."""
 import os
 import subprocess
 import sys
@@ -10,7 +11,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GUARD = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "PIL", "enarf_gan_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "PIL", "enarf_gan_tpu", "tools")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -41,5 +42,7 @@ def test_port_imports_without_jax_flax_yaml_pil():
                    "models.generator", "config", "eval_lib.metrics",
                    "utils.logging", "training.checkpoint", "training.dso",
                    "training.losses", "data.cache", "data.mask2d",
-                   "data.datasets", "data.loader", "data.fixtures"):
+                   "data.datasets", "data.loader", "data.fixtures",
+                   "tools", "tools.timing", "tools.gather", "tools.mma",
+                   "tools.ablate", "tools.constructs"):
         assert f"enarf_gan_tpu_torch.{module}" in names, module

@@ -328,3 +328,91 @@ def test_tilewin_kernel_rejects_other_widths_and_member_counts(cuda_device):
     args = _tilewin_args(16, 3, 5, device=cuda_device)
     with pytest.raises(ValueError, match="feat_dim"):
         tilewin_kernel.tilewin_combine(*args, 16, 5, False)
+
+
+# ------------------------------------------- the probes (enarf_gan_tpu_torch.tools)
+
+def _probe_modules():
+    from enarf_gan_tpu_torch.tools import ablate, constructs, gather, mma
+    return {"gather": gather, "mma": mma, "ablate": ablate,
+            "constructs": constructs}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", ["gather", "mma", "ablate", "constructs"])
+def test_probe_kernels_match_plain_on_card(cuda_device, module):
+    """Every probe kernel and variant at its small ("check") size against its
+    plain twin, each launch counted once (tolerances: each case's, see
+    enarf_gan_tpu_torch/tools)."""
+    from enarf_gan_tpu_torch.tools import timing
+    for case in _probe_modules()[module].cases(cuda_device, "check"):
+        lib, key = case.counter
+        before = lib.launches_by[key]
+        timing.check(case)
+        assert lib.launches_by[key] == before + 1, case.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,dtype", [(3, torch.float32), (66, torch.float32),
+                                         (2, torch.bfloat16), (1024, torch.bfloat16)])
+def test_row_gather_ragged_on_card(cuda_device, width, dtype):
+    from enarf_gan_tpu_torch.tools import gather
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tab = torch.randn((301, width), generator=g, device=cuda_device).to(dtype)
+    idx = torch.randint(0, 301, (997,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    for serial in (0, 5):
+        got = gather.row_gather(tab, idx, serial_rows=serial)
+        torch.testing.assert_close(got, tab[idx.long()], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_refuse_on_card(cuda_device):
+    from enarf_gan_tpu_torch.tools import constructs, gather, mma
+    dev = cuda_device
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gather.row_gather(torch.zeros((5, 3), dtype=torch.bfloat16, device=dev),
+                          torch.zeros(2, dtype=torch.int32, device=dev))
+    tab = torch.zeros((10, 16, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="Q in"):
+        gather.ring_gather(tab, torch.zeros(8, dtype=torch.int32, device=dev),
+                           4, Q=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.transpose(torch.zeros((2, 16, 8), device=dev).transpose(1, 2))
+    g = torch.Generator(device=dev).manual_seed(0)
+    loc, w, slab = mma.b1_inputs(96, 48, 128, "static", dev, g)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        mma.onehot_gather(loc, w, slab, 48, 128)
+    a = torch.zeros((2, 16, 24), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        mma.gemm(a, torch.zeros((24, 128), dtype=torch.bfloat16, device=dev))
+    with pytest.raises(ValueError, match="not the construct's"):
+        constructs.construct("cat_sub", torch.zeros((4, 16, 3), device=dev))
+
+
+@pytest.mark.cuda
+def test_probe_gemm_and_onehot_ragged_on_card(cuda_device):
+    from enarf_gan_tpu_torch.tools import mma
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for batch, M, K, batched in ((3, 48, 32, False), (5, 16, 16, True),
+                                 (2, 96, 80, True)):
+        a = torch.randn((batch, M, K), generator=g, device=cuda_device) \
+            .to(torch.bfloat16)
+        b = torch.randn(((batch,) if batched else ()) + (K, 128), generator=g,
+                        device=cuda_device).to(torch.bfloat16)
+        torch.testing.assert_close(mma.gemm(a, b), mma.gemm_plain(a, b),
+                                   rtol=1e-4, atol=1e-4 * K ** 0.5)
+    for mode in mma.WINDOW_MODES:
+        loc, w, tab = mma.b1_inputs(3 * 192, 192, 320, mode, cuda_device, g)
+        ref = mma.onehot_gather_plain(loc, w, tab, 192, 320, mode)
+        for fn in (mma.onehot_gather, mma.direct_gather):
+            torch.testing.assert_close(fn(loc, w, tab, 192, 320, mode), ref,
+                                       rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_launch_cost_on_card(cuda_device):
+    from enarf_gan_tpu_torch.tools import constructs
+    host_us, device_us = constructs.launch_cost("7in_2out", cuda_device, n=50,
+                                                spin_ms=5.0)
+    assert 0 < device_us < 1e3 and 0 < host_us < 1e4
