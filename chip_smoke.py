@@ -14,9 +14,13 @@ NVIDIA GPU.
    versions), times both with CUDA events in turns, and computes each
    kernel's bound from this run's inputs: the distinct table bytes the
    function needs (64-byte texels or row segments and 32-byte mask sectors
-   that valid members touch; kernel 3 computes kernel 2's function and is
-   held to its bound, with the whole 4 KB rows it reads printed beside),
-   each coordinate and output once.
+   that valid members touch; the unirow kernels read the texel table, and
+   the TPU's quad-row table's bound is printed beside; kernel 3 computes
+   kernel 2's function and is held to its bound, with the whole 4 KB rows
+   it reads printed beside), each coordinate and output once (the backward
+   kernels' dense float32 table gradients counted as written). Kernel 1b's
+   stage build (scalar feature adds, no feature adds, no mask adds) is held
+   to its twins and timed beside it.
    Then the probes of ``enarf_gan_tpu_torch/tools`` (the TPU probe kernels
    of ``tools/`` as Hopper microbenchmarks: row and lane gathers, tensor-core
    gathers and products, stage ablations of kernels 2 and 3, one-construct
@@ -48,7 +52,10 @@ NVIDIA GPU.
    port's ``training.dso`` on synthetic 512² frames: the exact path
    (kernels 1 and 1b) and the tiled path (2 and 2b), each 1 warm-up and 3
    timed steps at the smallest micro-batch split that fits, with s/iter,
-   peak memory and a profile of one step; then one tiled step in each of
+   peak memory and a profile of one step (each port kernel's device ms and
+   launches a step; kernel 1b's time a valid candidate in the step against
+   its time at phase 2's random positions, which shows whether its atomics
+   contend); then one tiled step in each of
    kernel 3's modes on the hat step's batch and draws, whose loss must
    match.
 7. Overfits one 64² frame for 200 iterations on both paths at full width:
@@ -74,6 +81,7 @@ x index order, lane gathers by table height, ring depths, every one-hot
 shape with its direct gather), one JSON line a measurement.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -152,27 +160,28 @@ def _bound(nbytes, flops, rate=F32_FLOPS):
         else "operations"
 
 
-def _unirow_table_bytes(table, rows, cand_idx, valid):
-    """Bytes of the unirow table one launch must read: the 4F feature lanes
-    of each distinct row a valid candidate reads (the feature is weighted
-    by valid), and each distinct 32-byte sector holding a candidate's mask
-    logit (every candidate's cand_w needs it). Returns (bytes, distinct
-    feature rows, distinct mask sectors)."""
+def _unirow_table_bytes(rows, cand_idx, valid, feat_dim, H, W):
+    """The quad-row yardstick (the TPU layout, ``pack_unirow``): bytes of
+    the quad-row table one launch would read, the 4F feature lanes of each
+    distinct row a valid candidate reads (the feature is weighted by valid)
+    and each distinct 32-byte sector holding a candidate's mask logit
+    (every candidate's cand_w needs it). Returns (bytes, distinct feature
+    rows, distinct mask sectors)."""
     import torch
-    from enarf_gan_tpu_torch.ops.unirow import MASK_BLOCK
-    B, R, RW = table.shape
-    F_ = (RW - 4 * MASK_BLOCK) // 4
+    from enarf_gan_tpu_torch.ops.unirow import MASK_BLOCK, row_width
+    B = rows.shape[0]
+    R, RW, F_ = 3 * (H + 1) * (W + 1), row_width(feat_dim), feat_dim
     grow = rows.long() + (torch.arange(B, device=rows.device)
                           * R).view(B, 1, 1, 1)               # (B, 3, M, n)
     keep = (valid != 0)[:, None].expand_as(grow)
     d_rows = int(torch.unique(grow[keep]).numel())
-    lanes_per_sector = 32 // table.element_size()
+    lanes_per_sector = 32 // 2                                # bf16
     sectors = torch.stack([
         grow * (RW // lanes_per_sector)
         + ((4 * F_ + q * MASK_BLOCK + cand_idx.long()[:, None])
            // lanes_per_sector) for q in range(4)])
     d_sec = int(torch.unique(sectors).numel())
-    return d_rows * 4 * F_ * table.element_size() + d_sec * 32, d_rows, d_sec
+    return d_rows * 4 * F_ * 2 + d_sec * 32, d_rows, d_sec
 
 
 def _tilewin_table_bytes(feat_dim, frows, mrows, xt, xs, valid):
@@ -251,35 +260,41 @@ def phase_setup():
 
 
 def phase_unirow_check(device):
-    """Kernel 1 vs plain at one full fine chunk of the exact path."""
-    import torch
+    """Kernel 1 vs its plain twin at one full fine chunk of the exact
+    path. The bound counts the texel table's bytes the function needs;
+    the quad-row table's (the TPU layout) is printed beside it."""
     from enarf_gan_tpu_torch.ops import unirow
-    F_, K, M, H = 32, 23, 4, 256
+    from enarf_gan_tpu_torch.tools.ablate import (texel_table_bytes,
+                                                  unirow_inputs)
+    F_, M, H = 32, 4, 256
     n = FINE_CHUNK_POINTS
-    g = torch.Generator().manual_seed(SEED)
-    planes = torch.randn((1, (F_ + K) * 3, H, H), generator=g).to(device)
-    pos = (torch.rand((1, n, M, 3), generator=g) * 2.4 - 1.2).to(device)
-    idx = torch.randint(0, K, (1, n, M), generator=g, dtype=torch.int32).to(device)
-    valid = (torch.rand((1, n, M), generator=g) > 0.3).to(device)
-    table = unirow.pack_unirow(planes, F_, K)
-    args = (table,) + unirow.candidate_rows(pos, idx, valid, H, H)
+    args = unirow_inputs(device, 1, n, H, M, seed=SEED)[:5]
+    texels = args[0]
     err, kern_ms, plain_ms = _compare_and_time(
         lambda: unirow.unirow_combine(*args, F_, False),
-        lambda: unirow.gather_combine_plain(*args, F_, False),
-        f"unirow_combine at n={n} M={M} table {tuple(table.shape)} bf16")
-    table_bytes, d_rows, d_sec = _unirow_table_bytes(table, args[1], args[3],
-                                                     args[4])
-    nbytes = table_bytes + sum(
-        a.numel() * a.element_size() for a in args[1:]) + (F_ + M) * n * 4
+        lambda: unirow.gather_combine_texels_plain(*args, F_, False),
+        f"unirow_combine at n={n} M={M} texels {tuple(texels.shape)} bf16")
+    inputs = sum(a.numel() * a.element_size() for a in args[1:])
+    outputs = (F_ + M) * n * 4
     flops = n * M * 3 * (4 * F_ * 2 + 4 * 2) + n * M * F_ * 2
-    bound_ms, bound_by = _bound(nbytes, flops)
+    table_bytes, d_tex, d_sec = texel_table_bytes(texels, args[1], args[3],
+                                                  args[4], F_)
+    bound_ms, bound_by = _bound(table_bytes + inputs + outputs, flops)
+    quad_bytes, d_rows, d_qsec = _unirow_table_bytes(args[1], args[3],
+                                                     args[4], F_, H, H)
+    quad_ms, _ = _bound(quad_bytes + inputs + outputs, flops)
     print(f"  kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms; "
-          f"{args[1].numel()} row reads on {d_rows} distinct feature rows "
-          f"(valid candidates) and {d_sec} distinct mask sectors: table "
-          f"{table_bytes / 1e6:.1f} MB; bound {bound_ms:.4f} ms by "
-          f"{bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+          f"{args[1].numel()} (plane, candidate, point) reads on {d_tex} "
+          f"distinct feature texels (valid candidates) and {d_sec} distinct "
+          f"mask sectors: texel table {table_bytes / 1e6:.1f} MB, inputs "
+          f"{inputs / 1e6:.1f} MB, outputs {outputs / 1e6:.1f} MB; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP); "
+          f"quad-row yardstick: {d_rows} distinct rows and {d_qsec} mask "
+          f"sectors, {quad_bytes / 1e6:.1f} MB, bound {quad_ms:.4f} ms")
     return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "quad_row_bound_ms": quad_ms,
+            "valid_candidates": int((args[4] != 0).sum()), "points": n}
 
 
 def _tilewin_inputs(device, m, S, B=1, seed_offset=0):
@@ -404,60 +419,67 @@ def _grad_check(label, kern, plain, names):
 
 def phase_unirow_bwd_check(device):
     """Kernel 1b at one training fine pass: 4 images x 4096 rays x Nf 64,
-    4 candidates. The plain reference runs image by image (the gathered
-    float32 rows of all 4 are 13 GB); images share no table rows, so the
-    per-image gradients are the batch's. The kernel's time includes zeroing
-    the dense float32 table gradient, which the bound counts as written."""
+    4 candidates, against autograd through the plain twin (image by image:
+    images share no texels). The kernel's time includes zeroing the dense
+    float32 texel gradient, which the bound counts as written. Then its
+    stage ablations (``tools/ablate.py``: scalar feature adds, no feature
+    adds, no mask adds), each held to its doctored twin and timed in turns
+    with the full kernel."""
     import torch
     from enarf_gan_tpu_torch.ops import unirow
-    F_, K, M, H, B = 32, 23, 4, 256, TRAIN_IMAGES
-    n = FINE_CHUNK_POINTS
-    g = torch.Generator().manual_seed(SEED + 5)
-    planes = torch.randn((B, (F_ + K) * 3, H, H), generator=g).to(device)
-    pos = (torch.rand((B, n, M, 3), generator=g) * 2.4 - 1.2).to(device)
-    idx = torch.randint(0, K, (B, n, M), generator=g,
-                        dtype=torch.int32).to(device)
-    valid = (torch.rand((B, n, M), generator=g) > 0.3).to(device)
-    table = unirow.pack_unirow(planes, F_, K)
-    rows, wq4, ci, cv = unirow.candidate_rows(pos, idx, valid, H, H)
-    dfeature = torch.randn((B, F_, n), generator=g).to(device)
-    dcand_w = torch.randn((B, M, n), generator=g).to(device)
+    from enarf_gan_tpu_torch.tools import ablate
+    F_, H, B, n = 32, 256, TRAIN_IMAGES, FINE_CHUNK_POINTS
+    args = ablate.unirow_inputs(device, B, n, H, seed=SEED + 5)
+    texels, rows, wq4, ci, cv, dfeature, dcand_w = args
+    M = rows.shape[2]
 
     def kern():
-        return unirow.launch_backward(table, rows, wq4, ci, cv, dfeature,
-                                      dcand_w, F_, False)
-
-    def plain():
-        dts, dws = [], []
-        for b in range(B):
-            tf = table[b:b + 1].float().requires_grad_(True)
-            wf = wq4[b:b + 1].clone().requires_grad_(True)
-            f, w = unirow.gather_combine_plain(tf, rows[b:b + 1], wf,
-                                               ci[b:b + 1], cv[b:b + 1], F_,
-                                               False)
-            dt, dw = torch.autograd.grad(
-                (f * dfeature[b:b + 1]).sum() + (w * dcand_w[b:b + 1]).sum(),
-                [tf, wf])
-            dts.append(dt)
-            dws.append(dw)
-        return torch.cat(dts), torch.cat(dws)
+        return unirow.launch_backward(*args, F_, False)
 
     err, kern_ms, plain_ms = _grad_check(
-        f"unirow_combine_bwd at B={B} n={n} M={M}", kern, plain,
-        ("table", "wq4"))
-    table_bytes, d_rows, d_sec = _unirow_table_bytes(table, rows, ci, cv)
-    inputs = sum(t.numel() * t.element_size()
-                 for t in (rows, wq4, ci, cv, dfeature, dcand_w))
-    outputs = table.numel() * 4 + wq4.numel() * 4
-    nbytes = table_bytes + inputs + outputs
+        f"unirow_combine_bwd at B={B} n={n} M={M}", kern,
+        lambda: ablate.unirow_bwd_plain(*args), ("texels", "wq4"))
+    table_bytes, d_tex, d_sec = ablate.texel_table_bytes(texels, rows, ci, cv,
+                                                         F_)
+    inputs = sum(t.numel() * t.element_size() for t in args[1:])
+    outputs = texels.numel() * 4 + wq4.numel() * 4
     flops = 3 * (n * M * 3 * (4 * F_ * 2 + 4 * 2) + n * M * F_ * 2) * B
-    bound_ms, bound_by = _bound(nbytes, flops)
-    print(f"  kernel {kern_ms:.4f} ms (with the zeroed float32 table), plain "
-          f"{plain_ms:.4f} ms; table reads {table_bytes / 1e6:.1f} MB, other "
-          f"inputs {inputs / 1e6:.1f} MB, outputs {outputs / 1e6:.1f} MB; "
-          f"bound {bound_ms:.4f} ms by {bound_by}")
+    bound_ms, bound_by = _bound(table_bytes + inputs + outputs, flops)
+    quad_bytes, _, _ = _unirow_table_bytes(rows, ci, cv, F_, H, H)
+    quad_out = B * 3 * (H + 1) * (H + 1) * unirow.row_width(F_) * 4 \
+        + wq4.numel() * 4
+    quad_ms, _ = _bound(quad_bytes + inputs + quad_out, flops)
+    print(f"  kernel {kern_ms:.4f} ms (with the zeroed float32 texel "
+          f"gradient), plain {plain_ms:.4f} ms; texel reads "
+          f"{table_bytes / 1e6:.1f} MB ({d_tex} texels, {d_sec} mask "
+          f"sectors), other inputs {inputs / 1e6:.1f} MB, outputs "
+          f"{outputs / 1e6:.1f} MB; bound {bound_ms:.4f} ms by {bound_by}; "
+          f"quad-row yardstick: table reads {quad_bytes / 1e6:.1f} MB, "
+          f"outputs {quad_out / 1e6:.1f} MB, bound {quad_ms:.4f} ms")
+    stage_ms = {}
+    for stage in ablate.UNIROW_BWD_STAGES[1:]:
+        got = ablate.unirow_bwd_stage(*args, stage)
+        torch.cuda.synchronize()
+        ref = ablate.unirow_bwd_stage_plain(*args, stage)
+        errs = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(got, ref)]
+        del got, ref
+        assert max(errs) <= GRAD_REL_L2, (stage, errs)
+        times = [_cuda_time_ms(kern, 5),
+                 _cuda_time_ms(lambda: ablate.unirow_bwd_stage(*args, stage),
+                               5),
+                 _cuda_time_ms(lambda: ablate.unirow_bwd_stage(*args, stage),
+                               5),
+                 _cuda_time_ms(kern, 5)]
+        stage_ms[stage] = (times[1] + times[2]) / 2
+        print(f"  stage {stage}: relative L2 to its twin "
+              + ", ".join(f"{e:.2e}" for e in errs) + "; times (full, "
+              f"{stage}, {stage}, full) ms: "
+              + ", ".join(f"{x:.4f}" for x in times))
     return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "quad_row_bound_ms": quad_ms, "stage_ms": stage_ms,
+            "valid_candidates": int((cv != 0).sum()), "points": B * n}
 
 
 def phase_tilewin_bwd_check(device):
@@ -531,10 +553,10 @@ def _probe_modules():
 
 def _probe_kernels():
     """The probes' libraries: the three probe sources and the stage builds
-    of kernels 2 and 3."""
+    of kernels 2, 3 and 1b."""
     from enarf_gan_tpu_torch.tools import ablate, constructs, gather, mma
     return (gather.KERNEL, mma.KERNEL, constructs.KERNEL, ablate.KERNEL_STAGES,
-            ablate.KERNEL_MODES_STAGES)
+            ablate.KERNEL_MODES_STAGES, ablate.KERNEL_UNIROW_BWD_STAGES)
 
 
 def phase_probes(device):
@@ -788,7 +810,9 @@ def phase_profile(gen, scene, frame, ms_frame, device, label, pack):
 
 def _profile(fn, label, ms_host, what):
     """Device time of one call of ``fn`` by kernel class (torch.profiler),
-    and its share of ``ms_host``, the call's time on the host clock."""
+    and its share of ``ms_host``, the call's time on the host clock.
+    Returns (device ms, kernel launches, {port kernel: (device ms,
+    launches)}) for the port's kernels (unirow, tilewin)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -799,6 +823,7 @@ def _profile(fn, label, ms_host, what):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     groups = {}
+    port = {}
     for e in kernels:
         if e.self_device_time_total > 0:
             name = e.key.lower()
@@ -812,16 +837,24 @@ def _profile(fn, label, ms_host, what):
                    or "scatter" in name else
                    "reduce" if "reduce" in name else "elementwise/other")
             groups[key] = groups.get(key, 0.0) + e.self_device_time_total
+            if key in ("unirow kernels", "tilewin kernels"):
+                short = re.search(r"\w*(?:unirow|tilewin)\w*",
+                                  e.key).group(0)
+                ms, count = port.get(short, (0.0, 0))
+                port[short] = (ms + e.self_device_time_total / 1e3,
+                               count + e.count)
     n_launches = sum(e.count for e in kernels)
     print(f"{label}: device time {device_us / 1e3:.2f} ms in a "
           f"{ms_host:.2f} ms {what} (busy share {device_us / 1e3 / ms_host:.3f}),"
           f" {n_launches} kernel launches")
     for key, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {key}: {us / 1e3:.2f} ms")
+    for short, (ms, count) in sorted(port.items()):
+        print(f"  port kernel {short}: {ms:.3f} ms, {count} launches a {what}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
-    return device_us / 1e3, n_launches
+    return device_us / 1e3, n_launches, port
 
 
 def phase_launch_cost(probes, frames, ms_host):
@@ -830,7 +863,7 @@ def phase_launch_cost(probes, frames, ms_host):
     kernel launches of a 128² frame, beside the frame's idle time (host
     time less device time)."""
     roster = next(e for e in probes if e["name"] == "D launch roster 7in_2out")
-    for label, (device_ms, n_launches) in frames.items():
+    for label, (device_ms, n_launches, _) in frames.items():
         idle = ms_host[label] - device_ms
         cost = roster["host_us"] * n_launches / 1e3
         print(f"{label} frame: {n_launches} launches x {roster['host_us']:.2f} "
@@ -910,10 +943,13 @@ def _is_oom(err):
         "out of memory" in str(err)
 
 
-def phase_train(gen, config, ds, batch, device, label, own):
+def phase_train(gen, config, ds, batch, device, label, own, census_of=None):
     """1 warm-up and TIMED_STEPS steps of ``label``'s path at the smallest
     micro-batch split in (1, 2, 4, 8, 16) that fits; ``own`` are the
-    kernels the path must launch."""
+    kernels the path must launch. Then a profile of one step (each port
+    kernel's device ms and launches a step) and, with ``census_of``
+    (module, wrapper name), one more step that records the points and
+    valid candidates of each of that wrapper's launches."""
     import gc
     import torch
     from enarf_gan_tpu_torch.training import dso
@@ -965,11 +1001,58 @@ def phase_train(gen, config, ds, batch, device, label, own):
     step(batch, rng)
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3
-    device_ms, _ = _profile(lambda: step(batch, rng),
-                            f"{label} training profile", ms_step, "step")
+    device_ms, _, port = _profile(lambda: step(batch, rng),
+                                  f"{label} training profile", ms_step,
+                                  "step")
+    census = None
+    if census_of is not None:
+        census = _census_step(step, batch, rng, *census_of)
+        print(f"{label} training: {census_of[1]} launches of a step: "
+              + "; ".join(f"{p} points, {v} valid candidates"
+                          for p, v in census))
     return {"s_iter": s_iter, "peak": peak, "n_accum": n_accum,
             "launches": launches, "launches_by_m": launches_by_m,
-            "device_ms": device_ms, "ms_step": ms_step}
+            "device_ms": device_ms, "ms_step": ms_step, "kernels": port,
+            "census": census}
+
+
+def _census_step(step, batch, rng, module, name):
+    """One more step with the wrapper ``module.name`` (its arguments end in
+    ``valid`` at position 4, (B, M, n)) recording each launch's points and
+    valid candidates: [(B*n, valid candidates), ...]."""
+    import torch
+    real = getattr(module, name)
+    seen = []
+
+    def recording(*args, **kw):
+        valid = args[4]
+        seen.append((valid.shape[0] * valid.shape[2],
+                     int((valid != 0).sum())))
+        return real(*args, **kw)
+
+    with mock.patch.object(module, name, recording):
+        step(batch, rng)
+    torch.cuda.synchronize()
+    return seen
+
+
+def phase_bwd_contention(te, k1b):
+    """Kernel 1b's device time per point and per valid candidate inside a
+    training step (its profile; consecutive points are samples of one ray
+    and often add into the same texels) against the same at the check's
+    random positions (phase 2): a clearly higher cost in the step says the
+    atomics contend."""
+    step_ms, _ = te["kernels"].get("unirow_combine_bwd_kernel", (0.0, 0))
+    points = sum(p for p, _ in te["census"])
+    cands = sum(v for _, v in te["census"])
+    per = {"step": (step_ms, points, cands),
+           "check": (k1b["ms"], k1b["points"], k1b["valid_candidates"])}
+    for what, (ms, p, v) in per.items():
+        print(f"unirow_combine_bwd in the {what}: {ms:.3f} ms for {p} points "
+              f"and {v} valid candidates: {ms * 1e6 / max(p, 1):.3f} ns a "
+              f"point, {ms * 1e6 / max(v, 1):.3f} ns a valid candidate")
+    ratio = (step_ms / max(cands, 1)) / (k1b["ms"] / k1b["valid_candidates"])
+    print(f"  step / check time a valid candidate: {ratio:.3f}")
 
 
 def phase_train_modes(gen, config, ds, batch, device, n_accum):
@@ -1198,7 +1281,7 @@ def learn_gradcheck(device, root, seeds=(0, 1, 2), every=10):
     for label, tile, module, name, plain in (
             ("tiled", TILE_PATCH, tilewin, "tilewin_combine", plain_tilewin),
             ("exact", 0, unirow, "unirow_combine",
-             unirow.gather_combine_plain)):
+             unirow.gather_combine_texels_plain)):
         for seed in seeds:
             config, ds, loader, gen = _learn_setup(device, root, label, tile,
                                                    seed)
@@ -1298,8 +1381,8 @@ def main():
           f"{dict(tilewin_kernel.KERNEL.launches_by)}")
 
     ref_e = phase_plain_render(exact_frame, unirow, "unirow_combine",
-                               unirow.gather_combine_plain, unirow.KERNEL,
-                               "exact")
+                               unirow.gather_combine_texels_plain,
+                               unirow.KERNEL, "exact")
     ref_t = phase_plain_render(
         tiled_frame, tilewin, "tilewin_combine",
         lambda *a, mode=None: tilewin_kernel.tilewin_combine_plain(*a),
@@ -1320,7 +1403,9 @@ def main():
         config, ds, batch, tiled_t, exact_t = build_training(
             device, os.path.join(root, "train"))
         te = phase_train(exact_t, config, ds, batch, device, "exact",
-                         (unirow.KERNEL, unirow.KERNEL_BWD))
+                         (unirow.KERNEL, unirow.KERNEL_BWD),
+                         census_of=(unirow, "launch_backward"))
+        phase_bwd_contention(te, k1b)
         assert te["launches"]["tilewin_combine"] == 0 and \
             te["launches"]["tilewin_combine_bwd"] == 0, te["launches"]
         del exact_t
@@ -1341,8 +1426,14 @@ def main():
     def entry(name, source, replaces, launches, numbers):
         return {"name": name, "route": "cuda",
                 "source": f"enarf_gan_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches, **numbers,
+                "replaces": replaces, "launches": launches,
+                **{k: v for k, v in numbers.items()
+                   if k not in ("valid_candidates", "points")},
                 "library_ms": None}
+
+    for k, kernel in ((k1, "unirow_combine_kernel"),
+                      (k1b, "unirow_combine_bwd_kernel")):
+        k["step_ms"], k["step_launches"] = te["kernels"].get(kernel, (0.0, 0))
 
     entries = [
         entry("unirow_combine", "unirow_combine.cu",

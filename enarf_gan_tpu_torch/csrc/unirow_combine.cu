@@ -1,122 +1,124 @@
 // Unirow gather + combine for Hopper (sm_90a), forward (the backward is
-// unirow_combine_bwd.cu).
+// unirow_combine_bwd.cu; both share unirow_texels.cuh).
 //
 // Replaces the TPU Pallas kernel enarf_gan_tpu/ops/unirow.py::_combine_kernel
 // (launched by _combine_pallas) and also does the row gather that the JAX
 // package runs outside that kernel (jnp.take in sample_candidates_unirow).
 //
-// For every (batch b, point i, candidate m, plane p) the kernel reads one
-// 256-lane bf16 row of the packed table (ops/unirow.py::pack_unirow):
-//     [ A_f | B_f | C_f | D_f | A_m(32) | B_m(32) | C_m(32) | D_m(32) ]
-// four F=32 feature corners, then four 32-lane mask corner blocks holding
-// the mask logit of every bone. It computes
-//     feat_m   = sum_p sum_q wq[q,p,m] * row_pm[q*F + f]
-//     logit_pm = sum_q wq[q,p,m] * row_pm[4F + 32q + cand_idx[m]]
+// The table is the texel table of ops/unirow.py::pack_texels, not the TPU's
+// quad rows: the one-texel zero-padded planes channels-last, (B, 3, H+2, W+2,
+// 64) bf16, one 128-byte line a texel, lanes [32 feature | 32 mask, bone k at
+// lane 32+k]. Corner q of the cell of row r = p*(H+1)*(W+1) + t*(W+1) + s is
+// texel (p, t + q/2, s + q%2). For every (batch b, point i, candidate m,
+// plane p) the kernel computes
+//     feat_m   = sum_p sum_q wq[q,p,m] * texel_pq[f]
+//     logit_pm = sum_q wq[q,p,m] * texel_pq[32 + cand_idx[m]]
 //     cand_w_m = prod_p sigmoid(logit_pm)          (logit clamped to [-2, 5]
 //                                                   when clamp is set)
 //     feature  = sum_m cand_w_m * valid_m * feat_m
 // in float32.
 //
-// What bounds it: bytes. Each (point, candidate, plane) reads a 512-byte row
-// at a data-dependent address, and the table (3*257*257 rows at 256^2 planes,
-// about 101 MB) is larger than the H100's 50 MB L2, so rows come from HBM
-// unless neighbouring rays hit the same cells. The arithmetic is a few
-// multiply-adds per byte.
+// What bounds it: bytes, read at data-dependent addresses. Per (point,
+// candidate, plane) the function needs the 64-byte feature half of 4 texels
+// and the one 32-byte sector of each that holds the candidate's mask logit:
+// 384 bytes of sectors. The TPU's quad-row table (101 MB an image at 256^2
+// planes, every texel stored 4 times, half of each row the all-bone mask
+// quads) was twice the H100's 50 MB L2, so most of its 512-byte row reads
+// came from HBM. The texel table is 25.6 MB an image and stays in L2 while
+// the blocks of one image run (the grid walks the points image by image),
+// so the texel reads are mostly L2 hits.
 //
-// Design: one warp per (b, point). Lane f reads feature lane f of each of the
-// four corners, and mask lane f (bone f) of each corner block, so every row
-// is read as eight fully used 64-byte segments and each byte of it once; the
-// gathered (B, 3, M, n, 256) tensor that the plain version materialises
-// (1.6 GB for one 4096-ray, 64-sample chunk) never exists. The 12 rows of a
-// point (M=4 candidates x 3 planes) are independent loads, which keeps many
-// row reads in flight per warp. A shuffle from lane cand_idx picks the
-// candidate's mask logit. The (B, F, n) feature output is written through
-// shared memory, so the eight warps of a block store 8 consecutive points of
-// each feature row together.
+// Design: one warp per (b, point); the 16 lanes of each half-warp serve one
+// candidate at a time (half h takes candidates h, h+2, ...), lane (q, c) the
+// 16-byte chunk c (channels 8c..8c+7) of corner q's feature half. A
+// candidate's 12 texels (4 corners x 3 planes) are 3 uint4 loads a lane plus
+// 3 two-byte mask loads (one sector a texel), all in flight before any is
+// used; 5 blocks an SM keep 40 warps of them. The per-candidate inputs
+// (rows, wq4, cand_idx, valid: 70 MB at a fine chunk, read once) are loaded
+// with the streaming hint (ld.global.cs: evict-first in L1 and L2), so they
+// do not push the texels out of L2. Each lane keeps 8 channels' sums over its
+// candidates; one transposed butterfly (7 shuffles) sums them over the 8
+// lanes that share a chunk, leaving one channel a lane, and the (B, F, n)
+// output is written through shared memory, 8 consecutive points a row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "unirow_texels.cuh"
 
 namespace {
 
-constexpr int kF = 32;           // feature lanes = warp width
-constexpr int kMaskBlock = 32;   // lanes per mask corner block
-constexpr int kRowWidth = 4 * kF + 4 * kMaskBlock;
-constexpr int kWarps = 8;        // points per block
+using namespace unirow;
 
-__global__ void __launch_bounds__(kWarps * 32)
-unirow_combine_kernel(const __nv_bfloat16* __restrict__ table,
+// Blocks of 8 warps an SM (at most 65536 / (256 * 5) = 51 registers a
+// thread): on the H100 more warps in flight hide the texel gathers' L2
+// latency better than more loads a warp (two candidates a half-warp at 71
+// registers, 3 blocks an SM, was slower).
+constexpr int kFwdBlocksPerSM = 5;
+
+__global__ void __launch_bounds__(kWarps * 32, kFwdBlocksPerSM)
+unirow_combine_kernel(const __nv_bfloat16* __restrict__ tex,
                       const int32_t* __restrict__ rows,
                       const float* __restrict__ wq4,
                       const int32_t* __restrict__ cand_idx,
                       const float* __restrict__ valid,
                       float* __restrict__ feature,
                       float* __restrict__ cand_w,
-                      int R, int M, int n, int clamp) {
+                      int H, int W, int M, int n, int clamp) {
   __shared__ float tile[kF][kWarps + 1];
-  const int lane = threadIdx.x & 31;
+  const Lane L = lane_of(threadIdx.x);
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.y;
   const int pt0 = blockIdx.x * kWarps;
   const int pt = pt0 + warp;
 
-  float acc = 0.f;
-  if (pt < n) {
-    const int64_t plane_stride = (int64_t)M * n;           // rows/wq4 planes
-    const __nv_bfloat16* tb = table + (int64_t)b * R * kRowWidth;
-    const int32_t* rows_b = rows + (int64_t)b * 3 * plane_stride;
-    const float* wq_b = wq4 + (int64_t)b * 12 * plane_stride;
-    for (int m = 0; m < M; ++m) {
-      const int64_t mi = (int64_t)m * n + pt;
-      const int64_t bmi = (int64_t)b * plane_stride + mi;
-      const int idx = cand_idx[bmi];
-      const float v = valid[bmi];
-      float feat = 0.f;
-      float cw = 1.f;
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  if (pt < n) {                                            // warp-uniform
+    const Inputs in = inputs_of(tex, rows, wq4, cand_idx, valid, b, H, W, M,
+                                n, pt);
+    float* cw_out = cand_w + (int64_t)b * M * n + pt;
+    for (int m0 = 0; m0 < M; m0 += 2) {                  // warp-uniform
+      Cand k;
+      load_cand(k, in, L, m0 + L.h);
+      const Sig s = sigmoids(k, clamp);
+      const float wt = s.cw * k.v;
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
-        const __nv_bfloat16* row =
-            tb + (int64_t)rows_b[p * plane_stride + mi] * kRowWidth;
-        float logit_lane = 0.f;
+        float f[8];
+        unpack8(k.feat[p], f);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float w = wq_b[(q * 3 + p) * plane_stride + mi];
-          feat += w * __bfloat162float(row[q * kF + lane]);
-          logit_lane +=
-              w * __bfloat162float(row[4 * kF + q * kMaskBlock + lane]);
-        }
-        float logit = __shfl_sync(0xffffffffu, logit_lane, idx & 31);
-        if (clamp) logit = fminf(fmaxf(logit, -2.f), 5.f);
-        cw *= 1.f / (1.f + expf(-logit));
+        for (int j = 0; j < 8; ++j) acc[j] += wt * k.w[p] * f[j];
       }
-      acc += cw * v * feat;
-      if (lane == 0) cand_w[bmi] = cw;
+      if (k.active && L.q == 0 && L.c == 0) __stcs(cw_out + k.off, s.cw);
     }
   }
-  tile[lane][warp] = acc;
+  // sum over the 8 lanes (h, q) that share chunk c: lane (h, q, c) ends with
+  // channel 8c + 4h + q
+  const float total = transpose_sum8(acc, L);
+  tile[8 * L.c + 4 * L.h + L.q][warp] = total;
   __syncthreads();
   const int f = threadIdx.x / kWarps;
   const int j = threadIdx.x % kWarps;
-  if (pt0 + j < n) feature[((int64_t)b * kF + f) * n + pt0 + j] = tile[f][j];
+  if (pt0 + j < n)
+    __stcs(feature + ((int64_t)b * kF + f) * n + pt0 + j, tile[f][j]);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Shapes, all contiguous:
-//   table (B, R, 256) bf16; rows (B, 3, M, n) int32 row index within b;
-//   wq4 (B, 4, 3, M, n) f32; cand_idx (B, M, n) int32 in [0, 32);
-//   valid (B, M, n) f32 -> feature (B, 32, n) f32, cand_w (B, M, n) f32.
+//   texels (B, 3, H+2, W+2, 64) bf16; rows (B, 3, M, n) int32 cell rows
+//   p*(H+1)*(W+1) + t*(W+1) + s; wq4 (B, 4, 3, M, n) f32; cand_idx (B, M, n)
+//   int32 in [0, 32); valid (B, M, n) f32 -> feature (B, 32, n) f32,
+//   cand_w (B, M, n) f32.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int unirow_combine_bf16(const void* table, const void* rows,
+extern "C" int unirow_combine_bf16(const void* texels, const void* rows,
                                    const void* wq4, const void* cand_idx,
                                    const void* valid, void* feature,
-                                   void* cand_w, int B, int R, int M, int n,
-                                   int clamp, void* stream) {
+                                   void* cand_w, int B, int H, int W, int M,
+                                   int n, int clamp, void* stream) {
   dim3 grid((n + kWarps - 1) / kWarps, B);
   unirow_combine_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)table, (const int32_t*)rows, (const float*)wq4,
+      (const __nv_bfloat16*)texels, (const int32_t*)rows, (const float*)wq4,
       (const int32_t*)cand_idx, (const float*)valid, (float*)feature,
-      (float*)cand_w, R, M, n, clamp);
+      (float*)cand_w, H, W, M, n, clamp);
   return (int)cudaGetLastError();
 }

@@ -6,9 +6,10 @@
 // the table that jnp.take's VJP does).
 //
 // The forward (csrc/unirow_combine.cu) computes, per (batch b, point i,
-// candidate m, plane p), from one 256-lane bf16 row of the packed table:
-//     feat_m   = sum_p sum_q wq[q,p,m] * row_pm[q*F + f]
-//     logit_pm = sum_q wq[q,p,m] * row_pm[4F + 32q + cand_idx[m]]
+// candidate m, plane p), from the 4 corner texels of the texel table
+// (ops/unirow.py::pack_texels, layout in unirow_texels.cuh):
+//     feat_m   = sum_p sum_q wq[q,p,m] * texel_pq[f]
+//     logit_pm = sum_q wq[q,p,m] * texel_pq[32 + cand_idx[m]]
 //     sig_pm   = sigmoid(clamp(logit_pm))          (clamp to [-2, 5] if set)
 //     cand_w_m = prod_p sig_pm
 //     feature  = sum_m cand_w_m * valid_m * feat_m
@@ -18,140 +19,212 @@
 //     dcw_m     = valid_m * <dfeature, feat_m> + dcand_w_m
 //     dlogit_pm = dcw_m * cand_w_m * (1 - sig_pm)          (the clamp passes
 //                                                           the gradient on)
-//     dtable[row_pm][q*F + f]            += wq[q,p,m] * dfeat_m[f]
-//     dtable[row_pm][4F + 32q + idx_m]   += wq[q,p,m] * dlogit_pm
-//     dwq4[q,p,m] = <row_pm[q*F:], dfeat_m> + row_pm[4F+32q+idx_m] * dlogit_pm
+//     dtexel_pq[f]             += wq[q,p,m] * dfeat_m[f]
+//     dtexel_pq[32 + idx_m]    += wq[q,p,m] * dlogit_pm
+//     dwq4[q,p,m] = <texel_pq[:F], dfeat_m> + texel_pq[32+idx_m] * dlogit_pm
 // in float32. valid takes no gradient (it comes from a bool).
 //
-// What bounds it: bytes, as the forward: each (point, candidate, plane)
-// reads its 512-byte row again, and writes its row gradient into a float32
-// table of (B, R, 256) by atomic adds, which land in L2 (the float32 table is
-// 203 MB a batch item at 256^2 planes, so the adds also spill to HBM).
+// What bounds it: the atomic adds into the gradient, then bytes. It
+// re-reads the forward's texels (mostly L2 hits, as the forward's), reads
+// the inputs and dfeature once, and adds into a float32 texel gradient of
+// (B, 3, H+2, W+2, 64): 51 MB an image at 256^2 planes (the TPU layout's
+// (B, R, 256) float32 table gradient was 203 MB), so one image's gradient
+// lines stay in L2 while its blocks run. The adds of the 4 cells that share
+// a texel meet there in float32. Lanes 32+K..63 are never written. A valid
+// candidate makes 48 sectors of feature adds (12 texels x 128 bytes) and
+// 12 scattered 4-byte mask adds; the stage build (tools/ablate.py) measures
+// each kind's share.
 //
-// Design: one warp per (b, point), lane = channel, as the forward. The
-// row-gradient tensor (B, 3, M, n, 256) that the XLA VJP materialises (and
-// then scatter-adds) never exists: every lane adds its channel's gradient
-// straight into the table (one fully used 128-byte segment of float32 per
-// corner and warp), and the lane of the candidate's bone adds the mask
-// logit's. A candidate whose weight cand_w * valid is 0 has a zero feature
-// gradient, and the warp skips those adds. The 13 dot products a candidate
-// needs (<dfeature, feat_m> and the 12 dwq4 sums over channels) are warp
-// reductions by shuffles. The atomics make the order of each sum vary from
-// run to run, as the reference's CUDA sampler's backward does.
+// Design: the forward's (one warp per point, half a warp a candidate, lane
+// (h, q, c), see unirow_texels.cuh; 4 blocks an SM); the block stages its 8
+// points' dfeature through shared memory (32-byte coalesced reads). A
+// candidate's 13 dot products (12 dwq4 and <dfeature, feat_m>) take one
+// transposed butterfly over the 4 chunk lanes (3 shuffles: lane c ends with
+// plane sum4_entry(c)'s <texel_qp, dfeature>) and a 16-lane sum (4
+// shuffles); with the logits' 6, 13 shuffles a candidate. Each lane adds 8
+// channels of its corner with two sm_90 vector reductions
+// (red.global.add.v4.f32): channels 4c..4c+3 and 16+4c..16+4c+3, so each
+// reduction instruction covers 64 contiguous bytes of every corner (whole
+// 32-byte sectors; half as many sector operations as 8 consecutive channels
+// a lane, and half as many instructions as scalar atomics). Lane (q, c) with
+// plane sum4_entry(c) < 3 adds that plane's mask logit gradient. Zero adds
+// are skipped: a candidate with cand_w * valid = 0, a corner with weight 0
+// (a texel of the zero padding). The atomics make the order of each sum vary
+// from run to run, as the reference's CUDA sampler's backward does.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "unirow_texels.cuh"
 
 namespace {
 
-constexpr int kF = 32;           // feature lanes = warp width
-constexpr int kMaskBlock = 32;   // lanes per mask corner block
-constexpr int kRowWidth = 4 * kF + 4 * kMaskBlock;
-constexpr int kWarps = 8;        // points per block
+using namespace unirow;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+constexpr int kBwdBlocksPerSM = 4;   // at most 64 registers a thread
+
+// Stage ablations (tools/ablate.py). The main entry point instantiates kFull
+// only; built with -DUNIROW_STAGE_ENTRY the library also exports
+// unirow_combine_bwd_stage_bf16, whose variants change only the adds:
+//   kScalar   the feature adds as 8 scalar atomicAdds a lane;
+//   kNoFeat   no feature adds (the mask adds and dwq4 as in kFull);
+//   kNoMask   no mask adds (the feature adds and dwq4 as in kFull).
+enum Stage { kFull = 0, kScalar = 1, kNoFeat = 2, kNoMask = 3 };
+
+__device__ __forceinline__ void red_add_v4(float* addr, float a, float b,
+                                           float c, float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "l"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-unirow_combine_bwd_kernel(const __nv_bfloat16* __restrict__ table,
+template <int kStage>
+__global__ void __launch_bounds__(kWarps * 32, kBwdBlocksPerSM)
+unirow_combine_bwd_kernel(const __nv_bfloat16* __restrict__ tex,
                           const int32_t* __restrict__ rows,
                           const float* __restrict__ wq4,
                           const int32_t* __restrict__ cand_idx,
                           const float* __restrict__ valid,
                           const float* __restrict__ dfeature,
                           const float* __restrict__ dcand_w,
-                          float* __restrict__ dtable,
+                          float* __restrict__ dtex,
                           float* __restrict__ dwq4,
-                          int R, int M, int n, int clamp) {
-  const int lane = threadIdx.x & 31;
+                          int H, int W, int M, int n, int clamp) {
+  __shared__ float dft[kF][kWarps + 1];
+  const Lane L = lane_of(threadIdx.x);
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.y;
-  const int pt = blockIdx.x * kWarps + warp;
+  const int pt0 = blockIdx.x * kWarps;
+  const int pt = pt0 + warp;
+  {
+    const int f = threadIdx.x / kWarps;
+    const int j = threadIdx.x % kWarps;
+    dft[f][j] = pt0 + j < n
+        ? __ldcs(dfeature + ((int64_t)b * kF + f) * n + pt0 + j) : 0.f;
+  }
+  __syncthreads();
   if (pt >= n) return;                                     // warp-uniform
 
-  const int64_t plane_stride = (int64_t)M * n;
-  const __nv_bfloat16* tb = table + (int64_t)b * R * kRowWidth;
-  float* dtb = dtable + (int64_t)b * R * kRowWidth;
-  const int32_t* rows_b = rows + (int64_t)b * 3 * plane_stride;
-  const float* wq_b = wq4 + (int64_t)b * 12 * plane_stride;
-  float* dwq_b = dwq4 + (int64_t)b * 12 * plane_stride;
-  const float df = dfeature[((int64_t)b * kF + lane) * n + pt];
+  float df[8];                     // channels 8c..8c+7: the dot products
+  float dr[8];                     // 4c..4c+3, 16+4c..16+4c+3: the adds
+#pragma unroll
+  for (int j = 0; j < 8; ++j) df[j] = dft[8 * L.c + j][warp];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    dr[j] = dft[4 * L.c + j][warp];
+    dr[4 + j] = dft[16 + 4 * L.c + j][warp];
+  }
+  const Inputs in = inputs_of(tex, rows, wq4, cand_idx, valid, b, H, W, M, n,
+                              pt);
+  const float* dcw_p = dcand_w + (int64_t)b * M * n + pt;
+  float* dtb = dtex + (int64_t)b * 3 * (H + 2) * (W + 2) * kTexel;
+  float* dwq_p = dwq4 + (int64_t)b * 12 * M * n + pt;
+  const int pe = sum4_entry(L.c);    // the plane this lane's dot sums end on
 
-  for (int m = 0; m < M; ++m) {
-    const int64_t mi = (int64_t)m * n + pt;
-    const int64_t bmi = (int64_t)b * plane_stride + mi;
-    const int idx = cand_idx[bmi] & 31;
-    const float v = valid[bmi];
-
-    // recompute: corner feature lanes, the bone's mask logit, sigmoids
-    float fq[3][4], w[3][4], sel[3][4], sig[3];
-    int64_t row[3];
-    float feat = 0.f;
-    float cw = 1.f;
+  for (int m0 = 0; m0 < M; m0 += 2) {                      // warp-uniform
+    Cand k;
+    load_cand(k, in, L, m0 + L.h);
+    const float dcw_in = k.active ? __ldcs(dcw_p + k.off) : 0.f;
+    const Sig s = sigmoids(k, clamp);
+    // <texel_qp chunk, dfeature chunk> per plane, then summed over the 4
+    // chunk lanes: lane c holds plane pe's <texel_qp, dfeature>
+    float d[4];
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
-      row[p] = (int64_t)rows_b[p * plane_stride + mi];
-      const __nv_bfloat16* r = tb + row[p] * kRowWidth;
-      float logit = 0.f;
+      float f[8];
+      unpack8(k.feat[p], f);
+      d[p] = 0.f;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        w[p][q] = wq_b[(q * 3 + p) * plane_stride + mi];
-        fq[p][q] = __bfloat162float(r[q * kF + lane]);
-        feat += w[p][q] * fq[p][q];
-        sel[p][q] = __shfl_sync(
-            0xffffffffu, __bfloat162float(r[4 * kF + q * kMaskBlock + lane]),
-            idx);
-        logit += w[p][q] * sel[p][q];
-      }
-      if (clamp) logit = fminf(fmaxf(logit, -2.f), 5.f);
-      sig[p] = 1.f / (1.f + expf(-logit));
-      cw *= sig[p];
+      for (int j = 0; j < 8; ++j) d[p] += f[j] * df[j];
     }
-
-    // backward
-    const float wpt = cw * v;
-    const float dfeat = wpt * df;
-    const float dcw = warp_sum(df * feat) * v + dcand_w[bmi];
+    d[3] = 0.f;
+    const float dp = transpose_sum4(d, L.c);
+    const bool has_plane = pe < 3;
+    const float w_pe = has_plane ? pick3(k.w, pe) : 0.f;
+    // <dfeature, feat_m> = sum over (q, p) of w_qp <texel_qp, dfeature>
+    float g = w_pe * dp;
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) g += __shfl_xor_sync(kAll, g, o);
+    if (!k.active) continue;
+    const float wt = s.cw * k.v;
+    const float dcw = g * k.v + dcw_in;
+    if (has_plane) {
+      const float dlogit = dcw * s.cw * (1.f - pick3(s.sig, pe));
+      __stcs(dwq_p + (L.q * 3 + pe) * in.ps + k.off,
+             wt * dp + bf16_bits(pick3(k.mask, pe)) * dlogit);
+      const float dm = w_pe * dlogit;
+      if (kStage != kNoMask && dm != 0.f)
+        atomicAdd(dtb + pick3(k.tex, pe) * kTexel + kF + k.idx, dm);
+    }
+    if (kStage == kNoFeat) continue;
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
-      const float dlogit = dcw * cw * (1.f - sig[p]);
-      float* dr = dtb + row[p] * kRowWidth;
+      const float a = k.w[p] * wt;
+      if (a == 0.f) continue;
+      float* dst = dtb + k.tex[p] * kTexel + 4 * L.c;
+      if (kStage == kScalar) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float dw = warp_sum(fq[p][q] * dfeat) + sel[p][q] * dlogit;
-        if (lane == 0) dwq_b[(q * 3 + p) * plane_stride + mi] = dw;
-        if (wpt != 0.f) atomicAdd(dr + q * kF + lane, w[p][q] * dfeat);
-        const float dm = w[p][q] * dlogit;
-        if (lane == idx && dm != 0.f)
-          atomicAdd(dr + 4 * kF + q * kMaskBlock + idx, dm);
+        for (int j = 0; j < 4; ++j) {
+          atomicAdd(dst + j, a * dr[j]);
+          atomicAdd(dst + 16 + j, a * dr[4 + j]);
+        }
+      } else {
+        red_add_v4(dst, a * dr[0], a * dr[1], a * dr[2], a * dr[3]);
+        red_add_v4(dst + 16, a * dr[4], a * dr[5], a * dr[6], a * dr[7]);
       }
     }
   }
 }
 
+template <int kStage>
+int launch(const void* texels, const void* rows, const void* wq4,
+           const void* cand_idx, const void* valid, const void* dfeature,
+           const void* dcand_w, void* dtexels, void* dwq4, int B, int H,
+           int W, int M, int n, int clamp, void* stream) {
+  dim3 grid((n + kWarps - 1) / kWarps, B);
+  unirow_combine_bwd_kernel<kStage>
+      <<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)texels, (const int32_t*)rows, (const float*)wq4,
+      (const int32_t*)cand_idx, (const float*)valid, (const float*)dfeature,
+      (const float*)dcand_w, (float*)dtexels, (float*)dwq4, H, W, M, n,
+      clamp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Shapes, all contiguous:
-//   table (B, R, 256) bf16; rows (B, 3, M, n) int32 row index within b;
+//   texels (B, 3, H+2, W+2, 64) bf16; rows (B, 3, M, n) int32 cell rows;
 //   wq4 (B, 4, 3, M, n) f32; cand_idx (B, M, n) int32 in [0, 32);
 //   valid (B, M, n) f32; dfeature (B, 32, n) f32; dcand_w (B, M, n) f32
-//   -> dtable (B, R, 256) f32, which the caller zeroes (the kernel adds into
-//   it), and dwq4 (B, 4, 3, M, n) f32.
+//   -> dtexels (B, 3, H+2, W+2, 64) f32, which the caller zeroes (the kernel
+//   adds into it), and dwq4 (B, 4, 3, M, n) f32.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int unirow_combine_bwd_bf16(const void* table, const void* rows,
+extern "C" int unirow_combine_bwd_bf16(const void* texels, const void* rows,
                                        const void* wq4, const void* cand_idx,
                                        const void* valid, const void* dfeature,
-                                       const void* dcand_w, void* dtable,
-                                       void* dwq4, int B, int R, int M, int n,
-                                       int clamp, void* stream) {
-  dim3 grid((n + kWarps - 1) / kWarps, B);
-  unirow_combine_bwd_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)table, (const int32_t*)rows, (const float*)wq4,
-      (const int32_t*)cand_idx, (const float*)valid, (const float*)dfeature,
-      (const float*)dcand_w, (float*)dtable, (float*)dwq4, R, M, n, clamp);
-  return (int)cudaGetLastError();
+                                       const void* dcand_w, void* dtexels,
+                                       void* dwq4, int B, int H, int W, int M,
+                                       int n, int clamp, void* stream) {
+  return launch<kFull>(texels, rows, wq4, cand_idx, valid, dfeature, dcand_w,
+                       dtexels, dwq4, B, H, W, M, n, clamp, stream);
 }
+
+#ifdef UNIROW_STAGE_ENTRY
+// The stage ablations: unirow_combine_bwd_bf16's arguments and outputs, with
+// `stage` one of Stage (0 full, 1 scalar, 2 nofeat, 3 nomask).
+extern "C" int unirow_combine_bwd_stage_bf16(
+    const void* texels, const void* rows, const void* wq4,
+    const void* cand_idx, const void* valid, const void* dfeature,
+    const void* dcand_w, void* dtexels, void* dwq4, int B, int H, int W,
+    int M, int n, int clamp, int stage, void* stream) {
+#define UNIROW_STAGE_CASE(K)                                                 \
+  case K:                                                                    \
+    return launch<K>(texels, rows, wq4, cand_idx, valid, dfeature, dcand_w,  \
+                     dtexels, dwq4, B, H, W, M, n, clamp, stream);
+  switch (stage) {
+    UNIROW_STAGE_CASE(kFull)
+    UNIROW_STAGE_CASE(kScalar)
+    UNIROW_STAGE_CASE(kNoFeat)
+    UNIROW_STAGE_CASE(kNoMask)
+  }
+#undef UNIROW_STAGE_CASE
+  return (int)cudaErrorInvalidValue;
+}
+#endif  // UNIROW_STAGE_ENTRY

@@ -2,8 +2,8 @@
 
 Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) from the
 sources under ``csrc/`` into ``_build/`` beside this file, keyed by a hash
-of the sources and flags, so a changed source rebuilds and an unchanged one
-loads the library already built. The sources have a plain C interface and
+of the sources, the headers of ``csrc/`` and the flags, so a changed source
+rebuilds and an unchanged one loads the library already built. The sources have a plain C interface and
 include none of PyTorch's headers, which keeps a build to seconds.
 """
 from __future__ import annotations
@@ -42,8 +42,11 @@ def build_library(name: str, sources: Sequence[str], flags: Sequence[str] = ()
     with ``flags`` added to ``NVCC_FLAGS``, and load it. Returns (library,
     compiler log); the log is empty when the library was already built."""
     paths = [os.path.join(_HERE, "csrc", s) for s in sources]
+    headers = sorted(os.path.join(_HERE, "csrc", h)
+                     for h in os.listdir(os.path.join(_HERE, "csrc"))
+                     if h.endswith(".cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
-    for p in paths:
+    for p in paths + headers:
         with open(p, "rb") as f:
             digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")

@@ -3,7 +3,7 @@
 
 Ported: the ``deformation_field`` variant (constant planes warped by a
 generated flow) and the ``constant_triplane`` variant, sampled through the
-candidate-sparse unirow path (``ops/unirow.py``, bf16 table) or, for
+candidate-sparse unirow path (``ops/unirow.py``, bf16 texel table) or, for
 ``tile_patch`` models on the patch-tiled renderer, the patch-window path
 (``ops/tilewin.py``). Other variants and samplers raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -34,7 +34,7 @@ from enarf_gan_tpu_torch.ops.tilewin import (pack_tilewin,
                                              sample_tilewin_fused,
                                              select_patch_slots)
 from enarf_gan_tpu_torch.ops.triplane import select_candidate_bones
-from enarf_gan_tpu_torch.ops.unirow import (MASK_BLOCK, pack_unirow,
+from enarf_gan_tpu_torch.ops.unirow import (MASK_BLOCK, pack_texels,
                                             sample_candidates_unirow)
 
 
@@ -238,10 +238,11 @@ class TriPlaneNARF(nn.Module):
                 "unirow kernel is ROADMAP Queue 2, kernel 1")
 
     def pack_planes(self, tri_plane_feature: torch.Tensor) -> Tuple[torch.Tensor]:
-        """Pack planes once per frame into the unirow table, as a 1-tuple
-        (the JAX package's packed-table convention)."""
+        """Pack planes once per frame into the unirow sampler's texel
+        table (``ops/unirow.py::pack_texels``; the JAX package packs quad
+        rows), as a 1-tuple (the JAX package's packed-table convention)."""
         self._check_unirow()
-        return (pack_unirow(tri_plane_feature, self.params.feat_dim,
+        return (pack_texels(tri_plane_feature, self.params.feat_dim,
                             self.num_bone),)
 
     def heads(self, feature, z_rend, ray_direction):

@@ -1,27 +1,36 @@
-"""Unirow tri-plane sampling: one fused row per (point, candidate, plane)
+"""Unirow tri-plane sampling: one fused read per (point, candidate, plane)
 (port of ``enarf_gan_tpu/ops/unirow.py``).
 
-``pack_unirow`` packs the feature planes and all per-bone mask planes into
-one 256-lane bf16 row per sample cell:
+Two layouts of the same planes:
 
-    [ A_f | B_f | C_f | D_f | A_m(32) | B_m(32) | C_m(32) | D_m(32) ]
+* ``pack_unirow``, the JAX package's layout: one 256-lane bf16 row per
+  sample cell,
 
-A..D are the 2×2 bilinear texel quad of the cell; each mask corner block
-holds that texel's mask logit for every bone (bone k at lane k, K <= 32).
+      [ A_f | B_f | C_f | D_f | A_m(32) | B_m(32) | C_m(32) | D_m(32) ]
 
-``unirow_combine`` gathers those rows and combines them: bilinear feature
-sum over planes, the candidate bone's mask logit, the product of sigmoids
-over planes, and the candidate-weighted feature sum. On a CUDA tensor it
-launches the hand-written Hopper kernel ``csrc/unirow_combine.cu`` (which
-replaces the Pallas kernel ``_combine_kernel``); on a CPU tensor it runs
-``gather_combine_plain``, the plain PyTorch twin of the JAX package's
-``jnp.take`` + ``_combine_xla``, which autograd differentiates.
+  A..D are the 2×2 bilinear texel quad of the cell; each mask corner block
+  holds that texel's mask logit for every bone (bone k at lane k, K <= 32).
+  Every texel is stored four times (it is a corner of four cells): 101 MB
+  an image at 256² planes. ``gather_combine_plain`` combines it, the plain
+  twin of the JAX package's ``jnp.take`` + ``_combine_xla``.
+* ``pack_texels``, the layout the card reads: the one-texel zero-padded
+  planes channels-last, (B, 3, H+2, W+2, 64) bf16, one 128-byte line a
+  texel holding [32 feature lanes | 32 mask lanes, bone k at lane 32+k].
+  25.6 MB an image at 256² planes, so an image's table stays in the H100's
+  50 MB L2. Corner q of cell (t, s) is texel (t + q//2, s + q%2), so the
+  rows of ``candidate_rows`` address both layouts.
 
-On the card ``unirow_combine`` is a ``torch.autograd.Function``: its
-backward is the hand-written kernel ``csrc/unirow_combine_bwd.cu`` (which
-replaces the JAX package's XLA VJP ``_combine_bwd``), so gradients reach the
-table and ``wq4`` (and through ``candidate_rows`` the candidate positions)
-without the gathered rows ever being built.
+``unirow_combine`` gathers a candidate's four texels on each plane and
+combines them: bilinear feature sum over planes, the candidate bone's mask
+logit, the product of sigmoids over planes, and the candidate-weighted
+feature sum. On a CUDA tensor it launches the hand-written Hopper kernel
+``csrc/unirow_combine.cu`` (which replaces the Pallas kernel
+``_combine_kernel``) and, for the gradient, ``csrc/unirow_combine_bwd.cu``
+(which replaces the JAX package's XLA VJP ``_combine_bwd``) through a
+``torch.autograd.Function``; on a CPU tensor it runs
+``gather_combine_texels_plain``, which autograd differentiates. Gradients
+reach the texel table (and through ``pack_texels`` the planes) and ``wq4``
+(and through ``candidate_rows`` the candidate positions).
 """
 from __future__ import annotations
 
@@ -37,46 +46,80 @@ from enarf_gan_tpu_torch.ops.quadtable import (_quad_cells_weights,
                                                quad_pack_corners)
 
 MASK_BLOCK = 32          # lanes per mask corner block (bones 0..K-1, K<=32)
-KERNEL_FEAT_DIM = 32     # the kernel maps feature lane f to warp lane f
+FEAT_BLOCK = 32          # feature lanes of a texel (F <= 32, zeros beyond F)
+TEXEL_WIDTH = FEAT_BLOCK + MASK_BLOCK
+KERNEL_FEAT_DIM = 32     # the kernels take F = 32 (a texel's full feature half)
 
 
 def row_width(feat_dim: int) -> int:
     return 4 * feat_dim + 4 * MASK_BLOCK
 
 
-def pack_unirow(tri_plane_feature: torch.Tensor, feat_dim: int,
-                num_bone: int) -> torch.Tensor:
-    """(B, (F+K)*3, H, W) planes → (B, 3*(H+1)*(W+1), 4F+128) bf16 table.
-
-    Row r = p*(H+1)*(W+1) + t*(W+1) + s for plane p, cell (t, s). Input
-    channels: F*3 feature planes, then K*3 per-bone mask planes.
-    """
+def _split_planes(tri_plane_feature: torch.Tensor, feat_dim: int,
+                  num_bone: int):
+    """(B, (F+K)*3, H, W) → feature (B, 3, H, W, F) and mask (B, 3, H, W, K)
+    planes, channels last. Input channels: F*3 feature planes, then K*3
+    per-bone mask planes."""
     B, C3, H, W = tri_plane_feature.shape
     F_, K = feat_dim, num_bone
     if C3 != (F_ + K) * 3 or K > MASK_BLOCK:
         raise ValueError(f"planes of {C3} channels do not hold F={F_}, "
                          f"K={K} (K <= {MASK_BLOCK})")
     feat = tri_plane_feature[:, :F_ * 3].reshape(B, 3, F_, H, W) \
-        .permute(0, 1, 3, 4, 2)                                # (B,3,H,W,F)
+        .permute(0, 1, 3, 4, 2)
     mask = tri_plane_feature[:, F_ * 3:].reshape(B, K, 3, H, W) \
-        .permute(0, 2, 3, 4, 1)                                # (B,3,H,W,K)
+        .permute(0, 2, 3, 4, 1)
+    return feat, mask
+
+
+def pack_unirow(tri_plane_feature: torch.Tensor, feat_dim: int,
+                num_bone: int, dtype: torch.dtype = torch.bfloat16
+                ) -> torch.Tensor:
+    """(B, (F+K)*3, H, W) planes → (B, 3*(H+1)*(W+1), 4F+128) table of
+    ``dtype`` (bf16, as the JAX package packs it).
+
+    Row r = p*(H+1)*(W+1) + t*(W+1) + s for plane p, cell (t, s).
+    """
+    B = tri_plane_feature.shape[0]
+    K = num_bone
+    feat, mask = _split_planes(tri_plane_feature, feat_dim, num_bone)
     fq = quad_pack_corners(feat)                               # (…, 4F)
     mq = quad_pack_corners(mask).reshape(B, 3, -1, 4, K)
     mq = F.pad(mq, (0, MASK_BLOCK - K)).reshape(B, 3, fq.shape[2],
                                                  4 * MASK_BLOCK)
-    table = torch.cat([fq, mq], dim=-1).to(torch.bfloat16)
-    return table.reshape(B, 3 * fq.shape[2], row_width(F_))
+    table = torch.cat([fq, mq], dim=-1).to(dtype)
+    return table.reshape(B, 3 * fq.shape[2], row_width(feat_dim))
+
+
+def pack_texels(tri_plane_feature: torch.Tensor, feat_dim: int,
+                num_bone: int, dtype: torch.dtype = torch.bfloat16
+                ) -> torch.Tensor:
+    """(B, (F+K)*3, H, W) planes → (B, 3, H+2, W+2, 64) texel table of
+    ``dtype``: the planes with a one-texel ring of zeros (grid_sample's
+    zeros padding), channels last, lanes [feature (F, zeros to 32) | mask
+    (bone k at lane 32+k, zeros to 32)]. Holds the values of the texels of
+    ``pack_unirow`` (each rounded once to ``dtype``), each once; autograd's
+    backward is a slice and permute of the texel gradient."""
+    if feat_dim > FEAT_BLOCK:
+        raise ValueError(f"a texel holds F <= {FEAT_BLOCK} feature channels, "
+                         f"got F={feat_dim}")
+    feat, mask = _split_planes(tri_plane_feature, feat_dim, num_bone)
+    tex = torch.cat([F.pad(feat.to(dtype), (0, FEAT_BLOCK - feat_dim)),
+                     F.pad(mask.to(dtype), (0, MASK_BLOCK - num_bone))],
+                    dim=-1)
+    return F.pad(tex, (0, 0, 1, 1, 1, 1))
 
 
 def gather_combine_plain(table, rows, wq4, cand_idx, valid, feat_dim: int,
                          clamp_mask: bool):
-    """Plain PyTorch gather + combine (the twin of the kernel).
+    """Plain PyTorch gather + combine on the quad-row table of
+    ``pack_unirow`` (the JAX layout; the kernels read ``pack_texels``).
 
-    Same arguments and results as ``unirow_combine``. Materialises the
+    Same results as ``gather_combine_texels_plain``. Materialises the
     gathered feature lanes (B, 3, M, n, 4F) and computes in float32, as the
     TPU kernel does (the JAX ``_combine_xla`` forms the feature products in
     bf16). Under autograd it gathers from a float32 copy of the table, so
-    the table gradient accumulates in float32, as the backward kernel's does.
+    the table gradient accumulates in float32.
     """
     F_ = feat_dim
     if torch.is_grad_enabled() and table.requires_grad:
@@ -89,11 +132,17 @@ def gather_combine_plain(table, rows, wq4, cand_idx, valid, feat_dim: int,
     # and nothing gathered is sliced: autograd would zero-fill a gradient of
     # the gathered rows' size for every slice
     fq = tab[:, :4 * F_][flat].unflatten(-1, (4, F_))          # (…, 4, F)
-    feat = (fq.float() * wq[..., None]).sum(dim=-2).sum(dim=1)  # (B, M, n, F)
     lane = flat * RW + 4 * F_ + cand_idx.long()[:, None]       # (B, 3, M, n)
     quad = MASK_BLOCK * torch.arange(4, device=rows.device)
-    logit = (tab.reshape(-1)[lane[..., None] + quad].float() * wq) \
-        .sum(dim=-1)                                           # (B, 3, M, n)
+    mq = tab.reshape(-1)[lane[..., None] + quad]               # (…, 4)
+    return _combine(fq, mq, wq, valid, clamp_mask)
+
+
+def _combine(fq, mq, wq, valid, clamp_mask):
+    """The combine on gathered corners: feature lanes fq (B, 3, M, n, 4, F),
+    the candidate's mask logits mq (B, 3, M, n, 4), weights wq (…, 4)."""
+    feat = (fq.float() * wq[..., None]).sum(dim=-2).sum(dim=1)  # (B, M, n, F)
+    logit = (mq.float() * wq).sum(dim=-1)                      # (B, 3, M, n)
     if clamp_mask:
         logit = straight_through_clamp(logit)
     cand_wn = torch.sigmoid(logit).prod(dim=1)                 # (B, M, n)
@@ -101,20 +150,56 @@ def gather_combine_plain(table, rows, wq4, cand_idx, valid, feat_dim: int,
     return feature, cand_wn
 
 
+def texel_corners(rows: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The texel (within its batch item's table, planes flattened) of
+    corner A of each row's cell, int64; corner q is texel
+    + (q//2)*(W+2) + q%2."""
+    cells = (H + 1) * (W + 1)
+    r = rows.long()
+    p, c = r // cells, r % cells
+    t, s = c // (W + 1), c % (W + 1)
+    return (p * (H + 2) + t) * (W + 2) + s
+
+
+def gather_combine_texels_plain(texels, rows, wq4, cand_idx, valid,
+                                feat_dim: int, clamp_mask: bool):
+    """Plain PyTorch gather + combine on the texel table (the twin of the
+    kernels): same arguments and results as ``unirow_combine``. Gathers the
+    four corner texels of each (plane, candidate, point) and computes in
+    float32, in the order of ``gather_combine_plain``. Under autograd it
+    gathers from a float32 copy of the table, so the texel gradient
+    accumulates in float32, as kernel 1b's does."""
+    F_ = feat_dim
+    if torch.is_grad_enabled() and texels.requires_grad:
+        texels = texels.float()
+    B, _, Hp, Wp, TW = texels.shape
+    per_b = 3 * Hp * Wp
+    a = texel_corners(rows, Hp - 2, Wp - 2) \
+        + (torch.arange(B, device=rows.device) * per_b).view(B, 1, 1, 1)
+    corners = a[..., None] + torch.tensor([0, 1, Wp, Wp + 1],
+                                          device=rows.device)  # (…, 4)
+    tab = texels.reshape(B * per_b, TW)
+    fq = tab[:, :F_][corners]                                  # (…, 4, F)
+    lane = corners * TW + FEAT_BLOCK + cand_idx.long()[:, None, :, :, None]
+    mq = tab.reshape(-1)[lane]                                 # (…, 4)
+    return _combine(fq, mq, wq4.movedim(1, -1), valid, clamp_mask)
+
+
 KERNEL = KernelLibrary("unirow_combine", "unirow_combine_bf16",
-                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
 KERNEL_BWD = KernelLibrary("unirow_combine_bwd", "unirow_combine_bwd_bf16",
-                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                            + [ctypes.c_void_p])
 
 
-def _check_inputs(table, rows, wq4, cand_idx, valid, feat_dim):
-    if table.dim() != 3 or table.dtype != torch.bfloat16 \
-            or table.shape[2] != row_width(feat_dim):
-        raise ValueError(f"table must be (B, R, {row_width(feat_dim)}) "
-                         f"bfloat16, got {tuple(table.shape)} {table.dtype}")
-    B = table.shape[0]
+def _check_inputs(texels, rows, wq4, cand_idx, valid):
+    if texels.dim() != 5 or texels.dtype != torch.bfloat16 \
+            or texels.shape[1] != 3 or texels.shape[4] != TEXEL_WIDTH:
+        raise ValueError(f"the texel table must be (B, 3, H+2, W+2, "
+                         f"{TEXEL_WIDTH}) bfloat16 (pack_texels), got "
+                         f"{tuple(texels.shape)} {texels.dtype}")
+    B = texels.shape[0]
     if rows.dim() != 4 or rows.shape[:2] != (B, 3):
         raise ValueError(f"rows must be (B, 3, M, n), got {tuple(rows.shape)}")
     M, n = rows.shape[2:]
@@ -126,40 +211,40 @@ def _check_inputs(table, rows, wq4, cand_idx, valid, feat_dim):
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name} must be {shape} {dtype}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-        if t.device != table.device:
-            raise ValueError(f"{name} is on {t.device}, table on "
-                             f"{table.device}")
+        if t.device != texels.device:
+            raise ValueError(f"{name} is on {t.device}, texels on "
+                             f"{texels.device}")
     if torch.is_grad_enabled() and valid.requires_grad:
         raise ValueError("valid takes no gradient (it comes from a bool); "
                          "detach it")
 
 
-def _check_kernel_shapes(table, rows, feat_dim):
+def _kernel_shape(texels, rows, feat_dim):
+    """(B, H, W, M, n) for the kernels, or raise on what they do not take."""
     if feat_dim != KERNEL_FEAT_DIM:
         raise ValueError(f"the CUDA kernel takes feat_dim "
                          f"{KERNEL_FEAT_DIM}, got {feat_dim}")
-    B, R, _ = table.shape
+    B, _, Hp, Wp, _ = texels.shape
     M, n = rows.shape[2:]
-    if R >= 2 ** 31 or n >= 2 ** 31 or B > 65535:
-        raise ValueError(f"shape too large for the kernel: B={B} R={R} "
-                         f"M={M} n={n}")
+    if 3 * (Hp - 1) * (Wp - 1) >= 2 ** 31 or M * n >= 2 ** 31 or B > 65535:
+        raise ValueError(f"shape too large for the kernel: B={B} "
+                         f"H={Hp - 2} W={Wp - 2} M={M} n={n}")
+    return B, Hp - 2, Wp - 2, M, n
 
 
-def _launch_kernel(table, rows, wq4, cand_idx, valid, feat_dim, clamp_mask):
+def _launch_kernel(texels, rows, wq4, cand_idx, valid, feat_dim, clamp_mask):
     """Kernel 1: feature (B, F, n), cand_w (B, M, n)."""
-    _check_kernel_shapes(table, rows, feat_dim)
-    B, R, _ = table.shape
-    M, n = rows.shape[2:]
+    B, H, W, M, n = _kernel_shape(texels, rows, feat_dim)
     feature = torch.empty((B, feat_dim, n), dtype=torch.float32,
-                          device=table.device)
-    cand_w = torch.empty((B, M, n), dtype=torch.float32, device=table.device)
+                          device=texels.device)
+    cand_w = torch.empty((B, M, n), dtype=torch.float32, device=texels.device)
     if n == 0:
         return feature, cand_w
     fn = KERNEL.load()
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = fn(table.data_ptr(), rows.data_ptr(), wq4.data_ptr(),
+    stream = torch.cuda.current_stream(texels.device).cuda_stream
+    err = fn(texels.data_ptr(), rows.data_ptr(), wq4.data_ptr(),
              cand_idx.data_ptr(), valid.data_ptr(), feature.data_ptr(),
-             cand_w.data_ptr(), B, R, M, n, int(clamp_mask), stream)
+             cand_w.data_ptr(), B, H, W, M, n, int(clamp_mask), stream)
     if err != 0:
         raise RuntimeError(f"unirow_combine kernel launch failed: CUDA error "
                            f"{err}")
@@ -167,80 +252,81 @@ def _launch_kernel(table, rows, wq4, cand_idx, valid, feat_dim, clamp_mask):
     return feature, cand_w
 
 
-def launch_backward(table, rows, wq4, cand_idx, valid, dfeature, dcand_w,
+def launch_backward(texels, rows, wq4, cand_idx, valid, dfeature, dcand_w,
                     feat_dim, clamp_mask):
     """Kernel 1b: the gradients of ``unirow_combine``'s two outputs with
-    respect to the table, (B, R, 4F+128) float32, and to ``wq4``."""
-    _check_kernel_shapes(table, rows, feat_dim)
-    B, R, RW = table.shape
-    M, n = rows.shape[2:]
-    dtable = torch.zeros((B, R, RW), dtype=torch.float32, device=table.device)
+    respect to the texel table, (B, 3, H+2, W+2, 64) float32 (mask lanes
+    of bones >= K stay zero), and to ``wq4``."""
+    B, H, W, M, n = _kernel_shape(texels, rows, feat_dim)
+    dtexels = torch.zeros(texels.shape, dtype=torch.float32,
+                          device=texels.device)
     dwq4 = torch.empty_like(wq4)
     if n == 0:
-        return dtable, dwq4
+        return dtexels, dwq4
     dfeature = dfeature.float().contiguous()
     dcand_w = dcand_w.float().contiguous()
     fn = KERNEL_BWD.load()
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = fn(table.data_ptr(), rows.data_ptr(), wq4.data_ptr(),
+    stream = torch.cuda.current_stream(texels.device).cuda_stream
+    err = fn(texels.data_ptr(), rows.data_ptr(), wq4.data_ptr(),
              cand_idx.data_ptr(), valid.data_ptr(), dfeature.data_ptr(),
-             dcand_w.data_ptr(), dtable.data_ptr(), dwq4.data_ptr(),
-             B, R, M, n, int(clamp_mask), stream)
+             dcand_w.data_ptr(), dtexels.data_ptr(), dwq4.data_ptr(),
+             B, H, W, M, n, int(clamp_mask), stream)
     if err != 0:
         raise RuntimeError(f"unirow_combine backward kernel launch failed: "
                            f"CUDA error {err}")
     KERNEL_BWD.count()
-    return dtable, dwq4
+    return dtexels, dwq4
 
 
 class _UnirowCombine(torch.autograd.Function):
     """Kernel 1 forward, kernel 1b backward."""
 
     @staticmethod
-    def forward(ctx, table, rows, wq4, cand_idx, valid, feat_dim, clamp_mask):
-        ctx.save_for_backward(table, rows, wq4, cand_idx, valid)
+    def forward(ctx, texels, rows, wq4, cand_idx, valid, feat_dim,
+                clamp_mask):
+        ctx.save_for_backward(texels, rows, wq4, cand_idx, valid)
         ctx.feat_dim, ctx.clamp_mask = feat_dim, clamp_mask
-        return _launch_kernel(table, rows, wq4, cand_idx, valid, feat_dim,
+        return _launch_kernel(texels, rows, wq4, cand_idx, valid, feat_dim,
                               clamp_mask)
 
     @staticmethod
     def backward(ctx, dfeature, dcand_w):
-        table, rows, wq4, cand_idx, valid = ctx.saved_tensors
-        dtable, dwq4 = launch_backward(table, rows, wq4, cand_idx, valid,
-                                       dfeature, dcand_w, ctx.feat_dim,
-                                       ctx.clamp_mask)
-        # dtable is float32; autograd rounds it to the bf16 table's type
-        # here, and the table's own backward (pack_unirow) carries it on to
-        # the planes
-        return dtable, None, dwq4, None, None, None, None
+        texels, rows, wq4, cand_idx, valid = ctx.saved_tensors
+        dtexels, dwq4 = launch_backward(texels, rows, wq4, cand_idx, valid,
+                                        dfeature, dcand_w, ctx.feat_dim,
+                                        ctx.clamp_mask)
+        # dtexels is float32, the four cells that share a texel summed in
+        # it; autograd rounds it once to the bf16 table's type here, and
+        # pack_texels' backward carries it on to the planes
+        return dtexels, None, dwq4, None, None, None, None
 
 
-def unirow_combine(table, rows, wq4, cand_idx, valid, feat_dim: int,
+def unirow_combine(texels, rows, wq4, cand_idx, valid, feat_dim: int,
                    clamp_mask: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gather + combine unirow rows.
+    """Gather + combine the candidates' texels.
 
     Args:
-        table: (B, R, 4F+128) bf16 from ``pack_unirow``.
-        rows: (B, 3, M, n) int32 row of each (plane, candidate, point)
-            within its batch's table.
+        texels: (B, 3, H+2, W+2, 64) bf16 from ``pack_texels``.
+        rows: (B, 3, M, n) int32 cell of each (plane, candidate, point)
+            within its batch item, p*(H+1)*(W+1) + t*(W+1) + s.
         wq4: (B, 4, 3, M, n) f32 bilinear corner weights.
         cand_idx: (B, M, n) int32 bone ids; valid: (B, M, n) f32.
     Returns:
         feature (B, F, n) f32 and cand_w (B, M, n) f32.
 
-    Differentiable in ``table`` and ``wq4``; ``valid`` takes no gradient
+    Differentiable in ``texels`` and ``wq4``; ``valid`` takes no gradient
     (asking for one raises). CUDA tensors go to kernel 1, and its gradient
-    to kernel 1b (or raise); CPU tensors to ``gather_combine_plain``.
+    to kernel 1b (or raise); CPU tensors to ``gather_combine_texels_plain``.
     """
-    _check_inputs(table, rows, wq4, cand_idx, valid, feat_dim)
-    if table.is_cuda:
+    _check_inputs(texels, rows, wq4, cand_idx, valid)
+    if texels.is_cuda:
         if not all(t.is_contiguous()
-                   for t in (table, rows, wq4, cand_idx, valid)):
+                   for t in (texels, rows, wq4, cand_idx, valid)):
             raise ValueError("the CUDA kernel takes contiguous tensors")
-        return _UnirowCombine.apply(table, rows, wq4, cand_idx, valid,
+        return _UnirowCombine.apply(texels, rows, wq4, cand_idx, valid,
                                     feat_dim, clamp_mask)
-    return gather_combine_plain(table, rows, wq4, cand_idx, valid, feat_dim,
-                                clamp_mask)
+    return gather_combine_texels_plain(texels, rows, wq4, cand_idx, valid,
+                                       feat_dim, clamp_mask)
 
 
 def candidate_rows(cand_pos: torch.Tensor, cand_idx: torch.Tensor,
@@ -260,19 +346,19 @@ def candidate_rows(cand_pos: torch.Tensor, cand_idx: torch.Tensor,
 
 
 def sample_candidates_unirow(
-        table: torch.Tensor, cand_pos: torch.Tensor, cand_idx: torch.Tensor,
+        texels: torch.Tensor, cand_pos: torch.Tensor, cand_idx: torch.Tensor,
         cand_valid: torch.Tensor, feat_dim: int, num_bone: int, H: int, W: int,
         clamp_mask: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused part probability + weighted feature over candidate bones.
 
     Args:
-        table: (B, 3*(H+1)*(W+1), 4F+128) bf16 from ``pack_unirow``.
+        texels: (B, 3, H+2, W+2, 64) bf16 from ``pack_texels``.
         cand_pos: (B, n, M, 3); cand_idx: (B, n, M) int32;
         cand_valid: (B, n, M) bool.
     Returns:
         (feature (B, F, n) f32, cand_w (B, n, M) f32).
     """
     feature, cand_wn = unirow_combine(
-        table, *candidate_rows(cand_pos, cand_idx, cand_valid, H, W),
+        texels, *candidate_rows(cand_pos, cand_idx, cand_valid, H, W),
         feat_dim, clamp_mask)
     return feature, cand_wn.permute(0, 2, 1)

@@ -1,4 +1,5 @@
-"""Family C of the probes: stage ablations of the port's kernels 2 and 3.
+"""Family C of the probes: stage ablations of the port's kernels 2 and 3,
+and of kernel 1b's atomic adds.
 
 Where the tilewin combine's time goes on this card, asked of the kernels it
 runs (``csrc/tilewin_combine.cu``, ``csrc/tilewin_combine_modes.cu``), as
@@ -19,6 +20,11 @@ of the staged rows), "featB" (s-weights 1), "feat" (no mask), "mask" (no
 feature product). The build of each library prints each instantiation's
 ptxas line (``chip_smoke.py``), the counterpart of
 ``tools/probe_kernel_stages.py`` and ``tools/probe_kernel_variants.py``.
+Kernel 1b (``unirow_bwd_stage``, built from ``csrc/unirow_combine_bwd.cu``
+with ``-DUNIROW_STAGE_ENTRY``; twin ``unirow_bwd_stage_plain``; timed by
+``chip_smoke.py`` beside kernel 1b, no TPU probe asked it): "full",
+"scalar" (the feature adds as scalar atomics in place of 16-byte vector
+reductions), "nofeat" (no feature adds), "nomask" (no mask adds).
 
     python -m enarf_gan_tpu_torch.tools.ablate [--device cpu]
 """
@@ -29,7 +35,7 @@ import ctypes
 import torch
 
 from enarf_gan_tpu_torch.cuda_build import KernelLibrary
-from enarf_gan_tpu_torch.ops import tilewin
+from enarf_gan_tpu_torch.ops import tilewin, unirow
 from enarf_gan_tpu_torch.ops.tilewin_kernel import (HAT_STAGES, NTEX, WIN,
                                                     _check_inputs,
                                                     _check_kernel_shapes,
@@ -49,6 +55,13 @@ KERNEL_MODES_STAGES = KernelLibrary(
     "tilewin_combine_modes_stages", "tilewin_combine_modes_stage_bf16", _ARGS,
     keys=tuple(f"{p}/{s}" for p in PATHS for s in MODES_STAGES),
     source="tilewin_combine_modes.cu", flags=STAGE_FLAGS)
+# kernel 1b's stages, in the order of the C enum
+UNIROW_BWD_STAGES = ("full", "scalar", "nofeat", "nomask")
+KERNEL_UNIROW_BWD_STAGES = KernelLibrary(
+    "unirow_combine_bwd_stages", "unirow_combine_bwd_stage_bf16",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    keys=UNIROW_BWD_STAGES, source="unirow_combine_bwd.cu",
+    flags=("-DUNIROW_STAGE_ENTRY",))
 F_ = 32
 TRI_PLANE_SIZE, RAY_CHUNK, TILE_PATCH = 256, 4096, 4
 
@@ -110,6 +123,69 @@ def modes_stage(feat_table, mask_table, frows, mrows, xt, xs, valid, S,
     return _launch(KERNEL_MODES_STAGES, f"{path}/{stage}", args, S,
                    (B, Mp, U, S, int(clamp_mask), int(path == "dot"),
                     MODES_STAGES.index(stage)))
+
+
+def unirow_bwd_stage(texels, rows, wq4, cand_idx, valid, dfeature, dcand_w,
+                     stage):
+    """Kernel 1b with its adds doctored (``UNIROW_BWD_STAGES``): (dtexels,
+    dwq4), as ``ops/unirow.py::launch_backward``; on the CPU the twin."""
+    if stage not in UNIROW_BWD_STAGES:
+        raise ValueError(f"stage must be one of {UNIROW_BWD_STAGES}, got "
+                         f"{stage!r}")
+    args = (texels, rows, wq4, cand_idx, valid)
+    unirow._check_inputs(*args)
+    if not texels.is_cuda:
+        return unirow_bwd_stage_plain(*args, dfeature, dcand_w, stage)
+    B, H, W, M, n = unirow._kernel_shape(texels, rows, F_)
+    dtexels = torch.zeros(texels.shape, dtype=torch.float32,
+                          device=texels.device)
+    dwq4 = torch.empty_like(wq4)
+    dfeature = dfeature.float().contiguous()
+    dcand_w = dcand_w.float().contiguous()
+    stream = torch.cuda.current_stream(texels.device).cuda_stream
+    ptrs = [t.data_ptr() for t in args + (dfeature, dcand_w, dtexels, dwq4)]
+    lib = KERNEL_UNIROW_BWD_STAGES
+    err = lib.load()(*ptrs, B, H, W, M, n, 0, UNIROW_BWD_STAGES.index(stage),
+                     stream)
+    if err != 0:
+        raise RuntimeError(f"{lib.name} ({stage}) launch failed: CUDA error "
+                           f"{err}")
+    lib.count(stage)
+    return dtexels, dwq4
+
+
+def unirow_bwd_plain(texels, rows, wq4, cand_idx, valid, dfeature, dcand_w):
+    """Kernel 1b's function by autograd through
+    ``gather_combine_texels_plain`` on float32 copies, image by image (the
+    gathered float32 texels of 4 images of a fine pass are 13 GB; images
+    share no texels): (dtexels, dwq4)."""
+    dts, dws = [], []
+    with torch.enable_grad():
+        for b in range(texels.shape[0]):
+            sl = slice(b, b + 1)
+            tf = texels[sl].float().requires_grad_(True)
+            wf = wq4[sl].clone().requires_grad_(True)
+            f, w = unirow.gather_combine_texels_plain(
+                tf, rows[sl], wf, cand_idx[sl], valid[sl], F_, False)
+            dt, dw = torch.autograd.grad(
+                (f * dfeature[sl]).sum() + (w * dcand_w[sl]).sum(), [tf, wf])
+            dts.append(dt)
+            dws.append(dw)
+    return torch.cat(dts), torch.cat(dws)
+
+
+def unirow_bwd_stage_plain(texels, rows, wq4, cand_idx, valid, dfeature,
+                           dcand_w, stage):
+    """The twin of ``unirow_bwd_stage``: ``unirow_bwd_plain`` with the
+    feature lanes ("nofeat") or the mask lanes ("nomask") of the texel
+    gradient left at zero."""
+    dtexels, dwq4 = unirow_bwd_plain(texels, rows, wq4, cand_idx, valid,
+                                     dfeature, dcand_w)
+    lanes = {"nofeat": slice(0, unirow.FEAT_BLOCK),
+             "nomask": slice(unirow.FEAT_BLOCK, None)}.get(stage)
+    if lanes is not None:
+        dtexels[..., lanes] = 0
+    return dtexels, dwq4
 
 
 def _axis_weights(i, frac):
@@ -210,6 +286,47 @@ def chunk_inputs(device, m, S, B=1, seed=0, H=TRI_PLANE_SIZE,
     plan = tilewin._fused_plan(tables, pos, slot_idx, valid)
     return (tables.feat, tables.mask, plan.frows, plan.mrows, plan.xt,
             plan.xs, plan.valid, F_, S, False)
+
+
+def unirow_inputs(device, B, n, H=TRI_PLANE_SIZE, M=4, K=23, seed=0):
+    """The unirow kernels' inputs at random positions (``chip_smoke.py``'s
+    checks): B images of n points, M candidates (about 30% invalid), 256²
+    planes by default: (texels, rows, wq4, cand_idx, valid, dfeature,
+    dcand_w), the last two kernel 1b's cotangents."""
+    g = torch.Generator().manual_seed(seed)
+    planes = torch.randn((B, (F_ + K) * 3, H, H), generator=g).to(device)
+    pos = (torch.rand((B, n, M, 3), generator=g) * 2.4 - 1.2).to(device)
+    idx = torch.randint(0, K, (B, n, M), generator=g,
+                        dtype=torch.int32).to(device)
+    valid = (torch.rand((B, n, M), generator=g) > 0.3).to(device)
+    texels = unirow.pack_texels(planes, F_, K)
+    rows, wq4, ci, cv = unirow.candidate_rows(pos, idx, valid, H, H)
+    dfeature = torch.randn((B, F_, n), generator=g).to(device)
+    dcand_w = torch.randn((B, M, n), generator=g).to(device)
+    return texels, rows, wq4, ci, cv, dfeature, dcand_w
+
+
+def texel_table_bytes(texels, rows, cand_idx, valid, feat_dim):
+    """Bytes of the texel table (``pack_texels``) one unirow launch must
+    read: the F feature lanes of each distinct texel a valid candidate
+    reads (4 corners a row; the feature is weighted by valid) and each
+    distinct 32-byte sector holding a candidate's mask logit (every
+    candidate's cand_w needs it). Returns (bytes, distinct feature texels,
+    distinct mask sectors)."""
+    B, _, Hp, Wp, TW = texels.shape
+    a = unirow.texel_corners(rows, Hp - 2, Wp - 2) \
+        + (torch.arange(B, device=rows.device) * 3 * Hp * Wp).view(B, 1, 1, 1)
+    corners = a[..., None] + torch.tensor([0, 1, Wp, Wp + 1],
+                                          device=rows.device)  # (…, 4)
+    keep = (valid != 0)[:, None, :, :, None].expand_as(corners)
+    d_tex = int(torch.unique(corners[keep]).numel())
+    lanes_per_sector = 32 // texels.element_size()
+    sectors = corners * (TW // lanes_per_sector) + (
+        unirow.FEAT_BLOCK + cand_idx.long()[:, None, :, :, None]) \
+        // lanes_per_sector
+    d_sec = int(torch.unique(sectors).numel())
+    return d_tex * feat_dim * texels.element_size() + d_sec * 32, d_tex, \
+        d_sec
 
 
 def probe_inputs(device, U=12288, S=48, Mp=4, m=16, seed=0):

@@ -39,8 +39,12 @@ def _f32(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
+@pytest.mark.parametrize("layout", ["texels", "quad rows"])
 @pytest.mark.parametrize("clamp", [False, True])
-def test_unirow_gradients_match_jax_vjp(clamp):
+def test_unirow_gradients_match_jax_vjp(clamp, layout):
+    """The JAX VJP through its quad-row table against the port's sampler
+    (the texel table, gradients to the planes and positions) and the
+    port's quad-row twin (gradients to the table and positions)."""
     rng = np.random.default_rng(11)
     B, H, F, K, n, M = 2, 12, 32, 23, 60, 4
     planes = rng.normal(size=(B, (F + K) * 3, H, H)).astype(np.float32)
@@ -50,26 +54,38 @@ def test_unirow_gradients_match_jax_vjp(clamp):
     cf = rng.normal(size=(B, F, n)).astype(np.float32)
     cw = rng.normal(size=(B, n, M)).astype(np.float32)
 
-    jtable = junirow.pack_unirow(jnp.asarray(planes), F, K)
-
     def jloss(table, p):
         f, w = junirow.sample_candidates_unirow(
             table, p, jnp.asarray(idx), jnp.asarray(valid), F, K, H, H,
             clamp_mask=clamp)
         return (f * cf).sum() + (w * cw).sum()
 
-    g_table, g_pos = jax.grad(jloss, argnums=(0, 1))(jtable, jnp.asarray(pos))
-
-    table = unirow.pack_unirow(torch.from_numpy(planes), F, K) \
-        .requires_grad_(True)
     p = torch.from_numpy(pos).requires_grad_(True)
-    f, w = unirow.sample_candidates_unirow(
-        table, p, torch.from_numpy(idx), torch.from_numpy(valid), F, K, H, H,
-        clamp_mask=clamp)
+    tp = torch.from_numpy(planes).requires_grad_(True)
+    if layout == "texels":
+        g_planes, g_pos = jax.grad(
+            lambda pl, p: jloss(junirow.pack_unirow(pl, F, K), p),
+            argnums=(0, 1))(jnp.asarray(planes), jnp.asarray(pos))
+        table = unirow.pack_texels(tp, F, K)
+        table.retain_grad()
+        f, w = unirow.sample_candidates_unirow(
+            table, p, torch.from_numpy(idx), torch.from_numpy(valid), F, K,
+            H, H, clamp_mask=clamp)
+    else:
+        jtable = junirow.pack_unirow(jnp.asarray(planes), F, K)
+        g_planes, g_pos = jax.grad(jloss, argnums=(0, 1))(jtable,
+                                                           jnp.asarray(pos))
+        table = unirow.pack_unirow(tp, F, K).detach().requires_grad_(True)
+        f, w = unirow.gather_combine_plain(
+            table, *unirow.candidate_rows(p, torch.from_numpy(idx),
+                                          torch.from_numpy(valid), H, H),
+            F, clamp)
+        w = w.permute(0, 2, 1)
     ((f * torch.from_numpy(cf)).sum() + (w * torch.from_numpy(cw)).sum()) \
         .backward()
     assert table.grad.dtype == torch.bfloat16
-    assert rel_l2(table.grad.float().numpy(), _f32(g_table)) <= REL_L2
+    got = tp.grad if layout == "texels" else table.grad.float()
+    assert rel_l2(got.numpy(), _f32(g_planes)) <= REL_L2
     assert rel_l2(p.grad.numpy(), np.asarray(g_pos)) <= REL_L2
     assert float(np.abs(np.asarray(g_pos)).max()) > 0
 

@@ -19,16 +19,19 @@ import torch
 
 from enarf_gan_tpu_torch.cuda_build import KernelLibrary
 from enarf_gan_tpu_torch.ops import tilewin, tilewin_kernel, unirow
+from enarf_gan_tpu_torch.tools import ablate
 
 
 def _combine_args(B, n, M, H=16, F=32, K=23, seed=2, device="cpu"):
+    """The texel table and candidate inputs of ``unirow_combine``; points
+    outside every bone and on the plane edges (in the zero padding)."""
     rng = np.random.default_rng(seed)
     planes = rng.normal(size=(B, (F + K) * 3, H, H)).astype(np.float32)
     pos = rng.uniform(-1.4, 1.4, (B, n, M, 3)).astype(np.float32)
     pos[:, :2] = 2.0                     # points outside every bone
     idx = rng.integers(0, K, (B, n, M)).astype(np.int32)
     valid = rng.random((B, n, M)) > 0.3
-    table = unirow.pack_unirow(torch.from_numpy(planes), F, K)
+    table = unirow.pack_texels(torch.from_numpy(planes), F, K)
     args = (table,) + unirow.candidate_rows(
         torch.from_numpy(pos), torch.from_numpy(idx), torch.from_numpy(valid),
         H, H)
@@ -39,7 +42,7 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     args = _combine_args(1, 50, 4)
     before = unirow.KERNEL.launches
     got = unirow.unirow_combine(*args, 32, False)
-    ref = unirow.gather_combine_plain(*args, 32, False)
+    ref = unirow.gather_combine_texels_plain(*args, 32, False)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert unirow.KERNEL.launches == before
@@ -49,6 +52,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     table, rows, wq4, idx, valid = _combine_args(1, 50, 4)
     with pytest.raises(ValueError, match="table"):
         unirow.unirow_combine(table.float(), rows, wq4, idx, valid, 32, False)
+    with pytest.raises(ValueError, match="texel table"):      # quad rows
+        unirow.unirow_combine(table.reshape(1, -1, 256), rows, wq4, idx,
+                              valid, 32, False)
     with pytest.raises(ValueError, match="rows"):
         unirow.unirow_combine(table, rows.long(), wq4, idx, valid, 32, False)
     with pytest.raises(ValueError, match="valid"):
@@ -62,16 +68,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
+UNIROW_CASES = [(1, 1000, 4, False), (2, 333, 3, True), (1, 5, 1, False),
+                (3, 77, 2, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n,M,clamp", [(1, 1000, 4, False), (2, 333, 3, True),
-                                         (1, 5, 1, False)])
+@pytest.mark.parametrize("B,n,M,clamp", UNIROW_CASES)
 def test_unirow_kernel_matches_plain_on_card(cuda_device, B, n, M, clamp):
     args = _combine_args(B, n, M, device=cuda_device)
     before = unirow.KERNEL.launches
     with torch.no_grad():
         f, w = unirow.unirow_combine(*args, 32, clamp)
         torch.cuda.synchronize()
-        f_ref, w_ref = unirow.gather_combine_plain(*args, 32, clamp)
+        f_ref, w_ref = unirow.gather_combine_texels_plain(*args, 32, clamp)
     assert unirow.KERNEL.launches == before + 1
     torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(f, f_ref, rtol=1e-4, atol=1e-5)
@@ -87,6 +96,28 @@ def test_unirow_kernel_refuses_a_gradient(cuda_device):
                               32, False)
 
 
+@pytest.mark.cuda
+def test_unirow_kernels_refuse_what_they_do_not_take(cuda_device):
+    """On the card: no quad-row table, feat_dim 32 only, contiguous tensors;
+    nothing falls back to the plain twin."""
+    table, rows, wq4, idx, valid = _combine_args(1, 40, 4, device=cuda_device)
+    before = (unirow.KERNEL.launches, unirow.KERNEL_BWD.launches)
+    quad = torch.zeros((1, 3 * 17 * 17, 256), dtype=torch.bfloat16,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="texel table"):
+        unirow.unirow_combine(quad, rows, wq4, idx, valid, 32, False)
+    with pytest.raises(ValueError, match="feat_dim"):
+        unirow.unirow_combine(table, rows, wq4, idx, valid, 16, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        unirow.unirow_combine(table, rows.transpose(2, 3).contiguous()
+                              .transpose(2, 3), wq4, idx, valid, 32, False)
+    dcot = torch.zeros((1, 32, 40), device=cuda_device)
+    with pytest.raises(ValueError, match="feat_dim"):
+        unirow.launch_backward(table, rows, wq4, idx, valid, dcot,
+                               torch.zeros_like(valid), 16, False)
+    assert (unirow.KERNEL.launches, unirow.KERNEL_BWD.launches) == before
+
+
 def _rel_l2(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
@@ -97,7 +128,7 @@ def _cotangents(outs, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n,M,clamp", [(1, 1000, 4, False), (2, 333, 3, True)])
+@pytest.mark.parametrize("B,n,M,clamp", UNIROW_CASES)
 def test_unirow_backward_kernel_matches_plain_on_card(cuda_device, B, n, M,
                                                       clamp):
     table, rows, wq4, idx, valid = _combine_args(B, n, M, device=cuda_device)
@@ -110,20 +141,62 @@ def test_unirow_backward_kernel_matches_plain_on_card(cuda_device, B, n, M,
                                           idx, valid, *cots, 32, clamp)
     torch.cuda.synchronize()
     assert unirow.KERNEL_BWD.launches == before + 1
-    # the plain twin under autograd, on a float32 copy of the table
+    assert dtable.dtype == torch.float32 and dtable.shape == table.shape
+    # the plain twin under autograd, on a float32 copy of the texel table
     tf = table.detach().float().requires_grad_(True)
     wf = wq4.detach().clone().requires_grad_(True)
-    ref = unirow.gather_combine_plain(tf, rows, wf, idx, valid, 32, clamp)
+    ref = unirow.gather_combine_texels_plain(tf, rows, wf, idx, valid, 32,
+                                             clamp)
     r_table, r_wq4 = torch.autograd.grad(
         sum((o * c).sum() for o, c in zip(ref, cots)), [tf, wf])
     assert _rel_l2(dtable, r_table) <= 1e-4
     assert _rel_l2(dwq4, r_wq4) <= 1e-4
+    assert not dtable[..., unirow.FEAT_BLOCK + 23:].any()   # bones >= K
     # and through the autograd Function: the table gradient in its bf16 type
     g_table, g_wq4 = torch.autograd.grad(
         sum((o * c).sum() for o, c in zip(outs, cots)), [table, wq4])
     assert g_table.dtype == torch.bfloat16
     assert unirow.KERNEL_BWD.launches == before + 2
     torch.testing.assert_close(g_wq4, dwq4, rtol=1e-4, atol=1e-5)
+
+
+def test_unirow_bwd_stages_run_their_twins_on_cpu():
+    """Kernel 1b's stage ablations (tools/ablate.py): on the CPU each runs
+    its twin, the full gradient with the feature ("nofeat") or mask
+    ("nomask") lanes of the texel gradient left at zero; an unknown stage
+    raises."""
+    args = ablate.unirow_inputs("cpu", 2, 40, H=12, seed=3)
+    full_t, full_w = ablate.unirow_bwd_plain(*args)
+    F = unirow.FEAT_BLOCK
+    assert full_t[..., :F].abs().max() > 0 and full_t[..., F:].abs().max() > 0
+    for stage in ablate.UNIROW_BWD_STAGES:
+        dt, dw = ablate.unirow_bwd_stage(*args, stage)
+        want = full_t.clone()
+        if stage == "nofeat":
+            want[..., :F] = 0
+        elif stage == "nomask":
+            want[..., F:] = 0
+        # autograd's scatter-adds on the CPU sum in a varying order
+        torch.testing.assert_close(dt, want, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(dw, full_w, rtol=1e-5, atol=1e-6)
+        if stage in ("nofeat", "nomask"):
+            zeroed = slice(0, F) if stage == "nofeat" else slice(F, None)
+            assert not dt[..., zeroed].any()
+    with pytest.raises(ValueError, match="stage"):
+        ablate.unirow_bwd_stage(*args, "noatomics")
+
+
+@pytest.mark.cuda
+def test_unirow_bwd_stage_kernels_match_their_twins_on_card(cuda_device):
+    args = ablate.unirow_inputs(cuda_device, 2, 333, H=16, M=3, seed=4)
+    for stage in ablate.UNIROW_BWD_STAGES:
+        before = ablate.KERNEL_UNIROW_BWD_STAGES.launches_by[stage]
+        got = ablate.unirow_bwd_stage(*args, stage)
+        torch.cuda.synchronize()
+        assert ablate.KERNEL_UNIROW_BWD_STAGES.launches_by[stage] == before + 1
+        ref = ablate.unirow_bwd_stage_plain(*args, stage)
+        for a, b in zip(got, ref):
+            assert _rel_l2(a, b) <= 1e-4, stage
 
 
 def _tilewin_args(m, n_patch, S, Mp=3, B=2, ts=16, F=32, K=6, seed=3,
