@@ -9,18 +9,20 @@ NVIDIA GPU.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (unirow: one full fine chunk; tilewin: one full
    fine chunk, m = 16, and one full coarse-corner chunk, m = 4; kernel 3 in
-   each mode at the fine chunk; the backward kernels 1b and 2b at one
+   each mode at the fine chunk, on window rows built from the texel table
+   and held to ``pack_tilewin``'s; the backward kernels 1b and 2b at one
    training fine pass of 4 images, against autograd through the plain
    versions), times both with CUDA events in turns, and computes each
    kernel's bound from this run's inputs: the distinct table bytes the
-   function needs (64-byte texels or row segments and 32-byte mask sectors
-   that valid members touch; the unirow kernels read the texel table, and
-   the TPU's quad-row table's bound is printed beside; kernel 3 computes
-   kernel 2's function and is held to its bound, with the whole 4 KB rows
-   it reads printed beside), each coordinate and output once (the backward
-   kernels' dense float32 table gradients counted as written). Kernel 1b's
-   stage build (scalar feature adds, no feature adds, no mask adds) is held
-   to its twins and timed beside it.
+   function needs (64-byte feature halves of texels and 32-byte mask
+   sectors that valid members touch; all of them read the texel table, and
+   the TPU layouts' bounds, quad rows for unirow and window rows for
+   tilewin, are printed beside; kernel 3 computes kernel 2's function and is
+   held to its bound, with the whole 4 KB rows it reads printed beside),
+   each coordinate and output once (the backward kernels' dense float32
+   texel gradients counted as written). Kernel 1b's stage build (scalar
+   feature adds, no feature adds, no mask adds) is held to its twins and
+   timed beside it.
    Then the probes of ``enarf_gan_tpu_torch/tools`` (the TPU probe kernels
    of ``tools/`` as Hopper microbenchmarks: row and lane gathers, tensor-core
    gathers and products, stage ablations of kernels 2 and 3, one-construct
@@ -35,7 +37,8 @@ NVIDIA GPU.
    (Nc 48 + Nf 64, 4096-ray chunks) through the port's entry point
    ``make_dso_full_renderer``: first the exact path (the unirow kernel),
    then the same weights with ``tile_patch=4`` and coarse corners (the
-   patch-tiled path and the tilewin kernel; ``bench.py``'s tilewin4). Each
+   patch-tiled path and the tilewin kernel, on the same texel table;
+   ``bench.py``'s tilewin4). Each
    path must launch its own kernel and not the other's; outputs must be
    finite with a non-empty mask.
 4. Renders each path's frame again with the plain combine in the kernel's
@@ -45,7 +48,7 @@ NVIDIA GPU.
    clock, one frame's device time by kernel class and its launches
    (torch.profiler), the host cost of those launches at the probes' cost a
    launch beside the frame's idle time, and the tiled frame's distinct
-   texels and bytes bound per launch.
+   texels and bytes bound per launch (the window tables' beside).
 6. Trains the model of ``configs/DSO_train/ZJU/313_denarf_tpu.yml`` (512²
    images, batch 16, 4096 rays an image, 256² planes, w_dim 512, pose and
    time conditioning, Nc 48 + Nf 64, "mae" loss, lr 1e-3) through the
@@ -53,9 +56,9 @@ NVIDIA GPU.
    (kernels 1 and 1b) and the tiled path (2 and 2b), each 1 warm-up and 3
    timed steps at the smallest micro-batch split that fits, with s/iter,
    peak memory and a profile of one step (each port kernel's device ms and
-   launches a step; kernel 1b's time a valid candidate in the step against
-   its time at phase 2's random positions, which shows whether its atomics
-   contend); then one tiled step in each of
+   launches a step; kernel 1b's time a valid candidate and 2b's a valid
+   member in the step against their times at phase 2's positions, which
+   shows whether their atomics contend); then one tiled step in each of
    kernel 3's modes on the hat step's batch and draws, whose loss must
    match.
 7. Overfits one 64² frame for 200 iterations on both paths at full width:
@@ -184,11 +187,30 @@ def _unirow_table_bytes(rows, cand_idx, valid, feat_dim, H, W):
     return d_rows * 4 * F_ * 2 + d_sec * 32, d_rows, d_sec
 
 
-def _tilewin_table_bytes(feat_dim, frows, mrows, xt, xs, valid):
-    """The distinct texels and mask sectors one tilewin launch must read
-    (``tools/ablate.py::table_bytes``): (bytes, texels, sectors)."""
+def _tilewin_table_bytes(args):
+    """The distinct texels and mask sectors of the texel table that one
+    tilewin launch on ``args`` (texels, bases, bones, xt, xs, valid, F, ...)
+    must read (``tools/ablate.py::tilewin_texel_bytes``): (bytes, texels,
+    sectors)."""
+    from enarf_gan_tpu_torch.tools.ablate import tilewin_texel_bytes
+    return tilewin_texel_bytes(*args[:6], args[6])
+
+
+def _window_table_bytes(args, n_bones=32):
+    """The window-table yardstick (the TPU layout, ``pack_tilewin``): the
+    distinct window-row texels and mask sectors the same launch would read
+    there (``tools/ablate.py::table_bytes``), the rows named from the
+    plan's base texels and bones (the count of bones only numbers the mask
+    rows). Returns (bytes, texels, sectors, distinct feature rows)."""
+    import torch
+    from enarf_gan_tpu_torch.ops.tilewin_kernel import num_bases, window_rows
     from enarf_gan_tpu_torch.tools.ablate import table_bytes
-    return table_bytes(feat_dim, frows, mrows, xt, xs, valid)
+    texels, bases, bones, xt, xs, valid, F_ = args[:7]
+    Hp, Wp = texels.shape[2:4]
+    frows, mrows = window_rows(bases, bones, Hp, Wp, num_bases(Hp - 2),
+                               n_bones)
+    nbytes, d_tex, d_sec = table_bytes(F_, frows, mrows, xt, xs, valid)
+    return nbytes, d_tex, d_sec, int(torch.unique(frows).numel())
 
 
 def _compare_and_time(kern, plain, label):
@@ -294,98 +316,144 @@ def phase_unirow_check(device):
     return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "quad_row_bound_ms": quad_ms,
-            "valid_candidates": int((args[4] != 0).sum()), "points": n}
+            "valid": int((args[4] != 0).sum()), "points": n}
 
 
-def _tilewin_inputs(device, m, S, B=1, seed_offset=0):
-    """Window tables and plan of one full chunk of the tiled path
+def _tilewin_inputs(device, m, S, B=1, seed_offset=0, layout="texels"):
+    """The texel table and plan of one full chunk of the tiled path
     (``tools/ablate.py::chunk_inputs``): 256² planes, 4096 rays in 256
     patches, S samples, 4 slots; members clustered within ~1.5 texels per
-    (patch, sample, slot), ~20% invalid."""
+    (patch, sample, slot), ~20% invalid. ``layout="windows"``: the window
+    tables and plan of the same draws (kernel 3's inputs)."""
     from enarf_gan_tpu_torch.tools.ablate import chunk_inputs
-    return chunk_inputs(device, m, S, B=B, seed=SEED + m + seed_offset)
+    return chunk_inputs(device, m, S, B=B, seed=SEED + m + seed_offset,
+                        layout=layout)
 
 
 def _tilewin_io_bytes(args, m):
-    """Coordinates, validity and row indices read, outputs written."""
+    """The plan's arrays read, outputs written."""
     from enarf_gan_tpu_torch.tools.ablate import io_bytes
     return io_bytes(args, m)
 
 
+CHUNK_BONES = 23          # bones of tools/ablate.py::chunk_inputs' planes
+
+
 def _tilewin_bound(args, m):
-    """The tilewin combine's bound on one launch's inputs: the distinct
-    texels and mask sectors its valid members need, coordinates and
-    outputs; the float32 operations of its valid members. Kernels 2 and 3
-    compute this one function, so both are held to it. Returns (bound ms,
-    bound by, bytes, operations, the table-bytes triple)."""
-    F_ = args[7]
-    table = _tilewin_table_bytes(F_, *args[2:7])
-    nbytes = table[0] + _tilewin_io_bytes(args, m)
-    n_valid = int((args[6] != 0).sum())
+    """The tilewin combine's bound on one launch's texel inputs: the
+    distinct texels and mask sectors its valid members need, the plan's
+    arrays and the outputs; the float32 operations of its valid members.
+    Kernels 2 and 3 compute this one function, so both are held to it. The
+    window tables' bound on the same launch is the yardstick. Returns
+    (bound ms, bound by, bytes, operations, the table-bytes triple, window
+    yardstick ms, the window-bytes quadruple)."""
+    F_ = args[6]
+    table = _tilewin_table_bytes(args)
+    io = _tilewin_io_bytes(args, m)
+    n_valid = int((args[5] != 0).sum())
     flops = 3 * n_valid * (4 * F_ * 2 + 4 * 2) + n_valid * F_ * 2
-    return _bound(nbytes, flops) + (nbytes, flops, table)
+    window = _window_table_bytes(args)
+    window_ms, _ = _bound(window[0] + io, flops)
+    return _bound(table[0] + io, flops) + (table[0] + io, flops, table,
+                                           window_ms, window)
 
 
 def phase_tilewin_check(device, m, S, label):
-    """Kernel 2 vs plain at one full chunk of the tiled path."""
+    """Kernel 2 vs its texel twin at one full chunk of the tiled path."""
     import torch
     from enarf_gan_tpu_torch.ops import tilewin_kernel
     args = _tilewin_inputs(device, m, S)
-    Mp = args[2].shape[2]
+    Mp = args[1].shape[2]
     err, kern_ms, plain_ms = _compare_and_time(
         lambda: tilewin_kernel.tilewin_combine(*args),
-        lambda: tilewin_kernel.tilewin_combine_plain(*args),
-        f"tilewin_combine {label} at U={args[2].shape[3]} m={m} Mp={Mp}")
-    bound_ms, bound_by, nbytes, flops, (table_bytes, d_tex, d_sec) = \
+        lambda: tilewin_kernel.tilewin_combine_texels_plain(*args),
+        f"tilewin_combine {label} at U={args[1].shape[3]} m={m} Mp={Mp} "
+        f"texels {tuple(args[0].shape)} bf16")
+    bound_ms, bound_by, nbytes, flops, (table_bytes, d_tex, d_sec), \
+        window_ms, (window_bytes, w_tex, w_sec, w_rows) = \
         _tilewin_bound(args, m)
     print(f"  kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms; "
-          f"{args[2].numel()} window-row reads on "
-          f"{int(torch.unique(args[2]).numel())} distinct feature rows; "
-          f"valid members {int((args[6] != 0).sum())} of {args[6].numel()} "
+          f"{args[1].numel()} (plane, slot, unit) windows on "
+          f"{int(torch.unique(args[1]).numel())} distinct base texels; "
+          f"valid members {int((args[5] != 0).sum())} of {args[5].numel()} "
           f"touch {d_tex} distinct texels and {d_sec} distinct mask sectors: "
-          f"table {table_bytes / 1e6:.1f} MB, coordinates and outputs "
-          f"{(nbytes - table_bytes) / 1e6:.1f} MB; bound {bound_ms:.4f} ms by "
-          f"{bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+          f"texel table {table_bytes / 1e6:.2f} MB, plan and outputs "
+          f"{(nbytes - table_bytes) / 1e6:.2f} MB; bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP); "
+          f"window-table yardstick: {w_rows} distinct rows, {w_tex} texels "
+          f"and {w_sec} mask sectors, {window_bytes / 1e6:.2f} MB, bound "
+          f"{window_ms:.4f} ms")
     return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "window_bound_ms": window_ms}
 
 
 def phase_modes_check(device):
     """Kernel 3 in each mode vs its plain version at kernel 2's full fine
-    chunk. Its bound is kernel 2's: the same function on the same inputs
-    (the bf16 rounding of the t-weights changes no byte or operation the
-    function needs). What its formulation does is printed beside it:
-    whole 4 KB window rows read once each, and the (32 x 16) @ (16 x 128)
-    t-contraction per (unit, slot, plane), on the bf16 tensor cores ("dot",
-    "bdiag") or in float32 ("vpu", the parity's 16 nonzero rows)."""
+    chunk. It reads window rows, which the texel path builds from the texel
+    table (``windows_from_texels``): first those rows are held to
+    ``pack_tilewin``'s, bit for bit, and the texel path's kernel-3 result
+    to the kernel on ``pack_tilewin``'s tables. Its bound is kernel 2's:
+    the same function on the same inputs (the bf16 rounding of the
+    t-weights changes no byte or operation the function needs). What its
+    formulation does is printed beside it: whole 4 KB window rows read once
+    each, and the (32 x 16) @ (16 x 128) t-contraction per (unit, slot,
+    plane), on the bf16 tensor cores ("dot", "bdiag") or in float32 ("vpu",
+    the parity's 16 nonzero rows). ``ms`` is the kernel's time on rows
+    built beforehand; ``path_ms`` is the time of ``tilewin_combine`` in the
+    mode on the texel table, which rebuilds the whole batch's window rows
+    at each launch."""
     import torch
-    from enarf_gan_tpu_torch.ops import tilewin_kernel
-    args = _tilewin_inputs(device, 16, NF)
-    Mp, U = args[2].shape[2], args[2].shape[3]
-    bound_ms, bound_by, nbytes, flops, (table_bytes, _, d_sec) = \
-        _tilewin_bound(args, 16)
-    d_rows = int(torch.unique(args[2]).numel())
-    form_bytes = nbytes - table_bytes + d_rows * 4096 + d_sec * 32
+    from enarf_gan_tpu_torch.ops import tilewin_kernel as tk
+    targs = _tilewin_inputs(device, 16, NF)
+    wargs = _tilewin_inputs(device, 16, NF, layout="windows")
+    Mp, U = wargs[2].shape[2], wargs[2].shape[3]
+    texels, bases, bones = targs[:3]
+    nb = tk.num_bases(texels.shape[2] - 2)
+    feat_t, mask_t = tk.windows_from_texels(texels, nb)
+    frows_t, mrows_t = tk.window_rows(bases, bones, texels.shape[2],
+                                      texels.shape[3], nb)
+    same = bool(torch.equal(feat_t[frows_t.long()], wargs[0][wargs[2].long()])
+                and torch.equal(mask_t[mrows_t.long()],
+                                wargs[1][wargs[3].long()]))
+    print(f"kernel 3's window rows from the texel table vs pack_tilewin's "
+          f"rows of the same plan: {'equal' if same else 'DIFFERENT'}")
+    assert same
+    del feat_t, mask_t
+    bound_ms, bound_by, nbytes, flops, (table_bytes, _, _), _, \
+        (_, _, d_sec, d_rows) = _tilewin_bound(targs, 16)
+    form_bytes = _tilewin_io_bytes(wargs, 16) + d_rows * 4096 + d_sec * 32
     out = {}
     for mode in MODES:
+        with torch.no_grad():
+            via = tk.tilewin_combine(*targs, mode=mode)
+            direct = tk.launch_modes(*wargs, mode=mode)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(via, direct)), mode
         err, kern_ms, plain_ms = _compare_and_time(
-            lambda: tilewin_kernel.tilewin_combine(*args, mode=mode),
-            lambda: tilewin_kernel.tilewin_combine_plain(
-                *args, round_t=mode != "vpu"),
+            lambda: tk.launch_modes(*wargs, mode=mode),
+            lambda: tk.tilewin_combine_plain(*wargs, round_t=mode != "vpu"),
             f"tilewin_combine_modes {mode} at U={U} m=16 Mp={Mp}")
+        with torch.no_grad():
+            path_ms = _cuda_time_ms(
+                lambda: tk.tilewin_combine(*targs, mode=mode), 5)
         if mode == "vpu":
             form_flops, rate = U * Mp * 3 * 2 * 16 * 8 * 128 * 2, F32_FLOPS
         else:
             form_flops, rate = U * Mp * 3 * 32 * 16 * 128 * 2, BF16_FLOPS
         form_ms, form_by = _bound(form_bytes, form_flops, rate)
         print(f"  kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP), kernel 2's; its formulation: "
-              f"{d_rows} distinct 4 KB rows and {d_sec} mask sectors, "
-              f"{form_bytes / 1e6:.1f} MB, {form_flops / 1e9:.2f} GFLOP "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.2f} GFLOP), kernel 2's on the texel table; its "
+              f"formulation: {d_rows} distinct 4 KB rows and {d_sec} mask "
+              f"sectors, {form_bytes / 1e6:.1f} MB, "
+              f"{form_flops / 1e9:.2f} GFLOP "
               f"({'float32' if mode == 'vpu' else 'bf16 tensor cores'}), "
-              f"least {form_ms:.4f} ms by {form_by}")
+              f"least {form_ms:.4f} ms by {form_by}; the texel path gives "
+              f"the same numbers in {path_ms:.4f} ms with its window rows "
+              f"rebuilt")
         out[mode] = {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+                     "path_ms": path_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "formulation_bytes": form_bytes,
                      "formulation_ms": form_ms}
@@ -479,66 +547,64 @@ def phase_unirow_bwd_check(device):
     return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "quad_row_bound_ms": quad_ms, "stage_ms": stage_ms,
-            "valid_candidates": int((cv != 0).sum()), "points": B * n}
+            "valid": int((cv != 0).sum()), "points": B * n}
 
 
 def phase_tilewin_bwd_check(device):
     """Kernel 2b at one training fine pass: 4 images x 256 patches x 64
-    samples, m = 16, 4 slots. The plain reference runs image by image into
-    float32 copies of the tables; the kernel's time includes zeroing the
-    dense float32 table gradients, which the bound counts as written."""
+    samples, m = 16, 4 slots, against autograd through the texel twin
+    (image by image, into float32 copies of the texel table). The kernel's
+    time includes zeroing the dense float32 texel gradient, which the bound
+    counts as written; the window tables' bound (their dense float32
+    gradients written, as the window-table kernel wrote them) is the
+    yardstick."""
     import torch
     from enarf_gan_tpu_torch.ops import tilewin_kernel
+    from enarf_gan_tpu_torch.tools import ablate
     B = TRAIN_IMAGES
     args = _tilewin_inputs(device, 16, NF, B=B, seed_offset=7)
-    feat, mask, frows, mrows, xt, xs, valid, F_, S, clamp = args
+    texels, bases, bones, xt, xs, valid, F_, S, clamp = args
     g = torch.Generator().manual_seed(SEED + 9)
     n = xt.shape[3] * xt.shape[4]
-    Mp = frows.shape[2]
+    Mp = bases.shape[2]
     dfeature = torch.randn((B, F_, n), generator=g).to(device)
     dcand_w = torch.randn((B, Mp, n // (16 * S), 16, S), generator=g) \
         .to(device)
 
     def kern():
-        return tilewin_kernel.launch_backward(feat, mask, frows, mrows, xt,
-                                              xs, valid, dfeature, dcand_w,
-                                              F_, S, clamp)
+        return tilewin_kernel.launch_backward(texels, bases, bones, xt, xs,
+                                              valid, dfeature, dcand_w, F_, S,
+                                              clamp)
 
     def plain():
-        ff = feat.float().requires_grad_(True)
-        mf = mask.float().requires_grad_(True)
-        dxt, dxs = [], []
-        for b in range(B):
-            sl = slice(b, b + 1)
-            xtb = xt[sl].clone().requires_grad_(True)
-            xsb = xs[sl].clone().requires_grad_(True)
-            f, w = tilewin_kernel.tilewin_combine_plain(
-                ff, mf, frows[sl], mrows[sl], xtb, xsb, valid[sl], F_, S,
-                clamp)
-            ((f * dfeature[sl]).sum() + (w * dcand_w[sl]).sum()).backward()
-            dxt.append(xtb.grad)
-            dxs.append(xsb.grad)
-        return ff.grad, mf.grad, torch.cat(dxt), torch.cat(dxs)
+        return ablate.tilewin_bwd_plain(*args[:6], dfeature, dcand_w, S)
 
     err, kern_ms, plain_ms = _grad_check(
-        f"tilewin_combine_bwd at B={B} U={frows.shape[3]} m=16 Mp={Mp}",
-        kern, plain, ("feat_table", "mask_table", "xt", "xs"))
-    table_bytes, d_tex, d_sec = _tilewin_table_bytes(F_, frows, mrows, xt, xs,
-                                                     valid)
-    inputs = _tilewin_io_bytes(args, 16) - B * (F_ + Mp) * n * 4 \
-        + (dfeature.numel() + dcand_w.numel()) * 4
-    outputs = (feat.numel() + mask.numel() + xt.numel() + xs.numel()) * 4
-    nbytes = table_bytes + inputs + outputs
+        f"tilewin_combine_bwd at B={B} U={bases.shape[3]} m=16 Mp={Mp}",
+        kern, plain, ("texels", "xt", "xs"))
+    table_bytes, d_tex, d_sec = _tilewin_table_bytes(args)
+    io = _tilewin_io_bytes(args, 16) - B * (F_ + Mp) * n * 4
+    inputs = io + (dfeature.numel() + dcand_w.numel()) * 4
+    outputs = (texels.numel() + xt.numel() + xs.numel()) * 4
     n_valid = int((valid != 0).sum())
     flops = 3 * (3 * n_valid * (4 * F_ * 2 + 4 * 2) + n_valid * F_ * 2)
-    bound_ms, bound_by = _bound(nbytes, flops)
-    print(f"  kernel {kern_ms:.4f} ms (with the zeroed float32 tables), plain "
-          f"{plain_ms:.4f} ms; table reads {table_bytes / 1e6:.1f} MB "
-          f"({d_tex} texels, {d_sec} mask sectors), other inputs "
-          f"{inputs / 1e6:.1f} MB, outputs {outputs / 1e6:.1f} MB; bound "
-          f"{bound_ms:.4f} ms by {bound_by}")
+    bound_ms, bound_by = _bound(table_bytes + inputs + outputs, flops)
+    nb = tilewin_kernel.num_bases(texels.shape[2] - 2)
+    window_table, _, _, _ = _window_table_bytes(args)
+    window_out = B * 3 * nb * nb * (64 * F_ + CHUNK_BONES * 64) * 4 \
+        + (xt.numel() + xs.numel()) * 4
+    window_ms, _ = _bound(window_table + inputs + window_out, flops)
+    print(f"  kernel {kern_ms:.4f} ms (with the zeroed float32 texel "
+          f"gradient), plain {plain_ms:.4f} ms; texel reads "
+          f"{table_bytes / 1e6:.1f} MB ({d_tex} texels, {d_sec} mask "
+          f"sectors), other inputs {inputs / 1e6:.1f} MB, outputs "
+          f"{outputs / 1e6:.1f} MB; bound {bound_ms:.4f} ms by {bound_by}; "
+          f"window-table yardstick: table reads {window_table / 1e6:.1f} MB, "
+          f"outputs {window_out / 1e6:.1f} MB, bound {window_ms:.4f} ms")
     return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "window_bound_ms": window_ms,
+            "valid": n_valid, "points": B * 16 * bases.shape[3]}
 
 
 PROBE_MODULES = ("gather", "mma", "ablate", "constructs")
@@ -746,39 +812,38 @@ def phase_tiled_vs_exact(tiled_frame, exact_frame):
 
 
 def phase_tiled_rows(frame):
-    """The window rows each tilewin launch of one tiled frame reads, and
-    the bound they set: the data-dependent floor the kernel works against."""
+    """The texels each tilewin launch of one tiled frame reads, and the
+    bound they set: the data-dependent floor the kernel works against; the
+    window rows the TPU layout would read beside it."""
     import torch
     from enarf_gan_tpu_torch.ops import tilewin
     real = tilewin.tilewin_combine
     census = []
 
-    def counting(feat, mask, frows, mrows, xt, xs, valid, F_, S, clamp,
-                 mode=None):
-        B, _, Mp, U = frows.shape
-        m = xt.shape[3]
-        table_bytes, d_tex, d_sec = _tilewin_table_bytes(F_, frows, mrows,
-                                                         xt, xs, valid)
-        coords = sum(t.numel() * t.element_size()
-                     for t in (frows, mrows, xt, xs, valid))
-        outputs = B * (F_ + Mp) * U * m * 4
-        census.append((m, U, frows.numel(),
-                       int(torch.unique(frows).numel()),
-                       float((valid != 0).float().mean()), d_tex, d_sec,
-                       table_bytes, coords + outputs))
-        return real(feat, mask, frows, mrows, xt, xs, valid, F_, S, clamp,
-                    mode=mode)
+    def counting(*args, mode=None):
+        texels, bases = args[:2]
+        B, _, Mp, U = bases.shape
+        m = args[3].shape[3]
+        table_bytes, d_tex, d_sec = _tilewin_table_bytes(args)
+        window_bytes, _, _, w_rows = _window_table_bytes(args)
+        rest = _tilewin_io_bytes(args, m)
+        census.append((m, U, bases.numel(), w_rows,
+                       float((args[5] != 0).float().mean()), d_tex, d_sec,
+                       table_bytes, rest, window_bytes))
+        return real(*args, mode=mode)
 
     with mock.patch.object(tilewin, "tilewin_combine", counting):
         frame(0.5, 1)
     torch.cuda.synchronize()
-    for m, U, reads, d_f, share, d_tex, d_sec, table, rest in census:
-        print(f"  tiled frame launch m={m} U={U}: {reads} window-row reads "
-              f"on {d_f} distinct rows; valid share {share:.3f}; {d_tex} "
-              f"distinct texels, {d_sec} distinct mask sectors: table "
-              f"{table / 1e6:.2f} MB + coordinates and outputs "
-              f"{rest / 1e6:.2f} MB; bytes bound "
-              f"{(table + rest) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    for m, U, reads, w_rows, share, d_tex, d_sec, table, rest, window in \
+            census:
+        print(f"  tiled frame launch m={m} U={U}: {reads} (plane, slot, unit) "
+              f"windows; valid share {share:.3f}; {d_tex} distinct texels, "
+              f"{d_sec} distinct mask sectors: texel table "
+              f"{table / 1e6:.2f} MB + plan and outputs {rest / 1e6:.2f} MB; "
+              f"bytes bound {(table + rest) / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+              f"window tables: {w_rows} distinct rows, {window / 1e6:.2f} MB, "
+              f"bound {(window + rest) / HBM_BYTES_PER_S * 1e3:.4f} ms")
 
 
 def phase_profile(gen, scene, frame, ms_frame, device, label, pack):
@@ -948,8 +1013,9 @@ def phase_train(gen, config, ds, batch, device, label, own, census_of=None):
     micro-batch split in (1, 2, 4, 8, 16) that fits; ``own`` are the
     kernels the path must launch. Then a profile of one step (each port
     kernel's device ms and launches a step) and, with ``census_of``
-    (module, wrapper name), one more step that records the points and
-    valid candidates of each of that wrapper's launches."""
+    (module, wrapper name, index of its ``valid`` argument), one more step
+    that records the points and valid candidates or members of each of
+    that wrapper's launches."""
     import gc
     import torch
     from enarf_gan_tpu_torch.training import dso
@@ -1007,26 +1073,27 @@ def phase_train(gen, config, ds, batch, device, label, own, census_of=None):
     census = None
     if census_of is not None:
         census = _census_step(step, batch, rng, *census_of)
-        print(f"{label} training: {census_of[1]} launches of a step: "
-              + "; ".join(f"{p} points, {v} valid candidates"
-                          for p, v in census))
+        print(f"{label} training: {census_of[0].__name__}.{census_of[1]} "
+              f"launches of a step: "
+              + "; ".join(f"{p} points, {v} valid" for p, v in census))
     return {"s_iter": s_iter, "peak": peak, "n_accum": n_accum,
             "launches": launches, "launches_by_m": launches_by_m,
             "device_ms": device_ms, "ms_step": ms_step, "kernels": port,
             "census": census}
 
 
-def _census_step(step, batch, rng, module, name):
-    """One more step with the wrapper ``module.name`` (its arguments end in
-    ``valid`` at position 4, (B, M, n)) recording each launch's points and
-    valid candidates: [(B*n, valid candidates), ...]."""
+def _census_step(step, batch, rng, module, name, valid_at):
+    """One more step with the wrapper ``module.name`` (its argument
+    ``valid_at`` is ``valid``: (B, M, n) candidates or (B, Mp, m, U)
+    members) recording each launch's points and valid candidates or
+    members: [(points, valid), ...]."""
     import torch
     real = getattr(module, name)
     seen = []
 
     def recording(*args, **kw):
-        valid = args[4]
-        seen.append((valid.shape[0] * valid.shape[2],
+        valid = args[valid_at]
+        seen.append((valid.numel() // valid.shape[1],
                      int((valid != 0).sum())))
         return real(*args, **kw)
 
@@ -1036,29 +1103,33 @@ def _census_step(step, batch, rng, module, name):
     return seen
 
 
-def phase_bwd_contention(te, k1b):
-    """Kernel 1b's device time per point and per valid candidate inside a
-    training step (its profile; consecutive points are samples of one ray
-    and often add into the same texels) against the same at the check's
-    random positions (phase 2): a clearly higher cost in the step says the
-    atomics contend."""
-    step_ms, _ = te["kernels"].get("unirow_combine_bwd_kernel", (0.0, 0))
-    points = sum(p for p, _ in te["census"])
-    cands = sum(v for _, v in te["census"])
-    per = {"step": (step_ms, points, cands),
-           "check": (k1b["ms"], k1b["points"], k1b["valid_candidates"])}
-    for what, (ms, p, v) in per.items():
-        print(f"unirow_combine_bwd in the {what}: {ms:.3f} ms for {p} points "
-              f"and {v} valid candidates: {ms * 1e6 / max(p, 1):.3f} ns a "
-              f"point, {ms * 1e6 / max(v, 1):.3f} ns a valid candidate")
-    ratio = (step_ms / max(cands, 1)) / (k1b["ms"] / k1b["valid_candidates"])
-    print(f"  step / check time a valid candidate: {ratio:.3f}")
+def phase_bwd_contention(label, run, kernel, check, what):
+    """A backward kernel's device time per point and per valid ``what``
+    (candidate or member) inside a training step (its profile; consecutive
+    points are samples of one ray or patch and often add into the same
+    texels) against the same at the check's positions (phase 2): a clearly
+    higher cost in the step says the atomics contend."""
+    step_ms, _ = run["kernels"].get(kernel, (0.0, 0))
+    points = sum(p for p, _ in run["census"])
+    valid = sum(v for _, v in run["census"])
+    per = {"step": (step_ms, points, valid),
+           "check": (check["ms"], check["points"], check["valid"])}
+    for where, (ms, p, v) in per.items():
+        print(f"{label} in the {where}: {ms:.3f} ms for {p} points and {v} "
+              f"valid {what}s: {ms * 1e6 / max(p, 1):.3f} ns a point, "
+              f"{ms * 1e6 / max(v, 1):.3f} ns a valid {what}")
+    ratio = (step_ms / max(valid, 1)) / (check["ms"] / check["valid"])
+    print(f"  step / check time a valid {what}: {ratio:.3f}")
+    return ratio
 
 
 def phase_train_modes(gen, config, ds, batch, device, n_accum):
     """One tiled step in each of kernel 3's modes on the batch and draws of
     a hat step, from the same weights: each must launch kernel 3 in its
-    mode, and its loss must match the hat step's within 1e-3 relative."""
+    mode, and its loss must match the hat step's within 1e-3 relative.
+    Then TIMED_STEPS more steps in the mode give its s/iter, and the peak
+    memory of all of them is the mode's (a matrix mode's steps rebuild the
+    window rows from the texel table at each launch)."""
     import os
     import torch
     from enarf_gan_tpu_torch.ops import tilewin_kernel
@@ -1082,22 +1153,39 @@ def phase_train_modes(gen, config, ds, batch, device, n_accum):
         step = dso.make_train_step(gen, opt, config.loss,
                                    config.dataset.bg_color, n_accum)
         _reset_all_counts()
+        torch.cuda.reset_peak_memory_stats()
         with mock.patch.dict(os.environ, {"ENARF_TILEWIN_KERNEL": mode}):
             m = step(batch, randoms=randoms)
-        torch.cuda.synchronize()
-        out[mode] = (m["loss"], dict(tilewin_kernel.KERNEL_MODES.launches_by),
-                     tilewin_kernel.KERNEL_BWD.launches)
+            torch.cuda.synchronize()
+            counts = (dict(tilewin_kernel.KERNEL_MODES.launches_by),
+                      tilewin_kernel.KERNEL_BWD.launches)
+            t0 = time.perf_counter()
+            for _ in range(TIMED_STEPS):
+                step(batch, randoms=randoms)
+            torch.cuda.synchronize()
+        s_iter = (time.perf_counter() - t0) / TIMED_STEPS
+        out[mode] = (m["loss"], *counts, s_iter,
+                     torch.cuda.max_memory_allocated())
+        del opt, step
+        torch.cuda.empty_cache()
     gen.load_state_dict(state)
     ref = out["hat"][0]
+    print(f"tiled training step in mode hat: {out['hat'][3]:.4f} s/iter "
+          f"over {TIMED_STEPS} steps, peak {out['hat'][4] / 2**30:.2f} GiB")
     for mode in MODES:
-        loss, by_mode, bwd = out[mode]
+        loss, by_mode, bwd, s_iter, peak = out[mode]
         rel = abs(loss - ref) / abs(ref)
         print(f"tiled training step in mode {mode}: loss {loss:.6f} vs hat "
               f"{ref:.6f} (relative {rel:.2e}, bound 1e-3); kernel 3 "
-              f"launches {by_mode}, backward (2b) launches {bwd}")
+              f"launches {by_mode}, backward (2b) launches {bwd}; "
+              f"{s_iter:.4f} s/iter over {TIMED_STEPS} steps, peak "
+              f"{peak / 2**30:.2f} GiB")
         assert by_mode[mode] > 0, f"mode {mode} did not launch kernel 3"
         assert rel <= 1e-3, (mode, loss, ref)
-    return {mode: out[mode][1][mode] for mode in MODES}
+    return {mode: {"launches": out[mode][1].get(mode, 0),
+                   "step_s_iter": out[mode][3],
+                   "step_peak_gib": out[mode][4] / 2**30}
+            for mode in ("hat",) + MODES}
 
 
 def _learn_setup(device, root, label, tile, seed):
@@ -1223,7 +1311,7 @@ def learn_collapse(device, root, seed=2, runs=4):
     make_synthetic_human_cache(root, size=LEARN_SIZE, n_frames=1, n_camera=1)
 
     def plain(*args, mode=None):
-        return tilewin_kernel.tilewin_combine_plain(*args)
+        return tilewin_kernel.tilewin_combine_texels_plain(*args)
 
     rows = []
     for variant, tile in (("tiled, kernels", TILE_PATCH),
@@ -1269,7 +1357,7 @@ def learn_gradcheck(device, root, seeds=(0, 1, 2), every=10):
     make_synthetic_human_cache(root, size=LEARN_SIZE, n_frames=1, n_camera=1)
 
     def plain_tilewin(*args, mode=None):
-        return tilewin_kernel.tilewin_combine_plain(*args)
+        return tilewin_kernel.tilewin_combine_texels_plain(*args)
 
     def max_rel(a, b):
         rel = {n: float((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30))
@@ -1385,7 +1473,7 @@ def main():
                                unirow.KERNEL, "exact")
     ref_t = phase_plain_render(
         tiled_frame, tilewin, "tilewin_combine",
-        lambda *a, mode=None: tilewin_kernel.tilewin_combine_plain(*a),
+        lambda *a, mode=None: tilewin_kernel.tilewin_combine_texels_plain(*a),
         tilewin_kernel.KERNEL, "tiled")
     phase_tiled_vs_exact(ref_t, ref_e)
     frames = {
@@ -1404,18 +1492,24 @@ def main():
             device, os.path.join(root, "train"))
         te = phase_train(exact_t, config, ds, batch, device, "exact",
                          (unirow.KERNEL, unirow.KERNEL_BWD),
-                         census_of=(unirow, "launch_backward"))
-        phase_bwd_contention(te, k1b)
+                         census_of=(unirow, "launch_backward", 4))
+        phase_bwd_contention("unirow_combine_bwd", te,
+                             "unirow_combine_bwd_kernel", k1b, "candidate")
         assert te["launches"]["tilewin_combine"] == 0 and \
             te["launches"]["tilewin_combine_bwd"] == 0, te["launches"]
         del exact_t
         torch.cuda.empty_cache()
         tt = phase_train(tiled_t, config, ds, batch, device, "tiled",
-                         (tilewin_kernel.KERNEL, tilewin_kernel.KERNEL_BWD))
+                         (tilewin_kernel.KERNEL, tilewin_kernel.KERNEL_BWD),
+                         census_of=(tilewin_kernel, "launch_backward", 5))
+        k2b["step_over_check"] = phase_bwd_contention(
+            "tilewin_combine_bwd", tt, "tilewin_combine_bwd_kernel", k2b,
+            "member")
+        torch.cuda.empty_cache()
         by_m = dict(tt["launches_by_m"])
         assert tt["launches"]["unirow_combine"] == 0 and by_m[4] > 0 \
             and by_m[16] > 0, tt
-        k3_launches = phase_train_modes(tiled_t, config, ds, batch, device,
+        k3_steps = phase_train_modes(tiled_t, config, ds, batch, device,
                                         tt["n_accum"])
         del tiled_t, batch
         torch.cuda.empty_cache()
@@ -1428,12 +1522,14 @@ def main():
                 "source": f"enarf_gan_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 **{k: v for k, v in numbers.items()
-                   if k not in ("valid_candidates", "points")},
+                   if k not in ("valid", "points")},
                 "library_ms": None}
 
-    for k, kernel in ((k1, "unirow_combine_kernel"),
-                      (k1b, "unirow_combine_bwd_kernel")):
-        k["step_ms"], k["step_launches"] = te["kernels"].get(kernel, (0.0, 0))
+    for k, run, kernel in ((k1, te, "unirow_combine_kernel"),
+                           (k1b, te, "unirow_combine_bwd_kernel"),
+                           (k2b, tt, "tilewin_combine_bwd_kernel")):
+        k["step_ms"], k["step_launches"] = run["kernels"].get(kernel,
+                                                              (0.0, 0))
 
     entries = [
         entry("unirow_combine", "unirow_combine.cu",
@@ -1457,7 +1553,11 @@ def main():
             "tilewin_combine_modes.cu",
             "enarf_gan_tpu/ops/tilewin_kernel.py:"
             + ("317" if mode == "bdiag" else "65"),
-            k3_launches[mode], k3[mode]))
+            k3_steps[mode]["launches"],
+            {**k3[mode], "step_s_iter": k3_steps[mode]["step_s_iter"],
+             "step_peak_gib": k3_steps[mode]["step_peak_gib"],
+             "hat_step_s_iter": k3_steps["hat"]["step_s_iter"],
+             "hat_step_peak_gib": k3_steps["hat"]["step_peak_gib"]}))
     print(json.dumps({"kernels": entries + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,85 +9,69 @@
 //
 // A unit is one (pixel patch, depth sample); it has M member rays (M = 16 for
 // a 4x4 patch, M = 4 on the coarse-corner pass) and Mp candidate-bone slots.
-// For every (batch b, unit u, slot g, plane p) the kernel reads one packed
-// window row of the feature table (ops/tilewin.py::pack_tilewin: the 8x8
-// texels of a 32-channel window, texel-major, 4096 B of bf16) and one
-// 64-texel mask row (128 B) of the slot's bone. Member j sits at in-window
+// The kernel reads the texel table (ops/unirow.py::pack_texels: the
+// one-texel zero-padded planes, (B, 3, H+2, W+2, 64) bf16, one 128-byte line
+// a texel: 32 feature lanes, then bone k's mask logit at lane 32 + k). For
+// every (batch b, unit u, slot g, plane p) the plan names the base texel of
+// the group's 8x8 window and the slot's bone. Member j sits at in-window
 // position (xt, xs) in [0, 7); with i = floor(xt), k = floor(xs) (at most 6)
-// and ft = xt - i, fs = xs - k it computes
-//     S_g[j, f]   = sum_p bilinear(window_p, f)  over texels (i..i+1, k..k+1)
-//     logit_gp[j] = valid_g[j] * bilinear(mask_p)  (clamped to [-2, 5])
+// and ft = xt - i, fs = xs - k it reads the texels (i..i+1, k..k+1) from the
+// base and computes
+//     S_g[j, f]   = sum_p bilinear(feature_p, f)
+//     logit_gp[j] = valid_g[j] * bilinear(mask_p of the slot's bone)
+//                   (clamped to [-2, 5])
 //     cand_w_g[j] = prod_p sigmoid(logit_gp[j])
 //     feature[j, f] = sum_g cand_w_g[j] * valid_g[j] * S_g[j, f]
 // in float32. The bilinear weights are the values of the TPU kernel's hats
 // max(0, 1 - |texel - x|); the TPU's one-hot MXU contraction existed because
-// the TPU cannot address single texels, and is not carried over.
+// the TPU cannot address single texels, and is not carried over. The TPU's
+// window rows (every stride-2 window of the planes packed whole, 198 MB of
+// features and 142 MB of masks an image at 256^2 planes) held each texel up
+// to 16 times; the texel table holds it once, 25.6 MB an image.
 //
-// What bounds it: bytes. The function needs, of the tables, only the 2x2
-// texels each valid member touches: one 64-byte feature texel (32 bf16
-// channels) and one 32-byte mask sector each, every distinct one read once
-// (an invalid member's feature is weighted by 0 and its logit is 0). Window
-// rows repeat across neighbouring units and a unit touches a few of a row's
-// 64 texels, so that floor depends on the data; chip_smoke.py counts the
-// distinct texels and sectors of each launch. In a rendered frame the
-// coordinates (xt, xs, valid) and the outputs then weigh more than the table
-// reads, and the floor is about 20 microseconds a fine launch, far below
-// what this simple kernel's load and multiply-add issue takes (PERF.md).
-// The arithmetic is 4 multiply-adds per (member, channel, plane): tiny next
-// to the bytes.
+// What bounds it: bytes. The function needs only the 2x2 texels each valid
+// member touches: one 64-byte feature half a texel (32 bf16 channels) and one
+// 32-byte mask sector, every distinct one read once (an invalid member's
+// feature is weighted by 0 and its logit is 0). At B = 1 (a frame) the
+// table is 25.6 MB and stays in the 50 MB L2, so the re-reads of texels that
+// neighbouring units and slots share cost L2 bandwidth, not HBM's. The
+// distinct texels depend on the data (chip_smoke.py counts them); in a
+// rendered frame the coordinates (xt, xs, valid, bases, bones) and the
+// outputs weigh more than the table reads, and the bound of a fine launch
+// is a few tens of microseconds. What this kernel spends is the load
+// instructions: 64 two-byte-a-lane loads per (unit, slot, plane) for the
+// features, mostly L1 and L2 hits; its stage build measures them at over
+// half its time, with the table in L2 as before it in HBM (PERF.md). The
+// arithmetic is 4 multiply-adds per (member, channel, plane).
 //
 // Design:
 // * One warp per unit, 8 units per block. Lane f owns channel f. The warp
 //   reads only the 2x2 texels its members touch, straight from the table
-//   (64 B per texel, one fully used segment per warp load), never the whole
-//   4 KB row: a coarse-corner unit (M = 4) touches at most 16 of the 64
-//   texels, and the 16 members of a fine unit cluster within a few texels,
-//   so their quads overlap and the re-reads hit L1. Staging every row in
-//   shared memory would read all 4 KB of it whatever the members touch.
-//   Invalid members' texels are read too: skipping them behind a per-member
-//   branch breaks up the unrolled loads; it saved 7% of the kernel's time
-//   in a rendered frame and cost 14% on chip_smoke.py's 80%-valid chunk
-//   (PERF.md).
+//   (64 B per texel, one fully used segment per warp load): the 16 members
+//   of a fine unit cluster within a few texels, so their quads overlap and
+//   the re-reads hit L1. Invalid members' texels are read too: skipping
+//   them behind a per-member branch breaks up the unrolled loads (PERF.md).
 // * The coordinates (B, 3, Mp, M, U) and validity (B, Mp, M, U) are unit-
 //   minor; the block stages its 8 units of each row in shared memory, so
 //   each 32-byte sector is read once.
-// * Lane j < M computes member j's mask logit from the 128-byte mask row
-//   and keeps its running product of sigmoids; a shuffle broadcasts
-//   cand_w * valid to the 32 channel lanes.
+// * Lane j < M computes member j's mask logit from the bone's lane of its
+//   four texels and keeps its running product of sigmoids; a shuffle
+//   broadcasts cand_w * valid to the 32 channel lanes.
 // * Outputs are written in their final layouts, feature (B, F, n) with the
 //   tiled point order n = (patch * M + member) * S + sample and cand_w
 //   (B, Mp, n_patch, M, S), through shared memory so that the block's 8
 //   consecutive samples of one row go out together. Nothing is transposed
 //   afterwards, and U needs no padding: the kernel masks its ragged edge.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tilewin_texels.cuh"
 
 namespace {
 
-constexpr int kF = 32;            // channels = warp width
-constexpr int kWin = 8;           // window side, texels
-constexpr int kNTex = kWin * kWin;
-constexpr int kRow = kNTex * kF;  // bf16 per feature window row
-constexpr int kUnits = 8;         // units per block = warps per block
+using namespace tilewin;
 
-__device__ __forceinline__ void texel_cell(float x, int& i, float& frac) {
-  // x in [0, 7); an f32 sum of offset + fraction may round up to 7.0, which
-  // then puts all the weight on texel 7, as the TPU kernel's hats do
-  const float c = fminf(floorf(x), (float)(kWin - 2));
-  i = (int)c;
-  frac = x - c;
-}
-
-__device__ __forceinline__ float bilinear(const __nv_bfloat16* q, int dt,
-                                          int ds, float ft, float fs) {
-  const float v00 = __bfloat162float(q[0]);
-  const float v01 = __bfloat162float(q[ds]);
-  const float v10 = __bfloat162float(q[dt]);
-  const float v11 = __bfloat162float(q[dt + ds]);
-  return (1.f - ft) * ((1.f - fs) * v00 + fs * v01) +
-         ft * ((1.f - fs) * v10 + fs * v11);
+// bilinear() of four equal texels v
+__device__ __forceinline__ float bilinear_const(float v, float ft, float fs) {
+  return (1.f - ft) * ((1.f - fs) * v + fs * v) + ft * ((1.f - fs) * v + fs * v);
 }
 
 // Stage ablations (the Hopper counterparts of tools/probe_hat_ablate.py's
@@ -95,18 +79,13 @@ __device__ __forceinline__ float bilinear(const __nv_bfloat16* q, int dt,
 // -DTILEWIN_STAGE_ENTRY the library also exports tilewin_combine_stage_bf16,
 // whose doctored variants replace one stage each and still write what they
 // read into the outputs (so nvcc drops no load the variant keeps):
-//   kStream     no table reads: a feature texel reads as (frow & 255) / 256
-//               and a mask texel as (mrow & 255) / 256 (coordinates,
-//               validity and row indices are read, outputs written);
+//   kStream     no table reads: a feature texel reads as (base & 255) / 256
+//               and a mask texel as bone / 256 (coordinates, validity, base
+//               texels and bones are read, outputs written);
 //   kNoWeights  the texels are read, the bilinear fractions are 0.5;
-//   kNoMask     no mask row read: logit 0, so cand_w = 0.5^3;
+//   kNoMask     no mask read (no bone either): logit 0, so cand_w = 0.5^3;
 //   kNoFeat     no feature texel read: every texel reads as 1.
 enum Stage { kFull = 0, kStream = 1, kNoWeights = 2, kNoMask = 3, kNoFeat = 4 };
-
-// bilinear() of four equal texels v
-__device__ __forceinline__ float bilinear_const(float v, float ft, float fs) {
-  return (1.f - ft) * ((1.f - fs) * v + fs * v) + ft * ((1.f - fs) * v + fs * v);
-}
 
 size_t smem_bytes(int Mp, int M) {
   const size_t coords = 2 * 3 * (size_t)Mp * M * kUnits;   // xt, xs
@@ -117,16 +96,15 @@ size_t smem_bytes(int Mp, int M) {
 
 template <int M, int kStage = kFull>
 __global__ void __launch_bounds__(kUnits * 32)
-tilewin_combine_kernel(const __nv_bfloat16* __restrict__ feat_table,
-                       const __nv_bfloat16* __restrict__ mask_table,
-                       const int32_t* __restrict__ frows,
-                       const int32_t* __restrict__ mrows,
+tilewin_combine_kernel(const __nv_bfloat16* __restrict__ tex,
+                       const int32_t* __restrict__ bases,
+                       const int32_t* __restrict__ bones,
                        const float* __restrict__ xt,
                        const float* __restrict__ xs,
                        const float* __restrict__ valid,
                        float* __restrict__ feature,
                        float* __restrict__ cand_w,
-                       int Mp, int U, int S, int clamp) {
+                       int Wp, int Mp, int U, int S, int clamp) {
   extern __shared__ float smem[];
   const int coord_n = 3 * Mp * M * kUnits;
   const int slot_n = Mp * M * kUnits;
@@ -171,13 +149,12 @@ tilewin_combine_kernel(const __nv_bfloat16* __restrict__ feat_table,
       float cw = 1.f;                      // member `lane`'s cand_w (lane < M)
       const float v_lane =
           lane < M ? s_valid[(g * M + lane) * kUnits + warp] : 0.f;
+      const int bone =
+          kStage == kNoMask ? 0 : __ldg(bones + ((int64_t)b * Mp + g) * U + u);
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
         const int64_t ri = (((int64_t)b * 3 + p) * Mp + g) * U + u;
-        const int32_t fr = __ldg(frows + ri);
-        const __nv_bfloat16* frow = feat_table + (int64_t)fr * kRow + lane;
-        const int32_t mr = kStage == kNoMask ? 0 : __ldg(mrows + ri);
-        const __nv_bfloat16* mrow = mask_table + (int64_t)mr * kNTex;
+        const int32_t base = __ldg(bases + ri);
         const float* cx = s_xt + (p * Mp + g) * M * kUnits + warp;
         const float* cy = s_xs + (p * Mp + g) * M * kUnits + warp;
 #pragma unroll
@@ -188,11 +165,12 @@ tilewin_combine_kernel(const __nv_bfloat16* __restrict__ feat_table,
           texel_cell(cy[j * kUnits], k, fs);
           if constexpr (kStage == kNoWeights) ft = fs = 0.5f;
           if constexpr (kStage == kStream)
-            sg[j] += bilinear_const((float)(fr & 255) * (1.f / 256.f), ft, fs);
+            sg[j] += bilinear_const((float)(base & 255) * (1.f / 256.f), ft,
+                                    fs);
           else if constexpr (kStage == kNoFeat)
             sg[j] += bilinear_const(1.f, ft, fs);
           else
-            sg[j] += bilinear(frow + (i * kWin + k) * kF, kWin * kF, kF, ft,
+            sg[j] += bilinear(tex + lane, quad_texel(base, i, k, Wp), Wp, ft,
                               fs);
         }
         if (lane < M) {
@@ -206,9 +184,10 @@ tilewin_combine_kernel(const __nv_bfloat16* __restrict__ feat_table,
             logit = 0.f;
           else if constexpr (kStage == kStream)
             logit = v_lane *
-                    bilinear_const((float)(mr & 255) * (1.f / 256.f), ft, fs);
+                    bilinear_const((float)(bone & 255) * (1.f / 256.f), ft, fs);
           else
-            logit = v_lane * bilinear(mrow + i * kWin + k, kWin, 1, ft, fs);
+            logit = v_lane * bilinear(tex + kF + bone,
+                                      quad_texel(base, i, k, Wp), Wp, ft, fs);
           if (clamp) logit = fminf(fmaxf(logit, -2.f), 5.f);
           cw *= 1.f / (1.f + expf(-logit));
         }
@@ -217,7 +196,7 @@ tilewin_combine_kernel(const __nv_bfloat16* __restrict__ feat_table,
       const float cwv = cw * v_lane;
 #pragma unroll
       for (int j = 0; j < M; ++j)
-        acc[j] += __shfl_sync(0xffffffffu, cwv, j) * sg[j];
+        acc[j] += __shfl_sync(kAll, cwv, j) * sg[j];
     }
   }
 #pragma unroll
@@ -253,10 +232,10 @@ tilewin_combine_kernel(const __nv_bfloat16* __restrict__ feat_table,
 }
 
 template <int M, int kStage = kFull>
-int launch(const void* feat_table, const void* mask_table, const void* frows,
-           const void* mrows, const void* xt, const void* xs,
-           const void* valid, void* feature, void* cand_w, int B, int Mp,
-           int U, int S, int clamp, cudaStream_t stream) {
+int launch(const void* texels, const void* bases, const void* bones,
+           const void* xt, const void* xs, const void* valid, void* feature,
+           void* cand_w, int B, int H, int W, int Mp, int U, int S, int clamp,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes(Mp, M);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -266,10 +245,10 @@ int launch(const void* feat_table, const void* mask_table, const void* frows,
   }
   dim3 grid((U + kUnits - 1) / kUnits, B);
   tilewin_combine_kernel<M, kStage><<<grid, kUnits * 32, smem, stream>>>(
-      (const __nv_bfloat16*)feat_table, (const __nv_bfloat16*)mask_table,
-      (const int32_t*)frows, (const int32_t*)mrows, (const float*)xt,
-      (const float*)xs, (const float*)valid, (float*)feature, (float*)cand_w,
-      Mp, U, S, clamp);
+      (const __nv_bfloat16*)texels, (const int32_t*)bases,
+      (const int32_t*)bones, (const float*)xt, (const float*)xs,
+      (const float*)valid, (float*)feature, (float*)cand_w, W + 2, Mp, U, S,
+      clamp);
   return (int)cudaGetLastError();
 }
 
@@ -281,41 +260,39 @@ extern "C" int tilewin_combine_smem_bytes(int Mp, int M) {
 }
 
 // Plain C entry point (loaded with ctypes). Shapes, all contiguous:
-//   feat_table (R, 16, 128) bf16 window rows (64 texels x 32 channels);
-//   mask_table (Rm, 64) bf16; frows, mrows (B, 3, Mp, U) int32 global rows;
+//   texels (B, 3, H+2, W+2, 64) bf16; bases (B, 3, Mp, U) int32 window base
+//   texels over the whole table; bones (B, Mp, U) int32 in [0, 32);
 //   xt, xs (B, 3, Mp, M, U) f32 in [0, 7); valid (B, Mp, M, U) f32
 //   -> feature (B, 32, U*M) f32, cand_w (B, Mp, U/S, M, S) f32.
 // M is 4 or 16; S divides U. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
-extern "C" int tilewin_combine_bf16(const void* feat_table,
-                                    const void* mask_table, const void* frows,
-                                    const void* mrows, const void* xt,
+extern "C" int tilewin_combine_bf16(const void* texels, const void* bases,
+                                    const void* bones, const void* xt,
                                     const void* xs, const void* valid,
-                                    void* feature, void* cand_w, int B, int Mp,
-                                    int M, int U, int S, int clamp,
-                                    void* stream) {
+                                    void* feature, void* cand_w, int B, int H,
+                                    int W, int Mp, int M, int U, int S,
+                                    int clamp, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (M == 16)
-    return launch<16>(feat_table, mask_table, frows, mrows, xt, xs, valid,
-                      feature, cand_w, B, Mp, U, S, clamp, st);
+    return launch<16>(texels, bases, bones, xt, xs, valid, feature, cand_w, B,
+                      H, W, Mp, U, S, clamp, st);
   if (M == 4)
-    return launch<4>(feat_table, mask_table, frows, mrows, xt, xs, valid,
-                     feature, cand_w, B, Mp, U, S, clamp, st);
+    return launch<4>(texels, bases, bones, xt, xs, valid, feature, cand_w, B,
+                     H, W, Mp, U, S, clamp, st);
   return (int)cudaErrorInvalidValue;
 }
 
 #ifdef TILEWIN_STAGE_ENTRY
 namespace {
 template <int M>
-int launch_stage(int stage, const void* feat_table, const void* mask_table,
-                 const void* frows, const void* mrows, const void* xt,
-                 const void* xs, const void* valid, void* feature,
-                 void* cand_w, int B, int Mp, int U, int S, int clamp,
-                 cudaStream_t st) {
-#define TILEWIN_STAGE_CASE(K)                                               \
-  case K:                                                                   \
-    return launch<M, K>(feat_table, mask_table, frows, mrows, xt, xs, valid, \
-                        feature, cand_w, B, Mp, U, S, clamp, st);
+int launch_stage(int stage, const void* texels, const void* bases,
+                 const void* bones, const void* xt, const void* xs,
+                 const void* valid, void* feature, void* cand_w, int B, int H,
+                 int W, int Mp, int U, int S, int clamp, cudaStream_t st) {
+#define TILEWIN_STAGE_CASE(K)                                                \
+  case K:                                                                    \
+    return launch<M, K>(texels, bases, bones, xt, xs, valid, feature, cand_w, \
+                        B, H, W, Mp, U, S, clamp, st);
   switch (stage) {
     TILEWIN_STAGE_CASE(kFull)
     TILEWIN_STAGE_CASE(kStream)
@@ -331,17 +308,17 @@ int launch_stage(int stage, const void* feat_table, const void* mask_table,
 // The stage ablations: tilewin_combine_bf16's arguments and outputs, with
 // `stage` one of Stage (0 full, 1 stream, 2 noweights, 3 nomask, 4 nofeat).
 extern "C" int tilewin_combine_stage_bf16(
-    const void* feat_table, const void* mask_table, const void* frows,
-    const void* mrows, const void* xt, const void* xs, const void* valid,
-    void* feature, void* cand_w, int B, int Mp, int M, int U, int S,
-    int clamp, int stage, void* stream) {
+    const void* texels, const void* bases, const void* bones, const void* xt,
+    const void* xs, const void* valid, void* feature, void* cand_w, int B,
+    int H, int W, int Mp, int M, int U, int S, int clamp, int stage,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (M == 16)
-    return launch_stage<16>(stage, feat_table, mask_table, frows, mrows, xt,
-                            xs, valid, feature, cand_w, B, Mp, U, S, clamp, st);
+    return launch_stage<16>(stage, texels, bases, bones, xt, xs, valid,
+                            feature, cand_w, B, H, W, Mp, U, S, clamp, st);
   if (M == 4)
-    return launch_stage<4>(stage, feat_table, mask_table, frows, mrows, xt, xs,
-                           valid, feature, cand_w, B, Mp, U, S, clamp, st);
+    return launch_stage<4>(stage, texels, bases, bones, xt, xs, valid, feature,
+                           cand_w, B, H, W, Mp, U, S, clamp, st);
   return (int)cudaErrorInvalidValue;
 }
 #endif  // TILEWIN_STAGE_ENTRY

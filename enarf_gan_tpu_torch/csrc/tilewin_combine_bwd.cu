@@ -5,13 +5,17 @@
 // Replaces the backward of the JAX package's fused tilewin sampler
 // (enarf_gan_tpu/ops/tilewin.py::_fused_sampler's bwd, which recomputes the
 // whole XLA path sample_tilewin and takes its VJP), and the transpose of the
-// window-row gathers: the scatter-add of the row cotangents into the tables.
+// window-row gathers: the scatter-add of the row cotangents into the tables,
+// which here is a scatter-add into the texel table's gradient.
 //
 // The forward (csrc/tilewin_combine.cu) computes, for batch b, unit u,
-// slot g, plane p and member j at in-window position (xt, xs), with
-// i = min(floor(xt), 6), k = min(floor(xs), 6), ft = xt - i, fs = xs - k:
-//     S_g[j, f]   = sum_p bilinear(window_p, f; i, k, ft, fs)
-//     logit_gp[j] = valid_g[j] * bilinear(mask_p)   (clamped to [-2, 5])
+// slot g (bone k_g), plane p and member j at in-window position (xt, xs),
+// with i = min(floor(xt), 6), k = min(floor(xs), 6), ft = xt - i,
+// fs = xs - k, from the texels (i..i+1, k..k+1) of the group's window on the
+// texel table (layout in tilewin_texels.cuh):
+//     S_g[j, f]   = sum_p bilinear(texel features_p, f; i, k, ft, fs)
+//     logit_gp[j] = valid_g[j] * bilinear(texel lane 32 + k_g, p)
+//                   (clamped to [-2, 5])
 //     cand_w_g[j] = prod_p sigmoid(logit_gp[j])
 //     feature[j, f] = sum_g cand_w_g[j] * valid_g[j] * S_g[j, f]
 // Given dfeature (B, F, n) in tiled point order and dcand_w
@@ -22,8 +26,8 @@
 //     dlogit_gp[j]  = dcw_g[j] * cand_w_g[j] * (1 - sigmoid_gp[j])
 //                     (the clamp passes the gradient on, as the forward's
 //                      straight-through clamp does)
-//     dfeat_table[row][texel c][f] += w_c * dS_g[j, f]   (4 corners c)
-//     dmask_table[row][texel c]    += w_c * valid_g[j] * dlogit_gp[j]
+//     dtexels[texel c][f]        += w_c * dS_g[j, f]            (4 corners c)
+//     dtexels[texel c][32 + k_g] += w_c * valid_g[j] * dlogit_gp[j]
 //     dxt, dxs = the derivatives of the bilinear forms in ft and fs, summed
 //                over channels (feature) plus the mask logit's share.
 // w_c are the bilinear corner weights (1-ft)(1-fs), (1-ft)fs, ft(1-fs),
@@ -31,44 +35,45 @@
 // constant, and an x clamped to texel 6 keeps d(ft)/dx = 1, as the TPU
 // kernel's hats max(0, 1 - |t - x|) do at that edge.
 //
-// What bounds it: bytes and atomics. It reads what the forward reads (the
-// 2x2 texels of every member, the coordinates) plus dfeature, and adds every
-// valid member's 2x2 texel gradients (4 x 128 B of float32 a plane) into the
-// float32 feature table gradient, which at 256^2 planes is 793 MB a batch
-// item: the adds go through L2 to HBM.
+// What bounds it: bytes. It reads what the forward reads (the 2x2 texels of
+// every member, the coordinates) plus dfeature and dcand_w, and writes the
+// float32 texel gradient, (B, 3, H+2, W+2, 64): 51 MB an image at 256^2
+// planes, which the caller zeroes. The TPU layout's gradients were those of
+// both window tables, 1.1 GB of float32 an image, zeroed and filled the same
+// way. A window-row gradient was private to its window; a texel gradient is
+// shared by every unit, slot and sample that touches the texel, and the 16
+// members of a unit cluster within about 1.5 texels, so their adds meet on
+// the same addresses.
 //
 // Design: one warp per unit, 8 units a block, lane = channel, as the
 // forward. The block stages the coordinates, validity, dcand_w and dfeature
-// of its 8 units in shared memory (coalesced over units). Per slot the warp
-// first recomputes S and the sigmoids, then walks the planes again and adds
-// each valid member's corner gradients straight into the table (one fully
-// used 128-byte segment per corner and warp); the gradient windows that the
-// XLA VJP materialises (805 MB of bf16 a fine chunk) never exist. The
-// per-member sums over channels (32 of them a plane: the t- and s-
-// derivatives of 16 members) are one transposed butterfly over the warp,
+// of its 8 units in shared memory (coalesced over units). Per slot, the
+// member lanes first compute the mask logits, sigmoids and cand_w (they need
+// only the mask lanes of the texels); then one pass over the planes reads
+// each member's four feature texels once and takes from them S_g (for dcw),
+// the feature adds and the feature share of dxt, dxs; last the member lanes
+// add the mask gradients and the mask share of dxt, dxs (a kernel that
+// recomputes S in a pass of its own reads the feature texels twice). Each
+// valid member adds its 4 corners straight into the table as 4 scalar
+// reductions of 128 contiguous bytes (lane f, channel f). Two other ways of
+// adding were measured slower on the card and dropped (PERF.md): a
+// shared-memory 8x8 tile a warp, summing the unit's adds and flushing each
+// touched texel once with 16-byte reductions (its 66 KB a block halve the
+// warps an SM), and 16-byte reductions straight into the table. The
+// per-member sums over channels (32 of them a plane: the t- and
+// s-derivatives of 16 members) are one transposed butterfly over the warp,
 // 31 shuffles, which leaves member j's sums on lanes j and j + 16. dxt and
 // dxs go out through shared memory in the unit-minor layout of xt and xs.
 // The atomics make the order of each sum vary from run to run, as the
 // reference's CUDA sampler's backward does.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tilewin_texels.cuh"
 
 namespace {
 
-constexpr int kF = 32;            // channels = warp width
-constexpr int kWin = 8;           // window side, texels
-constexpr int kNTex = kWin * kWin;
-constexpr int kRow = kNTex * kF;  // elements per feature window row
-constexpr int kUnits = 8;         // units per block = warps per block
-constexpr int kM = 16;            // members per unit
+using namespace tilewin;
 
-__device__ __forceinline__ void texel_cell(float x, int& i, float& frac) {
-  const float c = fminf(floorf(x), (float)(kWin - 2));
-  i = (int)c;
-  frac = x - c;
-}
+constexpr int kM = 16;                 // members per unit
 
 // a[0..2O) on every lane -> a[0..O): lanes with bit O keep the upper half,
 // each summed with its partner lane's copy.
@@ -79,7 +84,7 @@ __device__ __forceinline__ void halve(float* a, int lane) {
   for (int k = 0; k < O; ++k) {
     const float send = up ? a[k] : a[k + O];
     const float keep = up ? a[k + O] : a[k];
-    a[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    a[k] = keep + __shfl_xor_sync(kAll, send, O);
   }
 }
 
@@ -100,22 +105,22 @@ size_t smem_bytes(int Mp) {
   return (coords + slots + grad) * sizeof(float);
 }
 
-__global__ void __launch_bounds__(kUnits * 32)
-tilewin_combine_bwd_kernel(const __nv_bfloat16* __restrict__ feat_table,
-                           const __nv_bfloat16* __restrict__ mask_table,
-                           const int32_t* __restrict__ frows,
-                           const int32_t* __restrict__ mrows,
+__global__ void __launch_bounds__(kUnits * 32, 2)
+tilewin_combine_bwd_kernel(const __nv_bfloat16* __restrict__ tex,
+                           const int32_t* __restrict__ bases,
+                           const int32_t* __restrict__ bones,
                            const float* __restrict__ xt,
                            const float* __restrict__ xs,
                            const float* __restrict__ valid,
                            const float* __restrict__ dfeature,
                            const float* __restrict__ dcand_w,
-                           float* __restrict__ dfeat_table,
-                           float* __restrict__ dmask_table,
+                           float* __restrict__ dtex,
                            float* __restrict__ dxt,
                            float* __restrict__ dxs,
-                           int Mp, int U, int S, int clamp) {
-  extern __shared__ float smem[];
+                           int Wp, int Mp, int U, int S, int clamp) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int coord_n = 3 * Mp * kM * kUnits;
   const int slot_n = Mp * kM * kUnits;
   constexpr int kPitch = kM * kUnits + 1;   // odd: lanes hit distinct banks
@@ -127,8 +132,6 @@ tilewin_combine_bwd_kernel(const __nv_bfloat16* __restrict__ feat_table,
   float* s_dcw = s_valid + slot_n;          // [Mp][M][kUnits]
   float* s_df = s_dcw + slot_n;             // [kF][kPitch]
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int b = blockIdx.y;
   const int u0 = blockIdx.x * kUnits;
   const int u = u0 + warp;
@@ -179,48 +182,27 @@ tilewin_combine_bwd_kernel(const __nv_bfloat16* __restrict__ feat_table,
     for (int g = 0; g < Mp; ++g) {
       const float* vv = s_valid + g * kM * kUnits + warp;
       const float v_lane = lane < kM ? vv[lane * kUnits] : 0.f;
-
-      // recompute S_g (lane = channel) and member `lane`'s sigmoids
-      float a[32];
+      const int bone = __ldg(bones + ((int64_t)b * Mp + g) * U + u);
+      const __nv_bfloat16* ftex = tex + lane;
+      const __nv_bfloat16* mtex = tex + kF + bone;
+      int32_t base[3];
 #pragma unroll
-      for (int j = 0; j < 32; ++j) a[j] = 0.f;
+      for (int p = 0; p < 3; ++p)
+        base[p] = __ldg(bases + (((int64_t)b * 3 + p) * Mp + g) * U + u);
+
+      // member `lane`'s mask logits, sigmoids and cand_w (lanes < kM)
       float sig[3] = {0.f, 0.f, 0.f};
       float cw = 1.f;
+      if (lane < kM) {
 #pragma unroll
-      for (int p = 0; p < 3; ++p) {
-        const int64_t ri = (((int64_t)b * 3 + p) * Mp + g) * U + u;
-        const __nv_bfloat16* frow =
-            feat_table + (int64_t)__ldg(frows + ri) * kRow + lane;
-        const float* cx = s_xt + (p * Mp + g) * kM * kUnits + warp;
-        const float* cy = s_xs + (p * Mp + g) * kM * kUnits + warp;
-#pragma unroll
-        for (int j = 0; j < kM; ++j) {
+        for (int p = 0; p < 3; ++p) {
+          const int coff = (p * Mp + g) * kM * kUnits + warp;
           int i, k;
           float ft, fs;
-          texel_cell(cx[j * kUnits], i, ft);
-          texel_cell(cy[j * kUnits], k, fs);
-          const __nv_bfloat16* q = frow + (i * kWin + k) * kF;
-          const float v00 = __bfloat162float(q[0]);
-          const float v01 = __bfloat162float(q[kF]);
-          const float v10 = __bfloat162float(q[kWin * kF]);
-          const float v11 = __bfloat162float(q[kWin * kF + kF]);
-          a[j] += (1.f - ft) * ((1.f - fs) * v00 + fs * v01) +
-                  ft * ((1.f - fs) * v10 + fs * v11);
-        }
-        if (lane < kM) {
-          const __nv_bfloat16* mrow =
-              mask_table + (int64_t)__ldg(mrows + ri) * kNTex;
-          int i, k;
-          float ft, fs;
-          texel_cell(cx[lane * kUnits], i, ft);
-          texel_cell(cy[lane * kUnits], k, fs);
-          const __nv_bfloat16* q = mrow + i * kWin + k;
-          const float bil =
-              (1.f - ft) * ((1.f - fs) * __bfloat162float(q[0]) +
-                            fs * __bfloat162float(q[1])) +
-              ft * ((1.f - fs) * __bfloat162float(q[kWin]) +
-                    fs * __bfloat162float(q[kWin + 1]));
-          float logit = v_lane * bil;
+          texel_cell(s_xt[coff + lane * kUnits], i, ft);
+          texel_cell(s_xs[coff + lane * kUnits], k, fs);
+          float logit = v_lane * bilinear(mtex, quad_texel(base[p], i, k, Wp),
+                                          Wp, ft, fs);
           if (clamp) logit = fminf(fmaxf(logit, -2.f), 5.f);
           sig[p] = 1.f / (1.f + expf(-logit));
           cw *= sig[p];
@@ -228,24 +210,14 @@ tilewin_combine_bwd_kernel(const __nv_bfloat16* __restrict__ feat_table,
       }
       const float cwv = cw * v_lane;
 
-      // dcw of member `lane`: valid * <S_g[j], dfeature[j]> + dcand_w
+      // one pass over the features: S_g (for dcw), the feature adds and
+      // the feature share of dxt, dxs
+      float sj[kM];
 #pragma unroll
-      for (int j = 0; j < kM; ++j) a[j] *= df[j];
-      const float dsum = transpose_sum(a, lane);
-      const float dcw =
-          lane < kM ? dsum * v_lane + s_dcw[(g * kM + lane) * kUnits + warp]
-                    : 0.f;
-      float ds[kM];
-#pragma unroll
-      for (int j = 0; j < kM; ++j)
-        ds[j] = __shfl_sync(0xffffffffu, cwv, j) * df[j];
-
+      for (int j = 0; j < kM; ++j) sj[j] = 0.f;
+      float a[32];
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
-        const int64_t ri = (((int64_t)b * 3 + p) * Mp + g) * U + u;
-        const int64_t fr = (int64_t)__ldg(frows + ri) * kRow + lane;
-        const __nv_bfloat16* frow = feat_table + fr;
-        float* dfrow = dfeat_table + fr;
         const int coff = (p * Mp + g) * kM * kUnits + warp;
         const float* cx = s_xt + coff;
         const float* cy = s_xs + coff;
@@ -255,48 +227,72 @@ tilewin_combine_bwd_kernel(const __nv_bfloat16* __restrict__ feat_table,
           float ft, fs;
           texel_cell(cx[j * kUnits], i, ft);
           texel_cell(cy[j * kUnits], k, fs);
-          const int off = (i * kWin + k) * kF;
-          const __nv_bfloat16* q = frow + off;
+          const int64_t t00 = quad_texel(base[p], i, k, Wp);
+          const __nv_bfloat16* q = ftex + t00 * kTexel;
           const float v00 = __bfloat162float(q[0]);
-          const float v01 = __bfloat162float(q[kF]);
-          const float v10 = __bfloat162float(q[kWin * kF]);
-          const float v11 = __bfloat162float(q[kWin * kF + kF]);
-          a[j] = ds[j] * ((1.f - fs) * (v10 - v00) + fs * (v11 - v01));
-          a[kM + j] = ds[j] * ((1.f - ft) * (v01 - v00) + ft * (v11 - v10));
-          if (vv[j * kUnits] != 0.f) {     // warp-uniform: valid member
-            float* d = dfrow + off;
-            atomicAdd(d, (1.f - ft) * (1.f - fs) * ds[j]);
-            atomicAdd(d + kF, (1.f - ft) * fs * ds[j]);
-            atomicAdd(d + kWin * kF, ft * (1.f - fs) * ds[j]);
-            atomicAdd(d + kWin * kF + kF, ft * fs * ds[j]);
-          }
+          const float v01 = __bfloat162float(q[kTexel]);
+          const float v10 = __bfloat162float(q[(int64_t)Wp * kTexel]);
+          const float v11 = __bfloat162float(q[(int64_t)(Wp + 1) * kTexel]);
+          sj[j] += (1.f - ft) * ((1.f - fs) * v00 + fs * v01) +
+                   ft * ((1.f - fs) * v10 + fs * v11);
+          const float cwj = __shfl_sync(kAll, cwv, j);
+          const float dsj = cwj * df[j];           // dS_g[j, lane]
+          a[j] = dsj * ((1.f - fs) * (v10 - v00) + fs * (v11 - v01));
+          a[kM + j] = dsj * ((1.f - ft) * (v01 - v00) + ft * (v11 - v10));
+          if (vv[j * kUnits] == 0.f) continue;     // warp-uniform
+          float* d = dtex + t00 * kTexel + lane;
+          atomicAdd(d, (1.f - ft) * (1.f - fs) * dsj);
+          atomicAdd(d + kTexel, (1.f - ft) * fs * dsj);
+          atomicAdd(d + (int64_t)Wp * kTexel, ft * (1.f - fs) * dsj);
+          atomicAdd(d + (int64_t)(Wp + 1) * kTexel, ft * fs * dsj);
         }
         // lane j < 16: member j's d/dft; lane 16 + j: its d/dfs
         const float r = transpose_sum(a, lane);
-        const float rs = __shfl_down_sync(0xffffffffu, r, kM);
+        const float rs = __shfl_down_sync(kAll, r, kM);
         if (lane < kM) {
-          const int64_t mr = (int64_t)__ldg(mrows + ri) * kNTex;
+          s_dxt[coff + lane * kUnits] = r;
+          s_dxs[coff + lane * kUnits] = rs;
+        }
+      }
+
+      // dcw of member `lane`: valid * <S_g[j], dfeature[j]> + dcand_w
+#pragma unroll
+      for (int j = 0; j < kM; ++j) {
+        a[j] = sj[j] * df[j];
+        a[kM + j] = 0.f;
+      }
+      const float dsum = transpose_sum(a, lane);
+      const float dcw =
+          lane < kM ? dsum * v_lane + s_dcw[(g * kM + lane) * kUnits + warp]
+                    : 0.f;
+
+      // the mask adds and the mask share of dxt, dxs (lanes < kM)
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const int coff = (p * Mp + g) * kM * kUnits + warp;
+        if (lane < kM) {
           int i, k;
           float ft, fs;
-          texel_cell(cx[lane * kUnits], i, ft);
-          texel_cell(cy[lane * kUnits], k, fs);
-          const __nv_bfloat16* q = mask_table + mr + i * kWin + k;
+          texel_cell(s_xt[coff + lane * kUnits], i, ft);
+          texel_cell(s_xs[coff + lane * kUnits], k, fs);
+          const int64_t t00 = quad_texel(base[p], i, k, Wp);
+          const __nv_bfloat16* q = mtex + t00 * kTexel;
           const float m00 = __bfloat162float(q[0]);
-          const float m01 = __bfloat162float(q[1]);
-          const float m10 = __bfloat162float(q[kWin]);
-          const float m11 = __bfloat162float(q[kWin + 1]);
+          const float m01 = __bfloat162float(q[kTexel]);
+          const float m10 = __bfloat162float(q[(int64_t)Wp * kTexel]);
+          const float m11 = __bfloat162float(q[(int64_t)(Wp + 1) * kTexel]);
           const float dl = dcw * cw * (1.f - sig[p]) * v_lane;
           if (dl != 0.f) {
-            float* d = dmask_table + mr + i * kWin + k;
+            float* d = dtex + t00 * kTexel + kF + bone;
             atomicAdd(d, (1.f - ft) * (1.f - fs) * dl);
-            atomicAdd(d + 1, (1.f - ft) * fs * dl);
-            atomicAdd(d + kWin, ft * (1.f - fs) * dl);
-            atomicAdd(d + kWin + 1, ft * fs * dl);
+            atomicAdd(d + kTexel, (1.f - ft) * fs * dl);
+            atomicAdd(d + (int64_t)Wp * kTexel, ft * (1.f - fs) * dl);
+            atomicAdd(d + (int64_t)(Wp + 1) * kTexel, ft * fs * dl);
           }
-          s_dxt[coff + lane * kUnits] =
-              r + dl * ((1.f - fs) * (m10 - m00) + fs * (m11 - m01));
-          s_dxs[coff + lane * kUnits] =
-              rs + dl * ((1.f - ft) * (m01 - m00) + ft * (m11 - m10));
+          s_dxt[coff + lane * kUnits] +=
+              dl * ((1.f - fs) * (m10 - m00) + fs * (m11 - m01));
+          s_dxs[coff + lane * kUnits] +=
+              dl * ((1.f - ft) * (m01 - m00) + ft * (m11 - m10));
         }
       }
     }
@@ -320,34 +316,32 @@ extern "C" int tilewin_combine_bwd_smem_bytes(int Mp) {
 }
 
 // Plain C entry point (loaded with ctypes). Shapes, all contiguous:
-//   feat_table (R, 16, 128) bf16; mask_table (Rm, 64) bf16; frows, mrows
-//   (B, 3, Mp, U) int32 global rows; xt, xs (B, 3, Mp, 16, U) f32 in [0, 7);
-//   valid (B, Mp, 16, U) f32; dfeature (B, 32, U*16) f32 in tiled point
-//   order; dcand_w (B, Mp, U/S, 16, S) f32
-//   -> dfeat_table (R, 16, 128) f32 and dmask_table (Rm, 64) f32, which the
-//   caller zeroes (the kernel adds into them), and dxt, dxs
-//   (B, 3, Mp, 16, U) f32.
+//   texels (B, 3, H+2, W+2, 64) bf16; bases (B, 3, Mp, U) int32 window base
+//   texels over the whole table; bones (B, Mp, U) int32 in [0, 32);
+//   xt, xs (B, 3, Mp, 16, U) f32 in [0, 7); valid (B, Mp, 16, U) f32;
+//   dfeature (B, 32, U*16) f32 in tiled point order; dcand_w
+//   (B, Mp, U/S, 16, S) f32
+//   -> dtexels (B, 3, H+2, W+2, 64) f32, which the caller zeroes (the kernel
+//   adds into it), and dxt, dxs (B, 3, Mp, 16, U) f32.
 // S divides U. Launches on `stream` and returns cudaGetLastError().
 extern "C" int tilewin_combine_bwd_bf16(
-    const void* feat_table, const void* mask_table, const void* frows,
-    const void* mrows, const void* xt, const void* xs, const void* valid,
-    const void* dfeature, const void* dcand_w, void* dfeat_table,
-    void* dmask_table, void* dxt, void* dxs, int B, int Mp, int U, int S,
-    int clamp, void* stream) {
+    const void* texels, const void* bases, const void* bones, const void* xt,
+    const void* xs, const void* valid, const void* dfeature,
+    const void* dcand_w, void* dtexels, void* dxt, void* dxs, int B, int H,
+    int W, int Mp, int U, int S, int clamp, void* stream) {
   const size_t smem = smem_bytes(Mp);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tilewin_combine_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        tilewin_combine_bwd_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((U + kUnits - 1) / kUnits, B);
   tilewin_combine_bwd_kernel<<<grid, kUnits * 32, smem,
                                (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)feat_table, (const __nv_bfloat16*)mask_table,
-      (const int32_t*)frows, (const int32_t*)mrows, (const float*)xt,
-      (const float*)xs, (const float*)valid, (const float*)dfeature,
-      (const float*)dcand_w, (float*)dfeat_table, (float*)dmask_table,
-      (float*)dxt, (float*)dxs, Mp, U, S, clamp);
+      (const __nv_bfloat16*)texels, (const int32_t*)bases,
+      (const int32_t*)bones, (const float*)xt, (const float*)xs,
+      (const float*)valid, (const float*)dfeature, (const float*)dcand_w,
+      (float*)dtexels, (float*)dxt, (float*)dxs, W + 2, Mp, U, S, clamp);
   return (int)cudaGetLastError();
 }

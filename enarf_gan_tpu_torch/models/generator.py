@@ -234,7 +234,7 @@ def dso_render_entire_img_tiled(gen: DSONARFGenerator, pose_to_camera,
                                 draws: Optional[Sequence[Draws]] = None,
                                 generator: Optional[torch.Generator] = None):
     """Patch-tiled full-image DSO inference (nerf/tiled.py +
-    ops/tilewin.py): planes computed and packed into window tables once per
+    ops/tilewin.py): planes computed and packed into the texel table once per
     frame, then the chunked patch render. Same outputs as
     ``dso_render_entire_img`` up to the sampling-pattern change. ``draws``
     holds one (u, jitter) pair per chunk, each (patches per chunk, Nf)."""

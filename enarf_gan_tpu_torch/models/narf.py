@@ -3,9 +3,10 @@
 
 Ported: the ``deformation_field`` variant (constant planes warped by a
 generated flow) and the ``constant_triplane`` variant, sampled through the
-candidate-sparse unirow path (``ops/unirow.py``, bf16 texel table) or, for
-``tile_patch`` models on the patch-tiled renderer, the patch-window path
-(``ops/tilewin.py``). Other variants and samplers raise
+candidate-sparse unirow path (``ops/unirow.py``) or, for ``tile_patch``
+models on the patch-tiled renderer, the patch-window path
+(``ops/tilewin.py``); both read the bf16 texel table of
+``ops/unirow.py::pack_texels``. Other variants and samplers raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Parameter and buffer names are the reference's (``tri_plane``,
@@ -30,7 +31,7 @@ from enarf_gan_tpu_torch.nn.layers import StyledConv1d, StyledMLP
 from enarf_gan_tpu_torch.nn.stylegan2 import StyleGAN2Generator
 from enarf_gan_tpu_torch.ops.activation import density_relu
 from enarf_gan_tpu_torch.ops.grid_sample import grid_sample_2d
-from enarf_gan_tpu_torch.ops.tilewin import (pack_tilewin,
+from enarf_gan_tpu_torch.ops.tilewin import (pack_tilewin_texels,
                                              sample_tilewin_fused,
                                              select_patch_slots)
 from enarf_gan_tpu_torch.ops.triplane import select_candidate_bones
@@ -311,14 +312,17 @@ class TriPlaneNARF(nn.Module):
                                    ray_direction)
 
     def pack_planes_tiled(self, tri_plane_feature: torch.Tensor):
-        """Pack planes once per frame into the patch-window tables."""
+        """Pack planes once per frame for the patch-window path: the texel
+        table of ``pack_planes`` with F, K and the plane size
+        (``ops/tilewin.py::pack_tilewin_texels``; the JAX package packs
+        window tables, ``pack_tilewin``)."""
         if not self.uses_candidate_sampling():
             raise ValueError(
                 "tile_patch needs the candidate-sparse tri-plane-mask path "
                 "(not no_selector / selector_mlp / max_bones_per_point >= "
                 "num_bone)")
-        return pack_tilewin(tri_plane_feature, self.params.feat_dim,
-                            self.num_bone)
+        return pack_tilewin_texels(tri_plane_feature, self.params.feat_dim,
+                                   self.num_bone)
 
     def density_color_tiled(self, position, pose_to_camera, bone_length,
                             tables, z_rend, n_patch: int, m: int, S: int,
@@ -326,8 +330,8 @@ class TriPlaneNARF(nn.Module):
         """Patch-window path of ``density_color``.
 
         Same math as the candidate branch, but candidates are chosen per
-        (pixel patch, sample) and the tri-plane reads are one shared window
-        row per (patch, sample, slot, plane). ``position`` (B, 3, n) is in
+        (pixel patch, sample) and the tri-plane reads share one 8x8-texel
+        window per (patch, sample, slot, plane). ``position`` (B, 3, n) is in
         tiled point order ((patch*m + member)*S + sample), see
         ``nerf/tiled.py``; ``tables`` come from ``pack_planes_tiled``.
         Returns (density (B, 1, n), color (B, 3, n) | None), plus the

@@ -2,42 +2,44 @@
 
 With depth bins pooled per 4x4-pixel patch (``nerf/tiled.py``), the member
 rays of a (patch, sample, bone, plane) group land within a few texels of
-each other, so one 8x8-texel window row serves the whole group:
+each other, so one 8x8-texel window serves the whole group:
 
-* ``pack_tilewin`` packs, once per frame, every stride-2 window of the
-  zero-padded feature planes into a bf16 row of 64 texels x F channels
-  (texel-major, 16 x 128 lanes at F = 32) and every window of each bone's
-  mask plane into a row of 64 texels;
+* ``pack_tilewin_texels`` packs the planes once per frame into the texel
+  table of ``ops/unirow.py::pack_texels`` (the exact sampler's table: every
+  texel of the zero-padded planes once, 25.6 MB an image at 256² planes);
+  each stride-2 window is a base texel and the 8x8 texels below and right
+  of it;
 * ``select_patch_slots`` picks the Mp candidate bones of each (patch,
   sample);
-* ``_fused_plan`` picks each group's window row and the members' in-window
-  coordinates;
-* ``tilewin_combine`` (``ops/tilewin_kernel.py``) gathers the rows and
-  combines them: a CUDA kernel on the card (with a backward kernel), its
+* ``texel_plan`` picks each group's window base texel and the members'
+  in-window coordinates;
+* ``tilewin_combine`` (``ops/tilewin_kernel.py``) reads the members' texels
+  and combines them: a CUDA kernel on the card (with a backward kernel), its
   plain twin on the CPU.
 
 ``sample_tilewin_fused`` is that chain and the one sampler the renderer
 calls; ``sample_tilewin`` is the same chain with the plain combine, for CPU
-tensors only (the JAX package's XLA path, in float32 where the JAX einsum
-rounds the bilinear weights to bf16).
+tensors only. ``sample_tilewin`` also takes the JAX package's window tables
+(``pack_tilewin``: every window packed into a 4 KB feature row and a mask
+row per bone, 340 MB an image at 256² planes) with their plan
+(``_fused_plan``): the JAX layout, kept as the reference (the JAX XLA path,
+in float32 where the JAX einsum rounds the bilinear weights to bf16).
 """
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
-from enarf_gan_tpu_torch.ops.tilewin_kernel import (tilewin_combine,
-                                                    tilewin_combine_plain)
+from enarf_gan_tpu_torch.ops.tilewin_kernel import (LANE, NTEX, STRIDE, SUB,
+                                                    WIN, num_bases,
+                                                    tilewin_combine,
+                                                    tilewin_combine_plain,
+                                                    tilewin_combine_texels_plain)
 from enarf_gan_tpu_torch.ops.triplane import PLANE_COORDS
+from enarf_gan_tpu_torch.ops.unirow import pack_texels
 
-WIN = 8            # window side, texels
-NTEX = WIN * WIN   # texels per window
-STRIDE = 2         # window base stride, texels
-SUB = 16           # sublanes per packed feature-window row
-LANE = 128
 RESCUE_W = 0.5     # uncovered-member rescue weight in select_patch_slots
 
 
@@ -50,6 +52,15 @@ class TilewinTables(NamedTuple):
     size: int            # plane resolution (H == W)
 
 
+class TilewinTexels(NamedTuple):
+    """What the tiled sampler reads: the texel table and what its plan
+    needs to know of the planes."""
+    texels: torch.Tensor  # (B, 3, H+2, W+2, 64) bf16 from pack_texels
+    feat_dim: int
+    num_bone: int
+    size: int             # plane resolution (H == W)
+
+
 class TilewinPlan(NamedTuple):
     """What ``tilewin_combine`` reads, unit axis U = n_patch * S minor."""
     frows: torch.Tensor              # (B, 3, Mp, U) int32 feature rows
@@ -60,10 +71,29 @@ class TilewinPlan(NamedTuple):
     clamped: Optional[torch.Tensor]  # share of valid fetches edge-clamped
 
 
-def _num_bases(size: int) -> int:
-    # quad top-left texels span [0, size] in the zero-padded plane and the
-    # quad extends to +1, so the last window must reach texel size+1
-    return (size - WIN + 3 + STRIDE - 1) // STRIDE + 1
+class TexelPlan(NamedTuple):
+    """What ``tilewin_combine`` reads beside the texel table, unit axis
+    U = n_patch * S minor."""
+    bases: torch.Tensor              # (B, 3, Mp, U) int32 window base texels
+    bones: torch.Tensor              # (B, Mp, U) int32 slot bones
+    xt: torch.Tensor                 # (B, 3, Mp, m, U) f32 in [0, WIN-1)
+    xs: torch.Tensor
+    valid: torch.Tensor              # (B, Mp, m, U) f32
+    clamped: Optional[torch.Tensor]  # share of valid fetches edge-clamped
+
+
+def pack_tilewin_texels(tri_plane_feature: torch.Tensor, feat_dim: int,
+                        num_bone: int) -> TilewinTexels:
+    """(B, (F+K)*3, H, W) planes → the texel table (``pack_texels``) with
+    F, K and the plane size. Differentiable: the texel gradient
+    goes back to the planes through ``pack_texels``' slice and permute."""
+    B, C3, H, W = tri_plane_feature.shape
+    if C3 != (feat_dim + num_bone) * 3 or H != W or H < WIN:
+        raise ValueError(f"planes {tuple(tri_plane_feature.shape)} do not "
+                         f"hold F={feat_dim}, K={num_bone} on a square plane "
+                         f"of at least {WIN} texels")
+    return TilewinTexels(pack_texels(tri_plane_feature, feat_dim, num_bone),
+                         feat_dim, num_bone, H)
 
 
 def pack_tilewin(tri_plane_feature: torch.Tensor, feat_dim: int,
@@ -81,7 +111,7 @@ def pack_tilewin(tri_plane_feature: torch.Tensor, feat_dim: int,
     if C3 != (F_ + K) * 3 or H != W:
         raise ValueError(f"planes {tuple(tri_plane_feature.shape)} do not "
                          f"hold F={F_}, K={K} on a square plane")
-    nb = _num_bases(H)
+    nb = num_bases(H)
     span = (nb - 1) * STRIDE + WIN     # padded extent the windows address
     feat = tri_plane_feature[:, :F_ * 3].reshape(B, 3, F_, H, W) \
         .permute(0, 1, 3, 4, 2)                                # (B,3,H,W,F)
@@ -203,18 +233,14 @@ def select_patch_slots(canonical: torch.Tensor, validity: torch.Tensor,
     return slot_idx.to(torch.int32), cand_pos, cand_valid
 
 
-def _fused_plan(tables: TilewinTables, cand_pos, slot_idx, cand_valid,
-                with_stats: bool = False) -> TilewinPlan:
-    """Window rows and member in-window coordinates, unit axis minor.
-
-    The plan stops at the row indices: ``tilewin_combine`` gathers the rows
-    itself, so the gathered windows (805 MB of bf16 for one full fine chunk)
-    never exist on the card path.
-    """
+def _member_geometry(nb: int, size: int, cand_pos, cand_valid,
+                     with_stats: bool):
+    """Each group's window base (bt, bs) (B, 3, Mp, U), the members'
+    in-window coordinates xt, xs (B, 3, Mp, m, U), validity (B, Mp, m, U)
+    and, with ``with_stats``, the share of valid fetches outside their
+    group's window (edge-clamped)."""
     B, _, Mp, n_patch, m, S = cand_pos.shape
-    K, nb, size = tables.num_bone, tables.nb, tables.size
     U = n_patch * S
-    dev = cand_pos.device
     cpT = cand_pos.permute(0, 1, 2, 4, 3, 5)                # (B,3,Mp,m,np,S)
     py, px, fy, fx = member_texels(cpT.reshape(B, 3, Mp, m * U), size)
     pym = py.reshape(B, 3, Mp, m, U)
@@ -222,70 +248,133 @@ def _fused_plan(tables: TilewinTables, cand_pos, slot_idx, cand_valid,
     validT = cand_valid.permute(0, 1, 3, 2, 4).reshape(B, Mp, m, U)
     vm = validT[:, None].expand(B, 3, Mp, m, U)
     bt, bs = group_bases(pym, pxm, vm, nb, member_dim=3)    # (B,3,Mp,U)
-
-    plane = torch.arange(3, dtype=torch.int32, device=dev).view(1, 3, 1, 1)
-    batch = torch.arange(B, dtype=torch.int32, device=dev).view(B, 1, 1, 1)
-    bi, bj = bt // STRIDE, bs // STRIDE
-    frows = ((batch * 3 + plane) * nb + bi) * nb + bj
-    slot_u = slot_idx.reshape(B, Mp, U)[:, None]            # (B,1,Mp,U)
-    mrows = (((batch * K + slot_u) * 3 + plane) * nb + bi) * nb + bj
-
     dt = pym - bt[:, :, :, None]
     ds = pxm - bs[:, :, :, None]
     clamped = None
     if with_stats:
         out = (dt < 0) | (dt > WIN - 2) | (ds < 0) | (ds > WIN - 2)
         clamped = (out & vm).sum() / vm.sum().clamp(min=1)
+    # a member outside its group's window reads the window's edge texels
+    # (its clamped cell), as the TPU's window rows make it
     xt = dt.clamp(0, WIN - 2).float() + fy.reshape(B, 3, Mp, m, U)
     xs = ds.clamp(0, WIN - 2).float() + fx.reshape(B, 3, Mp, m, U)
+    return bt, bs, xt.contiguous(), xs.contiguous(), \
+        validT.float().contiguous(), clamped
+
+
+def _fused_plan(tables: TilewinTables, cand_pos, slot_idx, cand_valid,
+                with_stats: bool = False) -> TilewinPlan:
+    """Window rows and member in-window coordinates on the window tables of
+    ``pack_tilewin``, unit axis minor."""
+    B, _, Mp, n_patch, m, S = cand_pos.shape
+    K, nb = tables.num_bone, tables.nb
+    U = n_patch * S
+    dev = cand_pos.device
+    bt, bs, xt, xs, valid, clamped = _member_geometry(
+        nb, tables.size, cand_pos, cand_valid, with_stats)
+    plane = torch.arange(3, dtype=torch.int32, device=dev).view(1, 3, 1, 1)
+    batch = torch.arange(B, dtype=torch.int32, device=dev).view(B, 1, 1, 1)
+    bi, bj = bt // STRIDE, bs // STRIDE
+    frows = ((batch * 3 + plane) * nb + bi) * nb + bj
+    slot_u = slot_idx.reshape(B, Mp, U)[:, None]            # (B,1,Mp,U)
+    mrows = (((batch * K + slot_u) * 3 + plane) * nb + bi) * nb + bj
     return TilewinPlan(frows.to(torch.int32).contiguous(),
-                       mrows.to(torch.int32).contiguous(), xt.contiguous(),
-                       xs.contiguous(), validT.float().contiguous(), clamped)
+                       mrows.to(torch.int32).contiguous(), xt, xs, valid,
+                       clamped)
 
 
-def _sample(combine, tables, cand_pos, slot_idx, cand_valid, clamp_mask,
-            with_stats):
-    S = cand_pos.shape[-1]
-    plan = _fused_plan(tables, cand_pos, slot_idx, cand_valid, with_stats)
-    feature, cand_w = combine(tables.feat, tables.mask, plan.frows,
-                              plan.mrows, plan.xt, plan.xs, plan.valid,
-                              tables.feat_dim, S, clamp_mask)
+def texel_plan(tables: TilewinTexels, cand_pos, slot_idx, cand_valid,
+               with_stats: bool = False) -> TexelPlan:
+    """Window base texels, slot bones and member in-window coordinates on
+    the texel table, unit axis minor.
+
+    The plan stops at indices: ``tilewin_combine`` reads the texels itself,
+    so no window is ever gathered or packed. The base texel of (b, p, g, u)
+    is ((b*3 + p)*(H+2) + bt)*(W+2) + bs, with (bt, bs) the window base of
+    ``group_bases`` (stride-aligned, at most 2(nb-1) <= H-4). A member
+    reads rows bt + i and bt + i + 1, i its in-window cell: i <= py - bt
+    for a member inside the window (py <= H its quad's top texel), i = 6
+    < py - bt past it, i = 0 before it; so no row passes H+1, nor a column
+    W+1. The f32 sum xt = (py - bt) + fy could round up to the next integer
+    only where fy has bits below the sum's precision, i.e. where py - bt
+    exceeds the top texel's binade: never at py = H on a plane of 8 texels
+    or more (tests/test_torch_tilewin.py pins both).
+    """
+    B, _, Mp, n_patch, m, S = cand_pos.shape
+    size = tables.size
+    U = n_patch * S
+    dev = cand_pos.device
+    bt, bs, xt, xs, valid, clamped = _member_geometry(
+        num_bases(size), size, cand_pos, cand_valid, with_stats)
+    plane = torch.arange(3, dtype=torch.int32, device=dev).view(1, 3, 1, 1)
+    batch = torch.arange(B, dtype=torch.int32, device=dev).view(B, 1, 1, 1)
+    bases = ((batch * 3 + plane) * (size + 2) + bt) * (size + 2) + bs
+    bones = slot_idx.reshape(B, Mp, U)
+    return TexelPlan(bases.to(torch.int32).contiguous(),
+                     bones.to(torch.int32).contiguous(), xt, xs, valid,
+                     clamped)
+
+
+def _with_stats(feature, cand_w, plan, with_stats):
     if not with_stats:
         return feature, cand_w
     return feature, cand_w, {"clamped": plan.clamped}
 
 
-def sample_tilewin(tables: TilewinTables, cand_pos, slot_idx, cand_valid,
-                   clamp_mask: bool = False, with_stats: bool = False):
+def sample_tilewin(tables: Union[TilewinTexels, TilewinTables], cand_pos,
+                   slot_idx, cand_valid, clamp_mask: bool = False,
+                   with_stats: bool = False):
     """Window-shared part probability + weighted feature, plain PyTorch: the
     reference for ``sample_tilewin_fused``, on CPU tensors only (on the card
     the combine is the kernel's, through ``sample_tilewin_fused``).
 
     Args:
-        tables: from ``pack_tilewin``; cand_pos (B, 3, Mp, np, m, S),
-            slot_idx (B, Mp, np, S) int32 and cand_valid (B, Mp, np, m, S)
-            bool from ``select_patch_slots``.
+        tables: from ``pack_tilewin_texels`` (the texel table and
+            ``tilewin_combine_texels_plain``) or ``pack_tilewin`` (the JAX
+            window tables and ``tilewin_combine_plain``); cand_pos
+            (B, 3, Mp, np, m, S), slot_idx (B, Mp, np, S) int32 and
+            cand_valid (B, Mp, np, m, S) bool from ``select_patch_slots``.
     Returns:
         (feature (B, F, np*m*S) f32, cand_w (B, Mp, np, m, S) f32
         [, stats]); stats = {"clamped": share of valid member-plane fetches
         outside their group window (edge-clamped)}.
     """
-    if tables.feat.is_cuda:
+    windows = isinstance(tables, TilewinTables)
+    if (tables.feat if windows else tables.texels).is_cuda:
         raise ValueError("sample_tilewin is the CPU reference; CUDA tensors "
                          "go through sample_tilewin_fused")
-    return _sample(tilewin_combine_plain, tables, cand_pos, slot_idx,
-                   cand_valid, clamp_mask, with_stats)
+    S = cand_pos.shape[-1]
+    if windows:
+        plan = _fused_plan(tables, cand_pos, slot_idx, cand_valid, with_stats)
+        feature, cand_w = tilewin_combine_plain(
+            tables.feat, tables.mask, plan.frows, plan.mrows, plan.xt,
+            plan.xs, plan.valid, tables.feat_dim, S, clamp_mask)
+    else:
+        plan = texel_plan(tables, cand_pos, slot_idx, cand_valid, with_stats)
+        feature, cand_w = tilewin_combine_texels_plain(
+            tables.texels, plan.bases, plan.bones, plan.xt, plan.xs,
+            plan.valid, tables.feat_dim, S, clamp_mask)
+    return _with_stats(feature, cand_w, plan, with_stats)
 
 
-def sample_tilewin_fused(tables: TilewinTables, cand_pos, slot_idx,
+def sample_tilewin_fused(tables: TilewinTexels, cand_pos, slot_idx,
                          cand_valid, clamp_mask: bool = False,
                          with_stats: bool = False,
                          mode: Optional[str] = None):
-    """``sample_tilewin`` through ``tilewin_combine`` in ``mode`` (None
-    reads ``ENARF_TILEWIN_KERNEL``, default "hat"): the CUDA kernels for
-    CUDA tensors (m of 4 or 16, F = 32, else it raises), the plain combine
-    for CPU tensors; differentiable in the tables and ``cand_pos`` at m = 16.
-    With ``with_stats`` the clamped share comes from the plan in plain
-    PyTorch and the combine still runs the kernel."""
-    return _sample(functools.partial(tilewin_combine, mode=mode), tables,
-                   cand_pos, slot_idx, cand_valid, clamp_mask, with_stats)
+    """``sample_tilewin`` on the texel table of ``pack_tilewin_texels``
+    through ``tilewin_combine`` in ``mode`` (None reads
+    ``ENARF_TILEWIN_KERNEL``, default "hat"): the CUDA kernels for CUDA
+    tensors (m of 4 or 16, F = 32, else it raises), the plain combine for
+    CPU tensors; differentiable in the texel table and ``cand_pos`` at
+    m = 16. With ``with_stats`` the clamped share comes from the plan in
+    plain PyTorch and the combine still runs the kernel."""
+    if not isinstance(tables, TilewinTexels):
+        raise ValueError("sample_tilewin_fused reads the texel table of "
+                         "pack_tilewin_texels (the window tables of "
+                         "pack_tilewin are sample_tilewin's, the CPU "
+                         "reference)")
+    plan = texel_plan(tables, cand_pos, slot_idx, cand_valid, with_stats)
+    feature, cand_w = tilewin_combine(
+        tables.texels, plan.bases, plan.bones, plan.xt, plan.xs, plan.valid,
+        tables.feat_dim, cand_pos.shape[-1], clamp_mask, mode=mode)
+    return _with_stats(feature, cand_w, plan, with_stats)

@@ -1,5 +1,5 @@
 """Family C of the probes: stage ablations of the port's kernels 2 and 3,
-and of kernel 1b's atomic adds.
+and of kernel 1b's atomic adds; kernel 2b's plain version.
 
 Where the tilewin combine's time goes on this card, asked of the kernels it
 runs (``csrc/tilewin_combine.cu``, ``csrc/tilewin_combine_modes.cu``), as
@@ -11,9 +11,10 @@ variants. Each variant's plain twin does the doctored work in PyTorch, and
 the card holds kernel and twin together, which shows that the variant does
 that work and no less (nvcc drops a load whose value goes unused).
 
-Kernel 2 (``hat_stage``; twin ``tilewin_combine_plain(..., stage=)``):
-"full", "stream" (no table reads), "noweights" (bilinear fractions 0.5),
-"nomask" (no mask read, cand_w = 0.5^3), "nofeat" (feature texels 1).
+Kernel 2 (``hat_stage``, on the texel table; twin
+``tilewin_combine_texels_plain(..., stage=)``): "full", "stream" (no table
+reads), "noweights" (bilinear fractions 0.5), "nomask" (no mask read,
+cand_w = 0.5^3), "nofeat" (feature texels 1).
 Kernel 3 (``modes_stage``, "dot" or "vpu" path; twin ``modes_stage_plain``):
 "full", "stream", "featA" (t-weights 1), "featD" (product replaced by a sum
 of the staged rows), "featB" (s-weights 1), "feat" (no mask), "mask" (no
@@ -25,6 +26,8 @@ with ``-DUNIROW_STAGE_ENTRY``; twin ``unirow_bwd_stage_plain``; timed by
 ``chip_smoke.py`` beside kernel 1b, no TPU probe asked it): "full",
 "scalar" (the feature adds as scalar atomics in place of 16-byte vector
 reductions), "nofeat" (no feature adds), "nomask" (no mask adds).
+Kernel 2b's plain version (``tilewin_bwd_plain``) is what ``chip_smoke.py``
+holds the kernel to.
 
     python -m enarf_gan_tpu_torch.tools.ablate [--device cpu]
 """
@@ -36,23 +39,23 @@ import torch
 
 from enarf_gan_tpu_torch.cuda_build import KernelLibrary
 from enarf_gan_tpu_torch.ops import tilewin, unirow
-from enarf_gan_tpu_torch.ops.tilewin_kernel import (HAT_STAGES, NTEX, WIN,
-                                                    _check_inputs,
-                                                    _check_kernel_shapes,
-                                                    texel_cells,
-                                                    tilewin_combine_plain)
+from enarf_gan_tpu_torch.ops.tilewin_kernel import (
+    HAT_STAGES, NTEX, WIN, _check_inputs, _check_kernel_shapes,
+    _check_window_inputs, texel_cells, texel_corners,
+    tilewin_combine_texels_plain)
 from enarf_gan_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, Case,
                                               run_cli)
 
 MODES_STAGES = ("full", "stream", "featA", "featD", "featB", "feat", "mask")
 PATHS = ("dot", "vpu")
 STAGE_FLAGS = ("-DTILEWIN_STAGE_ENTRY",)
-_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 KERNEL_STAGES = KernelLibrary(
-    "tilewin_combine_stages", "tilewin_combine_stage_bf16", _ARGS,
+    "tilewin_combine_stages", "tilewin_combine_stage_bf16",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     keys=HAT_STAGES, source="tilewin_combine.cu", flags=STAGE_FLAGS)
 KERNEL_MODES_STAGES = KernelLibrary(
-    "tilewin_combine_modes_stages", "tilewin_combine_modes_stage_bf16", _ARGS,
+    "tilewin_combine_modes_stages", "tilewin_combine_modes_stage_bf16",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     keys=tuple(f"{p}/{s}" for p in PATHS for s in MODES_STAGES),
     source="tilewin_combine_modes.cu", flags=STAGE_FLAGS)
 # kernel 1b's stages, in the order of the C enum
@@ -66,61 +69,62 @@ F_ = 32
 TRI_PLANE_SIZE, RAY_CHUNK, TILE_PATCH = 256, 4096, 4
 
 
-def _launch(lib, key, args, S, extra):
-    """One launch of a stage library: outputs allocated as
-    ``tilewin_combine`` allocates them; ``extra`` the entry's int
+def _outputs(device, B, Mp, m, U, S):
+    """feature (B, F, U*m) and cand_w (B, Mp, U/S, m, S), as
+    ``tilewin_combine`` allocates them."""
+    return (torch.empty((B, F_, U * m), dtype=torch.float32, device=device),
+            torch.empty((B, Mp, U // S, m, S), dtype=torch.float32,
+                        device=device))
+
+
+def _launch(lib, key, args, outputs, extra):
+    """One launch of a stage library; ``extra`` the entry's int
     arguments."""
-    feat_table, frows, xt = args[0], args[2], args[4]
-    _check_kernel_shapes(feat_table, frows, xt, F_)
     if not all(t.is_contiguous() for t in args):
         raise ValueError("the CUDA kernel takes contiguous tensors")
-    B, _, Mp, U = frows.shape
-    m = xt.shape[3]
-    feature = torch.empty((B, F_, U * m), dtype=torch.float32,
-                          device=feat_table.device)
-    cand_w = torch.empty((B, Mp, U // S, m, S), dtype=torch.float32,
-                         device=feat_table.device)
-    if U == 0:
-        return feature, cand_w
-    stream = torch.cuda.current_stream(feat_table.device).cuda_stream
-    ptrs = [t.data_ptr() for t in args] + [feature.data_ptr(),
-                                           cand_w.data_ptr()]
+    if outputs[1].shape[2] == 0:
+        return outputs
+    stream = torch.cuda.current_stream(args[0].device).cuda_stream
+    ptrs = [t.data_ptr() for t in args + outputs]
     err = lib.load()(*ptrs, *extra, stream)
     if err != 0:
         raise RuntimeError(f"{lib.name} ({key}) launch failed: CUDA error {err}")
     lib.count(key)
-    return feature, cand_w
+    return outputs
 
 
-def hat_stage(feat_table, mask_table, frows, mrows, xt, xs, valid, S,
-              clamp_mask, stage):
-    """Kernel 2 with one stage doctored (``HAT_STAGES``): feature (B, 32, n)
-    and cand_w (B, Mp, n_patch, m, S), as ``tilewin_combine``."""
+def hat_stage(texels, bases, bones, xt, xs, valid, S, clamp_mask, stage):
+    """Kernel 2 with one stage doctored (``HAT_STAGES``) on the texel
+    table: feature (B, 32, n) and cand_w (B, Mp, n_patch, m, S), as
+    ``tilewin_combine``."""
     if stage not in HAT_STAGES:
         raise ValueError(f"stage must be one of {HAT_STAGES}, got {stage!r}")
-    args = (feat_table, mask_table, frows, mrows, xt, xs, valid)
+    args = (texels, bases, bones, xt, xs, valid)
     _check_inputs(*args, F_, S, "hat")
-    if not feat_table.is_cuda:
-        return tilewin_combine_plain(*args, F_, S, clamp_mask, stage=stage)
-    B, _, Mp, U = frows.shape
-    return _launch(KERNEL_STAGES, stage, args, S,
-                   (B, Mp, xt.shape[3], U, S, int(clamp_mask),
+    if not texels.is_cuda:
+        return tilewin_combine_texels_plain(*args, F_, S, clamp_mask,
+                                            stage=stage)
+    B, H, W, Mp, m, U = _check_kernel_shapes(texels, bases, xt, F_)
+    return _launch(KERNEL_STAGES, stage, args,
+                   _outputs(texels.device, B, Mp, m, U, S),
+                   (B, H, W, Mp, m, U, S, int(clamp_mask),
                     HAT_STAGES.index(stage)))
 
 
 def modes_stage(feat_table, mask_table, frows, mrows, xt, xs, valid, S,
                 clamp_mask, path, stage):
     """Kernel 3 in its "dot" (tensor-core) or "vpu" path with one stage
-    doctored (``MODES_STAGES``)."""
+    doctored (``MODES_STAGES``), on window rows."""
     if path not in PATHS or stage not in MODES_STAGES:
         raise ValueError(f"path in {PATHS} and stage in {MODES_STAGES}, got "
                          f"{path!r}, {stage!r}")
     args = (feat_table, mask_table, frows, mrows, xt, xs, valid)
-    _check_inputs(*args, F_, S, path)
+    _check_window_inputs(*args, F_, S, path)
     if not feat_table.is_cuda:
         return modes_stage_plain(*args, S, clamp_mask, path, stage)
     B, _, Mp, U = frows.shape
-    return _launch(KERNEL_MODES_STAGES, f"{path}/{stage}", args, S,
+    return _launch(KERNEL_MODES_STAGES, f"{path}/{stage}", args,
+                   _outputs(feat_table.device, B, Mp, 16, U, S),
                    (B, Mp, U, S, int(clamp_mask), int(path == "dot"),
                     MODES_STAGES.index(stage)))
 
@@ -186,6 +190,30 @@ def unirow_bwd_stage_plain(texels, rows, wq4, cand_idx, valid, dfeature,
     if lanes is not None:
         dtexels[..., lanes] = 0
     return dtexels, dwq4
+
+
+def tilewin_bwd_plain(texels, bases, bones, xt, xs, valid, dfeature, dcand_w,
+                      S):
+    """Kernel 2b's function by autograd through
+    ``tilewin_combine_texels_plain`` on float32 copies, image by image
+    (images share no texels): (dtexels, dxt, dxs)."""
+    Hp, Wp = texels.shape[2:4]
+    dts, dxt, dxs = [], [], []
+    with torch.enable_grad():
+        for b in range(texels.shape[0]):
+            sl = slice(b, b + 1)
+            tf = texels[sl].float().requires_grad_(True)
+            xtb = xt[sl].clone().requires_grad_(True)
+            xsb = xs[sl].clone().requires_grad_(True)
+            f, w = tilewin_combine_texels_plain(
+                tf, bases[sl] - b * 3 * Hp * Wp, bones[sl], xtb, xsb,
+                valid[sl], F_, S, False)
+            grads = torch.autograd.grad(
+                (f * dfeature[sl]).sum() + (w * dcand_w[sl]).sum(),
+                [tf, xtb, xsb])
+            for acc, g in zip((dts, dxt, dxs), grads):
+                acc.append(g)
+    return torch.cat(dts), torch.cat(dxt), torch.cat(dxs)
 
 
 def _axis_weights(i, frac):
@@ -266,16 +294,18 @@ def modes_stage_plain(feat_table, mask_table, frows, mrows, xt, xs, valid, S,
 # ------------------------------------------------------------ inputs, bytes
 
 def chunk_inputs(device, m, S, B=1, seed=0, H=TRI_PLANE_SIZE,
-                 n_patch=RAY_CHUNK // (TILE_PATCH * TILE_PATCH)):
-    """Window tables and plan of one full chunk of the tiled path (by
-    default 256² planes, 4096 rays in 256 patches), S samples, 4 slots;
-    members clustered within ~1.5 texels per (patch, sample, slot), ~20%
-    invalid. Returns (feat, mask, frows, mrows, xt, xs, valid, F, S,
-    clamp)."""
+                 n_patch=RAY_CHUNK // (TILE_PATCH * TILE_PATCH),
+                 layout="texels"):
+    """The tables and plan of one full chunk of the tiled path (by default
+    256² planes, 4096 rays in 256 patches), S samples, 4 slots; members
+    clustered within ~1.5 texels per (patch, sample, slot), ~20% invalid.
+    ``layout`` "texels" (what the kernels read): (texels, bases, bones, xt,
+    xs, valid, F, S, clamp); "windows" (the JAX layout, kernel 3's and the
+    window twin's), the same draws: (feat, mask, frows, mrows, xt, xs,
+    valid, F, S, clamp)."""
     K, Mp = 23, 4
     g = torch.Generator().manual_seed(seed)
     planes = torch.randn((B, (F_ + K) * 3, H, H), generator=g).to(device)
-    tables = tilewin.pack_tilewin(planes, F_, K)
     centers = torch.rand((B, 3, Mp, n_patch, 1, S), generator=g) * 1.7 - 0.85
     jitter = (torch.rand((B, 3, Mp, n_patch, m, S), generator=g) * 2 - 1) \
         * (1.5 / H)
@@ -283,9 +313,15 @@ def chunk_inputs(device, m, S, B=1, seed=0, H=TRI_PLANE_SIZE,
     slot_idx = torch.randint(0, K, (B, Mp, n_patch, S), generator=g,
                              dtype=torch.int32).to(device)
     valid = (torch.rand((B, Mp, n_patch, m, S), generator=g) < 0.8).to(device)
-    plan = tilewin._fused_plan(tables, pos, slot_idx, valid)
-    return (tables.feat, tables.mask, plan.frows, plan.mrows, plan.xt,
-            plan.xs, plan.valid, F_, S, False)
+    if layout == "windows":
+        tables = tilewin.pack_tilewin(planes, F_, K)
+        plan = tilewin._fused_plan(tables, pos, slot_idx, valid)
+        return (tables.feat, tables.mask, plan.frows, plan.mrows, plan.xt,
+                plan.xs, plan.valid, F_, S, False)
+    tables = tilewin.pack_tilewin_texels(planes, F_, K)
+    plan = tilewin.texel_plan(tables, pos, slot_idx, valid)
+    return (tables.texels, plan.bases, plan.bones, plan.xt, plan.xs,
+            plan.valid, F_, S, False)
 
 
 def unirow_inputs(device, B, n, H=TRI_PLANE_SIZE, M=4, K=23, seed=0):
@@ -330,9 +366,9 @@ def texel_table_bytes(texels, rows, cand_idx, valid, feat_dim):
 
 
 def probe_inputs(device, U=12288, S=48, Mp=4, m=16, seed=0):
-    """The TPU probes' inputs (probe_hat_ablate.py, probe_tilewin_bdiag.py):
-    every (plane, slot, unit) its own random window row, coordinates
-    uniform in [0, 7), 90% valid."""
+    """The TPU probes' inputs (probe_hat_ablate.py, probe_tilewin_bdiag.py)
+    in the window layout (kernel 3's): every (plane, slot, unit) its own
+    random window row, coordinates uniform in [0, 7), 90% valid."""
     g = torch.Generator(device=device).manual_seed(seed)
     n_rows = 3 * Mp * U
     feat = torch.randn((n_rows, 16, 128), generator=g, device=device) \
@@ -348,11 +384,41 @@ def probe_inputs(device, U=12288, S=48, Mp=4, m=16, seed=0):
     return feat, mask, rows, rows.clone(), xt, xs, valid, F_, S, False
 
 
+def probe_texel_inputs(device, U=12288, S=48, Mp=4, m=16, seed=0,
+                       per_row=256):
+    """The TPU probes' inputs in the texel layout (kernel 2's): every
+    (plane, slot, unit) its own 8x8-texel window of a random texel table,
+    the windows side by side, ``per_row`` to a row of windows (at the
+    probe's U = 12288, 1.2 GB of texels, as the TPU probe's 147,456 random
+    4 KB rows lie far above the L2); a random bone a (slot, unit),
+    coordinates uniform in [0, 7), 90% valid. Returns (texels, bases,
+    bones, xt, xs, valid, F, S, clamp)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_win = Mp * U
+    per_row = min(per_row, n_win)
+    Hp = WIN * -(-n_win // per_row)
+    Wp = WIN * per_row
+    texels = torch.randn((1, 3, Hp, Wp, 64), generator=g, device=device) \
+        .to(torch.bfloat16)
+    w = torch.arange(n_win, device=device).view(1, 1, Mp, U)
+    plane = torch.arange(3, device=device).view(1, 3, 1, 1)
+    bases = (plane * Hp + WIN * (w // per_row)) * Wp + WIN * (w % per_row)
+    bones = torch.randint(0, 32, (1, Mp, U), generator=g, device=device,
+                          dtype=torch.int32)
+    xt = torch.rand((1, 3, Mp, m, U), generator=g, device=device) * (WIN - 1)
+    xs = torch.rand((1, 3, Mp, m, U), generator=g, device=device) * (WIN - 1)
+    valid = (torch.rand((1, Mp, m, U), generator=g, device=device) < 0.9) \
+        .float()
+    return texels, bases.to(torch.int32), bones, xt, xs, valid, F_, S, False
+
+
 def table_bytes(feat_dim, frows, mrows, xt, xs, valid):
-    """Bytes of the window tables one tilewin launch must read: each
-    distinct 64-byte feature texel (F bf16 channels) and each distinct
-    32-byte mask sector in the 2x2 quad of a valid member (an invalid
-    member's feature is weighted by 0 and its logit is 0). Returns (bytes,
+    """Bytes of the window tables one tilewin launch would read (the TPU
+    layout; kernel 3 reads it, and it is kernel 2's yardstick): each
+    distinct 64-byte feature texel of a window row (F bf16 channels) and
+    each distinct 32-byte mask sector in the 2x2 quad of a valid member (an
+    invalid member's feature is weighted by 0 and its logit is 0). A plane
+    texel lies in up to 16 windows, and each copy counts. Returns (bytes,
     distinct texels, distinct mask sectors)."""
     i, _ = texel_cells(xt)                                    # (B,3,Mp,m,U)
     k, _ = texel_cells(xs)
@@ -369,20 +435,44 @@ def table_bytes(feat_dim, frows, mrows, xt, xs, valid):
     return d_tex * feat_dim * 2 + d_sec * 32, d_tex, d_sec
 
 
+def tilewin_texel_bytes(texels, bases, bones, xt, xs, valid, feat_dim):
+    """Bytes of the texel table one tilewin launch must read: each distinct
+    64-byte feature half of a texel (F bf16 channels) in the 2x2 quad of a
+    valid member, and each distinct 32-byte sector holding its slot bone's
+    mask logit (an invalid member's feature is weighted by 0 and its logit
+    is 0). Returns (bytes, distinct texels, distinct mask sectors)."""
+    Wp, TW = texels.shape[3:]
+    i, _ = texel_cells(xt)                                    # (B,3,Mp,m,U)
+    k, _ = texel_cells(xs)
+    t00 = texel_corners(bases, i, k, Wp)
+    keep = (valid != 0)[:, None].expand_as(i)
+    corners = torch.stack([t00, t00 + 1, t00 + Wp, t00 + Wp + 1])[:, keep]
+    d_tex = int(torch.unique(corners).numel())
+    lanes_per_sector = 32 // texels.element_size()
+    lane = (unirow.FEAT_BLOCK + bones.long()[:, None, :, None, :]) \
+        .expand_as(i)[keep]
+    sectors = corners * (TW // lanes_per_sector) + lane // lanes_per_sector
+    d_sec = int(torch.unique(sectors).numel())
+    return d_tex * feat_dim * texels.element_size() + d_sec * 32, d_tex, \
+        d_sec
+
+
 def io_bytes(args, m):
-    """Coordinates, validity and row indices read, outputs written."""
-    frows = args[2]
-    B, _, Mp, U = frows.shape
-    coords = sum(t.numel() * t.element_size() for t in args[2:7])
-    return coords + B * (args[7] + Mp) * U * m * 4
+    """The plan's arrays (row indices or base texels and bones,
+    coordinates, validity) read, outputs written: args are either
+    layout's (tables first, then the plan)."""
+    plan = args[2:7] if args[0].dim() == 3 else args[1:6]
+    B, _, Mp, U = plan[0].shape
+    return sum(t.numel() * t.element_size() for t in plan) \
+        + B * (F_ + Mp) * U * m * 4
 
 
 def _hat_bytes(args, stage):
-    m = args[4].shape[3]
+    m = args[3].shape[3]
     io = io_bytes(args, m)
     if stage == "stream":
         return float(io)
-    _, d_tex, d_sec = table_bytes(F_, *args[2:7])
+    _, d_tex, d_sec = tilewin_texel_bytes(*args[:6], F_)
     feat = 0 if stage == "nofeat" else d_tex * F_ * 2
     mask = 0 if stage == "nomask" else d_sec * 32
     return float(io + feat + mask)
@@ -413,17 +503,24 @@ def _modes_work(args, path, stage):
 
 def cases(device, size="main"):
     """Every variant of kernels 2 and 3 at the TPU probes' U = 12288 (random
-    rows) and at chip_smoke.py's fine chunk (a tiled render's plan, U =
-    16384); "check" at small sizes."""
+    windows or rows) and at chip_smoke.py's fine chunk (a tiled render's
+    plan, U = 16384); "check" at small sizes. Kernel 2 reads the texel
+    layout of each, kernel 3 the window layout."""
     if size == "check":
-        shapes = (("small probe inputs", probe_inputs(device, U=96, S=12)),
-                  ("small chunk", chunk_inputs(device, 16, 5, H=16, n_patch=3)))
+        shapes = (("small probe inputs",
+                   probe_texel_inputs(device, U=96, S=12, per_row=16),
+                   probe_inputs(device, U=96, S=12)),
+                  ("small chunk", chunk_inputs(device, 16, 5, H=16, n_patch=3),
+                   chunk_inputs(device, 16, 5, H=16, n_patch=3,
+                                layout="windows")))
     else:
-        shapes = (("U=12288 probe inputs", probe_inputs(device)),
-                  ("fine chunk", chunk_inputs(device, 16, 64)))
-    for label, args in shapes:
-        a7, S = args[:7], args[8]
-        U = args[2].shape[3]
+        shapes = (("U=12288 probe inputs", probe_texel_inputs(device),
+                   probe_inputs(device)),
+                  ("fine chunk", chunk_inputs(device, 16, 64),
+                   chunk_inputs(device, 16, 64, layout="windows")))
+    for label, targs, wargs in shapes:
+        a6, a7, S = targs[:6], wargs[:7], targs[7]
+        U = targs[1].shape[3]
         for stage in HAT_STAGES:
             # the full hat kernel is also probe_tilewin_bdiag.py's "v4"
             yield Case(
@@ -431,15 +528,15 @@ def cases(device, size="main"):
                 "tools/probe_tilewin_bdiag.py:211" if stage == "full"
                 else "tools/probe_hat_ablate.py:145",
                 "enarf_gan_tpu_torch/csrc/tilewin_combine.cu",
-                kernel=lambda st=stage: hat_stage(*a7, S, False, st),
-                plain=lambda st=stage: tilewin_combine_plain(*a7, F_, S, False,
-                                                             stage=st),
+                kernel=lambda st=stage: hat_stage(*a6, S, False, st),
+                plain=lambda st=stage: tilewin_combine_texels_plain(
+                    *a6, F_, S, False, stage=st),
                 counter=(KERNEL_STAGES, stage),
-                nbytes=_hat_bytes(args, stage), rtol=1e-4, atol=1e-5,
+                nbytes=_hat_bytes(targs, stage), rtol=1e-4, atol=1e-5,
                 info={"kernel": 2, "stage": stage, "U": U, "inputs": label})
         for path in PATHS:
             for stage in MODES_STAGES:
-                nbytes, flops, rate = _modes_work(args, path, stage)
+                nbytes, flops, rate = _modes_work(wargs, path, stage)
                 yield Case(
                     f"C kernel 3 {path} {stage}, {label}",
                     "tools/probe_tilewin_bdiag.py:246",

@@ -1,6 +1,8 @@
 """The port's differentiable combines (kernels 1b and 2b on the card, their
 plain twins under autograd here) against the JAX package's VJPs, and
-kernel 3's plain twin against JAX's interpret-mode Pallas kernels.
+kernel 3's plain twin against JAX's interpret-mode Pallas kernels. Both
+samplers read the texel table on the card; the tilewin window tables of the
+JAX layout stay as a second, window-twin case.
 
 Tolerances:
 * gradients: relative L2 error <= 2e-2 per tensor. The JAX VJPs round the
@@ -126,7 +128,7 @@ def test_tilewin_gradients_match_jax_vjp(n_patch, S, clamp):
     feat = tt.feat.detach().requires_grad_(True)
     mask = tt.mask.detach().requires_grad_(True)
     p = torch.from_numpy(pos).requires_grad_(True)
-    f, w = tilewin.sample_tilewin_fused(
+    f, w = tilewin.sample_tilewin(
         tt._replace(feat=feat, mask=mask), p, torch.from_numpy(slot_idx),
         torch.from_numpy(valid), clamp_mask=clamp)
     ((f * torch.from_numpy(cf)).sum() + (w * torch.from_numpy(cw)).sum()) \
@@ -140,21 +142,65 @@ def test_tilewin_gradients_match_jax_vjp(n_patch, S, clamp):
     assert float(np.abs(np.asarray(g_pos)).max()) > 0
 
 
+@pytest.mark.parametrize("n_patch,S,clamp", [(3, 5, False), (4, 6, True)])
+def test_tilewin_texel_gradients_match_jax_vjp(n_patch, S, clamp):
+    """The texel path (what the card runs: one float32 texel gradient,
+    rounded once to bf16, carried to the planes by pack_texels' backward)
+    against the JAX VJP through its window tables. The window-table and
+    texel-table gradients are of different tables, so both are taken back
+    to the planes: through JAX's pack_tilewin and the port's pack_texels."""
+    planes, pos, slot_idx, valid, F, K, ts = _tilewin_inputs(n_patch, S)
+    rng = np.random.default_rng(12)
+    B, _, Mp = pos.shape[:3]
+    cf = rng.normal(size=(B, F, n_patch * 16 * S)).astype(np.float32)
+    cw = rng.normal(size=(B, Mp, n_patch, 16, S)).astype(np.float32)
+
+    def jloss(pl, p):
+        tables = jtw.pack_tilewin(pl, F, K)
+        f, w = jtw.sample_tilewin_fused(tables, p, jnp.asarray(slot_idx),
+                                        jnp.asarray(valid), clamp_mask=clamp)
+        return (f.astype(jnp.float32) * cf).sum() + (w * cw).sum()
+
+    g_planes, g_pos = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(planes),
+                                                      jnp.asarray(pos))
+
+    tp = torch.from_numpy(planes).requires_grad_(True)
+    p = torch.from_numpy(pos).requires_grad_(True)
+    tables = tilewin.pack_tilewin_texels(tp, F, K)
+    tables.texels.retain_grad()
+    f, w = tilewin.sample_tilewin_fused(tables, p, torch.from_numpy(slot_idx),
+                                        torch.from_numpy(valid),
+                                        clamp_mask=clamp)
+    ((f * torch.from_numpy(cf)).sum() + (w * torch.from_numpy(cw)).sum()) \
+        .backward()
+    assert tables.texels.grad.dtype == torch.bfloat16
+    for name, got, ref in (("planes", tp.grad, g_planes),
+                           ("cand_pos", p.grad, g_pos)):
+        err = rel_l2(got.float().numpy(), _f32(ref))
+        assert err <= REL_L2, (name, err)
+    assert float(np.abs(np.asarray(g_planes)).max()) > 0
+
+
 @pytest.mark.parametrize("mode", ["dot", "vpu", "bdiag"])
 def test_kernel3_plain_matches_jax_interpret(monkeypatch, mode):
-    """U = 128 units (one TB block), Mp = 2 slots, m = 16."""
+    """U = 128 units (one TB block), Mp = 2 slots, m = 16: the port's
+    combine in ``mode`` on the texel table against JAX's interpret-mode
+    kernel on the window rows of the same plan."""
     planes, pos, slot_idx, valid, F, K, ts = _tilewin_inputs(
         1, jtk.TB, Mp=2, seed=5)
     B, _, Mp = pos.shape[:3]
     U = jtk.TB
-    tt = tilewin.pack_tilewin(torch.from_numpy(planes), F, K)
-    plan = tilewin._fused_plan(tt, torch.from_numpy(pos),
-                               torch.from_numpy(slot_idx),
-                               torch.from_numpy(valid))
+    targs = (torch.from_numpy(pos), torch.from_numpy(slot_idx),
+             torch.from_numpy(valid))
+    tx = tilewin.pack_tilewin_texels(torch.from_numpy(planes), F, K)
+    tplan = tilewin.texel_plan(tx, *targs)
     monkeypatch.setenv("ENARF_TILEWIN_KERNEL", mode)
-    f, w = tilewin.tilewin_combine(tt.feat, tt.mask, plan.frows, plan.mrows,
-                                   plan.xt, plan.xs, plan.valid, F, U, False)
+    f, w = tilewin.tilewin_combine(tx.texels, tplan.bases, tplan.bones,
+                                   tplan.xt, tplan.xs, tplan.valid, F, U,
+                                   False)
 
+    tt = tilewin.pack_tilewin(torch.from_numpy(planes), F, K)
+    plan = tilewin._fused_plan(tt, *targs)
     jt = jtw.pack_tilewin(jnp.asarray(planes), F, K)
     win = jnp.take(jt.feat, jnp.asarray(plan.frows.numpy()).reshape(-1),
                    axis=0).reshape(B, 3, Mp, U, 16, 128)

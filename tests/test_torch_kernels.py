@@ -199,23 +199,46 @@ def test_unirow_bwd_stage_kernels_match_their_twins_on_card(cuda_device):
             assert _rel_l2(a, b) <= 1e-4, stage
 
 
+def test_tilewin_bwd_plain_is_autograd_through_the_combine():
+    """Kernel 2b's plain version (tools/ablate.py), which runs image by
+    image on bases shifted to each image's table, gives the batch's
+    gradients of autograd through the texel twin."""
+    args = _tilewin_args(16, 3, 5)
+    g = torch.Generator().manual_seed(5)
+    dfeature = torch.randn((2, 32, 3 * 16 * 5), generator=g)
+    dcand_w = torch.randn((2, 3, 3, 16, 5), generator=g)
+    got = ablate.tilewin_bwd_plain(*args, dfeature, dcand_w, 5)
+    texels, bases, bones, xt, xs, valid = args
+    tf = texels.float().requires_grad_(True)
+    xtg = xt.clone().requires_grad_(True)
+    xsg = xs.clone().requires_grad_(True)
+    f, w = tilewin_kernel.tilewin_combine_texels_plain(
+        tf, bases, bones, xtg, xsg, valid, 32, 5, False)
+    want = torch.autograd.grad((f * dfeature).sum() + (w * dcand_w).sum(),
+                               [tf, xtg, xsg])
+    assert got[0].abs().max() > 0
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
 def _tilewin_args(m, n_patch, S, Mp=3, B=2, ts=16, F=32, K=6, seed=3,
-                  device="cpu"):
-    """Window tables and plan for members clustered within ~1.5 texels per
-    (patch, sample, slot), about 20% invalid."""
+                  device="cpu", spread=1.5):
+    """The texel table and plan for members clustered within ~``spread``
+    texels per (patch, sample, slot), about 20% invalid: (texels, bases,
+    bones, xt, xs, valid)."""
     rng = np.random.default_rng(seed)
     planes = rng.normal(size=(B, (F + K) * 3, ts, ts)).astype(np.float32)
-    tables = tilewin.pack_tilewin(torch.from_numpy(planes), F, K)
+    tables = tilewin.pack_tilewin_texels(torch.from_numpy(planes), F, K)
     centers = rng.uniform(-0.85, 0.85, (B, 3, Mp, n_patch, 1, S))
-    jitter = rng.uniform(-1.5 / ts, 1.5 / ts, (B, 3, Mp, n_patch, m, S))
+    jitter = rng.uniform(-spread / ts, spread / ts, (B, 3, Mp, n_patch, m, S))
     pos = np.clip(centers + jitter, -0.99, 0.99).astype(np.float32)
     slot_idx = rng.integers(0, K, (B, Mp, n_patch, S)).astype(np.int32)
     valid = rng.random((B, Mp, n_patch, m, S)) < 0.8
-    plan = tilewin._fused_plan(tables, torch.from_numpy(pos),
-                               torch.from_numpy(slot_idx),
-                               torch.from_numpy(valid))
-    args = (tables.feat, tables.mask, plan.frows, plan.mrows, plan.xt,
-            plan.xs, plan.valid)
+    plan = tilewin.texel_plan(tables, torch.from_numpy(pos),
+                              torch.from_numpy(slot_idx),
+                              torch.from_numpy(valid))
+    args = (tables.texels, plan.bases, plan.bones, plan.xt, plan.xs,
+            plan.valid)
     return tuple(a.to(device) for a in args)
 
 
@@ -223,10 +246,24 @@ def test_tilewin_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     args = _tilewin_args(16, 3, 5)
     before = tilewin_kernel.KERNEL.launches
     got = tilewin_kernel.tilewin_combine(*args, 32, 5, False)
-    ref = tilewin_kernel.tilewin_combine_plain(*args, 32, 5, False)
+    ref = tilewin_kernel.tilewin_combine_texels_plain(*args, 32, 5, False)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert tilewin_kernel.KERNEL.launches == before
+
+
+def test_tilewin_wrapper_refuses_window_tables():
+    """The combine reads the texel table: the JAX layout's window rows are
+    the plain reference's input, and the wrapper refuses them on any
+    device."""
+    rng = np.random.default_rng(4)
+    planes = torch.from_numpy(rng.normal(size=(1, 38 * 3, 16, 16))
+                              .astype(np.float32))
+    tables = tilewin.pack_tilewin(planes, 32, 6)
+    _, bases, bones, xt, xs, valid = _tilewin_args(16, 3, 5, B=1)
+    with pytest.raises(ValueError, match="texel table"):
+        tilewin_kernel.tilewin_combine(tables.feat, bases, bones, xt, xs,
+                                       valid, 32, 5, False)
 
 
 @pytest.mark.cuda
@@ -243,8 +280,8 @@ def test_tilewin_kernel_matches_plain_on_card(cuda_device, m, n_patch, S,
     with torch.no_grad():
         f, w = tilewin_kernel.tilewin_combine(*args, 32, S, clamp)
         torch.cuda.synchronize()
-        f_ref, w_ref = tilewin_kernel.tilewin_combine_plain(*args, 32, S,
-                                                            clamp)
+        f_ref, w_ref = tilewin_kernel.tilewin_combine_texels_plain(
+            *args, 32, S, clamp)
     assert k.launches == before + 1 and k.launches_by[m] == before_m + 1
     torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(f, f_ref, rtol=1e-4, atol=1e-5)
@@ -280,11 +317,73 @@ def test_plain_sampler_refuses_cuda_tensors(cuda_device):
 
 
 @pytest.mark.cuda
+def test_window_tables_raise_on_card(cuda_device):
+    """The card reads the texel table: window tables on a CUDA tensor go to
+    no kernel, whichever entry point they reach."""
+    rng = np.random.default_rng(4)
+    planes = torch.from_numpy(rng.normal(size=(1, 38 * 3, 16, 16))
+                              .astype(np.float32)).to(cuda_device)
+    tables = tilewin.pack_tilewin(planes, 32, 6)
+    pos = torch.zeros((1, 3, 2, 3, 16, 5), device=cuda_device)
+    slot_idx = torch.zeros((1, 2, 3, 5), dtype=torch.int32,
+                           device=cuda_device)
+    valid = torch.ones((1, 2, 3, 16, 5), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="texel table"):
+        tilewin.sample_tilewin_fused(tables, pos, slot_idx, valid)
+    _, bases, bones, xt, xs, v = _tilewin_args(16, 3, 5, B=1,
+                                               device=cuda_device)
+    with pytest.raises(ValueError, match="texel table"):
+        tilewin_kernel.tilewin_combine(tables.feat, bases, bones, xt, xs, v,
+                                       32, 5, False)
+
+
+@pytest.mark.cuda
+def test_tilewin_kernels_stay_inside_the_table_on_card(cuda_device):
+    """Members at the far corner of every plane of the last image (the
+    table's last texels) and beyond it (invalid ones, at clamped texels):
+    kernels 2 and 2b read and add only texels of the table, and agree with
+    the twin and with autograd through it."""
+    rng = np.random.default_rng(8)
+    B, Mp, n_patch, S, F, K, ts = 2, 2, 3, 4, 32, 6, 16
+    planes = rng.normal(size=(B, (F + K) * 3, ts, ts)).astype(np.float32)
+    tables = tilewin.pack_tilewin_texels(torch.from_numpy(planes), F, K)
+    pos = rng.uniform(0.8, 1.3, (B, 3, Mp, n_patch, 16, S)).astype(np.float32)
+    slot_idx = rng.integers(0, K, (B, Mp, n_patch, S)).astype(np.int32)
+    valid = (np.abs(pos) < 1).all(axis=1) & (rng.random(pos[:, 0].shape) < 0.9)
+    plan = tilewin.texel_plan(tables, torch.from_numpy(pos),
+                              torch.from_numpy(slot_idx),
+                              torch.from_numpy(valid))
+    args = [t.to(cuda_device) for t in (tables.texels, plan.bases,
+                                        plan.bones, plan.xt, plan.xs,
+                                        plan.valid)]
+    with torch.no_grad():
+        got = tilewin_kernel.tilewin_combine(*args, 32, S, False)
+        torch.cuda.synchronize()
+        ref = tilewin_kernel.tilewin_combine_texels_plain(*args, 32, S, False)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    cots = _cotangents(got, 7)
+    grads = tilewin_kernel.launch_backward(*args, *cots, 32, S, False)
+    torch.cuda.synchronize()
+    leaves = [args[0].float().requires_grad_(True),
+              args[3].clone().requires_grad_(True),
+              args[4].clone().requires_grad_(True)]
+    out = tilewin_kernel.tilewin_combine_texels_plain(
+        leaves[0], *args[1:3], leaves[1], leaves[2], args[5], 32, S, False)
+    refs = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, cots)),
+                               leaves)
+    for name, a, b in zip(("texels", "xt", "xs"), grads, refs):
+        assert _rel_l2(a, b) <= 1e-4, name
+    # the last image's far corner texel took gradient
+    assert float(grads[0][-1, :, -2, -2, :32].abs().sum()) > 0
+
+
+@pytest.mark.cuda
 def test_tilewin_kernel_refuses_a_gradient(cuda_device):
     """The coarse-corner pass (m = 4) has no backward: it runs under
     torch.no_grad(), as the JAX one runs under stop_gradient."""
     args = list(_tilewin_args(4, 3, 5, device=cuda_device))
-    args[4] = args[4].requires_grad_(True)
+    args[3] = args[3].requires_grad_(True)
     with pytest.raises(ValueError, match="backward for m = 16 only"):
         tilewin_kernel.tilewin_combine(*args, 32, 5, False)
 
@@ -309,14 +408,14 @@ def test_tilewin_input_checks_refuse_what_no_kernel_takes(monkeypatch):
     for mode in tilewin_kernel.MATRIX_MODES:
         with pytest.raises(ValueError, match="takes m = 16"):
             tilewin_kernel.tilewin_combine(*args4, 32, 5, False, mode=mode)
-    xs = args4[5].clone().requires_grad_(True)
+    xs = args4[4].clone().requires_grad_(True)
     with pytest.raises(ValueError, match="backward for m = 16 only"):
-        tilewin_kernel.tilewin_combine(*args4[:5], xs, args4[6], 32, 5, False)
-    valid = args16[6].clone().requires_grad_(True)
+        tilewin_kernel.tilewin_combine(*args4[:4], xs, args4[5], 32, 5, False)
+    valid = args16[5].clone().requires_grad_(True)
     with pytest.raises(ValueError, match="valid takes no gradient"):
-        tilewin_kernel.tilewin_combine(*args16[:6], valid, 32, 5, False)
+        tilewin_kernel.tilewin_combine(*args16[:5], valid, 32, 5, False)
     with torch.no_grad():                # the coarse pass as the renderer runs it
-        tilewin_kernel.tilewin_combine(*args4[:5], xs, args4[6], 32, 5, False)
+        tilewin_kernel.tilewin_combine(*args4[:4], xs, args4[5], 32, 5, False)
 
 
 def test_unirow_input_checks_refuse_a_gradient_for_valid():
@@ -327,8 +426,8 @@ def test_unirow_input_checks_refuse_a_gradient_for_valid():
 
 
 def test_plain_modes_on_cpu():
-    """On the CPU every mode runs the plain twin: "vpu" is "hat", "dot" and
-    "bdiag" round the t-weights to bf16 (within 1e-2 of "hat")."""
+    """On the CPU every mode runs the texel twin: "vpu" is "hat", "dot" and
+    "bdiag" round the t-weights to bf16 (within 1e-1 of "hat")."""
     args = _tilewin_args(16, 3, 5)
     out = {m: tilewin_kernel.tilewin_combine(*args, 32, 5, False, mode=m)
            for m in tilewin_kernel.MODES}
@@ -351,7 +450,7 @@ def test_tilewin_modes_kernel_matches_plain_on_card(cuda_device, mode,
     with torch.no_grad():
         f, w = tilewin_kernel.tilewin_combine(*args, 32, S, clamp, mode=mode)
         torch.cuda.synchronize()
-        f_ref, w_ref = tilewin_kernel.tilewin_combine_plain(
+        f_ref, w_ref = tilewin_kernel.tilewin_combine_texels_plain(
             *args, 32, S, clamp, round_t=mode != "vpu")
     assert k.launches_by[mode] == before + 1
     torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=1e-5)
@@ -362,35 +461,34 @@ def test_tilewin_modes_kernel_matches_plain_on_card(cuda_device, mode,
 @pytest.mark.parametrize("n_patch,S,clamp", [(3, 5, False), (37, 7, True)])
 def test_tilewin_backward_kernel_matches_plain_on_card(cuda_device, n_patch,
                                                        S, clamp):
-    feat, mask, frows, mrows, xt, xs, valid = _tilewin_args(
+    texels, bases, bones, xt, xs, valid = _tilewin_args(
         16, n_patch, S, device=cuda_device)
-    leaves = [t.clone().requires_grad_(True) for t in (feat, mask, xt, xs)]
-    outs = tilewin_kernel.tilewin_combine(leaves[0], leaves[1], frows, mrows,
-                                          leaves[2], leaves[3], valid, 32, S,
-                                          clamp)
+    leaves = [t.clone().requires_grad_(True) for t in (texels, xt, xs)]
+    outs = tilewin_kernel.tilewin_combine(leaves[0], bases, bones, leaves[1],
+                                          leaves[2], valid, 32, S, clamp)
     cots = _cotangents(outs, 6)
     before = tilewin_kernel.KERNEL_BWD.launches
-    grads = tilewin_kernel.launch_backward(feat, mask, frows, mrows, xt, xs,
+    grads = tilewin_kernel.launch_backward(texels, bases, bones, xt, xs,
                                            valid, *cots, 32, S, clamp)
     torch.cuda.synchronize()
     assert tilewin_kernel.KERNEL_BWD.launches == before + 1
-    ref_leaves = [feat.float().requires_grad_(True),
-                  mask.float().requires_grad_(True),
+    assert grads[0].dtype == torch.float32
+    ref_leaves = [texels.float().requires_grad_(True),
                   xt.clone().requires_grad_(True),
                   xs.clone().requires_grad_(True)]
-    ref = tilewin_kernel.tilewin_combine_plain(
-        ref_leaves[0], ref_leaves[1], frows, mrows, ref_leaves[2],
-        ref_leaves[3], valid, 32, S, clamp)
+    ref = tilewin_kernel.tilewin_combine_texels_plain(
+        ref_leaves[0], bases, bones, ref_leaves[1], ref_leaves[2], valid, 32,
+        S, clamp)
     refs = torch.autograd.grad(sum((o * c).sum() for o, c in zip(ref, cots)),
                                ref_leaves)
-    for name, got, want in zip(("feat", "mask", "xt", "xs"), grads, refs):
+    for name, got, want in zip(("texels", "xt", "xs"), grads, refs):
         assert _rel_l2(got, want) <= 1e-4, name
-    # through the autograd Function: tables in their bf16 type
+    # through the autograd Function: the texel table in its bf16 type
     g = torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cots)),
                             leaves)
-    assert g[0].dtype == g[1].dtype == torch.bfloat16
+    assert g[0].dtype == torch.bfloat16
     assert tilewin_kernel.KERNEL_BWD.launches == before + 2
-    torch.testing.assert_close(g[2], grads[2], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(g[1], grads[1], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda

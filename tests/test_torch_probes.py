@@ -339,32 +339,39 @@ def _np_inputs(args):
 
 
 def np_hat_stage(args, stage):
-    """Kernel 2's dataflow with one stage doctored, in float64 numpy:
-    (B, m, U, F) feature and (B, Mp, m, U) cand_w."""
-    feat, mask, frows, mrows, xt, xs, valid = _np_inputs(args)
+    """Kernel 2's dataflow on the texel table with one stage doctored, in
+    float64 numpy: (B, m, U, F) feature and (B, Mp, m, U) cand_w."""
+    texels, bases, bones, xt, xs, valid = (
+        a.float().numpy().astype(np.float64) if a.is_floating_point()
+        else a.numpy() for a in args)
+    _, _, Hp, Wp, _ = texels.shape
+    tab = texels.reshape(-1, 64)
     i, ft = _cells(xt)                               # (B, 3, Mp, m, U)
     k, fs = _cells(xs)
     if stage == "noweights":
         ft = fs = np.full_like(ft, 0.5)
-    fr = frows[:, :, :, None, :]
-    mr = mrows[:, :, :, None, :]
+    b = bases.astype(np.int64)[:, :, :, None, :]
+    t00 = b + i * Wp + k
+    st = np.where(b // Wp % Hp + i + 1 < Hp, Wp, 0)
+    ss = (b % Wp + k + 1 < Wp).astype(np.int64)
+    lane = 32 + bones.astype(np.int64)[:, None, :, None, :]
     sg = 0.0
     logit = np.zeros_like(ft)
     for dt, ds, wgt in ((0, 0, (1 - ft) * (1 - fs)), (0, 1, (1 - ft) * fs),
                         (1, 0, ft * (1 - fs)), (1, 1, ft * fs)):
-        cell = (i + dt) * 8 + k + ds
+        t = t00 + dt * st + ds * ss
         if stage == "stream":
-            v = np.broadcast_to(((fr & 255) / 256.0)[..., None],
-                                cell.shape + (32,))
+            v = np.broadcast_to(((b & 255) / 256.0)[..., None],
+                                t.shape + (32,))
         elif stage == "nofeat":
-            v = np.ones(cell.shape + (32,))
+            v = np.ones(t.shape + (32,))
         else:
-            v = feat[np.broadcast_to(fr, cell.shape), cell]
+            v = tab[t, :32]
         sg = sg + v * wgt[..., None]
         if stage == "stream":
-            logit = logit + (mr & 255) / 256.0 * wgt
+            logit = logit + (lane - 32) / 256.0 * wgt
         elif stage != "nomask":
-            logit = logit + mask[np.broadcast_to(mr, cell.shape), cell] * wgt
+            logit = logit + tab[t, np.broadcast_to(lane, t.shape)] * wgt
     cw = _np_sigmoid(logit * valid[:, None]).prod(1)           # (B,Mp,m,U)
     feature = (sg.sum(1) * (cw * valid)[..., None]).sum(1)      # (B,m,U,F)
     return feature, cw
@@ -424,11 +431,12 @@ def np_modes_stage(args, path, stage):
 
 @pytest.mark.parametrize("stage", HAT_STAGES)
 def test_hat_stage_twins_match_numpy(stage):
-    inputs = ablate.probe_inputs("cpu", U=24, S=8, Mp=2, m=16, seed=1)
-    a7 = inputs[:7]
-    f, w = ablate.hat_stage(*a7, 8, False, stage)
+    inputs = ablate.probe_texel_inputs("cpu", U=24, S=8, Mp=2, m=16, seed=1,
+                                       per_row=8)
+    a6 = inputs[:6]
+    f, w = ablate.hat_stage(*a6, 8, False, stage)
     f, w = _to_units(f, w, 16, 8)
-    f_ref, w_ref = np_hat_stage(a7, stage)
+    f_ref, w_ref = np_hat_stage(a6, stage)
     np.testing.assert_allclose(f, f_ref, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(w, w_ref, rtol=1e-5, atol=1e-5)
     if stage == "nomask":
@@ -449,8 +457,9 @@ def test_modes_stage_twins_match_numpy(path, stage):
 
 def test_stage_wrappers_refuse_unknown_stages():
     a7 = ablate.probe_inputs("cpu", U=8, S=8, Mp=1)[:7]
+    a6 = ablate.probe_texel_inputs("cpu", U=8, S=8, Mp=1)[:6]
     with pytest.raises(ValueError, match="stage"):
-        ablate.hat_stage(*a7, 8, False, "nomxu")
+        ablate.hat_stage(*a6, 8, False, "nomxu")
     with pytest.raises(ValueError, match="path"):
         ablate.modes_stage(*a7, 8, False, "bdiag", "full")
 

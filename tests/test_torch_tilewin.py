@@ -1,10 +1,18 @@
 """The port's patch-window sampler (ops/tilewin.py, ops/tilewin_kernel.py)
 against the JAX one, on the same numpy inputs.
 
+The card reads the texel table of ``pack_texels`` (``pack_tilewin_texels``,
+``texel_plan``, ``tilewin_combine_texels_plain``); the JAX package's window
+tables (``pack_tilewin``, ``_fused_plan``, ``tilewin_combine_plain``) stay
+as the reference, and the texel path is held to both.
+
 Tolerances:
 * packing, texel coordinates, window bases, slot selection and the plan:
   exact (the same f32 arithmetic, bf16 rounding to nearest even on both
   sides, integer argmax with ties to the lowest index);
+* the texel twin against the window twin: 1e-6 absolute in float32 (the
+  same bf16 values gathered from either layout, summed in the same order;
+  they agree bit for bit here);
 * the combine against the JAX package: the bounds of
   tests/test_tilewin.py (feature 3e-2, cand_w 2e-2), because the JAX XLA
   path rounds the bilinear weights to bf16 and the Pallas kernel its
@@ -22,6 +30,7 @@ import torch
 from enarf_gan_tpu.ops import tilewin as jtw
 from enarf_gan_tpu_torch.ops import tilewin as ttw
 from enarf_gan_tpu_torch.ops import tilewin_kernel as ttk
+from enarf_gan_tpu_torch.ops import unirow
 
 TS, F, K = 16, 32, 6
 B, MP = 2, 3
@@ -204,8 +213,9 @@ def test_plain_combine_matches_jax_and_f64_reference(m, n_patch, s, clamp):
                                s, clamp)
     np.testing.assert_allclose(f_t.numpy(), f_ref, rtol=0, atol=1e-5)
     np.testing.assert_allclose(w_t.numpy(), w_ref, rtol=0, atol=1e-5)
-    # on CPU tensors the wrapper is the plain twin
-    f_f, w_f = ttw.sample_tilewin_fused(tt, *targs, clamp_mask=clamp)
+    # on CPU tensors the wrapper is the plain twin, on the texel table
+    f_f, w_f = ttw.sample_tilewin_fused(texel_tables(planes_np()), *targs,
+                                        clamp_mask=clamp)
     assert torch.equal(f_f, f_t) and torch.equal(w_f, w_t)
 
 
@@ -218,7 +228,7 @@ def test_plain_combine_matches_jax_pallas_kernel(n_patch, s):
     f_k, w_k = jtw.sample_tilewin_fused(jt, jnp.asarray(pos),
                                         jnp.asarray(slot_idx),
                                         jnp.asarray(valid))
-    f_t, w_t = ttw.sample_tilewin_fused(tt, *as_torch(pos, slot_idx, valid))
+    f_t, w_t = ttw.sample_tilewin(tt, *as_torch(pos, slot_idx, valid))
     np.testing.assert_allclose(f_t.numpy(), np.asarray(f_k), rtol=3e-2,
                                atol=3e-2)
     np.testing.assert_allclose(w_t.numpy(), np.asarray(w_k), rtol=2e-2,
@@ -255,23 +265,207 @@ def test_clamped_share_matches_jax_when_members_spread():
     valid = rng.random((B, MP, n_patch, m, s)) < 0.8
     stats = jtw.sample_tilewin(jt, jnp.asarray(pos), jnp.asarray(slot_idx),
                                jnp.asarray(valid), with_stats=True)[2]
-    t_stats = ttw.sample_tilewin_fused(tt, *as_torch(pos, slot_idx, valid),
-                                       with_stats=True)[2]
+    t_stats = ttw.sample_tilewin(tt, *as_torch(pos, slot_idx, valid),
+                                 with_stats=True)[2]
     assert float(stats["clamped"]) > 0.1
     np.testing.assert_allclose(float(t_stats["clamped"]),
                                float(stats["clamped"]), rtol=1e-6)
 
 
 def test_combine_wrapper_checks_its_inputs():
-    _, tt = tables_pair(planes_np())
+    tx = ttw.pack_tilewin_texels(torch.from_numpy(planes_np()), F, K)
     pos, slot_idx, valid = clustered_inputs(3, 16, 5)
-    plan = ttw._fused_plan(tt, *as_torch(pos, slot_idx, valid))
-    args = [tt.feat, tt.mask, plan.frows, plan.mrows, plan.xt, plan.xs,
-            plan.valid]
-    with pytest.raises(ValueError, match="feat_table"):
-        ttk.tilewin_combine(tt.feat.float(), *args[1:], F, 5, False)
-    with pytest.raises(ValueError, match="mrows"):
-        ttk.tilewin_combine(*args[:3], plan.mrows.long(), *args[4:], F, 5,
+    plan = ttw.texel_plan(tx, *as_torch(pos, slot_idx, valid))
+    args = [tx.texels, plan.bases, plan.bones, plan.xt, plan.xs, plan.valid]
+    with pytest.raises(ValueError, match="texel table"):
+        ttk.tilewin_combine(tx.texels.float(), *args[1:], F, 5, False)
+    with pytest.raises(ValueError, match="bones"):
+        ttk.tilewin_combine(*args[:2], plan.bones.long(), *args[3:], F, 5,
                             False)
     with pytest.raises(ValueError, match="does not divide"):
         ttk.tilewin_combine(*args, F, 4, False)
+
+
+# --------------------------------------------- the texel table (what the card reads)
+
+def spread_inputs(n_patch, m, s, seed=5):
+    """Members spread over the plane, past their group's window: more than
+    5% of the valid fetches clamped to the window's edge."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-0.9, 0.9, (B, 3, MP, n_patch, m, s)).astype(np.float32)
+    slot_idx = rng.integers(0, K, (B, MP, n_patch, s)).astype(np.int32)
+    valid = rng.random((B, MP, n_patch, m, s)) < 0.8
+    return pos, slot_idx, valid
+
+
+def texel_tables(planes):
+    return ttw.pack_tilewin_texels(torch.from_numpy(planes), F, K)
+
+
+def test_pack_tilewin_texels_is_pack_texels():
+    planes = planes_np()
+    tx = texel_tables(planes)
+    assert (tx.feat_dim, tx.num_bone, tx.size) == (F, K, TS)
+    assert ttk.num_bases(tx.size) == jtw._num_bases(TS)
+    assert torch.equal(tx.texels, unirow.pack_texels(torch.from_numpy(planes),
+                                                     F, K))
+    with pytest.raises(ValueError, match="at least 8"):
+        ttw.pack_tilewin_texels(torch.zeros((1, (F + K) * 3, 6, 6)), F, K)
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("m", [4, 16])
+@pytest.mark.parametrize("layout", ["clustered", "spread"])
+def test_texel_twin_equals_window_twin(layout, m, clamp):
+    """The same plan on both layouts: the texel plan's bases and bones name
+    the window rows of the window plan, the coordinates are the same, and
+    the texel twin gives the window twin's numbers (also with the
+    t-weights rounded to bf16, as "dot" and "bdiag" round them), including
+    a plan where more than 5% of the fetches are clamped."""
+    planes = planes_np()
+    tt = ttw.pack_tilewin(torch.from_numpy(planes), F, K)
+    tx = texel_tables(planes)
+    make = clustered_inputs if layout == "clustered" else spread_inputs
+    S = 5
+    targs = as_torch(*make(4, m, S))
+    pw = ttw._fused_plan(tt, *targs, with_stats=True)
+    pt = ttw.texel_plan(tx, *targs, with_stats=True)
+    for a, b in ((pt.xt, pw.xt), (pt.xs, pw.xs), (pt.valid, pw.valid),
+                 (pt.clamped, pw.clamped)):
+        assert torch.equal(a, b)
+    assert pt.bases.dtype == pt.bones.dtype == torch.int32
+    frows, mrows = ttk.window_rows(pt.bases, pt.bones, TS + 2, TS + 2, tt.nb,
+                                   K)
+    assert torch.equal(frows, pw.frows) and torch.equal(mrows, pw.mrows)
+    if layout == "spread":
+        assert float(pt.clamped) > 0.05
+    for round_t in (False, True):
+        want = ttk.tilewin_combine_plain(tt.feat, tt.mask, pw.frows, pw.mrows,
+                                         pw.xt, pw.xs, pw.valid, F, S, clamp,
+                                         round_t=round_t)
+        got = ttk.tilewin_combine_texels_plain(
+            tx.texels, pt.bases, pt.bones, pt.xt, pt.xs, pt.valid, F, S,
+            clamp, round_t=round_t)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_windows_from_texels_are_pack_tilewins_rows():
+    """Kernel 3's window rows, built from the texel table, are
+    ``pack_tilewin``'s (bone k < K's mask rows)."""
+    planes = planes_np(ts=32)
+    tt = ttw.pack_tilewin(torch.from_numpy(planes), F, K)
+    tx = texel_tables(planes)
+    nb = ttk.num_bases(tx.size)
+    feat, mask = ttk.windows_from_texels(tx.texels, nb)
+    assert feat.dtype == mask.dtype == torch.bfloat16
+    assert torch.equal(feat, tt.feat)
+    nb2 = 3 * nb * nb
+    assert torch.equal(mask.reshape(B, 32, nb2, 64)[:, :K].reshape(-1, 64),
+                       tt.mask)
+
+
+@pytest.mark.parametrize("layout,m,clamp", [("clustered", 16, False),
+                                            ("clustered", 4, True),
+                                            ("spread", 16, True),
+                                            ("spread", 4, False)])
+def test_texel_sampler_matches_jax(layout, m, clamp):
+    """The texel path against the JAX package's XLA path at the window
+    path's bounds, with the same clamped share; a member outside its
+    group's window reads its clamped texel, as JAX's window rows make it."""
+    planes = planes_np()
+    jt, _ = tables_pair(planes)
+    tx = texel_tables(planes)
+    make = clustered_inputs if layout == "clustered" else spread_inputs
+    pos, slot_idx, valid = make(5, m, 5)
+    f_x, w_x, stats = jax.jit(lambda *a: jtw.sample_tilewin(
+        jt, *a, clamp_mask=clamp, with_stats=True))(
+        jnp.asarray(pos), jnp.asarray(slot_idx), jnp.asarray(valid))
+    targs = as_torch(pos, slot_idx, valid)
+    f_t, w_t, t_stats = ttw.sample_tilewin(tx, *targs, clamp_mask=clamp,
+                                           with_stats=True)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_x), rtol=3e-2,
+                               atol=3e-2)
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_x), rtol=2e-2,
+                               atol=2e-2)
+    np.testing.assert_allclose(float(t_stats["clamped"]),
+                               float(stats["clamped"]), rtol=1e-6)
+    if layout == "spread":
+        assert float(stats["clamped"]) > 0.05
+    # on CPU tensors the wrapper is the texel twin
+    f_f, w_f = ttw.sample_tilewin_fused(tx, *targs, clamp_mask=clamp)
+    assert torch.equal(f_f, f_t) and torch.equal(w_f, w_t)
+
+
+def test_texel_sampler_matches_jax_pallas_kernel():
+    """The JAX fused path runs the Pallas hat kernel (interpret mode off the
+    TPU), at tests/test_tilewin.py:116's shape."""
+    planes = planes_np(seed=9)
+    jt, _ = tables_pair(planes)
+    pos, slot_idx, valid = clustered_inputs(3, 16, 5, seed=10)
+    f_k, w_k = jtw.sample_tilewin_fused(jt, jnp.asarray(pos),
+                                        jnp.asarray(slot_idx),
+                                        jnp.asarray(valid))
+    f_t, w_t = ttw.sample_tilewin_fused(texel_tables(planes),
+                                        *as_torch(pos, slot_idx, valid))
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_k), rtol=3e-2,
+                               atol=3e-2)
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_k), rtol=2e-2,
+                               atol=2e-2)
+
+
+def _read_rows_cols(plan, ts):
+    """The largest texel row and column any member of the plan reads (the
+    second row and column of its quad), over the whole plan."""
+    i, _ = ttk.texel_cells(plan.xt)
+    k, _ = ttk.texel_cells(plan.xs)
+    b = plan.bases.long()[:, :, :, None, :]
+    Wp = ts + 2
+    bt, bs = b // Wp % Wp, b % Wp
+    return int((bt + i + 1).max()), int((bs + k + 1).max())
+
+
+@pytest.mark.parametrize("ts", [16, 32])
+def test_plan_reads_no_texel_past_the_table(ts):
+    """Random plans with invalid members (also off the plane), groups with
+    no valid member, and clamped members, many at the planes' far edge: no
+    member reads past row or column H+1, the table's last; the members at
+    the edge reach it."""
+    rng = np.random.default_rng(ts)
+    n_patch, m, S = 6, 16, 4
+    centers = rng.uniform(-0.9, 1.0, (B, 3, MP, n_patch, 1, S))
+    centers[:, :, :, :2] = 0.97                   # at the far edge
+    jitter = rng.uniform(-6 / ts, 6 / ts, (B, 3, MP, n_patch, m, S))
+    pos = (centers + jitter).astype(np.float32)
+    pos[:, :, :, 3] = rng.uniform(-1.6, 1.6, pos[:, :, :, 3].shape)
+    slot_idx = rng.integers(0, K, (B, MP, n_patch, S)).astype(np.int32)
+    valid = (np.abs(pos) < 1).all(axis=1) & (rng.random(pos[:, 0].shape) < 0.7)
+    valid[:, :, 4] = False                        # groups with no valid member
+    tx = ttw.pack_tilewin_texels(torch.zeros((B, (F + K) * 3, ts, ts)), F, K)
+    plan = ttw.texel_plan(tx, *as_torch(pos, slot_idx, valid),
+                          with_stats=True)
+    assert float(plan.clamped) > 0.05
+    assert ((~valid) & (np.abs(pos) > 1).any(axis=1)).any()
+    assert _read_rows_cols(plan, ts) == (ts + 1, ts + 1)
+
+
+@pytest.mark.parametrize("ts", [8, 16, 33, 256])
+def test_no_fraction_rounds_a_member_past_the_table(ts):
+    """The plan's xt = (py - bt) + fy is an f32 sum: it could round up to
+    the next texel only where the fraction fy has bits below the sum's
+    precision, i.e. where the member's top texel py is small. Over every
+    window base the plan can pick and members at, and one to five ulps
+    below, every texel boundary of the plane and past it (valid or not),
+    no member's second row passes H+1."""
+    t = np.arange(-3, ts + 4, dtype=np.float32)
+    ys = [t]
+    for _ in range(5):
+        ys.append(np.nextafter(ys[-1], np.float32(-np.inf)))
+    y = np.unique(np.concatenate(ys))
+    c = torch.from_numpy(((y + np.float32(0.5)) / np.float32(ts / 2)
+                          - np.float32(1)).astype(np.float32))
+    py, _, fy, _ = ttw.member_texels(torch.stack([c] * 3)[None, :, None], ts)
+    bt = torch.arange(0, 2 * (ttk.num_bases(ts) - 1) + 1, 2)
+    xt = (py[..., None] - bt).clamp(0, ttk.WIN - 2).float() + fy[..., None]
+    i, _ = ttk.texel_cells(xt)
+    assert int((bt + i + 1).max()) == ts + 1
