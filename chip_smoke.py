@@ -61,7 +61,28 @@ NVIDIA GPU.
    shows whether their atomics contend); then one tiled step in each of
    kernel 3's modes on the hat step's batch and draws, whose loss must
    match.
-7. Overfits one 64² frame for 200 iterations on both paths at full width:
+7. The GAN of ``configs/enarfgan_train/AIST/config_tpu.yml`` (over
+   ``configs/enarfgan_train/default.yml``, written out as a dict): 128²
+   images, batch 12 in 2 micro-batches, z_dim 256, 256² StyleGAN2
+   tri-planes at w_dim 512, Nc 48 + Nf 64, bf16 sampling with
+   ``tile_patch: 4`` and coarse corners, 2048-ray training chunks, the
+   cropped learned background, the discriminator without minibatch-std, ce
+   loss with bone coefficient 10, R1 10, tri-plane L2 0.001; seeded
+   weights perturbed by 0.3, synthetic 128² frames. Sampling: 4 poses
+   through ``make_gan_full_renderer`` on the tiled path (kernel 2) and on
+   its exact twin with the same weights (kernel 1), each launching only
+   its own kernel, finite with a non-empty mask, again with the plain
+   combine (bounded as in phase 4), tiled against exact, ms a frame, peak
+   memory and a profile of a frame. Training (``training.gan``): 1 warm-up
+   and 3 timed iterations of the G and D steps at the config's split, one
+   R1 step timed apart, a profile of a G step (each kernel's launches and
+   device ms); one G step of the exact twin (kernels 1 and 1b); and for
+   each path one micro-batch's generator gradients through the kernels
+   against the plain combine's under autograd (relative L2 within 1e-2,
+   over all of them and over the tri-plane generator's, which alone come
+   through the combine's backward); on the tiled path the tri-plane bound
+   must also reject 2b's gradients with their mask lanes zeroed.
+8. Overfits one 64² frame for 200 iterations on both paths at full width:
    the PSNR must beat the blank frame's by more than 2 dB.
 
 The second-to-last line is a JSON record of the kernels, the last line
@@ -70,12 +91,16 @@ exits non-zero without that line; so does a machine without a CUDA device.
 
     python3 chip_smoke.py --learn-spread | --learn-collapse | --learn-gradcheck
 
-run only phase 1 and one study of phase 7's spread from run to run (3-8
+run only phase 1 and one study of phase 8's spread from run to run (3-8
 minutes each on an H100): each path learning twice from each of three seeds
 (PSNR through its own and the exact renderer, the loss trajectories'
 divergence); repeated runs from one seed with the kernels and with the plain
 combine; and the parameter gradients along learning, kernels against the
 plain combine.
+
+    python3 chip_smoke.py --gan
+
+runs only phase 1 and phase 7 (about a minute on an H100).
 
     python3 chip_smoke.py --probes
 
@@ -139,6 +164,41 @@ TRAIN_CONFIG = {
 TRAIN_SOURCE_IMAGES = 4   # distinct synthetic 512² frames, repeated to 16
 TIMED_STEPS = 3
 LEARN_SIZE, LEARN_ITERS = 64, 200
+# configs/enarfgan_train/AIST/config_tpu.yml over configs/enarfgan_train/
+# default.yml, written out; the widths not in the files are NARFParams'
+# defaults (256² planes, feat 32, w_dim 512) and the discriminator's
+# channel_max 512
+GAN_CONFIG = {
+    "out_root": "data", "out": "GAN/AIST/example_tpu",
+    "dataset": {"name": "human_v2", "bs": 12, "image_size": 128,
+                "train": {"data_root": None, "pose_prior_root": None}},
+    "generator_params": {
+        "z_dim": 256, "patch_size": 24, "background_ratio": 0.7,
+        "use_triplane": True, "crop_background": True,
+        "pretrained_background": False, "train_ray_chunk": 2048,
+        "nerf_params": {
+            "final_activation": "tanh", "hidden_size": 256, "out_dim": 256,
+            "Nc": 48, "Nf": 64, "no_ray_direction": False,
+            "mask_input": False, "origin_location": "center_fixed",
+            "coordinate_scale": 3,
+            "multiply_density_with_triplane_wieght": False,
+            "clamp_mask": False, "constant_triplane": False,
+            "constant_trimask": False, "constant_trimask_lr_mul": 1,
+            "deformation_field": False, "selector_mlp": False,
+            "no_selector": False, "plane_sample_dtype": "bfloat16",
+            "tile_patch": 4, "tile_coarse_corners": True}},
+    "discriminator_params": {"minibatch_std": False},
+    "loss": {"adv_loss_type": "ce", "bone_guided_coef": 10,
+             "r1_loss_coef": 10, "tri_plane_reg_coef": 0.001},
+    "replace": True, "num_iter": 800000, "n_accum_step": 2,
+    "resume": None, "resume_latest": False}
+GAN_POSES = 4             # full-image GAN frames a path
+GAN_GRAD_REL_L2 = 1e-2    # G-step gradients, kernels vs plain combine: the
+                          # atomics' order, and near-ties (bone slots, fine
+                          # bins) that the sums' order decides otherwise;
+                          # over all of G's and over the tri-plane's alone
+TRI_PLANE = "nerf.tri_plane_gen."   # the parameters 2b's (1b's) gradient
+                                    # reaches
 
 
 def _cuda_time_ms(fn, reps):
@@ -877,7 +937,9 @@ def _profile(fn, label, ms_host, what):
     """Device time of one call of ``fn`` by kernel class (torch.profiler),
     and its share of ``ms_host``, the call's time on the host clock.
     Returns (device ms, kernel launches, {port kernel: (device ms,
-    launches)}) for the port's kernels (unirow, tilewin)."""
+    launches)}) for the port's kernels (unirow, tilewin), each under its
+    name and, for a template, also its name with its first argument
+    (``tilewin_combine_kernel<16>``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -903,11 +965,15 @@ def _profile(fn, label, ms_host, what):
                    "reduce" if "reduce" in name else "elementwise/other")
             groups[key] = groups.get(key, 0.0) + e.self_device_time_total
             if key in ("unirow kernels", "tilewin kernels"):
-                short = re.search(r"\w*(?:unirow|tilewin)\w*",
-                                  e.key).group(0)
-                ms, count = port.get(short, (0.0, 0))
-                port[short] = (ms + e.self_device_time_total / 1e3,
-                               count + e.count)
+                found = re.search(r"(\w*(?:unirow|tilewin)\w*)(<\d+)?",
+                                  e.key)
+                # by name, and by name and first template argument (the
+                # member count of tilewin_combine_kernel<m, stage>)
+                for short in {found.group(0) + ">" * bool(found.group(2)),
+                              found.group(1)}:
+                    ms, count = port.get(short, (0.0, 0))
+                    port[short] = (ms + e.self_device_time_total / 1e3,
+                                   count + e.count)
     n_launches = sum(e.count for e in kernels)
     print(f"{label}: device time {device_us / 1e3:.2f} ms in a "
           f"{ms_host:.2f} ms {what} (busy share {device_us / 1e3 / ms_host:.3f}),"
@@ -948,11 +1014,12 @@ def _reset_all_counts():
         k.reset_counts()
 
 
-def _train_config(**overrides):
-    """TRAIN_CONFIG with nested overrides (keys as "a.b.c")."""
+def _train_config(base=None, **overrides):
+    """``base`` (TRAIN_CONFIG by default) with nested overrides (keys as
+    "a.b.c")."""
     import copy
     from enarf_gan_tpu_torch.config import AttrDict
-    raw = copy.deepcopy(TRAIN_CONFIG)
+    raw = copy.deepcopy(TRAIN_CONFIG if base is None else base)
     for key, value in overrides.items():
         node = raw
         *path, leaf = key.split(".")
@@ -1186,6 +1253,381 @@ def phase_train_modes(gen, config, ds, batch, device, n_accum):
                    "step_s_iter": out[mode][3],
                    "step_peak_gib": out[mode][4] / 2**30}
             for mode in ("hat",) + MODES}
+
+
+def build_gan(device, root):
+    """The config_tpu.yml GAN (tiled, kernels 2 and 2b) with seeded weights
+    perturbed by 0.3, its exact twin (tile_patch 0, kernels 1 and 1b) with
+    the same weights, and a batch of 12 from a synthetic 128² cache of 12
+    frames (3 poses x 4 cameras): real images and the pose prior's poses
+    and bone masks."""
+    import torch
+    from enarf_gan_tpu_torch.data.datasets import (HumanDataset,
+                                                   HumanPoseDataset)
+    from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
+    from enarf_gan_tpu_torch.data.loader import collate
+    from enarf_gan_tpu_torch.models.generator import register_canonical_pose
+    from enarf_gan_tpu_torch.training import checkpoint as ckpt
+    from enarf_gan_tpu_torch.training import gan
+    size = GAN_CONFIG["dataset"]["image_size"]
+    bs = GAN_CONFIG["dataset"]["bs"]
+    t0 = time.perf_counter()
+    make_synthetic_human_cache(root, size=size, n_frames=3, n_camera=4)
+    config = _train_config(GAN_CONFIG, **{"dataset.train.data_root": root})
+    img_ds = HumanDataset(config.dataset.train, size=size,
+                          return_bone_params=False, num_repeat_in_epoch=1)
+    pose_ds = HumanPoseDataset(size=size, data_root=root,
+                               num_repeat_in_epoch=1)
+    batch = gan.prepare_gan_batch(collate([img_ds[i] for i in range(bs)]),
+                                  collate([pose_ds[i] for i in range(bs)]),
+                                  device)
+    g = torch.Generator().manual_seed(SEED + 21)
+    gen, dis = gan.build_models(config, pose_ds.num_bone, pose_ds.parents,
+                                device, generator=g)
+    with torch.no_grad():
+        for p in gen.parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=g).to(device))
+    exact_cfg = _train_config(config, **{
+        "generator_params.nerf_params.tile_patch": 0})
+    exact, _ = gan.build_models(exact_cfg, pose_ds.num_bone, pose_ds.parents,
+                                device)
+    ckpt.load_gen_state_dict(exact, ckpt.gen_state_dict(gen))
+    for model in (gen, exact):
+        register_canonical_pose(model, pose_ds.canonical_pose,
+                                "center_fixed", pose_ds.parents)
+    n_gen = sum(p.numel() for p in gen.parameters())
+    n_dis = sum(p.numel() for p in dis.parameters())
+    print(f"GAN (configs/enarfgan_train/AIST/config_tpu.yml): generator "
+          f"{n_gen} parameters (tri-plane StyleGAN2 "
+          f"{gen.nerf_params.tri_plane_size}² w_dim {gen.nerf_params.w_dim}, "
+          f"background {size}² z_dim {gen.z_dim}), discriminator {n_dis} "
+          f"(minibatch_std {config.discriminator_params.minibatch_std}); "
+          f"batch {bs} x {size}² from a synthetic cache, "
+          f"{time.perf_counter() - t0:.2f} s to build")
+    return config, gen, exact, dis, batch, pose_ds.canonical_pose
+
+
+def phase_gan_sample(gen, batch, device, label, own, other):
+    """GAN_POSES full-image foregrounds of the batch's first poses through
+    ``make_gan_full_renderer``, each from its own z; ``own`` must launch,
+    ``other`` must not. Returns (frame(i, seed), ms a frame, launches a
+    frame of every kernel by name and of ``own`` by member count)."""
+    import torch
+    from enarf_gan_tpu_torch.models.generator import make_gan_full_renderer
+    render = make_gan_full_renderer(gen)
+    size = gen.size
+    g = torch.Generator().manual_seed(SEED + 23)
+    zs = torch.randn((GAN_POSES, 4 * gen.z_dim), generator=g).to(device)
+
+    def frame(i, seed):
+        rng = torch.Generator(device=device).manual_seed(seed)
+        return render(batch["pose_to_camera"][i:i + 1],
+                      batch["bone_length"][i:i + 1], zs[i:i + 1],
+                      batch["inv_intrinsics"][i:i + 1], generator=rng)
+
+    frame(0, 1)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    outs = [frame(i, 1) for i in range(GAN_POSES)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / GAN_POSES * 1e3
+    launches, others = own.launches, other.launches
+    counts = {"by_m": {m: n / GAN_POSES for m, n in own.launches_by.items()},
+              **{k.name: k.launches / GAN_POSES for k in _all_kernels()}}
+    by = dict(own.launches_by)
+    peak = torch.cuda.max_memory_allocated()
+    for color, mask, disp in outs:
+        assert color.shape == (3, size, size), color.shape
+        assert mask.shape == disp.shape == (size, size)
+        for x in (color, mask, disp):
+            assert bool(torch.isfinite(x).all()), "non-finite GAN frame"
+        assert float(mask.sum()) > 0, "empty GAN foreground mask"
+    assert launches > 0, f"the GAN {label} frames did not launch their kernel"
+    assert others == 0, f"the GAN {label} frames launched the other kernel"
+    fg = [round(float((m > 0.05).float().mean()), 3) for _, m, _ in outs]
+    print(f"GAN {label} sampling: {GAN_POSES} frames {size}² through "
+          f"make_gan_full_renderer: {ms:.2f} ms/frame, peak "
+          f"{peak / 2**30:.3f} GiB allocated, kernel launches {launches} "
+          f"({launches / GAN_POSES:g} a frame; by key {by}), other kernel "
+          f"{others}, foreground shares {fg}")
+    return (lambda _t, seed: frame(0, seed)), ms, counts
+
+
+def _gan_micro_loss(gen, dis, config, micro, **randoms):
+    """The G step's loss of one micro-batch (training/gan.py::g_step)."""
+    from enarf_gan_tpu_torch.training.losses import (adv_loss_gen,
+                                                     nerf_patch_loss,
+                                                     triplane_l2_reg)
+    img, mask, aux = gen(micro["pose_to_camera"], micro["pose_to_world"],
+                         micro["bone_length"], randoms.pop("z"),
+                         micro["inv_intrinsics"], train=True, **randoms)
+    loss = adv_loss_gen(dis(img), config.loss.adv_loss_type) + \
+        nerf_patch_loss(mask, micro["bone_mask"], gen.background_ratio,
+                        coef=float(config.loss.bone_guided_coef))
+    return loss + triplane_l2_reg(aux["tri_plane_feature"]) * \
+        float(config.loss.tri_plane_reg_coef)
+
+
+def phase_gan_train(gen, dis, config, batch, canonical, device):
+    """The config's training on the tiled path: 1 warm-up and TIMED_STEPS
+    timed iterations of the G step (n_accum_step micro-batches) and the D
+    step; one R1 step timed apart after a warm-up one; profiles of one G
+    step (each port kernel's device ms and launches, device time by kernel
+    class) and of one R1 step. Losses must be finite."""
+    import torch
+    from enarf_gan_tpu_torch.ops import tilewin_kernel
+    from enarf_gan_tpu_torch.training import gan
+    real = batch["real_img"]
+    poses = {k: v for k, v in batch.items() if k != "real_img"}
+    bs = real.shape[0]
+    rng = torch.Generator(device=device).manual_seed(SEED + 25)
+    state = {k: v.clone() for k, v in gen.state_dict().items()}
+    n_accum = int(config.n_accum_step)
+    gen_opt, dis_opt = gan.init_gan_state(config, gen, dis, canonical)
+    g_step, d_step, r1_step = gan.make_gan_steps(config, gen, dis, gen_opt,
+                                                 dis_opt)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fake, _ = g_step(poses, rng)
+    d_step(fake, real)
+    torch.cuda.synchronize()
+    print(f"GAN training: warm-up iteration {time.perf_counter() - t0:.2f} "
+          f"s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(TIMED_STEPS):
+        fake, gm = g_step(poses, rng)
+        metrics.append({**gm, **d_step(fake, real)})
+    torch.cuda.synchronize()
+    s_iter = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = {k.name: k.launches for k in _all_kernels()}
+    by_m = dict(tilewin_kernel.KERNEL.launches_by)
+    peak = torch.cuda.max_memory_allocated()
+    r1_step(real)                        # warm-up: the first double backward
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rm = r1_step(real)
+    torch.cuda.synchronize()
+    r1_ms = (time.perf_counter() - t0) * 1e3
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    r1 = float(rm["r1_reg"])
+    assert all(np.isfinite(v) for m in metrics for v in m.values()) and \
+        np.isfinite(r1), (metrics, r1)
+    assert launches["tilewin_combine"] > 0 and \
+        launches["tilewin_combine_bwd"] > 0, launches
+    assert launches["unirow_combine"] == 0 and \
+        launches["unirow_combine_bwd"] == 0, launches
+    print(f"GAN training (tiled): {s_iter:.3f} s/iter (G + D step) over "
+          f"{TIMED_STEPS} iterations, batch {bs}, n_accum_step {n_accum}, "
+          f"peak {peak / 2**30:.2f} GiB allocated; R1 step {r1_ms:.1f} ms "
+          f"(r1 {r1:.4g}); losses "
+          + "; ".join(", ".join(f"{k} {v:.4f}" for k, v in m.items())
+                      for m in metrics)
+          + f"; kernel launches a G step "
+          + str({k: v / TIMED_STEPS for k, v in launches.items()})
+          + f", tilewin by member count {by_m}")
+    t0 = time.perf_counter()
+    g_step(poses, rng)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3
+    device_ms, n_launch, port = _profile(lambda: g_step(poses, rng),
+                                         "GAN G step profile", ms_step,
+                                         "G step")
+    _profile(lambda: r1_step(real), "GAN R1 step profile", r1_ms, "R1 step")
+    gen.load_state_dict(state)
+    return {"s_iter": s_iter, "peak": peak, "n_accum": n_accum,
+            "r1_ms": r1_ms, "launches": launches, "by_m": by_m,
+            "ms_step": ms_step, "device_ms": device_ms, "kernels": port}
+
+
+def phase_gan_exact_step(exact, dis, config, batch, canonical, device,
+                         n_accum):
+    """One G step of the exact twin (kernels 1 and 1b), after a warm-up,
+    profiled: its kernels' launches and device ms a G step."""
+    import torch
+    from enarf_gan_tpu_torch.training import gan
+    poses = {k: v for k, v in batch.items() if k != "real_img"}
+    rng = torch.Generator(device=device).manual_seed(SEED + 27)
+    state = {k: v.clone() for k, v in exact.state_dict().items()}
+    config = _train_config(config, n_accum_step=n_accum)
+    g_step = gan.make_gan_steps(
+        config, exact, dis, *gan.init_gan_state(config, exact, dis,
+                                                canonical))[0]
+    g_step(poses, rng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    _, gm = g_step(poses, rng)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in _all_kernels()}
+    peak = torch.cuda.max_memory_allocated()
+    assert launches["unirow_combine"] > 0 and \
+        launches["unirow_combine_bwd"] > 0, launches
+    assert launches["tilewin_combine"] == 0 and \
+        launches["tilewin_combine_bwd"] == 0, launches
+    assert all(np.isfinite(float(v)) for v in gm.values()), gm
+    print(f"GAN exact G step: {ms_step:.1f} ms, peak {peak / 2**30:.2f} GiB, "
+          f"loss_gen {float(gm['loss_gen']):.4f}; kernel launches "
+          f"{launches}")
+    _, _, port = _profile(lambda: g_step(poses, rng), "GAN exact G step "
+                          "profile", ms_step, "G step")
+    exact.load_state_dict(state)
+    return {"launches": launches, "kernels": port, "ms_step": ms_step}
+
+
+def phase_gan_grad_check(gen, dis, config, batch, device, label, module,
+                         name, plain, kernels, n_accum, fault=None):
+    """The generator's parameter gradients of one micro-batch's G loss with
+    the path's kernels (``kernels``: forward and backward) against the same
+    loss with the plain combine in ``module.name``'s place under autograd,
+    from the same draws and w_avg: relative L2 within GAN_GRAD_REL_L2 over
+    all gradients together and over the tri-plane generator's (TRI_PLANE,
+    the only ones the combine's backward produces); the worst parameters
+    printed. ``fault`` = (module, name, faulty function) plants a fault in
+    the kernels' path, which the tri-plane bound must reject. Returns the
+    two relative L2s."""
+    import torch
+    from enarf_gan_tpu_torch.nerf.rendering import draw_fine_uniforms
+    mb = batch["pose_to_camera"].shape[0] // n_accum
+    micro = {k: v[:mb] for k, v in batch.items()}
+    g = torch.Generator(device=device).manual_seed(SEED + 29)
+    bg = gen.background_generator
+    randoms = {
+        "z": torch.randn((mb, 4 * gen.z_dim), generator=g, device=device),
+        "draws": draw_fine_uniforms(gen.fine_draw_rows(mb),
+                                    gen.nerf_params.Nf, g, device),
+        "noise": [torch.randn(s, generator=g, device=device)
+                  for s in bg.noise_shapes(mb)],
+        "crop": (0, gen.size // 3)}
+    w_avg = gen.nerf.tri_plane_gen.mapping.w_avg
+    w_avg0 = w_avg.clone()
+
+    def grads():
+        gen.zero_grad(set_to_none=True)
+        w_avg.copy_(w_avg0)
+        dis.requires_grad_(False)
+        try:
+            loss = _gan_micro_loss(gen, dis, config, micro, **dict(randoms))
+            loss.backward()
+        finally:
+            dis.requires_grad_(True)
+        torch.cuda.synchronize()
+        return float(loss), {k: p.grad.clone()
+                             for k, p in gen.named_parameters()
+                             if p.grad is not None}
+
+    before = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    loss_k, gk = grads()
+    ms_k = (time.perf_counter() - t0) * 1e3
+    assert all(k.launches > b for k, b in zip(kernels, before)), label
+    counts = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    with mock.patch.object(module, name, plain):
+        loss_p, gp = grads()
+    ms_p = (time.perf_counter() - t0) * 1e3
+    assert [k.launches for k in kernels] == counts, \
+        f"the plain {label} G loss launched a kernel"
+    assert set(gk) == set(gp)
+
+    def rel_l2(got, keys):
+        num = sum(float((got[k] - gp[k]).double().pow(2).sum()) for k in keys)
+        den = sum(float(gp[k].double().pow(2).sum()) for k in keys)
+        return (num / den) ** 0.5
+
+    tri = [k for k in gp if k.startswith(TRI_PLANE)]
+    rel, rel_tri = rel_l2(gk, gp), rel_l2(gk, tri)
+    worst = sorted(((float((gk[k] - gp[k]).norm() / gp[k].norm()), k)
+                    for k in gp if float(gp[k].norm()) > 0), reverse=True)
+    print(f"GAN {label} G-step gradients ({mb}-image micro-batch), kernels "
+          f"vs plain combine: relative L2 {rel:.3e} over {len(gp)} "
+          f"parameters, {rel_tri:.3e} over the {len(tri)} of {TRI_PLANE}* "
+          f"(bound {GAN_GRAD_REL_L2:g} each); loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}; worst "
+          + ", ".join(f"{k} {e:.2e}" for e, k in worst[:3])
+          + f"; {ms_k:.0f} ms with kernels, {ms_p:.0f} ms plain")
+    assert rel <= GAN_GRAD_REL_L2 and rel_tri <= GAN_GRAD_REL_L2, \
+        (label, rel, rel_tri)
+    if fault is not None:
+        with mock.patch.object(*fault):
+            _, gf = grads()
+        rel_fault = rel_l2(gf, tri)
+        print(f"GAN {label} control: with {fault[1]} planted faulty, "
+              f"{TRI_PLANE}* relative L2 {rel_fault:.3e} against the bound "
+              f"{GAN_GRAD_REL_L2:g} (all parameters {rel_l2(gf, gp):.3e})")
+        assert rel_fault > GAN_GRAD_REL_L2, \
+            f"the {label} tri-plane bound passes a planted fault"
+    gen.zero_grad(set_to_none=True)
+    w_avg.copy_(w_avg0)
+    return rel, rel_tri
+
+
+def phase_gan(device, root):
+    """The GAN slice: sampling on both paths (against the plain combine,
+    tiled against exact, profiles), then training (tiled), the exact twin's
+    G step, and the G-step gradient checks. Returns the numbers the kernels
+    line reports."""
+    import torch
+    from enarf_gan_tpu_torch.ops import tilewin, tilewin_kernel, unirow
+    t0 = time.perf_counter()
+    config, gen, exact, dis, batch, canonical = build_gan(device, root)
+    frame_t, ms_t, counts_t = phase_gan_sample(gen, batch, device, "tiled",
+                                               tilewin_kernel.KERNEL,
+                                               unirow.KERNEL)
+    frame_e, ms_e, counts_e = phase_gan_sample(exact, batch, device, "exact",
+                                               unirow.KERNEL,
+                                               tilewin_kernel.KERNEL)
+    ref_e = phase_plain_render(frame_e, unirow, "unirow_combine",
+                               unirow.gather_combine_texels_plain,
+                               unirow.KERNEL, "GAN exact")
+    ref_t = phase_plain_render(
+        frame_t, tilewin, "tilewin_combine",
+        lambda *a, mode=None: tilewin_kernel.tilewin_combine_texels_plain(*a),
+        tilewin_kernel.KERNEL, "GAN tiled")
+    phase_tiled_vs_exact(ref_t, ref_e)
+    frames = {label: _profile(lambda f=f: f(0, 1), f"GAN {label} frame "
+                              "profile", ms, "frame")
+              for label, f, ms in (("tiled", frame_t, ms_t),
+                                   ("exact", frame_e, ms_e))}
+    del ref_e, ref_t
+    torch.cuda.empty_cache()
+    train = phase_gan_train(gen, dis, config, batch, canonical, device)
+    torch.cuda.empty_cache()
+    exact_step = phase_gan_exact_step(exact, dis, config, batch, canonical,
+                                      device, train["n_accum"])
+    torch.cuda.empty_cache()
+    launch_backward = tilewin_kernel.launch_backward
+
+    def mask_grads_zeroed(*args):
+        """Kernel 2b with the gradient of the texels' mask lanes (the
+        mask logits', from lane FEAT_BLOCK) set to 0: a planted fault."""
+        dtexels, dxt, dxs = launch_backward(*args)
+        dtexels[..., unirow.FEAT_BLOCK:] = 0
+        return dtexels, dxt, dxs
+
+    rel_t = phase_gan_grad_check(
+        gen, dis, config, batch, device, "tiled", tilewin, "tilewin_combine",
+        lambda *a, mode=None: tilewin_kernel.tilewin_combine_texels_plain(*a),
+        (tilewin_kernel.KERNEL, tilewin_kernel.KERNEL_BWD), train["n_accum"],
+        fault=(tilewin_kernel, "launch_backward", mask_grads_zeroed))
+    torch.cuda.empty_cache()
+    rel_e = phase_gan_grad_check(
+        exact, dis, config, batch, device, "exact", unirow, "unirow_combine",
+        unirow.gather_combine_texels_plain,
+        (unirow.KERNEL, unirow.KERNEL_BWD), train["n_accum"])
+    del gen, exact, dis, batch
+    torch.cuda.empty_cache()
+    print(f"GAN phases done in {time.perf_counter() - t0:.1f} s")
+    return {"frames": frames, "frame_counts": {"tiled": counts_t,
+                                               "exact": counts_e},
+            "train": train, "exact_step": exact_step,
+            "grad_rel": {"tiled": rel_t, "exact": rel_e}}
 
 
 def _learn_setup(device, root, label, tile, seed):
@@ -1442,7 +1884,8 @@ def main():
     studies = {"--learn-spread": learn_spread,
                "--learn-collapse": learn_collapse,
                "--learn-gradcheck": learn_gradcheck,
-               "--probes": lambda device, root: probe_sweeps(device)}
+               "--probes": lambda device, root: probe_sweeps(device),
+               "--gan": phase_gan}
     if sys.argv[1:2] and sys.argv[1] in studies:
         with tempfile.TemporaryDirectory() as root:
             studies[sys.argv[1]](device, root)
@@ -1514,6 +1957,7 @@ def main():
         del tiled_t, batch
         torch.cuda.empty_cache()
         print(f"training phases done at {time.perf_counter() - t_start:.1f} s")
+        gan = phase_gan(device, os.path.join(root, "gan"))
         phase_learn(device, os.path.join(root, "learn"))
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
@@ -1530,6 +1974,48 @@ def main():
                            (k2b, tt, "tilewin_combine_bwd_kernel")):
         k["step_ms"], k["step_launches"] = run["kernels"].get(kernel,
                                                               (0.0, 0))
+    # the GAN path's (phase_gan): launches and device ms of each kernel in
+    # one G step (tiled: kernels 2, 2b, 3; the exact twin: 1, 1b) and in
+    # one full-image frame (tiled: 2, 2b, 3; exact: 1, 1b): launches from
+    # the counts of the timed steps and frames, ms from their profiles
+    gs, ge = gan["train"], gan["exact_step"]
+    ft, fe = gan["frames"]["tiled"][2], gan["frames"]["exact"][2]
+    ct, ce = gan["frame_counts"]["tiled"], gan["frame_counts"]["exact"]
+
+    def ms_of(profile, kernel):
+        return profile.get(kernel, (0.0, 0))[0]
+
+    k1.update(gan_step_launches=ge["launches"]["unirow_combine"],
+              gan_step_ms=ms_of(ge["kernels"], "unirow_combine_kernel"),
+              gan_frame_launches=ce["unirow_combine"],
+              gan_frame_ms=ms_of(fe, "unirow_combine_kernel"))
+    k1b.update(gan_step_launches=ge["launches"]["unirow_combine_bwd"],
+               gan_step_ms=ms_of(ge["kernels"], "unirow_combine_bwd_kernel"),
+               gan_frame_launches=ce["unirow_combine_bwd"],
+               gan_frame_ms=ms_of(fe, "unirow_combine_bwd_kernel"),
+               gan_grad_rel_l2=gan["grad_rel"]["exact"][0],
+               gan_tri_plane_grad_rel_l2=gan["grad_rel"]["exact"][1])
+    for m in (16, 4):
+        k2[m] = dict(k2[m],
+                     gan_step_launches=gs["by_m"].get(m, 0) / TIMED_STEPS,
+                     gan_step_ms=ms_of(gs["kernels"],
+                                       f"tilewin_combine_kernel<{m}>"),
+                     gan_frame_launches=ct["by_m"].get(m, 0),
+                     gan_frame_ms=ms_of(ft, f"tilewin_combine_kernel<{m}>"))
+    k2b.update(gan_step_launches=gs["launches"]["tilewin_combine_bwd"]
+               / TIMED_STEPS,
+               gan_step_ms=ms_of(gs["kernels"], "tilewin_combine_bwd_kernel"),
+               gan_frame_launches=ct["tilewin_combine_bwd"],
+               gan_frame_ms=ms_of(ft, "tilewin_combine_bwd_kernel"),
+               gan_grad_rel_l2=gan["grad_rel"]["tiled"][0],
+               gan_tri_plane_grad_rel_l2=gan["grad_rel"]["tiled"][1],
+               gan_s_iter=gs["s_iter"], gan_peak_gib=gs["peak"] / 2**30)
+    k3_gan = {"gan_step_launches":
+              gs["launches"]["tilewin_combine_modes"] / TIMED_STEPS,
+              "gan_step_ms": ms_of(gs["kernels"],
+                                   "tilewin_combine_modes_kernel"),
+              "gan_frame_launches": ct["tilewin_combine_modes"],
+              "gan_frame_ms": ms_of(ft, "tilewin_combine_modes_kernel")}
 
     entries = [
         entry("unirow_combine", "unirow_combine.cu",
@@ -1557,7 +2043,8 @@ def main():
             {**k3[mode], "step_s_iter": k3_steps[mode]["step_s_iter"],
              "step_peak_gib": k3_steps[mode]["step_peak_gib"],
              "hat_step_s_iter": k3_steps["hat"]["step_s_iter"],
-             "hat_step_peak_gib": k3_steps["hat"]["step_peak_gib"]}))
+             "hat_step_peak_gib": k3_steps["hat"]["step_peak_gib"],
+             **k3_gan}))
     print(json.dumps({"kernels": entries + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,25 @@
 """Datasets over the on-disk cache, in numpy (the port's own copy of the
-DSO datasets of ``enarf_gan_tpu/data/datasets.py``).
+DSO and GAN datasets of ``enarf_gan_tpu/data/datasets.py``).
 
 Items as the reference builds them: images normalised to [-1, 1],
 pose_to_camera = extrinsic @ pose_to_world, bone lengths from the parent
 joints, the mask from the alpha channel (or the not-white pixels), virtual
-epochs of ``num_repeat_in_epoch`` passes. What only the GAN reads (bone
-masks, random flips of images without bone parameters, the pose-prior and
-depth datasets) comes with the GAN slice.
+epochs of ``num_repeat_in_epoch`` passes. Images without bone parameters
+(the GAN's real images) are flipped left-right at random; the pose-prior
+dataset rasterises each pose's bone mask for the GAN's bone-guided loss.
+The depth dataset of evaluation is ROADMAP Queue 1, item 5.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict
+import random
+from typing import Dict, Optional
 
 import numpy as np
 
 from enarf_gan_tpu_torch.data.cache import load_cache
-from enarf_gan_tpu_torch.data.mask2d import SMPLProperty
+from enarf_gan_tpu_torch.data.mask2d import (SMPLProperty, add_blank_part,
+                                             create_mask, pose_to_image_coord)
 from enarf_gan_tpu_torch.geometry.smpl import SMPL_PARENTS
 
 
@@ -30,10 +33,16 @@ def mask_from_alpha(alpha: np.ndarray) -> np.ndarray:
 
 
 class HumanDatasetBase:
+    """``flip_rng`` (a ``random.Random``) draws the random flips of images
+    without bone parameters: flipped when its ``random()`` exceeds 0.5, as
+    the JAX dataset reads the ``random`` module."""
+
     def __init__(self, config, size=128, return_bone_params=True,
                  num_repeat_in_epoch=100, load_camera_intrinsics=False,
-                 return_mask=False, **_):
+                 return_mask=False, flip_rng: Optional[random.Random] = None,
+                 **_):
         self.size = size
+        self.flip_rng = flip_rng or random.Random(0)
         self.num_repeat_in_epoch = num_repeat_in_epoch
         self.return_bone_params = return_bone_params
         self.return_mask = return_mask
@@ -74,8 +83,10 @@ class HumanDatasetBase:
             img = img[:3]
         elif self.return_mask:
             out["mask"] = (img != 255).any(axis=0).astype("float32")
-        out.update({"img": self.preprocess_img(img),
-                    "idx": np.int64(self.data_idx[i])})
+        img = self.preprocess_img(img)
+        if not self.return_bone_params and self.flip_rng.random() > 0.5:
+            img = img[:, :, ::-1].copy()
+        out.update({"img": img, "idx": np.int64(self.data_idx[i])})
 
         if self.return_bone_params:
             pose_to_camera = self.pose_to_camera[i].copy()
@@ -99,10 +110,11 @@ class HumanDatasetBase:
 class HumanDataset(HumanDatasetBase):
     def __init__(self, config, size=128, return_bone_params=True,
                  num_repeat_in_epoch=100, load_camera_intrinsics=True,
-                 return_mask=False, **kwargs):
+                 return_mask=False, flip_rng: Optional[random.Random] = None,
+                 **kwargs):
         super().__init__(config, size, return_bone_params,
                          num_repeat_in_epoch, load_camera_intrinsics,
-                         return_mask)
+                         return_mask, flip_rng)
         self.focal_length = getattr(config, "focal_length", None)
         self.load_cache_data()
         self.data_idx = np.arange(len(self.imgs))
@@ -156,3 +168,58 @@ class SSODataset(HumanDataset):
                                            / self.config.n_frames, 1))
         out["camera_rotation"] = self.camera_rotation[i].astype("float32")
         return out
+
+
+class HumanPoseDataset:
+    """The GAN's pose prior: poses of the cache with their camera, bone
+    lengths and the bone mask rasterised at ``size``²."""
+
+    def __init__(self, size=128, data_root="", num_repeat_in_epoch=100, **_):
+        self.size = size
+        self.data_root = data_root
+        self.num_repeat_in_epoch = num_repeat_in_epoch
+        self.hpp = SMPLProperty()
+        self.num_bone = 24
+        self.num_bone_param = self.num_bone - 1
+        self.num_valid_keypoints = self.hpp.num_valid_keypoints
+        self.parents = SMPL_PARENTS
+        data = load_cache(data_root)
+        self.intrinsics = data["camera_intrinsic"]
+        self.inv_intrinsics = np.linalg.inv(self.intrinsics)
+        self.pose_to_world = data["smpl_pose"]
+        n = len(self.intrinsics)
+        extr = np.broadcast_to(np.eye(4, dtype=np.float64), (n, 4, 4)).copy()
+        if "camera_rotation" in data:
+            extr[:, :3, :3] = data["camera_rotation"]
+            extr[:, :3, 3:] = data["camera_translation"]
+            self.pose_to_camera = np.matmul(extr[:, None], self.pose_to_world)
+        else:
+            self.pose_to_camera = self.pose_to_world
+        canon = os.path.join(data_root, "canonical.npy")
+        if os.path.exists(canon):
+            self.canonical_pose = np.load(canon)
+
+    def __len__(self):
+        return len(self.pose_to_world) * self.num_repeat_in_epoch
+
+    def get_bone_length(self, pose):
+        coord = pose[:, :3, 3]
+        length = np.linalg.norm(coord[1:] - coord[self.parents[1:]], axis=1)
+        return length[:, None]
+
+    def __getitem__(self, i):
+        i = i % len(self.pose_to_world)
+        world = self.pose_to_world[i]
+        cam = self.pose_to_camera[i]
+        intrinsics = self.intrinsics[i]
+        jpi = pose_to_image_coord(cam, intrinsics)
+        jm, jp = add_blank_part(cam[None], jpi)
+        _, mask, _, _ = create_mask(self.hpp, jm, jp, self.size, thickness=0.5)
+        return {
+            "bone_mask": mask,
+            "pose_to_camera": cam.astype("float32"),
+            "bone_length": self.get_bone_length(world).astype("float32"),
+            "pose_to_world": world.astype("float32"),
+            "intrinsics": intrinsics.astype("float32"),
+            "pose_2d": jpi[0].transpose()[:, :2].astype("float32"),
+        }

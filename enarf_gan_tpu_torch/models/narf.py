@@ -1,8 +1,10 @@
 """Tri-plane articulated NeRF (port of ``TriPlaneNARF`` from
 ``enarf_gan_tpu/models/narf.py``).
 
-Ported: the ``deformation_field`` variant (constant planes warped by a
-generated flow) and the ``constant_triplane`` variant, sampled through the
+Ported: the default variant, whose planes a StyleGAN2 generates
+(``tri_plane_gen``, the GAN's), the ``deformation_field`` variant
+(constant planes warped by a generated flow) and the ``constant_triplane``
+variant, sampled through the
 candidate-sparse unirow path (``ops/unirow.py``) or, for ``tile_patch``
 models on the patch-tiled renderer, the patch-window path
 (``ops/tilewin.py``); both read the bf16 texel table of
@@ -10,7 +12,7 @@ models on the patch-tiled renderer, the patch-window path
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Parameter and buffer names are the reference's (``tri_plane``,
-``flow_generator.*``, ``mlp.layers.*``, ``density_fc.*``,
+``tri_plane_gen.*``, ``flow_generator.*``, ``mlp.layers.*``, ``density_fc.*``,
 ``canonical_pose``, ``canonical_bone_length``), so the state dict that
 ``export_reference_state_dict`` writes for the JAX model loads strictly.
 The JAX ``_DensityColorHeads`` submodule is ``TriPlaneNARF.heads`` here:
@@ -140,21 +142,27 @@ class TriPlaneNARF(nn.Module):
         ts = p.tri_plane_size
         fch = p.feat_dim * 3
         mch = num_bone * 3
+        if not p.constant_triplane and (
+                p.constant_trimask
+                or (p.selector_mlp and not p.deformation_field)):
+            raise NotImplementedError(
+                "the constant_trimask and selector_mlp tri-plane variants "
+                "are ROADMAP Queue 1, item 5")
         if p.constant_triplane or p.deformation_field:
             self.tri_plane = nn.Parameter(torch.empty(1, fch + mch, ts, ts,
                                                       device=device))
-        else:
-            raise NotImplementedError(
-                "only the deformation_field and constant_triplane tri-plane "
-                "variants are ported; the StyleGAN tri-plane generator comes "
-                "with the GAN (ROADMAP Queue 1, item 6) and constant_trimask / "
-                "selector_mlp with item 7")
-        if p.deformation_field and not p.constant_triplane:
-            self.flow_generator = StyleGAN2Generator(
+        c_dim = p.num_frequency_for_other * 2 * num_bone
+
+        def sg(out_channels):
+            return StyleGAN2Generator(
                 size=ts, z_dim=z_dim, style_dim=p.w_dim, n_mlp=8,
-                out_channels=2 * 3,
-                c_dim=p.num_frequency_for_other * 2 * num_bone,
+                out_channels=out_channels, c_dim=c_dim,
                 channel_max=max(p.w_dim, 64), device=device)
+
+        if p.deformation_field and not p.constant_triplane:
+            self.flow_generator = sg(2 * 3)
+        elif not p.constant_triplane and not p.deformation_field:
+            self.tri_plane_gen = sg(fch + mch)
         hidden = 64
         if p.view_dependent:
             self.density_fc = StyledConv1d(p.feat_dim, 1, z2_dim, device=device)
@@ -169,8 +177,9 @@ class TriPlaneNARF(nn.Module):
                              torch.ones(num_bone, device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        with torch.no_grad():
-            self.tri_plane.zero_()
+        if hasattr(self, "tri_plane"):
+            with torch.no_grad():
+                self.tri_plane.zero_()
 
     # ------------------------------------------------------------------ #
     def encode_bone_length(self, bone_length: torch.Tensor) -> torch.Tensor:
@@ -180,17 +189,25 @@ class TriPlaneNARF(nn.Module):
         return enc[:, :, 0]
 
     def compute_tri_plane_feature(self, z: torch.Tensor,
-                                  bone_length: torch.Tensor) -> torch.Tensor:
-        """z + PE(bone length) → (B, (F+K)*3, ts, ts) feature planes."""
+                                  bone_length: torch.Tensor,
+                                  truncation_psi=1.0,
+                                  update_w_avg: bool = False) -> torch.Tensor:
+        """z + PE(bone length) → (B, (F+K)*3, ts, ts) feature planes.
+        ``truncation_psi`` and ``update_w_avg`` go to the mapping network
+        of the generated variants."""
         p = self.params
         B = bone_length.shape[0]
         ts = p.tri_plane_size
-        planes = self.tri_plane.expand(B, -1, -1, -1)
         if p.constant_triplane:
-            return planes
-        # warp the constant feature planes by a generated flow field
+            return self.tri_plane.expand(B, -1, -1, -1)
         c = self.encode_bone_length(bone_length)
-        flow = self.flow_generator(z, c=c)
+        if not p.deformation_field:
+            return self.tri_plane_gen(z, c=c, truncation_psi=truncation_psi,
+                                      update_w_avg=update_w_avg)
+        # warp the constant feature planes by a generated flow field
+        planes = self.tri_plane.expand(B, -1, -1, -1)
+        flow = self.flow_generator(z, c=c, truncation_psi=truncation_psi,
+                                   update_w_avg=update_w_avg)
         flow = flow.reshape(B * 3, 2, ts, ts).permute(0, 2, 3, 1)  # (3B,ts,ts,2)
         ar = torch.arange(ts, dtype=flow.dtype, device=flow.device)
         gy, gx = torch.meshgrid(ar, ar, indexing="ij")
@@ -230,13 +247,13 @@ class TriPlaneNARF(nn.Module):
         if not self.uses_candidate_sampling():
             raise NotImplementedError(
                 "only the candidate-sparse tri-plane-mask path is ported; the "
-                "dense and selector paths come with ROADMAP Queue 1, item 7")
+                "dense and selector paths are ROADMAP Queue 1, item 5")
         if (p.plane_sample_dtype != "bfloat16" or p.feat_dim > 32
                 or self.num_bone > MASK_BLOCK):
             raise NotImplementedError(
                 "only the unirow sampler (bf16 planes, feat_dim <= 32, <= 32 "
                 "bones) is ported; f32 sampling through a dtype-templated "
-                "unirow kernel is ROADMAP Queue 2, kernel 1")
+                "unirow kernel is ROADMAP Queue 2, item 3")
 
     def pack_planes(self, tri_plane_feature: torch.Tensor) -> Tuple[torch.Tensor]:
         """Pack planes once per frame into the unirow sampler's texel

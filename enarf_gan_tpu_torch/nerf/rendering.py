@@ -185,17 +185,38 @@ def coarse_to_fine_sample(density_fn, image_coord, pose_to_camera,
 
 def render_rays(density_color_fn, image_coord, pose_to_camera, inv_intrinsics,
                 cfg: RenderConfig, draws: Draws, camera_pose=None,
-                frustum=None, pose_prescaled: bool = False):
-    """Render one chunk of rays → (color (B,3,n), mask (B,n),
-    disparity (B,n)). ``draws`` is the (u, jitter) pair of the fine
-    sampler, each (B*n, Nf). The coarse pass runs without gradients; the
+                frustum=None, pose_prescaled: bool = False,
+                ray_chunk: Optional[int] = None):
+    """Render rays → (color (B,3,n), mask (B,n), disparity (B,n), aux) with
+    aux = {"fine_weights" (B,1,n,Nf-1), "fine_depth" (B,1,n,Nf)}.
+    ``draws`` is the fine sampler's (u, jitter) pair, each
+    (B*n, Nf), batch-major. The coarse pass runs without gradients; the
     fine pass is differentiable, so this is also the training render.
-    (The JAX function's aux outputs, fine weights and depths, feed only the
-    GAN's losses and come with the GAN slice.)"""
+
+    ``ray_chunk`` renders chunks of that many rays of every image one after
+    the other, with the same results (each chunk takes its rows of
+    ``draws``); with the point network recomputed in backward (the GAN's
+    training forward), only one chunk's activations are alive at a time."""
     B, _, _, n = image_coord.shape
     if cfg.coordinate_scale != 1 and not pose_prescaled:
         pose_to_camera = pose_to_camera.clone()
         pose_to_camera[:, :, :3, 3] *= cfg.coordinate_scale
+    if ray_chunk is not None and n > ray_chunk:
+        if frustum is not None:
+            raise ValueError("a precomputed frustum cannot be chunked")
+        if n % ray_chunk:
+            raise ValueError(f"ray_chunk {ray_chunk} does not split {n} rays")
+        u, jitter = (d.reshape(B, n, -1) for d in draws)
+        outs = [render_rays(
+            density_color_fn, image_coord[..., lo:lo + ray_chunk],
+            pose_to_camera, inv_intrinsics, cfg,
+            (u[:, lo:lo + ray_chunk].reshape(B * ray_chunk, -1),
+             jitter[:, lo:lo + ray_chunk].reshape(B * ray_chunk, -1)),
+            camera_pose, pose_prescaled=True)
+            for lo in range(0, n, ray_chunk)]
+        return tuple(torch.cat(x, dim=-1) for x in zip(*(o[:3] for o in outs))) \
+            + ({k: torch.cat([o[3][k] for o in outs], dim=2)
+                for k in outs[0][3]},)
 
     fine_depth, fine_points, ray_dir_world, validity = coarse_to_fine_sample(
         density_color_fn, image_coord, pose_to_camera, inv_intrinsics, cfg,
@@ -220,7 +241,8 @@ def render_rays(density_color_fn, image_coord, pose_to_camera, inv_intrinsics,
     color = torch.where(valid, color, torch.zeros_like(color))
     mask = torch.where(valid[:, 0], mask, torch.zeros_like(mask))
     disparity = torch.where(valid[:, 0], disparity, torch.zeros_like(disparity))
-    return color, mask, disparity
+    return color, mask, disparity, {"fine_weights": weights,
+                                    "fine_depth": fine_depth}
 
 
 def render_entire_img(density_color_fn, pose_to_camera, inv_intrinsics,
@@ -273,7 +295,7 @@ def render_entire_img(density_color_fn, pose_to_camera, inv_intrinsics,
         u, jitter = draws[c]
         frustum = (dmin[..., sel], dmax[..., sel], ray_dir[..., sel],
                    validity[..., sel])
-        col, msk, dsp = render_rays(
+        col, msk, dsp, _ = render_rays(
             density_color_fn, coords[:, sel].reshape(1, 1, 3, -1), p2c,
             inv_intrinsics, cfg, (u[:hi - lo], jitter[:hi - lo]),
             camera_pose, frustum=frustum, pose_prescaled=True)

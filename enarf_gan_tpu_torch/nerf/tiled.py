@@ -62,10 +62,10 @@ def render_rays_tiled(fn, image_coord, pose_to_camera, inv_intrinsics,
     ``draws`` is the fine sampler's (u, jitter) pair, each (B*n_patch, Nf).
     ``ray_chunk`` renders fixed-size chunks of whole patches one after the
     other, with the same results. Returns (color (B,3,n), mask (B,n),
-    disparity (B,n)). The coarse pass runs without gradients; the fine pass
-    is differentiable, so this is also the training render. (The JAX
-    function's aux outputs feed only the GAN's losses and come with the GAN
-    slice.)
+    disparity (B,n), aux) with aux = {"fine_weights" (B,1,n,Nf-1),
+    "fine_depth" (B,1,n,Nf)}, rays in patch-major order.
+    The coarse pass runs without gradients; the fine pass is
+    differentiable, so this is also the training render.
     """
     B, _, _, n = image_coord.shape
     m = P * P
@@ -91,7 +91,9 @@ def render_rays_tiled(fn, image_coord, pose_to_camera, inv_intrinsics,
              jitter[:, lo // m:lo // m + pc].reshape(B * pc, -1)),
             camera_pose=camera_pose, pose_prescaled=True)
             for lo in range(0, n, chunk)]
-        return tuple(torch.cat(x, dim=-1) for x in zip(*outs))
+        return tuple(torch.cat(x, dim=-1) for x in zip(*(o[:3] for o in outs))) \
+            + ({k: torch.cat([o[3][k] for o in outs], dim=2)
+                for k in outs[0][3]},)
 
     Nc, Nf = cfg.Nc, cfg.Nf
     if frustum is None:
@@ -179,7 +181,8 @@ def render_rays_tiled(fn, image_coord, pose_to_camera, inv_intrinsics,
     mask = torch.where(valid1[:, 0], mask, torch.zeros_like(mask))
     disparity = torch.where(valid1[:, 0], disparity,
                             torch.zeros_like(disparity))
-    return color, mask, disparity
+    return color, mask, disparity, {"fine_weights": weights,
+                                    "fine_depth": fine_depth}
 
 
 def render_entire_img_tiled(fn, pose_to_camera, inv_intrinsics,
@@ -242,7 +245,7 @@ def render_entire_img_tiled(fn, pose_to_camera, inv_intrinsics,
         pc = (hi - lo) // m
         frustum = (dmin[..., sel], dmax[..., sel], ray_dir[..., sel],
                    validity[..., sel])
-        col, msk, dsp = render_rays_tiled(
+        col, msk, dsp, _ = render_rays_tiled(
             fn, img_coord[..., sel], pose_to_camera, inv_intrinsics, cfg, P,
             (u[:pc], jitter[:pc]), camera_pose=camera_pose,
             pose_prescaled=True, frustum=frustum)

@@ -70,6 +70,32 @@ class EqualLinear(nn.Module):
         return y + b
 
 
+class EqualConv2d(nn.Module):
+    """Equalized kxk conv over (B, C, H, W); weight (out, in, k, k)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, use_bias: bool = True,
+                 device=DEFAULT_DEVICE):
+        super().__init__()
+        k = kernel_size
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k,
+                                               device=device))
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device)) \
+            if use_bias else None
+        self.stride, self.padding = stride, padding
+        self.scale = 1 / math.sqrt(in_channels * k * k)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _normal_(self.weight, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight * self.scale, self.bias,
+                        stride=self.stride, padding=self.padding)
+
+
 class EqualConv1d(nn.Module):
     """Equalized grouped 1x1 conv over (B, C, n); weight (groups, out/g, in/g)."""
 

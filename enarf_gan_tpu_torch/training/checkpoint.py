@@ -1,11 +1,14 @@
 """Checkpoints as ``torch.save`` snapshots (port of the save/load half of
 ``enarf_gan_tpu/training/checkpoint.py``).
 
-A snapshot is ``{"iteration", "gen": gen.state_dict(), "gen_opt":
-optimizer.state_dict()}``, written as ``snapshot_latest.pth`` and the
-rolling ``snapshot_{(iteration // 50000 + 1) * 50000}.pth``, the JAX
-package's cadence. The port's parameter names are the reference's, so the
-JAX package's ``convert_torch_snapshot`` reads these files.
+A DSO snapshot is ``{"iteration", "gen": gen.state_dict(), "gen_opt":
+optimizer.state_dict()}``; a GAN snapshot ``{"iteration", "gen", "dis",
+"gen_opt", "dis_opt"}``, its "gen" holding the mapping networks' ``w_avg``
+beside the parameters (``gen_state_dict``). Both are written as
+``snapshot_latest.pth`` and the rolling
+``snapshot_{(iteration // 50000 + 1) * 50000}.pth``, the JAX package's
+cadence. The port's parameter names are the reference's, so the JAX
+package's ``convert_torch_snapshot`` reads these files.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn as nn
 
 LATEST = "snapshot_latest.pth"
 
@@ -39,3 +43,28 @@ def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
 def latest_checkpoint(out_dir: str) -> Optional[str]:
     p = os.path.join(out_dir, LATEST)
     return p if os.path.exists(p) else None
+
+
+def w_avg_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The truncation centres of ``module``'s mapping networks, by name
+    (buffers kept out of ``state_dict``, as reference checkpoints hold
+    none)."""
+    return {n: b for n, b in module.named_buffers() if n.endswith("w_avg")}
+
+
+def gen_state_dict(gen: nn.Module) -> Dict[str, torch.Tensor]:
+    """``gen.state_dict()`` plus its ``w_avg`` buffers."""
+    return {**gen.state_dict(),
+            **{n: b.detach().clone() for n, b in w_avg_buffers(gen).items()}}
+
+
+def load_gen_state_dict(gen: nn.Module, state: Dict[str, torch.Tensor]) -> None:
+    """Load what ``gen_state_dict`` wrote; strict both ways."""
+    stats = w_avg_buffers(gen)
+    if set(stats) - set(state):
+        raise KeyError(f"snapshot lacks {sorted(set(stats) - set(state))}")
+    gen.load_state_dict({k: v for k, v in state.items() if k not in stats},
+                        strict=True)
+    with torch.no_grad():
+        for n, b in stats.items():
+            b.copy_(state[n])

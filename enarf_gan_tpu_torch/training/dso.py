@@ -44,7 +44,7 @@ def build_generator(config, num_bone: int, parent_id, device=DEFAULT_DEVICE,
     gp = config.generator_params
     if not gp.use_triplane:
         raise NotImplementedError("the MLP NARF baselines are ROADMAP Queue 1, "
-                                  "item 7")
+                                  "item 5")
     return DSONARFGenerator(NARFParams.from_config(gp.nerf_params),
                             num_bone=num_bone,
                             parent_id=tuple(int(x) for x in parent_id),
@@ -53,16 +53,19 @@ def build_generator(config, num_bone: int, parent_id, device=DEFAULT_DEVICE,
 
 
 class Optimizer:
-    """Adam (b1 0.9, b2 0.99, eps 1e-8) with the learning rate lr * gamma^k
-    after k applied updates (optax's ``exponential_decay`` with
-    ``transition_steps=1``), and optax's ``apply_if_finite``: a step whose
-    gradient is not finite moves neither the parameters, nor Adam's
-    moments, nor the schedule, unless more than 100 such steps came in a
-    row."""
+    """Adam (``betas``, default (0.9, 0.99), eps 1e-8) with the learning
+    rate lr * gamma^k after k applied updates (optax's
+    ``exponential_decay`` with ``transition_steps=1``; none at gamma 1),
+    and optax's ``apply_if_finite``: a step whose gradient is not finite
+    moves neither the parameters, nor Adam's moments, nor the schedule,
+    unless more than 100 such steps came in a row. A parameter that took
+    no gradient takes a zero one, as in optax: its moments decay and its
+    step counts (torch's Adam would skip it)."""
 
-    def __init__(self, params, lr: float, gamma: float):
+    def __init__(self, params, lr: float, gamma: float = 1.0,
+                 betas=(0.9, 0.99)):
         self.params = [p for p in params if p.requires_grad]
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.99),
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=tuple(betas),
                                      eps=1e-8)
         self.schedule = torch.optim.lr_scheduler.ExponentialLR(
             self.adam, gamma=gamma) if gamma < 1 else None
@@ -79,6 +82,9 @@ class Optimizer:
         self.nonfinite = 0 if finite else self.nonfinite + 1
         if not finite and self.nonfinite <= MAX_CONSECUTIVE_NONFINITE:
             return False
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         self.adam.step()
         if self.schedule is not None:
             self.schedule.step()
@@ -86,6 +92,9 @@ class Optimizer:
 
     def state_dict(self):
         return self.adam.state_dict()
+
+    def load_state_dict(self, state):
+        self.adam.load_state_dict(state)
 
 
 def init_state(config, gen: DSONARFGenerator,

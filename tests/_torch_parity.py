@@ -4,6 +4,9 @@ Both packages get the same scene (the port's numpy fixture), the same
 weights (the JAX model's perturbed parameters, carried over by the weight
 bridge) and the same random draws (rebuilt with JAX's own key splits).
 """
+import contextlib
+from unittest import mock
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -11,12 +14,16 @@ import torch
 
 from enarf_gan_tpu.geometry.smpl import SMPL_PARENTS
 from enarf_gan_tpu.models.generator import (DSONARFGenerator,
+                                            TriNARFGenerator,
                                             register_canonical_pose)
 from enarf_gan_tpu.models.narf import NARFParams
+from enarf_gan_tpu.ops import tilewin as jtw
+from enarf_gan_tpu.ops import unirow as junirow
 from enarf_gan_tpu.training.checkpoint import export_reference_state_dict
 
 from enarf_gan_tpu_torch.data.fixtures import tiny_scene
-from enarf_gan_tpu_torch.interop import load_reference_state_dict
+from enarf_gan_tpu_torch.interop import (load_jax_stats,
+                                         load_reference_state_dict)
 from enarf_gan_tpu_torch.models import generator as tgen
 from enarf_gan_tpu_torch.models.narf import NARFParams as TNARFParams
 
@@ -117,3 +124,148 @@ def tiny_dso_config(root, out_root, **nerf_overrides):
         "val_interval": 1000, "print_interval": 1000,
         "tensorboard_interval": 20, "save_interval": 20,
         "resume": None, "resume_latest": False}
+
+
+@contextlib.contextmanager
+def float32_jax_tables():
+    """JAX's table packs with the bf16 tables' values held in float32."""
+    pack_u, pack_t = junirow.pack_unirow, jtw.pack_tilewin
+
+    def unirow32(*a, **k):
+        return pack_u(*a, **k).astype(jnp.float32)
+
+    def tilewin32(*a, **k):
+        t = pack_t(*a, **k)
+        return jtw.TilewinTables(t.feat.astype(jnp.float32),
+                                 t.mask.astype(jnp.float32), *t[2:])
+
+    with mock.patch.object(junirow, "pack_unirow", unirow32), \
+            mock.patch.object(jtw, "pack_tilewin", tilewin32):
+        yield
+
+
+class _Float32Numpy:
+    """``jax.numpy`` with ``bfloat16`` meaning float32."""
+    bfloat16 = jnp.float32
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+@contextlib.contextmanager
+def float32_jax_samplers():
+    """``float32_jax_tables``, and JAX's tiled sampler computing in float32
+    where it rounds to bf16 (its window weights), as the port's combines
+    do; the tilewin tables still hold the planes' bf16 values."""
+    pack_t = jtw.pack_tilewin
+
+    def tilewin_bf16_values(planes, *a, **k):
+        return pack_t(planes.astype(jnp.bfloat16).astype(jnp.float32),
+                      *a, **k)
+
+    with float32_jax_tables(), \
+            mock.patch.object(jtw, "pack_tilewin", tilewin_bf16_values), \
+            mock.patch.object(jtw, "jnp", _Float32Numpy()):
+        yield
+
+
+# the GAN at test width: 16² planes and images, w_dim 32, z_dim 8,
+# background channel_max 32 (tests/test_models.py's sizes)
+GAN_SMALL = dict(Nc=6, Nf=6, hidden_size=16, tri_plane_size=16, w_dim=32,
+                 coordinate_scale=3.0, view_dependent=False,
+                 origin_location="center_fixed",
+                 plane_sample_dtype="bfloat16")
+GAN_KW = dict(z_dim=8, crop_background=True, channel_max=32)
+
+
+def build_gan_pair(size=16, B=2, train_ray_chunk=128, seed=7, **overrides):
+    """(jax gen, jax variables, port gen, scene, z) for one GAN generator:
+    JAX's weights perturbed, its w_avg statistics random (so truncation
+    and their update show), both carried into the port."""
+    kw = {**GAN_SMALL, "render_bs": train_ray_chunk, **overrides}
+    gen = TriNARFGenerator(nerf_params=NARFParams(**kw), size=size,
+                           num_bone=24, parent_id=PARENTS,
+                           train_ray_chunk=train_ray_chunk, **GAN_KW)
+    scene = tiny_scene(B, size)
+    pose_cam, world, bl, inv_K, canonical, _ = scene
+    z = np.random.RandomState(seed).randn(
+        B, GAN_KW["z_dim"] * 4).astype(np.float32)
+    rng = jax.random.PRNGKey(0)
+    variables = jax.jit(gen.init)(rng, rng, jnp.asarray(pose_cam),
+                                  jnp.asarray(world), jnp.asarray(bl),
+                                  jnp.asarray(z), jnp.asarray(inv_K))
+    variables = register_canonical_pose(variables, canonical, "center_fixed",
+                                        np.asarray(SMPL_PARENTS))
+    variables = perturbed(variables, seed)
+    leaves, tree = jax.tree_util.tree_flatten(variables["stats"])
+    keys = jax.random.split(jax.random.PRNGKey(seed + 1), len(leaves))
+    variables["stats"] = jax.tree_util.tree_unflatten(
+        tree, [0.5 * jax.random.normal(k, x.shape) for k, x in
+               zip(keys, leaves)])
+    port = tgen.TriNARFGenerator(
+        TNARFParams(**kw), size=size, num_bone=24, parent_id=PARENTS,
+        train_ray_chunk=train_ray_chunk, device="cpu", **GAN_KW)
+    load_reference_state_dict(port, export_reference_state_dict(variables))
+    load_jax_stats(port, variables["stats"])
+    return gen, variables, port, scene, z
+
+
+def _np_to_t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def jax_render_draws(rng, port, B, chunk):
+    """The fine sampler's (u, jitter) JAX's GAN forward draws from its
+    ``rng_fine`` (one key a ``chunk`` of rays, or of whole patches on the
+    tiled path), batch-major as ``TriNARFGenerator.forward`` takes them."""
+    n = port.size * port.size
+    P = port.nerf_params.tile_patch if port.nerf.supports_tiled_sampling() \
+        else 1
+    m = P * P
+    Nf = port.nerf_params.Nf
+    c = chunk - chunk % m if chunk and n > chunk else n
+    keys = jax.random.split(rng, n // c) if c < n else [rng]
+    u, jit = [], []
+    for key in keys:
+        k_bin, k_jit = jax.random.split(key)
+        for k, out in ((k_bin, u), (k_jit, jit)):
+            out.append(np.array(jax.random.uniform(
+                k, (B * (c // m), Nf), jnp.float32)).reshape(B, c // m, Nf))
+    return tuple(torch.from_numpy(np.concatenate(x, axis=1).reshape(-1, Nf))
+                 for x in (u, jit))
+
+
+def jax_noise(noise_rng, bg, B):
+    """The noise JAX's synthesis draws from ``noise_rng``, one tensor a
+    styled conv of the port's ``BackgroundGenerator`` ``bg``."""
+    out = []
+    for shape in bg.noise_shapes(B):
+        noise_rng, r = jax.random.split(noise_rng)
+        out.append(_np_to_t(jax.random.normal(r, shape, jnp.float32)))
+    return out
+
+
+def jax_crop(crop_rng, size):
+    """The (y0, x0) JAX's background draws for its training crop of the
+    (size, 2 size) canvas."""
+    kx, ky = jax.random.split(crop_rng)
+    x0 = int(jax.random.randint(kx, (), 0, size + 1))
+    y0 = int(jax.random.randint(ky, (), 0, 1))
+    return y0, x0
+
+
+def jax_background_randoms(rng, port, B):
+    """The background's noise and crop JAX's ``TriNARFGenerator.
+    background`` draws from ``rng``."""
+    crop_rng, noise_rng = jax.random.split(rng)
+    return {"noise": jax_noise(noise_rng, port.background_generator, B),
+            "crop": jax_crop(crop_rng, port.size)}
+
+
+def jax_gan_randoms(rng, port, B):
+    """Everything JAX's ``TriNARFGenerator.__call__`` draws from ``rng``,
+    as the port's forward takes it."""
+    rng_fine, rng_bg = jax.random.split(rng)
+    return {"draws": jax_render_draws(rng_fine, port, B,
+                                      port.train_ray_chunk),
+            **jax_background_randoms(rng_bg, port, B)}

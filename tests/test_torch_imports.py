@@ -41,7 +41,8 @@ def test_port_imports_without_jax_flax_yaml_pil():
                    "nerf.rendering", "nerf.tiled", "nerf.ray_sampler",
                    "models.generator", "config", "eval_lib.metrics",
                    "utils.logging", "training.checkpoint", "training.dso",
-                   "training.losses", "data.cache", "data.mask2d",
+                   "training.gan", "training.losses", "nn.stylegan2",
+                   "interop", "data.cache", "data.mask2d",
                    "data.datasets", "data.loader", "data.fixtures",
                    "tools", "tools.timing", "tools.gather", "tools.mma",
                    "tools.ablate", "tools.constructs"):

@@ -22,17 +22,10 @@ Tolerances:
 * gradients of the loss, parameter by parameter (matched by reference
   name): relative L2 error <= 2e-2 (as tests/test_torch_backward.py).
 """
-import contextlib
-from unittest import mock
-
 import numpy as np
 import jax
-import jax.numpy as jnp
 import pytest
 import torch
-
-from enarf_gan_tpu.ops import tilewin as jtw
-from enarf_gan_tpu.ops import unirow as junirow
 
 from enarf_gan_tpu.config import AttrDict as JAttrDict
 from enarf_gan_tpu.data.datasets import SSODataset
@@ -46,29 +39,12 @@ from enarf_gan_tpu_torch.interop import load_reference_state_dict
 from enarf_gan_tpu_torch.training import dso
 from enarf_gan_tpu_torch.training.losses import photometric_loss
 
-from _torch_parity import jax_train_randoms, perturbed, tiny_dso_config
+from _torch_parity import (float32_jax_tables, jax_train_randoms,
+                           perturbed, tiny_dso_config)
 
 FRAMES = (0, 3)   # two frames of the cache: B = 2
 PATHS = {"exact": dict(tile_patch=0, loss="mse"),
          "tiled": dict(tile_patch=4, tile_coarse_corners=True, loss="mae")}
-
-
-@contextlib.contextmanager
-def float32_jax_tables():
-    """JAX's table packs with the bf16 tables' values held in float32."""
-    pack_u, pack_t = junirow.pack_unirow, jtw.pack_tilewin
-
-    def unirow32(*a, **k):
-        return pack_u(*a, **k).astype(jnp.float32)
-
-    def tilewin32(*a, **k):
-        t = pack_t(*a, **k)
-        return jtw.TilewinTables(t.feat.astype(jnp.float32),
-                                 t.mask.astype(jnp.float32), *t[2:])
-
-    with mock.patch.object(junirow, "pack_unirow", unirow32), \
-            mock.patch.object(jtw, "pack_tilewin", tilewin32):
-        yield
 
 
 @pytest.fixture(scope="module")
