@@ -29,8 +29,9 @@ NVIDIA GPU.
    kernels and launch cost): each kernel and variant against its plain twin
    at a small size, then at its probe's main size once more and timed with
    its plain twin, the one PyTorch call of the same function where there is
-   one, and its bound; one line a probe, and the launch cost of each
-   argument roster (host and device microseconds a launch).
+   one, and its bound; one line a probe, with the host and device
+   microseconds a call of the kernel and of the library call (calls queued
+   behind a spin kernel; for the argument rosters, the launch cost).
 3. Builds the DSO model at the full width the JAX ``bench.py`` times
    (24 joints, 256² tri-planes, w_dim 512, deformation field, bf16
    sampling) with seeded, perturbed random weights, and renders 128² frames
@@ -105,8 +106,10 @@ runs only phase 1 and phase 7 (about a minute on an H100).
     python3 chip_smoke.py --probes
 
 runs phase 1 and every probe module's full sweep (row widths x table sizes
-x index order, lane gathers by table height, ring depths, every one-hot
-shape with its direct gather), one JSON line a measurement.
+x index order, A2 at 1, 8, 64 and 1,024 rows a warp, A3 by table height
+from 384 to 196,608 rows in float32 and bf16 on the kept design, ring
+depths, every one-hot shape with its direct gather), one JSON line a
+measurement.
 """
 import json
 import re
@@ -689,13 +692,16 @@ def phase_probes(device):
     """The probe kernels of ``enarf_gan_tpu_torch/tools`` (families A-D):
     every kernel and variant held to its plain twin at a small size
     (ragged shapes), then at its probe's own main size held once more and
-    timed (kernel, plain, library call) against its bound; the launch cost
-    of each argument roster. Each entry's ``launches`` are the kernel's
-    launches while it was timed (its comparisons excluded). Kernel 2's and
+    timed (kernel, plain, library call) against its bound, with the host
+    and device µs a call of the kernel and the library call (``device_us``,
+    ``host_us``, ``library_device_us``, ``library_host_us``: calls queued
+    behind a spin kernel, ``timing.launch_us``). Each entry's ``launches``
+    are the kernel's launches while it was timed in ms (its comparisons and
+    the calls of ``launch_us`` excluded). Kernel 2's and
     3's stage variants are timed at the probes' U = 12288 and at the fine
     chunk; the entry holds the former and ``fine_chunk_ms`` the latter."""
     import torch
-    from enarf_gan_tpu_torch.tools import constructs, timing
+    from enarf_gan_tpu_torch.tools import timing
     t0 = time.perf_counter()
     n = 0
     for mod in _probe_modules():
@@ -711,10 +717,8 @@ def phase_probes(device):
     for mod in _probe_modules():
         for case in mod.cases(device, "main"):
             err = timing.check(case)
-            lib, key = case.counter
-            before = lib.launches_by[key]
             t = timing.measure(case, PROBE_BUDGET_MS)
-            launches = lib.launches_by[key] - before
+            launches = t["launches"]
             assert launches > 0, f"{case.name} did not launch its kernel"
             name = case.name.replace(", fine chunk", "") \
                 .replace(", U=12288 probe inputs", "")
@@ -727,6 +731,11 @@ def phase_probes(device):
                 line += f"; {case.nbytes / t['ms'] / 1e9:.3f} TB/s"
             if case.flops and t["ms"] > 0:
                 line += f", {case.flops / t['ms'] / 1e9:.1f} TFLOP/s"
+            line += (f"; a call: device {t['device_us']:.2f} us, host "
+                     f"{t['host_us']:.2f} us")
+            if t["library_ms"] is not None:
+                line += (f" (library device {t['library_device_us']:.2f} us,"
+                         f" host {t['library_host_us']:.2f} us)")
             print(line)
             if case.info.get("inputs") == "fine chunk":
                 entries[name].update(fine_chunk_ms=t["ms"],
@@ -738,14 +747,9 @@ def phase_probes(device):
                 "replaces": case.replaces, "launches": launches,
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"]}
-    for name in constructs.ROSTERS:
-        host_us, device_us = constructs.launch_cost(name, device)
-        entries[f"D launch roster {name}"].update(host_us=host_us,
-                                                  device_us=device_us)
-        print(f"  launch cost, roster {name} {constructs.ROSTERS[name]}: host "
-              f"{host_us:.2f} us a call through the ctypes wrapper, device "
-              f"{device_us:.2f} us a launch")
+                "library_ms": t["library_ms"],
+                **{k: t[k] for k in ("device_us", "library_device_us",
+                                     "host_us", "library_host_us")}}
     print(f"probe phase done in {time.perf_counter() - t0:.1f} s")
     return list(entries.values())
 

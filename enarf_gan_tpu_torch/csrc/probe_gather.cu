@@ -22,13 +22,44 @@
 //   consecutive threads on consecutive units, so a warp reads 512
 //   contiguous bytes of one row (a 4 KB row takes 8 warps; narrow rows put
 //   several rows into one warp). Grid-stride over the output.
-// A2 thread-serial loop: one thread copies its rows one after another, unit
-//   by unit (the counterpart of a loop of dynamic slices).
-// A3 per-lane gather: out[i, l] = tab[idx[i, l], l] over a (TH, L) table,
-//   from shared memory when the table fits in a block's 227 KB (each block
-//   copies it in once) and from global memory above that; also the
-//   sublane-in-tile form out[i, l] = tab[(i / G) * G + idx[i, l], l] and the
-//   lane form out[i, l] = tab[i, idx[i, l]].
+// A2 warp-serial loop: out[i, :] = tab[idx[i], :] again, each warp walking k
+//   rows in turn (the counterpart of kern_dslice's loop of dynamic slices,
+//   which the TPU ran as one program: k = 1024 is one loop for all rows).
+//   The TPU moved a (1, 128) row in one vector operation; here the unit of
+//   the loop is a warp, whose lanes cover the row's 16-byte units (a 512-byte
+//   f32 row: one copy a lane), where one thread copying the rows unit by
+//   unit would run 32,768 dependent loads for 1,024 rows. What bounds
+//   one warp is the rate at which its loads arrive, not their latency: on an
+//   NVIDIA H100 80GB HBM3 at 700 W its loads of 1,024 rows of 512 B from L2
+//   take 39-45 us whether a row is 1, 2 or 4 load instructions and whether 1
+//   or 7 groups of 8 rows are in flight, while one row's load takes 166 ns;
+//   its own stores of the rows take 10 us more on the same path, and 4 warps
+//   of one SM go 3.3 times as fast (tools/warp_rows.py; PERF.md §6).
+//   So the warp copies the rows by cp.async, 16 bytes a lane, into a ring of
+//   shared memory with two groups of 32 loads in flight, and the rows leave
+//   by TMA bulk stores, which the warp only issues.
+// A3 per-lane gather: out[i, l] = tab[idx[i, l], l] over a (TH, L) table; also
+//   the sublane-in-tile form out[i, l] = tab[(i / G) * G + idx[i, l], l] and
+//   the lane form out[i, l] = tab[i, idx[i, l]]. Bound by the bytes of the
+//   index and output streams (6 or 8 bytes an element against 2 or 4 of
+//   output) and, for a table above L1, by the sector traffic of its random 2-
+//   or 4-byte reads. Each thread takes a vector of 4 consecutive lanes of a
+//   row: one 16-byte index load, 4 table reads, one 8- or 16-byte store; a
+//   warp covers a 128-lane row, rows and lane vectors are the two dimensions
+//   of the block and grid (no division an element), and every thread keeps
+//   kLaneRows rows in flight: 64 KB and more of index loads outstanding an SM,
+//   where HBM's latency at 3.35 TB/s needs about 20 KB. The table is read
+//   either through L1 (ld.global.nc) or, for a table that fits on chip, from
+//   shared memory: a block of 1024 threads stages the columns of the lanes it
+//   covers (the whole table when its lanes are all of them and it fits in 227
+//   KB), with the 4 lanes of a thread TX apart in each row (32 for a 128-lane
+//   row), so that a warp's float32 reads fall on 32 distinct banks (bf16: 2
+//   threads a bank). Ragged L (not a multiple of 4, or unaligned pointers)
+//   takes scalar loads and stores; ragged n is masked. A launch-bound size
+//   through L1 (fewer 4-lane vectors than kOneLaneBelow an SM) takes one lane
+//   and one row a thread, so that more warps issue its reads at once and no
+//   thread runs a loop of rows it does not have (4 rows a thread left row 7
+//   of PERF.md §6 slower than the parent's one element a thread).
 // A4 staged ring gather: R rows a block, Q rows in flight through a ring of
 //   shared-memory slots filled by cp.async (16 bytes a thread), each block
 //   reducing its rows to one float32 sum, as dma_kernel reduced its buffer;
@@ -41,11 +72,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSmem = 232448;      // a block's dynamic shared memory, H100
 
 int grid_for(int64_t work, int per_block, int cap) {
   const int64_t g = (work + per_block - 1) / per_block;
@@ -53,10 +84,50 @@ int grid_for(int64_t work, int per_block, int cap) {
 }
 
 int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 132;
+  static int n = 0;                    // read once: a launch is host-bound
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// the most dynamic shared memory a block may ask for, read once
+int max_smem() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return n;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// cp.async of B = 4, 8 or 16 bytes (16: L2 only, .cg; else .ca). The
+// "memory" clobbers keep shared-memory reads of a slot after its wait.
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "n"(B) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------- A1, A2
@@ -74,30 +145,158 @@ row_gather_kernel(const V* __restrict__ tab, const int32_t* __restrict__ idx,
   }
 }
 
+constexpr int kRowGroup = 32;     // A2: units a lane copies a group
+constexpr int kRowStages = 4;     // A2: groups in the ring (see warp_rows)
+constexpr int kIdxChunk = 1024;   // A2: indices staged at once
+
+// A2's shared memory for k rows a warp: the indices staged at once (k up to
+// kIdxChunk, in 128-byte lines), then the ring, of no more groups than
+// those rows fill (slot g % kRowStages is then slot g)
+__host__ __device__ inline int row_idx_bytes(int k) {
+  return ((k < kIdxChunk ? k : kIdxChunk) * 4 + 127) / 128 * 128;
+}
+
 template <typename V>
-__global__ void row_serial_kernel(const V* __restrict__ tab,
-                                  const int32_t* __restrict__ idx,
-                                  V* __restrict__ out, int64_t n, int units,
-                                  int rows_per_thread) {
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  for (int r = 0; r < rows_per_thread; ++r) {
-    const int64_t i = t * rows_per_thread + r;
-    if (i >= n) return;
-    const V* src = tab + (int64_t)idx[i] * units;
-    V* dst = out + i * units;
-    for (int u = 0; u < units; ++u) dst[u] = src[u];
+int row_warp_smem(int k, int units) {
+  const int rows = k < kIdxChunk ? k : kIdxChunk;
+  const int groups = (rows * units + 32 * kRowGroup - 1) / (32 * kRowGroup);
+  return row_idx_bytes(k) +
+         (groups < kRowStages ? groups : kRowStages) * kRowGroup * 32 *
+             (int)sizeof(V);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA bulk store of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from shared to global memory, one bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// One warp a block. The warp's rows are one run of rows * units units
+// (unit e is unit e % units of row e / units), which streams through a
+// ring of kRowStages groups of 32 kRowGroup consecutive units in shared
+// memory: lane l copies units l, l + 32, ... of a group by cp.async, one
+// commit group a group, kRowStages - 2 groups ahead of the one it waits
+// for. A group then leaves in one TMA bulk store issued by lane 0 (kBulk:
+// every group starts and ends on 16 bytes), else by each lane's stores of
+// the units it copied (rows whose run ends off 16 bytes). The bulk stores
+// keep the rows off the path by which the warp's loads arrive (see A2
+// above). The ring's fourth slot is the one a bulk store is still reading.
+template <typename V, bool kBulk>
+__device__ __forceinline__ void warp_rows(const V* __restrict__ tab,
+                                          const int* sidx, V* ring,
+                                          V* __restrict__ dst, int rows,
+                                          int units, int lane) {
+  constexpr int U = kRowGroup, S = kRowStages, GU = 32 * U;
+  const int total = rows * units;
+  const int groups = (total + GU - 1) / GU;
+  // the lane's next unit to copy as (row, col), stepped by 32 units
+  const int q = 32 / units, rem = 32 % units;
+  int row = lane / units, col = lane % units;
+  auto issue = [&](int g) {                  // group g into its slot
+    if (g < groups) {
+      V* slot = ring + (g % S) * GU + lane;
+      const int e0 = g * GU + lane;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (e0 + u * 32 < total)
+          cp_async<sizeof(V)>(slot + u * 32,
+                              tab + (int64_t)sidx[row] * units + col);
+        row += q;
+        col += rem;
+        if (col >= units) {
+          col -= units;
+          ++row;
+        }
+      }
+    }
+    cp_async_commit();                       // empty past the end
+  };
+#pragma unroll
+  for (int g = 0; g < S - 2; ++g) issue(g);
+  for (int g = 0; g < groups; ++g) {
+    if (kBulk) {                             // group g - 2 has left its slot
+      if (lane == 0) bulk_wait_read<1>();
+      __syncwarp();
+    }
+    issue(g + S - 2);
+    cp_async_wait<S - 2>();                  // group g has landed
+    const int e0 = g * GU;
+    const V* slot = ring + (g % S) * GU;
+    if (kBulk) {
+      fence_proxy_async();                   // the copies, seen by the TMA
+      __syncwarp();
+      if (lane == 0)
+        bulk_store(dst + e0, slot, min(GU, total - e0) * (int)sizeof(V));
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * 32 + lane;
+        if (e < total) dst[e] = slot[u * 32 + lane];
+      }
+    }
   }
+  if (kBulk && lane == 0) bulk_wait_read<0>();   // the ring is free again
+  cp_async_wait<0>();
+}
+
+template <typename V, bool kBulk>
+__global__ void __launch_bounds__(32)
+row_warp_kernel(const V* __restrict__ tab, const int32_t* __restrict__ idx,
+                V* __restrict__ out, int n, int units, int k) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int* sidx = reinterpret_cast<int*>(smem_raw);
+  V* ring = reinterpret_cast<V*>(smem_raw + row_idx_bytes(k));
+  const int lane = threadIdx.x;
+  const int64_t r0 = (int64_t)blockIdx.x * k;
+  const int rows = (int)min((int64_t)k, (int64_t)n - r0);
+  for (int c0 = 0; c0 < rows; c0 += kIdxChunk) {
+    const int cr = min(kIdxChunk, rows - c0);
+    for (int r = lane; r < cr; r += 32) sidx[r] = __ldg(idx + r0 + c0 + r);
+    __syncwarp();
+    warp_rows<V, kBulk>(tab, sidx, ring, out + (r0 + c0) * units, cr, units,
+                        lane);
+    __syncwarp();                              // sidx is read by all lanes
+  }
+}
+
+// the largest dynamic shared memory for `kern`, asked for once
+template <typename K>
+int opt_in_smem(K kern, bool& done) {
+  if (done) return 0;
+  const int err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem());
+  done = err == 0;
+  return err;
 }
 
 template <typename V>
 int launch_rows(const void* tab, const void* idx, void* out, int64_t n,
-                int row_bytes, int rows_per_thread, cudaStream_t st) {
+                int row_bytes, int rows_per_warp, cudaStream_t st) {
   const int units = row_bytes / (int)sizeof(V);
-  if (rows_per_thread > 0) {
-    const int64_t threads = (n + rows_per_thread - 1) / rows_per_thread;
-    row_serial_kernel<V><<<grid_for(threads, 32, 1 << 30), 32, 0, st>>>(
-        (const V*)tab, (const int32_t*)idx, (V*)out, n, units,
-        rows_per_thread);
+  if (rows_per_warp > 0) {
+    const int grid = (int)((n + rows_per_warp - 1) / rows_per_warp);
+    // bulk stores when every warp's rows and chunks start on 16 bytes
+    const bool bulk = (int64_t)rows_per_warp * row_bytes % 16 == 0 &&
+                      n * row_bytes % 16 == 0;
+    static bool opted[2] = {false, false};
+    auto* kern = bulk ? row_warp_kernel<V, true> : row_warp_kernel<V, false>;
+    const int err = opt_in_smem(kern, opted[bulk]);
+    if (err) return err;
+    kern<<<grid, 32, row_warp_smem<V>(rows_per_warp, units), st>>>(
+        (const V*)tab, (const int32_t*)idx, (V*)out, (int)n, units,
+        rows_per_warp);
   } else {
     row_gather_kernel<V><<<grid_for(n * units, kThreads, sm_count() * 16),
                            kThreads, 0, st>>>(
@@ -107,98 +306,201 @@ int launch_rows(const void* tab, const void* idx, void* out, int64_t n,
 }
 
 int rows_entry(const void* tab, const void* idx, void* out, int n,
-               int row_bytes, int rows_per_thread, void* stream) {
+               int row_bytes, int rows_per_warp, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0 || row_bytes <= 0 || row_bytes % 4) return (int)cudaErrorInvalidValue;
   if (row_bytes % 16 == 0)
-    return launch_rows<uint4>(tab, idx, out, n, row_bytes, rows_per_thread, st);
+    return launch_rows<uint4>(tab, idx, out, n, row_bytes, rows_per_warp, st);
   if (row_bytes % 8 == 0)
-    return launch_rows<uint2>(tab, idx, out, n, row_bytes, rows_per_thread, st);
-  return launch_rows<uint32_t>(tab, idx, out, n, row_bytes, rows_per_thread,
+    return launch_rows<uint2>(tab, idx, out, n, row_bytes, rows_per_warp, st);
+  return launch_rows<uint32_t>(tab, idx, out, n, row_bytes, rows_per_warp,
                                st);
 }
 
 // -------------------------------------------------------------------- A3
 
-template <typename T, bool kShared>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kLaneRows = 4;          // rows in flight, 4 lanes a thread
+constexpr int kLaneThreads = 256;     // a block reading the table through L1
+constexpr int kStageThreads = 1024;   // a block staging it in shared memory
+// through L1, fewer 4-lane vectors than this many an SM take one lane a
+// thread (launch-bound sizes: more warps issue their reads at once)
+constexpr int kOneLaneBelow = 256;
+
+template <typename T> struct Vec4;                  // 4 elements of T
+template <> struct Vec4<uint32_t> { using type = uint4; };
+template <> struct Vec4<uint16_t> { using type = uint2; };
+
+// mode 0: tab (TH, L), out[i, l] = tab[idx[i, l], l]; 1: tab (n, L), rows in
+// groups of G; 2: tab (n, L), out[i, l] = tab[i, idx[i, l]]. kW lanes a
+// thread (4, or 1 for a launch-bound size). kVec (kW 4): L % 4 == 0 and
+// 16-byte aligned pointers. kStage (mode 0, kW 4): the block's columns of
+// the table in shared memory, element (j, 4 x + e) of the block's lanes at
+// s[j * 4 TX + e * TX + x].
+template <typename T, int kMode, bool kVec, bool kStage, int kW>
+__global__ void __launch_bounds__(kStage ? kStageThreads : kLaneThreads)
 lane_gather_kernel(const T* __restrict__ tab, const int32_t* __restrict__ idx,
-                   T* __restrict__ out, int64_t n, int L, int TH, int mode,
-                   int G) {
+                   T* __restrict__ out, int n, int L, int TH, int G) {
+  static_assert(kW == 4 || (kW == 1 && !kVec && !kStage), "lanes a thread");
+  constexpr int R = kW == 4 ? kLaneRows : 1;  // rows a thread has in flight
+  using V = typename Vec4<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const T* src = tab;
-  if (kShared) {                       // mode 0 only: the whole (TH, L) table
+  const int x = threadIdx.x, TX = blockDim.x;
+  const int l0 = kW * (blockIdx.x * TX + x);  // this thread's first lane
+  const T* src = tab + l0;                    // element (j, l0 + e) at
+  int pitch = L, step = 1;                    //   src[j * pitch + e * step]
+  if (kStage) {
     T* s = reinterpret_cast<T*>(smem_raw);
-    const int64_t m = (int64_t)TH * L;
-    const int64_t vec = m * (int64_t)sizeof(T) / 16;
-    const uint4* g4 = reinterpret_cast<const uint4*>(tab);
-    uint4* s4 = reinterpret_cast<uint4*>(s);
-    for (int64_t k = threadIdx.x; k < vec; k += blockDim.x) s4[k] = g4[k];
-    for (int64_t k = vec * 16 / (int64_t)sizeof(T) + threadIdx.x; k < m;
-         k += blockDim.x)
-      s[k] = tab[k];
+    const int W = 4 * TX;
+    for (int j = threadIdx.y; j < TH; j += blockDim.y) {
+      T w[4];
+      if (kVec && l0 < L) {
+        const V q = __ldg(reinterpret_cast<const V*>(tab + (int64_t)j * L + l0));
+        memcpy(w, &q, sizeof(q));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] = l0 + e < L ? __ldg(tab + (int64_t)j * L + l0 + e) : T(0);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j * W + e * TX + x] = w[e];
+    }
     __syncthreads();
-    src = s;
+    src = s + x;
+    pitch = W;
+    step = TX;
   }
-  const int64_t total = n * L;
-  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-       e < total; e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t i = e / L;
-    const int l = (int)(e - i * L);
-    const int64_t j = __ldg(idx + e);
-    int64_t off;
-    if (mode == 0)
-      off = j * L + l;                       // tab[idx[i, l], l]
-    else if (mode == 1)
-      off = ((i / G) * G + j) * L + l;       // within groups of G rows
-    else
-      off = i * L + j;                       // tab[i, idx[i, l]]
-    out[e] = src[off];
+  if (l0 >= L) return;
+  const int64_t stride = (int64_t)gridDim.y * blockDim.y;
+  for (int64_t i0 = (int64_t)blockIdx.y * blockDim.y + threadIdx.y; i0 < n;
+       i0 += stride * R) {
+    int q[R][kW];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {            // every row's indices first
+      const int64_t i = i0 + u * stride;
+      if (i >= n) continue;
+      const int32_t* p = idx + i * L + l0;
+      if (kVec) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+        q[u][0] = v.x; q[u][1] = v.y; q[u][2] = v.z; q[u][3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < kW; ++e) q[u][e] = l0 + e < L ? __ldg(p + e) : 0;
+      }
+    }
+    T r[R][kW];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {            // then every table read
+      const int64_t i = i0 + u * stride;
+      if (i >= n) continue;
+#pragma unroll
+      for (int e = 0; e < kW; ++e) {
+        if (!kVec && l0 + e >= L) continue;
+        int off;
+        if (kMode == 0)
+          off = q[u][e] * pitch + e * step;
+        else if (kMode == 1)
+          off = ((int)(i / G) * G + q[u][e]) * L + e;
+        else
+          off = (int)i * L + q[u][e] - l0;
+        r[u][e] = kStage ? src[off] : __ldg(src + off);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const int64_t i = i0 + u * stride;
+      if (i >= n) continue;
+      T* o = out + i * L + l0;
+      if (kVec) {
+        V v;
+        memcpy(&v, r[u], sizeof(v));
+        *reinterpret_cast<V*>(o) = v;
+      } else {
+#pragma unroll
+        for (int e = 0; e < kW; ++e)
+          if (l0 + e < L) o[e] = r[u][e];
+      }
+    }
   }
 }
 
-template <typename T>
-int launch_lanes(const void* tab, const void* idx, void* out, int64_t n, int L,
-                 int TH, int mode, int G, int use_smem, cudaStream_t st) {
-  const int64_t total = n * L;
-  if (use_smem) {
-    const size_t smem = (size_t)TH * L * sizeof(T);
-    if (mode != 0 || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          lane_gather_kernel<T, true>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    const int per_sm = (int)(kMaxSmem / (smem > 0 ? smem : 1));
-    lane_gather_kernel<T, true><<<grid_for(total, kThreads,
-                                           sm_count() * (per_sm < 1 ? 1 : per_sm)),
-                                  kThreads, smem, st>>>(
-        (const T*)tab, (const int32_t*)idx, (T*)out, n, L, TH, mode, G);
-  } else {
-    lane_gather_kernel<T, false><<<grid_for(total, kThreads, sm_count() * 16),
-                                   kThreads, 0, st>>>(
-        (const T*)tab, (const int32_t*)idx, (T*)out, n, L, TH, mode, G);
+// The lane vectors (of kW lanes) a block covers: the whole row up to 32.
+int lane_tx(int L, int kW = 4) {
+  const int vl = (L + kW - 1) / kW;
+  int tx = 1;
+  while (tx < vl && tx < 32) tx *= 2;
+  return tx;
+}
+
+// stage_blocks: the staging blocks the card holds at once (the wrapper's
+// reading of the card's shared memory, gather.py::_stage)
+template <typename T, int kMode, bool kVec, bool kStage, int kW = 4>
+int launch_lanes(const T* tab, const int32_t* idx, T* out, int n, int L,
+                 int TH, int G, int tx, int stage_blocks, cudaStream_t st) {
+  const int gx = (L + kW * tx - 1) / (kW * tx);
+  int ty = (kStage ? kStageThreads : kLaneThreads) / tx;
+  // through L1, a small n takes fewer rows a block (down to a warp), so
+  // that its blocks still cover the SMs
+  while (!kStage && ty > 1 && tx * (ty / 2) >= 32 &&
+         ((int64_t)n + ty - 1) / ty * gx < sm_count())
+    ty /= 2;
+  const dim3 block(tx, ty);
+  size_t smem = 0;
+  int resident = sm_count() * (2048 / (tx * ty));
+  if (kStage) {
+    smem = (size_t)TH * 4 * tx * sizeof(T);
+    static bool opted = false;               // once an instantiation
+    const int err = opt_in_smem(
+        lane_gather_kernel<T, kMode, kVec, kStage, kW>, opted);
+    if (err) return err;
+    resident = stage_blocks;
   }
+  // a row a thread-row when that fills no more than the card (a small n
+  // spreads over more SMs), else the card full, each thread a loop of rows
+  const int64_t rows_needed = ((int64_t)n + block.y - 1) / block.y;
+  const int cap = (resident + gx - 1) / gx;
+  const int gy = (int)(rows_needed < cap ? rows_needed : cap);
+  lane_gather_kernel<T, kMode, kVec, kStage, kW>
+      <<<dim3(gx, gy < 1 ? 1 : gy), block, smem, st>>>(tab, idx, out, n, L,
+                                                       TH, G);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int lanes_entry(const void* tab_, const void* idx_, void* out_, int n, int L,
+                int TH, int mode, int G, int stage_tx, int stage_blocks,
+                cudaStream_t st) {
+  const T* tab = (const T*)tab_;
+  const int32_t* idx = (const int32_t*)idx_;
+  T* out = (T*)out_;
+  const bool vec = L % 4 == 0 && ((uintptr_t)tab_ % 16 | (uintptr_t)idx_ % 16 |
+                                  (uintptr_t)out_ % 16) == 0;
+  if (stage_tx > 0) {
+    if (mode != 0 || stage_tx > lane_tx(L) || (stage_tx & (stage_tx - 1)) ||
+        stage_blocks <= 0 ||
+        (size_t)TH * 4 * stage_tx * sizeof(T) > (size_t)max_smem())
+      return (int)cudaErrorInvalidValue;
+    return vec ? launch_lanes<T, 0, true, true>(tab, idx, out, n, L, TH, G,
+                                                stage_tx, stage_blocks, st)
+               : launch_lanes<T, 0, false, true>(tab, idx, out, n, L, TH, G,
+                                                 stage_tx, stage_blocks, st);
+  }
+  const bool one = (int64_t)n * ((L + 3) / 4) <
+                   (int64_t)sm_count() * kOneLaneBelow;
+  const int tx = lane_tx(L, one ? 1 : 4);
+#define LANES_MODE(M)                                                       \
+  return one ? launch_lanes<T, M, false, false, 1>(tab, idx, out, n, L, TH, \
+                                                   G, tx, 0, st)            \
+       : vec ? launch_lanes<T, M, true, false>(tab, idx, out, n, L, TH, G,  \
+                                               tx, 0, st)                   \
+             : launch_lanes<T, M, false, false>(tab, idx, out, n, L, TH, G, \
+                                                tx, 0, st)
+  if (mode == 0) LANES_MODE(0);
+  if (mode == 1) LANES_MODE(1);
+  LANES_MODE(2);
+#undef LANES_MODE
+}
+
 // -------------------------------------------------------------------- A4
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float sum8_bf16(uint4 v) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -239,7 +541,7 @@ ring_gather_kernel(const uint4* __restrict__ tab,
     const uint4* src = tab + (int64_t)__ldg(idx + base + r) * chunks;
     uint4* dst = ring + (r % kQ) * chunks;
     for (int k = threadIdx.x; k < chunks; k += blockDim.x)
-      cp_async16(dst + k, src + k);
+      cp_async<16>(dst + k, src + k);
   };
   for (int r = 0; r < kQ - 1; ++r) {
     if (r < R) fetch_row(r);
@@ -277,7 +579,7 @@ template <int kQ>
 int launch_ring(const void* tab, const void* idx, void* out, int n_blocks,
                 int R, int chunks, cudaStream_t st) {
   const size_t smem = (size_t)kQ * chunks * 16;
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)max_smem()) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         ring_gather_kernel<kQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -324,31 +626,35 @@ extern "C" int probe_row_gather(const void* tab, const void* idx, void* out,
   return rows_entry(tab, idx, out, n, row_bytes, 0, stream);
 }
 
-// A2: the same function, one thread walking rows_per_thread rows in turn.
+// A2: the same function, one warp walking rows_per_warp rows in turn.
 extern "C" int probe_row_serial(const void* tab, const void* idx, void* out,
-                                int n, int row_bytes, int rows_per_thread,
+                                int n, int row_bytes, int rows_per_warp,
                                 void* stream) {
-  if (rows_per_thread <= 0) return (int)cudaErrorInvalidValue;
-  return rows_entry(tab, idx, out, n, row_bytes, rows_per_thread, stream);
+  if (rows_per_warp <= 0) return (int)cudaErrorInvalidValue;
+  return rows_entry(tab, idx, out, n, row_bytes, rows_per_warp, stream);
 }
 
 // A3: out (n, L) from tab with idx (n, L) int32; elem_bytes 2 or 4; mode 0:
-// tab (TH, L), out[i,l] = tab[idx[i,l], l] (use_smem stages the table in
-// shared memory); mode 1: tab (n, L), rows in groups of G; mode 2: tab (n,
-// L), out[i,l] = tab[i, idx[i,l]].
+// tab (TH, L), out[i,l] = tab[idx[i,l], l]; mode 1: tab (n, L), rows in
+// groups of G; mode 2: tab (n, L), out[i,l] = tab[i, idx[i,l]]. stage_tx >
+// 0 (mode 0 only) stages the table's columns in shared memory, stage_tx
+// lane vectors (4 stage_tx lanes) a block, a power of two up to the row's,
+// stage_blocks of them resident on the card at once; 0 reads the table
+// through L1.
 extern "C" int probe_lane_gather(const void* tab, const void* idx, void* out,
                                  int n, int L, int TH, int elem_bytes,
-                                 int mode, int G, int use_smem,
-                                 void* stream) {
+                                 int mode, int G, int stage_tx,
+                                 int stage_blocks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 0 || L <= 0 || mode < 0 || mode > 2 || (mode == 1 && G <= 0))
+  if (n <= 0 || L <= 0 || TH <= 0 || mode < 0 || mode > 2 ||
+      (mode == 1 && G <= 0))
     return (int)cudaErrorInvalidValue;
   if (elem_bytes == 4)
-    return launch_lanes<uint32_t>(tab, idx, out, n, L, TH, mode, G, use_smem,
-                                  st);
+    return lanes_entry<uint32_t>(tab, idx, out, n, L, TH, mode, G, stage_tx,
+                                 stage_blocks, st);
   if (elem_bytes == 2)
-    return launch_lanes<uint16_t>(tab, idx, out, n, L, TH, mode, G, use_smem,
-                                  st);
+    return lanes_entry<uint16_t>(tab, idx, out, n, L, TH, mode, G, stage_tx,
+                                 stage_blocks, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,6 +12,9 @@ and prints one JSON line a measurement:
     python -m enarf_gan_tpu_torch.tools.ablate      # family C
     python -m enarf_gan_tpu_torch.tools.constructs  # family D
     (each with --device cpu: only the plain versions, at small sizes)
+    (and --size, --only REGEX, --against DIR: each case beside another
+    tree's version of it, timing.other_tree)
+    python -m enarf_gan_tpu_torch.tools.warp_rows   # what bounds A2
 
 ``tools/`` file (TPU, Pallas)          counterpart here
 ------------------------------------   -----------------------------------
@@ -28,7 +31,7 @@ bisect_hat_kernel.py:32                constructs.construct (D); bdiag_dot:
                                        mma.gemm (B3)
 bisect_kernel_ops.py:53-135            constructs.construct (D); dot_kshape:
                                        mma.gemm (B3)
-probe_call_structure.py:55             constructs.roster, launch_cost (D)
+probe_call_structure.py:55             constructs.roster, timing.launch_us (D)
 probe_hat_ablate.py:145                ablate.hat_stage (C, kernel 2)
 probe_kernel_dma.py:114 dma_kernel     gather.ring_gather (A4)
 probe_kernel_dma.py:144 relay_kernel   gather.transpose (A5)

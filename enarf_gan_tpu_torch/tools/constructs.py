@@ -5,19 +5,17 @@
 (``CONSTRUCTS``: name -> its tools/ call site) as its own kernel;
 ``construct_plain`` is the ``jnp`` body of the probe written in PyTorch.
 ``roster(name, inputs, outputs)`` launches a trivial kernel with one of
-``tools/probe_call_structure.py``'s argument rosters, and ``launch_cost``
-measures what a launch through the port's ctypes wrappers costs: host
-microseconds a call (``time.perf_counter`` over 1,000 launches, one
-synchronise at the end) and device microseconds a launch (CUDA events
-around 1,000 launches queued behind ``probe_spin``, so that the card runs
-them back to back).
+``tools/probe_call_structure.py``'s argument rosters; what such a launch
+through the port's ctypes wrappers costs the host and the card is
+``timing.launch_us`` of it (every probe's ``measure`` reports both), which
+queues the calls behind ``hold`` (``probe_spin``) so that the card runs
+them back to back.
 
     python -m enarf_gan_tpu_torch.tools.constructs [--device cpu]
 """
 from __future__ import annotations
 
 import ctypes
-import time
 
 import torch
 
@@ -277,31 +275,13 @@ def roster_args(name, device, g):
     return ins, outs
 
 
-def launch_cost(name, device, n=1000, spin_ms=50.0):
-    """(host µs a call through ``roster``, device µs a launch): the host
-    clock over n calls with one synchronise at the end; CUDA events around
-    n launches queued behind a spin kernel of ``spin_ms``, which hold the
-    card until they are all enqueued."""
-    g = torch.Generator(device=device).manual_seed(3)
-    ins, outs = roster_args(name, device, g)
-    roster(name, ins, outs)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        roster(name, ins, outs)
-    torch.cuda.synchronize()
-    host_us = (time.perf_counter() - t0) / n * 1e6
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    err = KERNEL.load("probe_spin")(int(spin_ms * 1e6), _stream(ins[0]))
+def hold(ms):
+    """Hold the current stream of the current device for ``ms``
+    milliseconds (``probe_spin``: one thread reading the global timer)."""
+    err = KERNEL.load("probe_spin")(int(ms * 1e6),
+                                    torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"probe_spin launch failed: CUDA error {err}")
-    start.record()
-    for _ in range(n):
-        roster(name, ins, outs)
-    end.record()
-    torch.cuda.synchronize()
-    return host_us, start.elapsed_time(end) / n * 1e3
 
 
 # ----------------------------------------------------------------- cases

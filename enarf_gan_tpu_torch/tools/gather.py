@@ -6,10 +6,12 @@ with a little arithmetic). Wrappers, their plain twins and the cases:
 
 * ``row_gather`` (A1): out[i] = tab[idx[i]], rows of any width that is a
   multiple of 4 bytes; plain ``tab[idx]``, library ``torch.index_select``.
-  ``row_gather(..., serial_rows=k)`` (A2) walks k rows a thread in turn.
-* ``lane_gather`` (A3): out[i, l] = tab[idx[i, l], l] (``mode`` "table",
-  from shared memory when the table fits), within groups of G rows
-  ("tile"), or tab[i, idx[i, l]] ("lane"); library ``torch.gather``.
+  ``row_gather(..., serial_rows=k)`` (A2) walks k rows a warp in turn.
+* ``lane_gather`` (A3): out[i, l] = tab[idx[i, l], l] (``mode`` "table"),
+  within groups of G rows ("tile"), or tab[i, idx[i, l]] ("lane"); library
+  ``torch.gather``. A table of mode "table" whose columns fit a block's
+  shared memory is staged there when the index is long enough to pay for
+  it (``lane_stage``), else read through L1; the sweep times both.
 * ``ring_gather`` (A4): per block the float32 sum of R bf16 rows, staged
   through a ring of Q shared-memory slots by cp.async (``staged=True``) or
   read directly; no one PyTorch call computes it.
@@ -17,6 +19,7 @@ with a little arithmetic). Wrappers, their plain twins and the cases:
   shared memory; library ``x.transpose(1, 2).contiguous()``.
 
     python -m enarf_gan_tpu_torch.tools.gather [--device cpu]
+        [--size main|sweep] [--only REGEX] [--against DIR]
 
 Index values are not checked (as in any index kernel): they must lie in
 the table.
@@ -24,6 +27,7 @@ the table.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,16 +40,21 @@ KEYS = ("row", "serial", "lane", "lane_smem", "ring", "direct", "transpose")
 KERNEL = KernelLibrary(
     "probe_gather", "probe_row_gather", [_P, _P, _P, _I, _I, _P], keys=KEYS,
     symbols={"probe_row_serial": [_P, _P, _P, _I, _I, _I, _P],
-             "probe_lane_gather": [_P, _P, _P] + [_I] * 7 + [_P],
+             "probe_lane_gather": [_P, _P, _P] + [_I] * 8 + [_P],
              "probe_ring_gather": [_P, _P, _P] + [_I] * 5 + [_P],
              "probe_transpose": [_P, _P, _I, _I, _I, _P]})
 SMEM_BYTES = 232448             # a block's shared memory on an H100
+# an H100's SMs, shared memory of an SM and of a block: the card A3's
+# staging is decided for when the table lies on the CPU (no launch)
+H100 = (132, 233472, SMEM_BYTES)
 LANE_MODES = ("table", "tile", "lane")
 RING_DEPTHS = (2, 4, 8, 16)
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream of ``t``'s device, without building
+    a ``torch.cuda.Stream`` (which costs a call microseconds of host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _raise(err, what):
@@ -76,14 +85,14 @@ def row_gather_plain(tab, idx):
 
 def row_gather(tab: torch.Tensor, idx: torch.Tensor, serial_rows: int = 0):
     """out (n, *tab.shape[1:]) = tab[idx]; idx (n,) int32. ``serial_rows``
-    > 0 runs A2, each thread copying that many rows in turn."""
+    > 0 runs A2, each warp copying that many rows in turn."""
     if tab.dim() < 1 or tab.shape[0] == 0:
         raise ValueError(f"tab must have rows, got {tuple(tab.shape)}")
     _check_rows_index(idx)
     if not tab.is_cuda:
         return row_gather_plain(tab, idx)
     _check_cuda(tab, idx)
-    row_bytes = tab[0].numel() * tab.element_size()
+    row_bytes = tab.numel() // tab.shape[0] * tab.element_size()
     n = idx.shape[0]
     if row_bytes % 4 or n >= 2 ** 31 or n * row_bytes // 16 >= 2 ** 40:
         raise ValueError(f"the kernel takes rows of a multiple of 4 bytes, "
@@ -133,8 +142,67 @@ def lane_gather_library(tab, idx_long, mode="table", group=8):
     return torch.gather(tab, 1, idx_long)
 
 
-def lane_gather_uses_smem(tab, mode="table"):
-    return mode == "table" and tab.numel() * tab.element_size() <= SMEM_BYTES
+def _lane_tx(L):
+    """Lane vectors (4 lanes each) a block covers: the row's, up to 32."""
+    tx = 1
+    while tx < (L + 3) // 4 and tx < 32:
+        tx *= 2
+    return tx
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index):
+    """(SMs, shared memory of an SM, the most a block may ask for) of CUDA
+    device ``index``; an H100's for None (a tensor on the CPU)."""
+    if index is None:
+        return H100
+    p = torch.cuda.get_device_properties(index)
+    return (p.multi_processor_count, p.shared_memory_per_multiprocessor,
+            p.shared_memory_per_block_optin)
+
+
+def _stage_of(tab, n, mode):
+    return _stage(*tab.shape, tab.element_size(), n, mode,
+                  _card(tab.get_device() if tab.is_cuda else None))
+
+
+def lane_stage_tx(tab, mode="table"):
+    """Lane vectors a block of the shared-memory design stages: the widest
+    power of two up to the row's, at least 8 when it is not the whole row
+    (a warp's index loads stay whole 128-byte lines), whose columns of the
+    table fit a block's shared memory; 0 where none fits or the mode reads a
+    table of the output's rows."""
+    return _stage_of(tab, 0, mode)[0]
+
+
+def lane_stage(tab, idx, mode="table"):
+    """The lane vectors a block of ``lane_gather`` stages (``lane_stage_tx``),
+    or 0 to read the table through L1: 0 unless the columns fit and each
+    block gathers at least as many rows as it stages (fewer are
+    launch-bound, and staging only adds to them). Where both designs run,
+    staging is the faster on an NVIDIA H100 80GB HBM3 at 700 W (the sweep's
+    ", through L1" cases; PERF.md §6)."""
+    return _stage_of(tab, idx.shape[0], mode)[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _stage(TH, L, es, n, mode, card):
+    """(lane_stage_tx, lane_stage, blocks of the staged design resident at
+    once) of a (TH, L) table of ``es``-byte elements and n index rows on a
+    ``_card`` (cached: a call is host-bound). A staging block has 1024
+    threads, so an SM holds at most 2, and fewer where their columns and
+    the 1 KB the card reserves a block outgrow the SM's shared memory."""
+    sms, sm_smem, block_smem = card
+    if mode != "table":
+        return 0, 0, 0
+    cols = TH * 4 * es
+    tx = _lane_tx(L)
+    while tx > 8 and cols * tx > block_smem:
+        tx //= 2
+    if cols * tx > block_smem:
+        return 0, 0, 0
+    blocks = sms * max(1, min(2, sm_smem // (cols * tx + 1024)))
+    return tx, (tx if n * -(-L // (4 * tx)) >= TH * blocks else 0), blocks
 
 
 def lane_gather(tab: torch.Tensor, idx: torch.Tensor, mode: str = "table",
@@ -156,16 +224,25 @@ def lane_gather(tab: torch.Tensor, idx: torch.Tensor, mode: str = "table",
                          f"group {group}), got {tuple(tab.shape)}")
     if not tab.is_cuda:
         return lane_gather_plain(tab, idx, mode, group)
+    return _lane_launch(tab, idx, mode, group, lane_stage(tab, idx, mode))
+
+
+def _lane_launch(tab, idx, mode, group, stage_tx):
+    """A3 on the card, the table read from shared memory (``stage_tx`` lane
+    vectors a block, see ``lane_stage_tx``) or through L1 (0)."""
     _check_cuda(tab, idx)
+    n, L = idx.shape
     if n >= 2 ** 31 or tab.numel() >= 2 ** 31:
         raise ValueError("shape too large for the kernel")
-    out = torch.empty((n, L), dtype=tab.dtype, device=tab.device)
-    smem = lane_gather_uses_smem(tab, mode)
+    out = tab.new_empty((n, L))
+    if n == 0 or L == 0:
+        return out
+    blocks = _stage_of(tab, n, mode)[2] if stage_tx else 0
     _raise(KERNEL.load("probe_lane_gather")(
         tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, L, tab.shape[0],
-        tab.element_size(), LANE_MODES.index(mode), group, int(smem),
+        tab.element_size(), LANE_MODES.index(mode), group, stage_tx, blocks,
         _stream(tab)), "probe_lane_gather")
-    KERNEL.count("lane_smem" if smem else "lane")
+    KERNEL.count("lane_smem" if stage_tx else "lane")
     return out
 
 
@@ -283,11 +360,14 @@ def row_case(name, replaces, tab, idx, serial_rows=0, info=None):
                 nbytes=2.0 * out_bytes + _nbytes(idx), info=info)
 
 
-def lane_case(name, replaces, tab, idx, mode="table", group=8):
+def lane_case(name, replaces, tab, idx, mode="table", group=8, stage=None):
+    """``stage`` (the lane vectors a block stages, 0 for L1) runs that design
+    in place of the one ``lane_stage`` picks."""
     idx_long = idx.long()
-    smem = lane_gather_uses_smem(tab, mode)
-    return Case(name, replaces, SOURCE,
-                kernel=lambda: lane_gather(tab, idx, mode, group),
+    smem = (lane_stage(tab, idx, mode) if stage is None else stage) > 0
+    kernel = (lambda: lane_gather(tab, idx, mode, group)) if stage is None \
+        else (lambda: _lane_launch(tab, idx, mode, group, stage))
+    return Case(name, replaces, SOURCE, kernel=kernel,
                 plain=lambda: lane_gather_plain(tab, idx, mode, group),
                 library=lambda: lane_gather_library(tab, idx_long, mode, group),
                 counter=(KERNEL, "lane_smem" if smem else "lane"),
@@ -299,7 +379,7 @@ def lane_case(name, replaces, tab, idx, mode="table", group=8):
                 info={"mode": mode, "table": list(tab.shape),
                       "dtype": str(tab.dtype).replace("torch.", ""),
                       "n": idx.shape[0], "memory": "shared" if smem
-                      else "global", "table_bytes": _nbytes(tab)})
+                      else "L1", "table_bytes": _nbytes(tab)})
 
 
 def ring_case(name, replaces, tab, idx, R, Q, staged):
@@ -365,10 +445,12 @@ def cases(device, size="main"):
     for k in ((7, 1024) if small else
               ((1, 8, 64, 1024) if size == "sweep" else (1024,))):
         yield row_case(f"A2 kern_dslice (8192,128) f32, {idx.shape[0]} rows, "
-                       f"{k} a thread", "tools/bench_unitable.py:73", tab, idx,
-                       serial_rows=k, info={"rows_per_thread": k})
-    # A3: bench_gather's per-lane gather by table height (and in bf16,
-    # which fits shared memory up to TH 768)
+                       f"{k} a warp", "tools/bench_unitable.py:73", tab, idx,
+                       serial_rows=k, info={"rows_per_warp": k})
+    # A3: bench_gather's per-lane gather by table height (a block stages
+    # whole 128-lane rows up to TH 454 f32 / 908 bf16, column blocks up to
+    # 1,816 / 3,632; the small size crosses both limits); the sweep also
+    # times the design not picked where the columns fit
     L = 128
     n = 1000 if small else 262144
     ths = ((96, torch.float32), (768, torch.bfloat16), (3000, torch.float32)) \
@@ -381,9 +463,15 @@ def cases(device, size="main"):
         tab = _table(th, L, dt, device, g)
         idx = torch.randint(0, th, (n, L), generator=g, device=device,
                             dtype=torch.int32)
-        yield lane_case(f"A3 dg_kernel TH={th} "
-                        f"{str(dt).replace('torch.', '')}",
-                        "tools/bench_gather.py:155", tab, idx)
+        name = f"A3 dg_kernel TH={th} {str(dt).replace('torch.', '')}"
+        yield lane_case(name, "tools/bench_gather.py:155", tab, idx)
+        tx = lane_stage_tx(tab)
+        if size == "sweep" and tx:
+            other = 0 if lane_stage(tab, idx) else tx
+            yield lane_case(name + (", through L1" if other == 0 else
+                                    ", in shared memory"),
+                            "tools/bench_gather.py:155", tab, idx,
+                            stage=other)
     tab = _table(512, 128, torch.float32, device, g)
     idx = torch.randint(0, 512, (512, 128), generator=g, device=device,
                         dtype=torch.int32)
@@ -450,7 +538,6 @@ def cases(device, size="main"):
              "tools/probe_mosaic_coord_ops.py:69", (nb, 16, 128))):
         yield transpose_case(name, replaces,
                              torch.randn(shape, generator=g, device=device))
-
 
 
 def main(argv=None):

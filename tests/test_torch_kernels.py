@@ -538,6 +538,103 @@ def test_row_gather_ragged_on_card(cuda_device, width, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 1024, 1500])
+def test_row_gather_warp_loop_on_card(cuda_device, k):
+    """A2, one warp walking k rows: bit-equal to the twin at row widths from
+    4 B to 4 KB (rows of fewer and more units than the warp's 32 lanes), a
+    row count that no group of units divides, and more rows a warp than it
+    stages indices at once (1,500); the groups leave by TMA bulk stores
+    where every warp's rows start and end on 16 bytes, else by the lanes'
+    stores (rows of 4, 8 and 12 bytes: 1,997 of them end off 16 bytes)."""
+    from enarf_gan_tpu_torch.tools import gather
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for row_bytes in (4, 8, 12, 16, 48, 512, 528, 2064, 4096):
+        tab = torch.randn((301, row_bytes // 4), generator=g,
+                          device=cuda_device)
+        idx = torch.randint(0, 301, (1997,), generator=g, device=cuda_device,
+                            dtype=torch.int32)
+        before = gather.KERNEL.launches_by["serial"]
+        got = gather.row_gather(tab, idx, serial_rows=k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gather.row_gather_plain(tab, idx)), row_bytes
+        assert gather.KERNEL.launches_by["serial"] == before + 1
+
+
+def _lane_limits(L, dtype):
+    """Table heights just under and just over each width of staging: the
+    whole row's columns, then halves down to 8 lane vectors (32 lanes)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    from enarf_gan_tpu_torch.tools import gather
+    block_smem = gather._card(torch.cuda.current_device())[2]
+    tx, out = gather._lane_tx(L), []
+    while True:
+        top = block_smem // (4 * tx * es)
+        out += [top, top + 1]
+        if tx <= 8:
+            return out
+        tx //= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 3, 128, 130, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_gather_designs_on_card(cuda_device, L, dtype):
+    """A3 in every mode, through L1 and staged in shared memory where the
+    table's columns fit, bit-equal to the twin: ragged L (not a multiple of
+    the 4-lane vector, two column blocks), n = 1001 (no multiple of the
+    rows a thread has in flight), tables just under and over each staging
+    limit."""
+    from enarf_gan_tpu_torch.tools import gather
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    n = 1001
+
+    def check(tab, idx, mode, group=8):
+        ref = gather.lane_gather_plain(tab, idx, mode, group)
+        tx = gather.lane_stage_tx(tab, mode)
+        for stage in {0, tx}:
+            got = gather._lane_launch(tab, idx, mode, group, stage)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (mode, tuple(tab.shape), stage)
+        assert torch.equal(gather.lane_gather(tab, idx, mode, group), ref)
+
+    for th in [97] + _lane_limits(L, dtype):
+        tab = torch.randn((th, L), generator=g, device=cuda_device).to(dtype)
+        check(tab, torch.randint(0, th, (n, L), generator=g,
+                                 device=cuda_device, dtype=torch.int32),
+              "table")
+    tab = torch.randn((1000, L), generator=g, device=cuda_device).to(dtype)
+    check(tab, torch.randint(0, 8, (1000, L), generator=g, device=cuda_device,
+                             dtype=torch.int32), "tile")
+    check(tab, torch.randint(0, L, (1000, L), generator=g, device=cuda_device,
+                             dtype=torch.int32), "lane")
+    # an index that starts off a 16-byte boundary takes the scalar path
+    idx = torch.randint(0, 97, (n * L + 1,), generator=g, device=cuda_device,
+                        dtype=torch.int32)[1:].view(n, L)
+    check(torch.randn((97, L), generator=g, device=cuda_device).to(dtype),
+          idx, "table")
+
+
+@pytest.mark.cuda
+def test_probe_timing_fields_on_card(cuda_device):
+    """measure's host and device µs a call, of the kernel and the library
+    call, are positive and finite at a small case, and its launches leave
+    out the launch-cost calls."""
+    import math
+    from enarf_gan_tpu_torch.tools import gather, timing
+    case = next(c for c in gather.cases(cuda_device, "check")
+                if c.name.startswith("A3"))
+    lib, key = case.counter
+    before = lib.launches_by[key]
+    t = timing.measure(case, budget_ms=2.0)
+    for key_ in ("device_us", "host_us", "library_device_us",
+                 "library_host_us"):
+        assert 0 < t[key_] < 1e5 and math.isfinite(t[key_]), (key_, t[key_])
+    # the launches of the timing in ms (a warm-up, one, then 2 x reps), not
+    # those of the launch-cost calls
+    assert 6 <= t["launches"] < lib.launches_by[key] - before
+
+
+@pytest.mark.cuda
 def test_probe_wrappers_refuse_on_card(cuda_device):
     from enarf_gan_tpu_torch.tools import constructs, gather, mma
     dev = cuda_device
@@ -583,7 +680,21 @@ def test_probe_gemm_and_onehot_ragged_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_launch_cost_on_card(cuda_device):
-    from enarf_gan_tpu_torch.tools import constructs
-    host_us, device_us = constructs.launch_cost("7in_2out", cuda_device, n=50,
-                                                spin_ms=5.0)
+    from enarf_gan_tpu_torch.tools import constructs, timing
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    ins, outs = constructs.roster_args("7in_2out", cuda_device, g)
+    host_us, device_us = timing.launch_us(
+        lambda: constructs.roster("7in_2out", ins, outs), spin_ms=5.0)
     assert 0 < device_us < 1e3 and 0 < host_us < 1e4
+
+
+@pytest.mark.cuda
+def test_warp_rows_study_on_card(cuda_device):
+    """tools/warp_rows.py: its copying kernels (the ring of lane stores in
+    1-8 warps, TMA bulk loads) equal tab[idx], and each part of A2's loop
+    gives a positive time."""
+    from enarf_gan_tpu_torch.tools import warp_rows
+    out = warp_rows.main()
+    assert set(out["device_us"]) >= set(warp_rows.PARTS)
+    assert all(0 < t < 1e4 for t in out["device_us"].values())
+    assert 0 < out["chase_ns_a_row"] < 1e4

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from enarf_gan_tpu.ops import tilewin as jtw
 from enarf_gan_tpu.ops import tilewin_kernel as jtk
@@ -105,6 +106,102 @@ def test_lane_gather_plain_matches_take_along_axis(case):
     np.testing.assert_array_equal(lib.float().numpy(), ref)
     np.testing.assert_array_equal(
         gather.lane_gather(ttab, tidx, mode, 8).float().numpy(), ref)
+
+
+def _pallas_rows(kind, tab, idx):
+    """tools/bench_unitable.py:48-55 kern_take / kern_dslice (closures there,
+    written out here; kern_dslice's loop runs over this index's rows) in
+    interpret mode, with the probe's SMEM index and VMEM table specs."""
+    n = idx.shape[0]
+
+    def kern_take(idx_ref, tab_ref, out_ref):
+        out_ref[:] = jnp.take(tab_ref[:], idx_ref[:], axis=0)
+
+    def kern_dslice(idx_ref, tab_ref, out_ref):
+        def body(i, _):
+            out_ref[i, :] = tab_ref[pl.ds(idx_ref[i], 1), :][0]
+            return 0
+        jax.lax.fori_loop(0, n, body, 0)
+
+    return np.asarray(pl.pallas_call(
+        kern_take if kind == "take" else kern_dslice,
+        out_shape=jax.ShapeDtypeStruct((n, tab.shape[1]), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
+                  pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True)(jnp.asarray(idx), jnp.asarray(tab)))
+
+
+@pytest.mark.parametrize("kind", ["take", "dslice"])
+def test_row_gather_plain_matches_pallas_interpret(kind):
+    """A1 (kern_take) and A2 (kern_dslice, a loop of dynamic slices) compute
+    one function: the twin and the wrapper on the CPU are bit-equal to the
+    TPU kernel at a (64, 128) f32 table and 32 indices."""
+    rng = np.random.default_rng(6)
+    tab = rng.normal(size=(64, 128)).astype(np.float32)
+    idx = rng.integers(0, 64, 32).astype(np.int32)
+    ref = _pallas_rows(kind, tab, idx)
+    np.testing.assert_array_equal(gather.row_gather_plain(T(tab), T(idx)).numpy(),
+                                  ref)
+    np.testing.assert_array_equal(
+        gather.row_gather(T(tab), T(idx),
+                          serial_rows=1024 if kind == "dslice" else 0).numpy(),
+        ref)
+
+
+def _pallas_dg(tab, idx, n_blk):
+    """tools/bench_gather.py:147-152 dg_kernel (a closure there) in
+    interpret mode, with the probe's grid and VMEM block specs."""
+    th, L = tab.shape
+
+    def dg_kernel(tab_ref, idx_ref, out_ref):
+        # out[i, l] = tab[idx[i, l], l]
+        out_ref[:] = jnp.take_along_axis(
+            jnp.pad(tab_ref[:], ((0, n_blk - th), (0, 0)))
+            if th < n_blk else tab_ref[:],
+            idx_ref[:], axis=0)[:n_blk]
+
+    n_blocks = idx.shape[0] // n_blk
+    return np.asarray(pl.pallas_call(
+        dg_kernel, grid=(n_blocks,),
+        in_specs=[pl.BlockSpec((th, L), lambda i: (0, 0),
+                               memory_space=pltpu.VMEM),
+                  pl.BlockSpec((n_blk, L), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((n_blk, L), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((idx.shape[0], L), jnp.float32),
+        interpret=True)(jnp.asarray(tab), jnp.asarray(idx)))
+
+
+def test_lane_gather_plain_matches_dg_kernel_interpret():
+    """A3's twin and the wrapper on the CPU are bit-equal to the TPU's
+    per-lane gather at a (96, 128) f32 table and a (256, 128) index (two
+    grid steps of 128 rows; the table padded to the block as the probe
+    pads it)."""
+    rng = np.random.default_rng(7)
+    tab = rng.normal(size=(96, 128)).astype(np.float32)
+    idx = rng.integers(0, 96, (256, 128)).astype(np.int32)
+    ref = _pallas_dg(tab, idx, 128)
+    np.testing.assert_array_equal(ref, np.take_along_axis(tab, idx, 0))
+    np.testing.assert_array_equal(
+        gather.lane_gather_plain(T(tab), T(idx)).numpy(), ref)
+    np.testing.assert_array_equal(gather.lane_gather(T(tab), T(idx)).numpy(),
+                                  ref)
+
+
+def test_lane_stage_width_fits_shared_memory():
+    """The shared-memory design's columns a block: the whole 128-lane row up
+    to 227 KB (TH 454 f32, 908 bf16), then halves down to 32 lanes, then
+    none; never for the modes whose table has the output's rows."""
+    def tx(th, dtype=torch.float32, L=128, mode="table"):
+        return gather.lane_stage_tx(torch.empty((th, L), dtype=dtype), mode)
+    assert [tx(th) for th in (384, 454, 455, 908, 909, 1816, 1817)] == \
+        [32, 32, 16, 16, 8, 8, 0]
+    assert [tx(th, torch.bfloat16) for th in (768, 908, 909, 3632, 3633)] == \
+        [32, 32, 16, 8, 0]
+    assert tx(14528, L=3) == 1 and tx(14529, L=3) == 0 and tx(5, L=256) == 32
+    assert tx(8, mode="tile") == 0 and tx(8, mode="lane") == 0
 
 
 def test_ring_gather_plain_matches_numpy():
@@ -613,3 +710,46 @@ def test_module_main_runs_the_plain_versions_on_cpu(module, capsys):
         assert line["device"] == "cpu" and line["finite"], line
         assert line["replaces"].startswith("tools/"), line
         assert "ms" not in line                  # no time from a CPU run
+
+
+def test_against_loads_another_tree_and_pairs_its_cases(tmp_path, capsys):
+    """``--against DIR``: the other tree's module under its own name, its
+    kernel library built from that tree's source under another name, its
+    cases paired with these by name and else by the TPU kernel they
+    replace; ``--only`` keeps the matching cases."""
+    import dataclasses
+    import os
+    import shutil
+    from enarf_gan_tpu_torch.tools import timing
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for rel in ("enarf_gan_tpu_torch/tools/gather.py",
+                "enarf_gan_tpu_torch/csrc/probe_gather.cu"):
+        os.makedirs(tmp_path / os.path.dirname(rel), exist_ok=True)
+        shutil.copy(os.path.join(root, rel), tmp_path / rel)
+    other = timing.other_tree(gather, str(tmp_path))
+    assert other is not gather and other.KERNEL is not gather.KERNEL
+    assert other.KERNEL.name == "probe_gather_other"
+    assert other.KERNEL.source == str(
+        tmp_path / "enarf_gan_tpu_torch/csrc/probe_gather.cu")
+    assert other.KERNEL.symbols == gather.KERNEL.symbols
+    cpu = torch.device("cpu")
+    mine = [c for c in gather.cases(cpu, "check") if c.name.startswith("A2")]
+    theirs = [dataclasses.replace(c, name=c.name + " (renamed)")
+              for c in other.cases(cpu, "check") if c.name.startswith("A2")]
+    theirs[0] = dataclasses.replace(theirs[0], name=mine[0].name)
+    pairs = timing.pair_cases(mine, theirs)
+    assert [o.name for _, o in pairs] == [mine[0].name, theirs[1].name]
+    assert timing.pair_cases(mine, theirs[:1])[1][1] is None
+    lines = gather.main(["--device", "cpu", "--only", "^A2 "])
+    assert [x["probe"] for x in lines] == [c.name for c in mine]
+    capsys.readouterr()
+
+
+def test_warp_rows_study_needs_the_card():
+    """tools/warp_rows.py times kernels: without a CUDA device it exits with
+    a message and times nothing."""
+    from enarf_gan_tpu_torch.tools import warp_rows
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="NVIDIA GPU"):
+        warp_rows.main()
