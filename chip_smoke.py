@@ -736,6 +736,17 @@ def phase_probes(device):
             if t["library_ms"] is not None:
                 line += (f" (library device {t['library_device_us']:.2f} us,"
                          f" host {t['library_host_us']:.2f} us)")
+            extra = {k: v for k, v in t.items()
+                     if k.startswith("library_") and k.endswith("_ms")
+                     and k != "library_ms"}
+            line += "".join(f"; {k} {v:.4f}" for k, v in extra.items())
+            if case.info.get("kernel") == "gemm":
+                line += (f"; {case.info['tiles']} tiles, "
+                         f"{case.info['stages']} stages, B "
+                         + ("resident" if case.info["b_resident"]
+                            else "streamed")
+                         + f", B from L2 {case.info['b_l2_bytes'] / 1e9:.4f}"
+                         f" GB")
             print(line)
             if case.info.get("inputs") == "fine chunk":
                 entries[name].update(fine_chunk_ms=t["ms"],
@@ -749,7 +760,8 @@ def phase_probes(device):
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"],
                 **{k: t[k] for k in ("device_us", "library_device_us",
-                                     "host_us", "library_host_us")}}
+                                     "host_us", "library_host_us")},
+                **extra}
     print(f"probe phase done in {time.perf_counter() - t0:.1f} s")
     return list(entries.values())
 

@@ -12,12 +12,13 @@
 // kernels ask what that formulation costs on Hopper's tensor cores, beside a
 // direct gather of the same rows.
 //
-// All three use mma.sync.m16n8k16 bf16 with float32 sums, B fragments loaded
-// by ldmatrix.x4.trans from row-major (k, 128) tiles staged in shared memory
-// by cp.async (rows padded to 136 bf16 so that ldmatrix's 8 rows fall on
-// distinct banks), as kernel 3 does (tilewin_combine_modes.cu). A warp owns
-// 16 rows of the output and all 128 columns: 16 n-tiles, 64 float32 sums a
-// thread. N is 128 throughout (the lanes of a TPU row).
+// B1, B2 and gemm_small_kernel use mma.sync.m16n8k16 bf16 with float32
+// sums, B fragments loaded by ldmatrix.x4.trans from row-major (k, 128)
+// tiles staged in shared memory by cp.async (rows padded to 136 bf16 so
+// that ldmatrix's 8 rows fall on distinct banks), as kernel 3 does
+// (tilewin_combine_modes.cu). A warp owns 16 rows of the output and all 128
+// columns: 16 n-tiles, 64 float32 sums a thread. N is 128 throughout (the
+// lanes of a TPU row).
 //
 // B1 one-hot windowed gather: per sample two local rows loc and weights w;
 //   out[s, :] = sum_k A[s, k] slab[k, :] with A[s, k] = bf16(w0 [k == j0] +
@@ -35,10 +36,43 @@
 // B2 sorted-tile one-hot gather: block of 512 samples, one row each, weight
 //   1, from the 512-row tile that the block's entry in `tile` names.
 // B3 products: C (batch, M, 128) f32 = A (batch, M, K) bf16 @ B (K, 128)
-//   bf16, B shared by the batch (the chain) or one a batch element; A and B
-//   staged 16 deep through a double buffer. Bound: operations at the bf16
-//   tensor rate (989 TFLOP/s), or bytes for the small batched products.
+//   bf16, B shared by the batch (the chain) or one a batch element. At the
+//   chain shapes, (1024, 512, 768), (1024, 512, 256) and (256, 1024, 1024),
+//   the function is bound by bytes: A in once (805 MB at the first) and C
+//   out once (268 MB), 0.3206 / 0.1603 / 0.2004 ms at 3.35 TB/s, against
+//   0.104 ms for the first one's 103 GFLOP at 989 TFLOP/s. The kernel has
+//   to stream A in and C out at HBM's rate; the first design (the
+//   mma.sync kernel that gemm_small_kernel still is) held it at 42-46% of
+//   that on an H100 SXM at 700 W, for three reasons, each answered by
+//   gemm_tma_kernel:
+//   1. every block of 64 rows staged all of B through shared memory: 1.61
+//      GB of L2 reads of B at the first chain, twice A's bytes. Here a
+//      tile is 256 rows, and B is loaded once a block and kept in shared
+//      memory when it fits beside a ring of 4 stages (K <= 256: 64 KB),
+//      else streamed with A, one 16 KB k-tile a stage: B's L2 reads are
+//      then half of A's bytes (0.40 GB at the first chain; at the second,
+//      resident, 132 x 64 KB).
+//   2. A came 16 deep (one 32-byte sector a row) through a double buffer
+//      of cp.async, about 2 KB in flight a block, behind a wait and two
+//      __syncthreads a step; Little's law asks for ~18 KB in flight an SM
+//      (3.35 TB/s x ~0.7 us / 132). Here one producer thread keeps TMA
+//      loads of (256, 64) tiles (32 KB, 128-byte swizzle) in a ring of
+//      4-8 stages with full and empty mbarriers: 128-256 KB of A in flight
+//      an SM, one block an SM, persistent over the tiles, so that the
+//      loads of the next tile run under this one's epilogue.
+//   3. mma.sync m16n8k16 with ldmatrix.trans of B in every warp, at every
+//      step. Here two consumer warpgroups issue wgmma.mma_async m64n128k16
+//      straight from the swizzled tiles (A K-major, B N-major, through
+//      shared-memory descriptors), keep one group in flight and release a
+//      stage after wgmma.wait_group; C leaves through a 16 KB staging box
+//      a warpgroup by TMA stores, 32 columns at a time.
+//   Ragged edges: rows past M and k past K lie outside the tensor maps,
+//   which fill loads with zeros and clip stores. The launch-bound batched
+//   products (M <= 128 rows a walk) keep gemm_small_kernel: wgmma takes 64
+//   rows at a time, and at M = 32 would waste half of each product; the
+//   caller chooses (tools/mma.py::gemm_plan).
 
+#include <cuda.h>               // CUtensorMap (types only: no libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -269,10 +303,15 @@ direct_gather_kernel(const int32_t* __restrict__ loc,
 
 // -------------------------------------------------------------------- B3
 
+// The launch-bound products (bdiag_dot, dot_kshape, dot_batched: M 32-128
+// a batch element, K 16-64, B one a batch element): a warp owns 16 rows
+// and all 128 columns, A and B staged 16 deep through a double buffer by
+// cp.async. wgmma takes 64 rows at a time, so at M = 32 it would waste
+// half of every product; gemm_tma_kernel below takes the rest.
 __global__ void __launch_bounds__(kWarps * 32)
-gemm_kernel(const __nv_bfloat16* __restrict__ A,
-            const __nv_bfloat16* __restrict__ B, float* __restrict__ C, int M,
-            int K, int b_batched) {
+gemm_small_kernel(const __nv_bfloat16* __restrict__ A,
+                  const __nv_bfloat16* __restrict__ B, float* __restrict__ C,
+                  int M, int K, int b_batched) {
   __shared__ __align__(16) __nv_bfloat16 sA[2][kWarps * 16 * kPitchA];
   __shared__ __align__(16) __nv_bfloat16 sB[2][16 * kPitchB];
   const int lane = threadIdx.x & 31;
@@ -319,6 +358,322 @@ gemm_kernel(const __nv_bfloat16* __restrict__ A,
   store_acc(C, b * M + m0 + warp * 16 + (lane >> 2), acc, lane);
 }
 
+// The streaming products: persistent blocks, TMA, wgmma (the note at the
+// top of the file). Shared memory from a 1024-byte boundary: the ring of
+// `stages` stages (a stage: A's (256, 64) tile, 32 KB, then B's (64, 128)
+// k-tile, 16 KB, unless B is resident), B's k-tiles when resident, two
+// 16 KB staging boxes of C (one a consumer warpgroup), the barriers.
+constexpr int kTileM = 256;                  // output rows of a tile
+constexpr int kTileK = 64;                   // k of a TMA tile: 128 B of bf16
+constexpr int kAStage = kTileM * kTileK * 2;           // 32 KB
+constexpr int kBTile = kTileK * kN * 2;                // 16 KB
+constexpr int kBHalf = kBTile / 2;           // one TMA box: 64 columns
+constexpr int kCBox = 32;                    // f32 columns a C store: 128 B
+constexpr int kCStage = 128 * kCBox * 4;               // 16 KB
+constexpr int kMaxStages = 8;
+constexpr int kConsumers = 256;              // two warpgroups, 128 rows each
+constexpr int kGemmThreads = kConsumers + 128;         // + the producer's
+
+constexpr int gemm_smem_bytes(int stages, int resident, int nk) {
+  return 1024 + stages * (kAStage + (resident ? 0 : kBTile)) +
+         (resident ? nk * kBTile : 0) + 2 * kCStage +
+         8 * (2 * kMaxStages + 1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Until the barrier's phase of parity `parity` has completed. A wait of
+// more than 2 s is a fault of the pipeline: trap, which fails the launch,
+// rather than hold the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if ((spin & 1023) == 0) {
+      uint64_t t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      if (spin == 0) t0 = t;
+      else if (t - t0 > 2000000000ull) __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one TMA store of a box from shared memory, one bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"((uint64_t)map), "r"(src), "r"(c0), "r"(c1), "r"(c2) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's shared-memory writes, seen by the TMA (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a),
+               "f"(b) : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor, 128-byte swizzle; the offsets
+// in 16-byte units
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
+         ((uint64_t)sbo << 32) | (1ull << 62);
+}
+
+// d (64 x 128, f32) += A (64 x 16, K-major) B (16 x 128, N-major), both
+// from shared memory; d = A B when scale_d is 0
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// C (walks, rows, 128) f32 = A (walks, rows, K) bf16 @ B (K, 128) (shared
+// by the walks) or (walks, K, 128) bf16; a tile is 256 rows of one walk.
+// Warpgroups 0 and 1 multiply (rows 0-127 and 128-255 of a tile, two
+// m64n128k16 a 16-deep k step each); warpgroup 2's first thread issues
+// the TMA loads. kResB: B, shared, loaded once into shared memory.
+template <bool kResB>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b,
+                const __grid_constant__ CUtensorMap map_c, int rows,
+                int walks, int nk, int stages, int b_batched) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int stage_bytes = kAStage + (kResB ? 0 : kBTile);
+  uint8_t* b_res = ring + stages * stage_bytes;
+  uint8_t* c_stage = b_res + (kResB ? nk * kBTile : 0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(c_stage + 2 * kCStage);
+  const uint32_t full0 = smem_u32(bars);               // full[s]: +8 s
+  const uint32_t empty0 = smem_u32(bars + kMaxStages);
+  const uint32_t b_full = smem_u32(bars + 2 * kMaxStages);
+  const int tiles_per_walk = (rows + kTileM - 1) / kTileM;
+  const int n_tiles = walks * tiles_per_walk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);   // a consumer warp each
+    }
+    mbar_init(b_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != kConsumers) return;
+    if (kResB) {
+      mbar_expect_tx(b_full, nk * kBTile);
+      for (int kt = 0; kt < nk; ++kt) {
+        const uint32_t dst = smem_u32(b_res + kt * kBTile);
+        tma_load_3d(dst, &map_b, b_full, 0, kt * kTileK, 0);
+        tma_load_3d(dst + kBHalf, &map_b, b_full, 64, kt * kTileK, 0);
+      }
+    }
+    int s = 0;
+    uint32_t ph = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int w = tile / tiles_per_walk;
+      const int m0 = (tile % tiles_per_walk) * kTileM;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(empty0 + 8 * s, ph ^ 1);
+        const uint32_t full = full0 + 8 * s;
+        const uint32_t dst = smem_u32(ring + s * stage_bytes);
+        mbar_expect_tx(full, stage_bytes);     // out-of-bounds fill counts
+        tma_load_3d(dst, &map_a, full, kt * kTileK, m0, w);
+        if (!kResB) {
+          const int wb = b_batched ? w : 0;
+          tma_load_3d(dst + kAStage, &map_b, full, 0, kt * kTileK, wb);
+          tma_load_3d(dst + kAStage + kBHalf, &map_b, full, 64, kt * kTileK,
+                      wb);
+        }
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x >> 7;          // rows 128 wg .. of a tile
+    const int t = threadIdx.x & 127;
+    const int lane = t & 31;
+    const int row0 = (t >> 5) * 16 + (lane >> 2);   // and + 8, of each m64
+    const int col0 = 2 * (lane & 3);
+    const uint32_t cst = smem_u32(c_stage + wg * kCStage);
+    float acc[2][64];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+    if (kResB) mbar_wait(b_full, 0);
+    int s = 0;
+    uint32_t ph = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int w = tile / tiles_per_walk;
+      const int m0 = (tile % tiles_per_walk) * kTileM;
+      int prev = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(full0 + 8 * s, ph);
+        const uint32_t a_u =
+            smem_u32(ring + s * stage_bytes) + wg * 128 * (kTileK * 2);
+        const uint32_t b_u = kResB ? smem_u32(b_res + kt * kBTile)
+                                   : smem_u32(ring + s * stage_bytes + kAStage);
+        wgmma_fence();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+#pragma unroll
+        for (int kk = 0; kk < kTileK / 16; ++kk) {
+          // B, N-major: 8 k-rows of 128 B a 1024-byte atom (SBO), the
+          // second 64 columns 8 KB on (LBO); 16 k-rows = 2048 B a step
+          const uint64_t db = wgmma_desc(b_u + kk * 2048, kBHalf >> 4, 64);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            // A, K-major: 8 rows of 128 B an atom (SBO); a k step is 32 B
+            wgmma_m64n128k16(acc[h],
+                             wgmma_desc(a_u + h * 64 * 128 + kk * 32, 1, 64),
+                             db, (kt | kk) != 0);
+        }
+        wgmma_commit();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        wgmma_wait<1>();                      // the previous stage is read
+        if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+        prev = s;
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+      // C out through shared memory, 32 columns at a time, by TMA stores
+      // (128-byte swizzle: 16-byte unit c of row r at c ^ (r % 8))
+#pragma unroll
+      for (int q = 0; q < kN / kCBox; ++q) {
+        if (t == 0) bulk_wait_read<0>();      // the box is free again
+        named_bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int jj = 0; jj < kCBox / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = h * 64 + row0 + 8 * e;
+              const int c = jj * 8 + col0;
+              const int j = q * (kCBox / 8) + jj;   // the n8 block
+              st_shared_v2(cst + r * 128 + (((c >> 2) ^ (r & 7)) << 4) +
+                               (c & 3) * 4,
+                           acc[h][4 * j + 2 * e], acc[h][4 * j + 2 * e + 1]);
+            }
+        fence_proxy_async();
+        named_bar_sync(1 + wg, 128);
+        if (t == 0) tma_store_3d(&map_c, cst, q * kCBox, m0 + wg * 128, w);
+      }
+    }
+    if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
 template <int kMode>
 int launch_onehot(const void* loc, const void* w, const void* tile,
                   const void* tab, void* out, int64_t S, int G, int WIN,
@@ -327,6 +682,66 @@ int launch_onehot(const void* loc, const void* w, const void* tile,
                                 st>>>(
       (const int32_t*)loc, (const float*)w, (const int32_t*)tile,
       (const __nv_bfloat16*)tab, (float*)out, G, WIN, n_rows);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------- B3, the host
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime so
+// that this library does not link libcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return (EncodeTiledFn) nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// a (d2, d1, d0) tensor, d0 innermost, read or written in (b1, b0) boxes
+// with the 128-byte swizzle; loads fill what lies outside it with zeros,
+// stores clip to it
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
+                uint32_t b0, uint32_t b1) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * elem_bytes, d0 * d1 * elem_bytes};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode_tiled()(map, type, 3, const_cast<void*>(ptr), dims, strides,
+                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kResB>
+int launch_gemm_tma(const CUtensorMap& ma, const CUtensorMap& mb,
+                    const CUtensorMap& mc, int rows, int walks, int nk,
+                    int stages, int b_batched, int blocks, int smem,
+                    int max_smem, cudaStream_t st) {
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_tma_kernel<kResB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        max_smem);
+    if (err != cudaSuccess) return (int)err;
+    opted = true;
+  }
+  gemm_tma_kernel<kResB><<<blocks, kGemmThreads, smem, st>>>(
+      ma, mb, mc, rows, walks, nk, stages, b_batched);
   return (int)cudaGetLastError();
 }
 
@@ -375,16 +790,64 @@ extern "C" int probe_direct_gather(const void* loc, const void* w,
   return (int)cudaGetLastError();
 }
 
+
 // B3: C (batch, M, 128) f32 = A (batch, M, K) bf16 @ B, B (K, 128) bf16
-// shared (b_batched 0) or (batch, K, 128). M a multiple of 16, K of 16.
+// shared (b_batched 0) or (batch, K, 128); M and K multiples of 16, every
+// pointer on 16 bytes. probe_gemm: the TMA and wgmma kernel, with `stages`
+// ring stages (2-8) and B resident in shared memory (b_resident, B shared
+// only); the plan is the caller's (tools/mma.py::gemm_plan), and a plan
+// that does not fit the card's shared memory is refused.
 extern "C" int probe_gemm(const void* A, const void* B, void* C, int batch,
-                          int M, int K, int b_batched, void* stream) {
+                          int M, int K, int b_batched, int stages,
+                          int b_resident, void* stream) {
+  if (batch <= 0 || M <= 0 || K <= 0 || M % 16 || K % 16 || batch > 65535 ||
+      stages < 2 || stages > kMaxStages || (b_resident && b_batched))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B) |
+       reinterpret_cast<uintptr_t>(C)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const int64_t rows = b_batched ? M : (int64_t)batch * M;
+  if (rows >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
+  const int walks = b_batched ? batch : 1;
+  const int nk = (K + kTileK - 1) / kTileK;
+  const int smem = gemm_smem_bytes(stages, b_resident, nk);
+  int dev = 0, max_smem = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (smem > max_smem) return (int)cudaErrorInvalidValue;
+  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap ma, mb, mc;
+  if (!tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, A, K, rows, walks,
+                  kTileK, kTileM) ||
+      !tensor_map(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, kN, K,
+                  b_batched ? batch : 1, 64, kTileK) ||
+      !tensor_map(&mc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, C, kN, rows, walks,
+                  kCBox, 128))
+    return (int)cudaErrorInvalidValue;
+  const int64_t tiles = walks * ((rows + kTileM - 1) / kTileM);
+  const int blocks = (int)(tiles < sms ? tiles : sms);
+  cudaStream_t st = (cudaStream_t)stream;
+  return b_resident
+             ? launch_gemm_tma<true>(ma, mb, mc, (int)rows, walks, nk, stages,
+                                     b_batched, blocks, smem, max_smem, st)
+             : launch_gemm_tma<false>(ma, mb, mc, (int)rows, walks, nk,
+                                      stages, b_batched, blocks, smem,
+                                      max_smem, st);
+}
+
+// B3 at the launch-bound shapes: the same function by mma.sync, 16 rows a
+// warp (gemm_small_kernel).
+extern "C" int probe_gemm_small(const void* A, const void* B, void* C,
+                                int batch, int M, int K, int b_batched,
+                                void* stream) {
   if (batch <= 0 || M <= 0 || K <= 0 || M % 16 || K % 16 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   int warps = kWarps;
   while (M % (warps * 16)) warps >>= 1;       // 4, 2 or 1 warps a block
   dim3 grid(M / (warps * 16), batch);
-  gemm_kernel<<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
+  gemm_small_kernel<<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)A, (const __nv_bfloat16*)B, (float*)C, M, K,
       b_batched);
   return (int)cudaGetLastError();

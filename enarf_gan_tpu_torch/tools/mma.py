@@ -9,30 +9,41 @@
 * ``tile_gather`` (B2): blocks of 512 samples, one row each from the
   512-row tile the block's ``tile`` entry names.
 * ``gemm`` (B3): (batch, M, K) @ (K, 128) or (batch, K, 128), bf16 in,
-  float32 out; library ``torch.matmul`` (bf16 out).
+  float32 out, by one of two kernels that ``gemm_plan`` chooses by shape:
+  "gemm" (persistent blocks, TMA and wgmma, 256-row tiles) wherever a walk
+  over the rows (all of them for a shared B, one batch element's for a
+  batched B) has more than 128 rows, else "gemm_small" (mma.sync, 16 rows a
+  warp). Library: the float32-out product, ``torch.mm(..., out_dtype=
+  torch.float32)`` (a shared B) or ``torch.bmm`` (batched); the bf16-out
+  ``torch.matmul`` is timed beside it (``library_bf16_out_ms``).
 
 The plain twins compute the same numbers in float32 from the bf16 values
 (the one-hot weights rounded to bf16 as the TPU kernel rounds them).
 
     python -m enarf_gan_tpu_torch.tools.mma [--device cpu]
+        [--size main|sweep] [--only REGEX] [--against DIR]
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from enarf_gan_tpu_torch.cuda_build import KernelLibrary
+from enarf_gan_tpu_torch.tools.gather import H100, SMEM_BYTES
 from enarf_gan_tpu_torch.tools.timing import BF16_FLOPS, Case, run_cli
 
 SOURCE = "enarf_gan_tpu_torch/csrc/probe_mma.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = KernelLibrary(
     "probe_mma", "probe_onehot_gather", [_P] * 5 + [_I] * 5 + [_P],
-    keys=("onehot_static", "onehot_dynamic", "tile", "direct", "gemm"),
+    keys=("onehot_static", "onehot_dynamic", "tile", "direct", "gemm",
+          "gemm_small"),
     symbols={"probe_direct_gather": [_P] * 4 + [_I] * 5 + [_P],
-             "probe_gemm": [_P] * 3 + [_I] * 4 + [_P]})
+             "probe_gemm": [_P] * 3 + [_I] * 6 + [_P],
+             "probe_gemm_small": [_P] * 3 + [_I] * 4 + [_P]})
 N = 128                      # columns of every table and output
 WINDOW_MODES = ("static", "dynamic")
 BASE_ALIGN = 512
@@ -40,7 +51,9 @@ TILE = 512
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream of ``t``'s device, without building
+    a ``torch.cuda.Stream`` (which costs a call microseconds of host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _raise(err, what):
@@ -174,13 +187,83 @@ def tile_gather(tile, loc, tab):
 
 # ------------------------------------------------------------------- B3
 
+GEMM_TILE_ROWS = 256       # output rows of a tile of the TMA/wgmma kernel
+GEMM_TILE_K = 64           # k of a TMA tile: 128 bytes of bf16
+GEMM_MIN_STAGES = 4        # B stays resident only beside this many stages
+GEMM_MAX_STAGES = 8
+SMALL_ROWS = 128           # a walk of at most this many rows: gemm_small
+_A_STAGE = GEMM_TILE_ROWS * GEMM_TILE_K * 2     # bytes of A a stage
+_B_TILE = GEMM_TILE_K * N * 2                   # bytes of a k-tile of B
+_C_STAGING = 2 * 128 * 32 * 4                   # a 16 KB box a warpgroup
+
+
+class GemmPlan(NamedTuple):
+    """How ``gemm`` runs a shape: the kernel ("gemm": TMA and wgmma;
+    "gemm_small": mma.sync), and for "gemm" its ring stages, whether B is
+    resident in shared memory (a shared B whose k-tiles fit beside
+    ``GEMM_MIN_STAGES`` stages) or streamed through the ring with A, the
+    block's shared memory, the 256-row tiles, the bytes of A the ring holds
+    an SM, and the bytes of B the launch reads from L2."""
+    kernel: str
+    stages: int = 0
+    b_resident: bool = False
+    smem_bytes: int = 0
+    tiles: int = 0
+    a_in_flight: int = 0
+    b_l2_bytes: int = 0
+
+
+def gemm_smem_bytes(stages, resident, nk):
+    """A block's dynamic shared memory (``probe_mma.cu::gemm_smem_bytes``):
+    1 KB of alignment, the ring, B's nk k-tiles when resident, C's staging,
+    the barriers."""
+    return (1024 + stages * (_A_STAGE + (0 if resident else _B_TILE))
+            + (nk * _B_TILE if resident else 0) + _C_STAGING
+            + 8 * (2 * GEMM_MAX_STAGES + 1))
+
+
+def gemm_plan(batch, M, K, b_batched):
+    """The ``GemmPlan`` of a product on an H100 (232,448 bytes of shared
+    memory a block, 132 SMs: the blocks that each read a resident B)."""
+    rows = M if b_batched else batch * M       # a walk: one B's rows
+    if rows <= SMALL_ROWS:
+        return GemmPlan("gemm_small")
+    walks = batch if b_batched else 1
+    nk = -(-K // GEMM_TILE_K)
+    tiles = walks * -(-rows // GEMM_TILE_ROWS)
+    resident = not b_batched and \
+        gemm_smem_bytes(GEMM_MIN_STAGES, True, nk) <= SMEM_BYTES
+    stages = min(GEMM_MAX_STAGES,
+                 (SMEM_BYTES - gemm_smem_bytes(0, resident, nk))
+                 // (_A_STAGE + (0 if resident else _B_TILE)))
+    b_reads = min(tiles, H100[0]) if resident else tiles
+    return GemmPlan("gemm", stages, resident,
+                    gemm_smem_bytes(stages, resident, nk), tiles,
+                    stages * _A_STAGE, b_reads * K * N * 2)
+
+
 def gemm_plain(a, b):
     return torch.matmul(a.float(), b.float())
 
 
+def check_gemm_kernel_inputs(a, b):
+    """Raises on what neither of ``gemm``'s kernels takes: M or K not a
+    multiple of 16, more than 65535 batch elements or 2**31 rows, a tensor
+    that does not start on 16 bytes (cp.async and the TMA read 16 bytes at
+    a time)."""
+    batch, M, K = a.shape
+    if M % 16 or K % 16 or batch > 65535 or batch * M >= 2 ** 31:
+        raise ValueError(f"the kernel takes M and K multiples of 16, at most "
+                         f"65535 batch elements and fewer than 2**31 rows, "
+                         f"got {tuple(a.shape)}")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("the kernel takes tensors that start on 16-byte "
+                         "aligned addresses")
+
+
 def gemm(a, b):
     """(batch, M, K) bf16 @ (K, 128) or (batch, K, 128) bf16 -> (batch, M,
-    128) float32."""
+    128) float32, by the kernel ``gemm_plan`` chooses."""
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.dim() != 3 \
             or b.dim() not in (2, 3) or b.shape[-1] != N \
             or b.shape[-2] != a.shape[2] \
@@ -192,15 +275,20 @@ def gemm(a, b):
     if not a.is_cuda:
         return gemm_plain(a, b)
     _check_cuda(a, b)
-    if M % 16 or K % 16 or batch > 65535:
-        raise ValueError(f"the kernel takes M and K multiples of 16 and at "
-                         f"most 65535 batch elements, got {tuple(a.shape)}")
+    check_gemm_kernel_inputs(a, b)
+    batched = b.dim() == 3
+    plan = gemm_plan(batch, M, K, batched)
     out = torch.empty((batch, M, N), dtype=torch.float32, device=a.device)
-    _raise(KERNEL.load("probe_gemm")(a.data_ptr(), b.data_ptr(),
-                                     out.data_ptr(), batch, M, K,
-                                     int(b.dim() == 3), _stream(a)),
-           "probe_gemm")
-    KERNEL.count("gemm")
+    if plan.kernel == "gemm":
+        err = KERNEL.load("probe_gemm")(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, K,
+            int(batched), plan.stages, int(plan.b_resident), _stream(a))
+    else:
+        err = KERNEL.load("probe_gemm_small")(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, K,
+            int(batched), _stream(a))
+    _raise(err, f"probe_{plan.kernel}")
+    KERNEL.count(plan.kernel)
     return out
 
 
@@ -277,16 +365,29 @@ def b3_case(name, replaces, batch, M, K, b_batched, device, g):
     a = torch.randn((batch, M, K), generator=g, device=device).to(torch.bfloat16)
     b = torch.randn(((batch,) if b_batched else ()) + (K, N), generator=g,
                     device=device).to(torch.bfloat16)
+    plan = gemm_plan(batch, M, K, b_batched)
+    if b_batched:
+        library = lambda: torch.bmm(a, b, out_dtype=torch.float32)  # noqa
+    else:
+        library = lambda: torch.mm(  # noqa: E731
+            a.view(-1, K), b, out_dtype=torch.float32).view(batch, M, N)
     return Case(
         name, replaces, SOURCE, kernel=lambda: gemm(a, b),
-        plain=lambda: gemm_plain(a, b), library=lambda: torch.matmul(a, b),
-        counter=(KERNEL, "gemm"),
+        plain=lambda: gemm_plain(a, b), library=library,
+        extra_library={"bf16_out": lambda: torch.matmul(a, b)},
+        counter=(KERNEL, plan.kernel),
         nbytes=_nbytes(a, b) + batch * M * N * 4.0,
         flops=2.0 * batch * M * K * N, rate=BF16_FLOPS,
         # K-long float32 sums of exact bf16 products in another order
         rtol=1e-4, atol=1e-4 * K ** 0.5,
         info={"batch": batch, "M": M, "K": K, "N": N,
-              "b": "per batch element" if b_batched else "shared"})
+              "b": "per batch element" if b_batched else "shared",
+              "kernel": plan.kernel, **({
+                  "stages": plan.stages, "b_resident": plan.b_resident,
+                  "smem_bytes": plan.smem_bytes, "tiles": plan.tiles,
+                  "a_in_flight_bytes": plan.a_in_flight,
+                  "b_l2_bytes": plan.b_l2_bytes}
+                  if plan.kernel == "gemm" else {})})
 
 
 B1_STATIC = ((512, 768), (256, 768), (512, 1536), (1024, 768), (512, 512))
@@ -298,13 +399,24 @@ B3_BATCHED = (("B3 dot_batched (16,128,64) @ (16,64,128)",
                "tools/bisect_kernel_ops.py:95", 128, 32, 16),
               ("B3 bdiag_dot per unit (256,32,16) @ (256,16,128)",
                "tools/bisect_hat_kernel.py:99", 256, 32, 16))
+# shapes across the edges of the TMA kernel's tiles (batch, M, K, batched):
+# M = tile + 16 and tile - 16 against batched Bs (K = 64 + 16, K = 16), M
+# = 16 with a shared B over 3 tiles (resident, K = 2 x 64 + 16), a shared B
+# over 134 tiles (more than an H100's 132 SMs; streamed, K = 5 x 64 + 16),
+# and a walk of 128 rows, the largest that gemm_small takes
+B3_RAGGED = ((3, GEMM_TILE_ROWS + 16, 80, True),
+             (2, GEMM_TILE_ROWS - 16, 16, True),
+             (40, 16, 144, False),
+             (1, 133 * GEMM_TILE_ROWS + 16, 336, False),
+             (8, 16, 32, False))
 
 
 def cases(device, size="main"):
     """B1 at bench_pallas_prims.py's (G, WIN) list (S = 1,179,648) with the
     direct gather beside it, B2 at 8192 blocks, B3 at the chain and batched
-    shapes. "check" shrinks S, blocks and batches; "sweep" adds the direct
-    gather at every B1 shape."""
+    shapes. "check" shrinks S, blocks and batches; "check" and "sweep" add
+    B3 at the ragged shapes; "sweep" adds the direct gather at every B1
+    shape."""
     small = size == "check"
     g = torch.Generator(device=device).manual_seed(1)
     S = 1_179_648 if not small else None
@@ -323,6 +435,12 @@ def cases(device, size="main"):
     for name, replaces, batch, M, K in B3_BATCHED:
         yield b3_case(name, replaces, 3 if small else batch, M, K, True,
                       device, g)
+    if size != "main":
+        for batch, M, K, batched in B3_RAGGED:
+            yield b3_case(f"B3 ragged ({batch},{M},{K}) @ "
+                          f"{'batched' if batched else 'shared'} B",
+                          "tools/bench_pallas_prims.py:105", batch, M, K,
+                          batched, device, g)
 
 
 def main(argv=None):

@@ -52,7 +52,9 @@ L2_BYTES = 50e6                # H100 L2 cache
 class Case:
     """One probe at one size. ``kernel``, ``plain`` and ``library`` take no
     arguments and return a tensor or a tuple of tensors; ``counter`` is
-    (KernelLibrary, key) of the kernel's launch count."""
+    (KernelLibrary, key) of the kernel's launch count. ``extra_library``
+    names more PyTorch calls timed beside the library call (yardsticks of
+    a nearby function, such as a lower-precision output)."""
     name: str
     replaces: str
     source: str
@@ -66,6 +68,7 @@ class Case:
     rtol: float = 0.0
     atol: float = 0.0
     info: dict = dataclasses.field(default_factory=dict)
+    extra_library: dict = dataclasses.field(default_factory=dict)
 
 
 def cuda_time_ms(fn: Callable, reps: int, warmup: int = 1) -> float:
@@ -162,7 +165,8 @@ def measure(case: Case, budget_ms: float = 40.0) -> dict:
     """Times of kernel, plain and library call (ms), each after a warm-up,
     the kernel and plain in turns (plain, kernel, kernel, plain), and the
     case's bound; the host and device µs a call (``launch_us``) of the
-    kernel and the library call. Launches of the kernel go to its count;
+    kernel and the library call; each ``extra_library`` call's ms as
+    ``library_<name>_ms``. Launches of the kernel go to its count;
     ``launches`` are those of the timing in ms (the launch-cost calls
     excluded)."""
     with torch.no_grad():
@@ -181,12 +185,15 @@ def measure(case: Case, budget_ms: float = 40.0) -> dict:
             lib_once = cuda_time_ms(case.library, 1)
             lib_ms = cuda_time_ms(case.library, reps_for(lib_once, budget_ms))
             lib_host_us, lib_device_us = launch_us(case.library, lib_once)
+        extra = {f"library_{k}_ms": cuda_time_ms(
+                     fn, reps_for(cuda_time_ms(fn, 1), budget_ms))
+                 for k, fn in case.extra_library.items()}
     bound_ms, bound_by = bound(case.nbytes, case.flops, case.rate)
     return {"ms": (times[1] + times[2]) / 2, "plain_ms": (times[0] + times[3]) / 2,
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "device_us": device_us, "host_us": host_us,
             "library_device_us": lib_device_us,
-            "library_host_us": lib_host_us, "launches": launches}
+            "library_host_us": lib_host_us, "launches": launches, **extra}
 
 
 def record(case: Case, err: Optional[float], times: Optional[dict],

@@ -654,22 +654,40 @@ def test_probe_wrappers_refuse_on_card(cuda_device):
     a = torch.zeros((2, 16, 24), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="multiples of 16"):
         mma.gemm(a, torch.zeros((24, 128), dtype=torch.bfloat16, device=dev))
+    flat = torch.zeros(2 * 512 * 64 + 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):     # 2 bytes off
+        mma.gemm(flat[1:1 + 2 * 512 * 64].view(2, 512, 64),
+                 torch.zeros((64, 128), dtype=torch.bfloat16, device=dev))
     with pytest.raises(ValueError, match="not the construct's"):
         constructs.construct("cat_sub", torch.zeros((4, 16, 3), device=dev))
 
 
 @pytest.mark.cuda
 def test_probe_gemm_and_onehot_ragged_on_card(cuda_device):
+    """B3 across the edges of both kernels' tiles (the TMA kernel's 256
+    rows and 64-deep k-tiles, resident and streamed B, more tiles than
+    SMs; the mma.sync kernel's 16-row warps), each launch counted under
+    the kernel the plan names, and B1 at ragged windows."""
     from enarf_gan_tpu_torch.tools import mma
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    for batch, M, K, batched in ((3, 48, 32, False), (5, 16, 16, True),
-                                 (2, 96, 80, True)):
+    tile = mma.GEMM_TILE_ROWS
+    shapes = ((3, 48, 32, False), (5, 16, 16, True), (2, 96, 80, True),
+              (2, tile - 16, 64 + 16, True), (1, tile + 16, 16, False),
+              (2, tile + 16, 2 * 64 + 16, True), (30, 16, 64 + 16, False),
+              (1, 16, 16, False), (3, tile, 4 * 64 + 16, False),
+              (4, 144, 3 * 64 + 16, False)) + mma.B3_RAGGED
+    for batch, M, K, batched in shapes:
         a = torch.randn((batch, M, K), generator=g, device=cuda_device) \
             .to(torch.bfloat16)
         b = torch.randn(((batch,) if batched else ()) + (K, 128), generator=g,
                         device=cuda_device).to(torch.bfloat16)
+        kernel = mma.gemm_plan(batch, M, K, batched).kernel
+        before = mma.KERNEL.launches_by[kernel]
         torch.testing.assert_close(mma.gemm(a, b), mma.gemm_plain(a, b),
                                    rtol=1e-4, atol=1e-4 * K ** 0.5)
+        assert mma.KERNEL.launches_by[kernel] == before + 1, (batch, M, K)
+    assert {mma.gemm_plan(b, M, K, bb).kernel
+            for b, M, K, bb in shapes} == {"gemm", "gemm_small"}
     for mode in mma.WINDOW_MODES:
         loc, w, tab = mma.b1_inputs(3 * 192, 192, 320, mode, cuda_device, g)
         ref = mma.onehot_gather_plain(loc, w, tab, 192, 320, mode)

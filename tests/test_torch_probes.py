@@ -347,6 +347,54 @@ def test_mma_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="tile"):
         mma.tile_gather(torch.zeros(2, dtype=torch.int32),
                         torch.zeros(512, dtype=torch.int32), tab)
+    # what the kernels refuse on the card, asked of CPU tensors
+    b = torch.zeros((64, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        mma.check_gemm_kernel_inputs(torch.zeros((2, 24, 64),
+                                                 dtype=torch.bfloat16), b)
+    with pytest.raises(ValueError, match="65535"):
+        mma.check_gemm_kernel_inputs(
+            torch.empty((65536, 0, 64), dtype=torch.bfloat16), b)
+    flat = torch.zeros(2 * 512 * 64 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        mma.check_gemm_kernel_inputs(flat[1:1 + 2 * 512 * 64]
+                                     .view(2, 512, 64), b)
+    mma.check_gemm_kernel_inputs(flat[8:8 + 2 * 512 * 64].view(2, 512, 64),
+                                 b)
+
+
+_B3_SHAPES = ([(n, M, K, False) for n, M, K in mma.B3_CHAINS]
+              + [(b, M, K, True) for _, _, b, M, K in mma.B3_BATCHED]
+              + list(mma.B3_RAGGED))
+
+
+@pytest.mark.parametrize("batch,M,K,batched", _B3_SHAPES)
+def test_gemm_plan_fits_an_h100(batch, M, K, batched):
+    """The TMA kernel's plan at every B3 shape: 4+ ring stages in at most
+    227 KB of shared memory, the layout of ``probe_mma.cu``, at least ~18 KB
+    of A in flight an SM, and B read from L2 once a block (resident) or
+    once a 256-row tile (streamed: half the bytes of A's tiles), which at
+    the first chain is half of A's bytes; the launch-bound batched products
+    (walks of at most 128 rows) go to the mma.sync kernel."""
+    plan = mma.gemm_plan(batch, M, K, batched)
+    rows = M if batched else batch * M
+    assert plan.kernel == ("gemm_small" if rows <= mma.SMALL_ROWS else "gemm")
+    if plan.kernel == "gemm_small":
+        assert (batch, M, K, batched) not in _B3_SHAPES[:3]
+        return
+    nk = -(-K // mma.GEMM_TILE_K)
+    assert 4 <= plan.stages <= mma.GEMM_MAX_STAGES
+    assert plan.smem_bytes == mma.gemm_smem_bytes(plan.stages,
+                                                  plan.b_resident, nk)
+    assert plan.smem_bytes <= 232448
+    assert plan.a_in_flight >= 18 * 1024
+    assert plan.b_resident == (not batched and K <= 256)
+    assert plan.tiles == (batch if batched else 1) * -(-rows // 256)
+    reads = min(plan.tiles, 132) if plan.b_resident else plan.tiles
+    assert plan.b_l2_bytes == reads * K * 128 * 2
+    assert plan.b_l2_bytes <= plan.tiles * 256 * K * 2 / 2
+    if (batch, M, K) == mma.B3_CHAINS[0]:     # 2,048 tiles x 192 KB
+        assert plan.b_l2_bytes == 2048 * 768 * 256 == batch * M * K * 2 // 2
 
 
 # ------------------------------------------------------------------ C
