@@ -747,6 +747,14 @@ def phase_probes(device):
                             else "streamed")
                          + f", B from L2 {case.info['b_l2_bytes'] / 1e9:.4f}"
                          f" GB")
+            elif case.info.get("kernel") == "gemm_small":
+                line += (f"; {case.info['blocks']} blocks of "
+                         f"{case.info['block_rows']} rows x 64 columns in "
+                         f"{case.info['warps']} warps, "
+                         f"{case.info['smem_bytes']} B shared")
+            elif case.info.get("kernel") in ("tile4", "tile"):
+                line += (f"; {case.info['kernel']} kernel, "
+                         f"{case.info['blocks']} blocks")
             print(line)
             if case.info.get("inputs") == "fine chunk":
                 entries[name].update(fine_chunk_ms=t["ms"],

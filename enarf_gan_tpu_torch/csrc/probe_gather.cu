@@ -65,9 +65,29 @@
 //   reducing its rows to one float32 sum, as dma_kernel reduced its buffer;
 //   and the same reduction with direct loads and no staging, to say
 //   whether staging pays.
-// A5 transpose through shared memory: a batch of (R, C) float32 matrices,
-//   each staged in a padded tile (pitch C + 1, so the column reads fall on
-//   distinct banks) and written out as (C, R).
+// A5 transpose: a batch of NB (R, C) float32 matrices written out as (C,
+//   R). Bound by bytes, read once and written once: at the probe shapes,
+//   2,304 matrices of (64, 16) (relay_kernel) or (16, 128) (swapT), 9.4 or
+//   18.9 MB each way, 5.6 or 11.3 us at 3.35 TB/s. The first design (one
+//   4-byte element a thread an iteration, two runtime divisions an element,
+//   a padded shared-memory tile a matrix behind two __syncthreads, the next
+//   matrix loaded only after the last one was written, and a grid of 1,056
+//   blocks that took 2.18 matrices each, so that a third round ran on 192
+//   blocks) took 8.73-9.02 / 15.63-16.33 us a call against 8.07-8.27 /
+//   16.89-17.04 us for transpose().contiguous() on an H100 SXM at 700 W.
+//   At the two probe shapes transpose4_kernel, templated on (R, C) so that
+//   every index is shifts and masks, gives each thread 4 x 4 blocks: four
+//   16-byte loads of 4 rows, the transposition in registers (no shared
+//   memory, no barrier), four 16-byte stores of 4 columns. A warp's 32
+//   blocks are laid out so that each of its loads and stores covers whole
+//   32-byte sectors (8 (C = 16) or 4 (C = 128) runs of 64 or 128 bytes), and
+//   a warp takes two such groups, all 8 loads of a thread issued before its
+//   first store, so that a launch's loads are all in flight at once: 288 /
+//   576 blocks of 256 threads, one wave of the card at 48 registers a
+//   thread (5 blocks an SM). Every other shape takes transpose_kernel, with
+//   runtime R and C: each matrix staged in a padded tile (pitch C + 1, so
+//   the column reads fall on distinct banks). The caller chooses the kernel
+//   and its grid (tools/gather.py::transpose_plan).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -593,6 +613,73 @@ int launch_ring(const void* tab, const void* idx, void* out, int n_blocks,
 
 // -------------------------------------------------------------------- A5
 
+constexpr int kT4Threads = 256;
+constexpr int kT4Groups = 2;        // 32-block groups a warp
+
+// x (NB, kR, kC) -> out (NB, kC, kR), float4 units. A 4 x 4 block v of a
+// matrix: rows 4 g .. 4 g + 3, columns 4 q .. 4 q + 3; within a matrix
+// the blocks run q_lo (QL of them, a warp's 16-byte columns of a row),
+// then g, then q_hi, so that 32 consecutive blocks read QL x 16 bytes of
+// each of 32 / QL rows and write 4 g-runs of (32 / QL) x 16 bytes.
+template <int kR, int kC>
+__global__ void __launch_bounds__(kT4Threads, 5)
+transpose4_kernel(const float4* __restrict__ x, float4* __restrict__ out,
+                  int64_t groups) {
+  constexpr int QL = kC / 4 < 8 ? kC / 4 : 8;
+  constexpr int GR = kR / 4;
+  constexpr int BPM = GR * (kC / 4);        // blocks a matrix
+  constexpr int VPM = kR * kC / 4;          // float4s a matrix
+  static_assert(kR % 4 == 0 && kC % 4 == 0 && (QL * GR) % 32 == 0, "shape");
+  const int lane = threadIdx.x & 31;
+  const int64_t g0 = ((int64_t)blockIdx.x * (kT4Threads / 32) +
+                      (threadIdx.x >> 5)) * kT4Groups;
+  // block p of this thread: matrix m, 4-row group g, 16-byte column q
+  auto at = [&](int p, int64_t& m, int& g, int& q) {
+    const int64_t u = (g0 + p) * 32 + lane;
+    m = u / BPM;
+    const int w = (int)(u % BPM);
+    g = (w / QL) % GR;
+    q = (w / (QL * GR)) * QL + w % QL;
+  };
+  float4 v[kT4Groups][4];
+#pragma unroll
+  for (int p = 0; p < kT4Groups; ++p) {
+    if (g0 + p >= groups) break;
+    int64_t m;
+    int g, q;
+    at(p, m, g, q);
+    const float4* src = x + m * VPM + 4 * g * (kC / 4) + q;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[p][j] = __ldg(src + j * (kC / 4));
+  }
+#pragma unroll
+  for (int p = 0; p < kT4Groups; ++p) {
+    if (g0 + p >= groups) break;
+    int64_t m;
+    int g, q;
+    at(p, m, g, q);
+    float4* o = out + m * VPM + 4 * q * (kR / 4) + g;
+    o[0] = make_float4(v[p][0].x, v[p][1].x, v[p][2].x, v[p][3].x);
+    o[kR / 4] = make_float4(v[p][0].y, v[p][1].y, v[p][2].y, v[p][3].y);
+    o[2 * (kR / 4)] = make_float4(v[p][0].z, v[p][1].z, v[p][2].z, v[p][3].z);
+    o[3 * (kR / 4)] = make_float4(v[p][0].w, v[p][1].w, v[p][2].w, v[p][3].w);
+  }
+}
+
+// `blocks` must cover the groups: a block takes (kT4Threads / 32) x
+// kT4Groups of them, and blocks past the last find none
+template <int kR, int kC>
+int launch_transpose4(const void* x, void* out, int NB, int blocks,
+                      cudaStream_t st) {
+  const int64_t groups = (int64_t)NB * (kR * kC / 16) / 32;
+  if ((int64_t)blocks * (kT4Threads / 32) * kT4Groups < groups)
+    return (int)cudaErrorInvalidValue;
+  transpose4_kernel<kR, kC><<<blocks, kT4Threads, 0, st>>>(
+      (const float4*)x, (float4*)out, groups);
+  return (int)cudaGetLastError();
+}
+
+// every other shape: a block a matrix at a time through a padded tile
 __global__ void __launch_bounds__(kThreads)
 transpose_kernel(const float* __restrict__ x, float* __restrict__ out,
                  int NB, int R, int C) {
@@ -683,14 +770,29 @@ extern "C" int probe_ring_gather(const void* tab, const void* idx, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// A5: out (NB, C, R) = x (NB, R, C) transposed, float32.
+// A5: out (NB, C, R) = x (NB, R, C) transposed, float32, in `blocks`
+// blocks of the kernel the caller chose (tools/gather.py::transpose_plan):
+// 1, transpose4_kernel, at (R, C) = (64, 16) and (16, 128) with both
+// pointers on 16 bytes; 0, transpose_kernel, at any shape whose padded
+// tile fits 48 KB.
 extern "C" int probe_transpose(const void* x, void* out, int NB, int R, int C,
-                               void* stream) {
-  if (NB <= 0 || R <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+                               int kernel, int blocks, void* stream) {
+  if (NB <= 0 || R <= 0 || C <= 0 || blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (kernel == 1) {
+    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
+        15)
+      return (int)cudaErrorMisalignedAddress;
+    if (R == 64 && C == 16)
+      return launch_transpose4<64, 16>(x, out, NB, blocks, st);
+    if (R == 16 && C == 128)
+      return launch_transpose4<16, 128>(x, out, NB, blocks, st);
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = (size_t)R * (C + 1) * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  transpose_kernel<<<grid_for(NB, 1, sm_count() * 8), kThreads, smem,
-                     (cudaStream_t)stream>>>((const float*)x, (float*)out,
-                                             NB, R, C);
+  if (kernel != 0 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  transpose_kernel<<<blocks, kThreads, smem, st>>>((const float*)x,
+                                                   (float*)out, NB, R, C);
   return (int)cudaGetLastError();
 }

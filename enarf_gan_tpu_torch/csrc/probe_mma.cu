@@ -14,11 +14,11 @@
 //
 // B1, B2 and gemm_small_kernel use mma.sync.m16n8k16 bf16 with float32
 // sums, B fragments loaded by ldmatrix.x4.trans from row-major (k, 128)
-// tiles staged in shared memory by cp.async (rows padded to 136 bf16 so
-// that ldmatrix's 8 rows fall on distinct banks), as kernel 3 does
-// (tilewin_combine_modes.cu). A warp owns 16 rows of the output and all 128
-// columns: 16 n-tiles, 64 float32 sums a thread. N is 128 throughout (the
-// lanes of a TPU row).
+// tiles staged in shared memory (rows padded to 136 bf16 so that
+// ldmatrix's 8 rows fall on distinct banks), as kernel 3 does
+// (tilewin_combine_modes.cu). In B1 and B2 a warp owns 16 rows of the
+// output and all 128 columns: 16 n-tiles, 64 float32 sums a thread. N is
+// 128 throughout (the lanes of a TPU row).
 //
 // B1 one-hot windowed gather: per sample two local rows loc and weights w;
 //   out[s, :] = sum_k A[s, k] slab[k, :] with A[s, k] = bf16(w0 [k == j0] +
@@ -42,7 +42,7 @@
 //   out once (268 MB), 0.3206 / 0.1603 / 0.2004 ms at 3.35 TB/s, against
 //   0.104 ms for the first one's 103 GFLOP at 989 TFLOP/s. The kernel has
 //   to stream A in and C out at HBM's rate; the first design (the
-//   mma.sync kernel that gemm_small_kernel still is) held it at 42-46% of
+//   mma.sync kernel, 16 rows a warp, cp.async 16 deep) held it at 42-46% of
 //   that on an H100 SXM at 700 W, for three reasons, each answered by
 //   gemm_tma_kernel:
 //   1. every block of 64 rows staged all of B through shared memory: 1.61
@@ -67,10 +67,39 @@
 //      stage after wgmma.wait_group; C leaves through a 16 KB staging box
 //      a warpgroup by TMA stores, 32 columns at a time.
 //   Ragged edges: rows past M and k past K lie outside the tensor maps,
-//   which fill loads with zeros and clip stores. The launch-bound batched
-//   products (M <= 128 rows a walk) keep gemm_small_kernel: wgmma takes 64
-//   rows at a time, and at M = 32 would waste half of each product; the
-//   caller chooses (tools/mma.py::gemm_plan).
+//   which fill loads with zeros and clip stores.
+// B3 at the launch-bound shapes (a walk of at most 128 rows: bdiag_dot
+//   (256, 32, 16), dot_kshape (128, 32, 16), dot_batched (16, 128, 64), B
+//   one a batch element) goes to gemm_small_kernel; the caller chooses
+//   (tools/mma.py::gemm_plan). What bounds them is the launch: at
+//   dot_batched 0.26 + 0.26 MB in and 1.05 MB out take 0.47 us at 3.35
+//   TB/s and its 33.6 MFLOP 0.03 us on the tensor cores, while an empty
+//   launch costs 2.04-2.28 us of device time on an H100 SXM at 700 W; so
+//   the kernel has to add as little as it can to that floor, and after it
+//   the bytes count (bdiag_dot writes 4.2 MB). The first design added ~2.0
+//   us at dot_batched (4.21 us a call against 3.30 for the float32-out
+//   torch.bmm) for two reasons:
+//   1. too few blocks: 4 warps x 16 rows a block, a grid of 32 blocks on
+//      132 SMs. Here a block takes 32 rows of a batch element (16 where
+//      that gives fewer than 128 blocks) and half the columns, and its 8
+//      warps 16 rows x 16 columns each: 128 blocks at dot_batched, 256 and
+//      512 at the other two. More warps a block is what counted most: the
+//      same 32 x 64 block in 2 warps was 0.5 us slower at dot_batched.
+//   2. a chain of K / 16 dependent round trips a block: A and B came 16
+//      deep by cp.async, each step behind a wait and two __syncthreads.
+//      Here every operand byte of the block is fetched at once (16 bytes a
+//      thread by cp.async into padded pitches, one commit group, one wait
+//      and one __syncthreads), then every k step runs from shared memory.
+//   Trials that measured slower and were taken out: 1-D bulk copies (TMA)
+//   on one mbarrier, a copy a row landing at the padded pitch (0.5-0.6 us
+//   slower: 48-96 small copies a block) or two dense copies, A's rows and
+//   all of B (0.2-1.1 us slower: B's rows 256 bytes apart put an 8-way
+//   bank conflict on every ldmatrix.trans, and the block reads all 128
+//   columns of B); C staged in shared memory and sent by bulk stores
+//   (1.2-1.4 us slower than the lanes' float2 stores, a full 32-byte
+//   sector a quad of lanes). wgmma is not used: it takes 64 rows at a
+//   time and would cut dot_batched to 32 blocks. Measured on an NVIDIA
+//   H100 80GB HBM3 at 700 W (PERF.md section 6).
 
 #include <cuda.h>               // CUtensorMap (types only: no libcuda)
 #include <cuda_bf16.h>
@@ -81,7 +110,6 @@ namespace {
 
 constexpr int kN = 128;             // output columns
 constexpr int kPitchB = kN + 8;     // padded shared row of B: 272 B
-constexpr int kPitchA = 24;         // padded shared row of a 16-deep A: 48 B
 constexpr int kChunk = 64;          // slab rows a stage (B1, B2)
 constexpr int kWarps = 4;
 
@@ -133,16 +161,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// 16 k-rows of B (row-major, pitch kPitchB) times this warp's A fragment,
-// into acc[16][4]
-__device__ __forceinline__ void mma_row_tile(float (&acc)[16][4],
-                                             const uint32_t (&a)[4],
-                                             const __nv_bfloat16* sB,
-                                             int lane) {
+// 16 k-rows of B (row-major, `pitch` bf16 a shared row, NT x 8 columns
+// from sB, NT even) times this warp's A fragment, into acc[NT][4]. The
+// pitch is an odd number of 16-byte units, so that ldmatrix's 8 rows fall
+// on distinct banks.
+template <int NT>
+__device__ __forceinline__ void mma_tiles(float (&acc)[NT][4],
+                                          const uint32_t (&a)[4],
+                                          const __nv_bfloat16* sB, int pitch,
+                                          int lane) {
+  static_assert(NT % 2 == 0, "ldmatrix.x4 takes two 8-column tiles");
   const __nv_bfloat16* lrow =
-      sB + (((lane >> 3) & 1) * 8 + (lane & 7)) * kPitchB + (lane >> 4) * 8;
+      sB + (((lane >> 3) & 1) * 8 + (lane & 7)) * pitch + (lane >> 4) * 8;
 #pragma unroll
-  for (int nt = 0; nt < 16; nt += 2) {
+  for (int nt = 0; nt < NT; nt += 2) {
     uint32_t b[4];
     ldmatrix_x4_trans(b, lrow + nt * 8);
     mma_acc(acc[nt], a, b[0], b[1]);
@@ -150,15 +182,14 @@ __device__ __forceinline__ void mma_row_tile(float (&acc)[16][4],
   }
 }
 
-// rows r0 (acc[.][0..1]) and r0 + 8 (acc[.][2..3]) of a (rows, 128) output
-__device__ __forceinline__ void store_acc(float* out, int64_t r0,
-                                          const float (&acc)[16][4],
-                                          int lane) {
-  const int c = lane & 3;
-  float* o0 = out + r0 * kN + 2 * c;
+// acc[.][0..1] to o0 (this lane's first column of an output row r0) and
+// acc[.][2..3] to row r0 + 8 of a (rows, 128) output, NT x 8 columns
+template <int NT>
+__device__ __forceinline__ void store_tiles(float* o0,
+                                            const float (&acc)[NT][4]) {
   float* o1 = o0 + 8 * kN;
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
+  for (int nt = 0; nt < NT; ++nt) {
     *reinterpret_cast<float2*>(o0 + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
     *reinterpret_cast<float2*>(o1 + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
   }
@@ -251,11 +282,12 @@ onehot_gather_kernel(const int32_t* __restrict__ loc,
                              pack_bf16(onehot(1, k0), onehot(1, k0 + 1)),
                              pack_bf16(onehot(0, k0 + 8), onehot(0, k0 + 9)),
                              pack_bf16(onehot(1, k0 + 8), onehot(1, k0 + 9))};
-      mma_row_tile(acc, a, s_slab[ch & 1] + kt * 16 * kPitchB, lane);
+      mma_tiles<16>(acc, a, s_slab[ch & 1] + kt * 16 * kPitchB, kPitchB,
+                    lane);
     }
     __syncthreads();   // the buffer is refilled two chunks on
   }
-  store_acc(out, s_block + warp * 16 + g4, acc, lane);
+  store_tiles<16>(out + (s_block + warp * 16 + g4) * kN + 2 * c, acc);
 }
 
 // the same function read straight from the rows: 16 threads a sample
@@ -302,61 +334,6 @@ direct_gather_kernel(const int32_t* __restrict__ loc,
 }
 
 // -------------------------------------------------------------------- B3
-
-// The launch-bound products (bdiag_dot, dot_kshape, dot_batched: M 32-128
-// a batch element, K 16-64, B one a batch element): a warp owns 16 rows
-// and all 128 columns, A and B staged 16 deep through a double buffer by
-// cp.async. wgmma takes 64 rows at a time, so at M = 32 it would waste
-// half of every product; gemm_tma_kernel below takes the rest.
-__global__ void __launch_bounds__(kWarps * 32)
-gemm_small_kernel(const __nv_bfloat16* __restrict__ A,
-                  const __nv_bfloat16* __restrict__ B, float* __restrict__ C,
-                  int M, int K, int b_batched) {
-  __shared__ __align__(16) __nv_bfloat16 sA[2][kWarps * 16 * kPitchA];
-  __shared__ __align__(16) __nv_bfloat16 sB[2][16 * kPitchB];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rows = blockDim.x / 2;          // 16 rows a warp
-  const int64_t b = blockIdx.y;
-  const int64_t m0 = (int64_t)blockIdx.x * rows;
-  const __nv_bfloat16* Ab = A + (b * M + m0) * K;
-  const __nv_bfloat16* Bb = B + (b_batched ? b * K * kN : 0);
-
-  auto fetch = [&](int kt) {
-    const int k0 = kt * 16;
-    for (int q = threadIdx.x; q < rows * 2; q += blockDim.x)
-      cp_async16(sA[kt & 1] + (q >> 1) * kPitchA + (q & 1) * 8,
-                 Ab + (int64_t)(q >> 1) * K + k0 + (q & 1) * 8);
-    for (int q = threadIdx.x; q < 16 * 16; q += blockDim.x)
-      cp_async16(sB[kt & 1] + (q >> 4) * kPitchB + (q & 15) * 8,
-                 Bb + (int64_t)(k0 + (q >> 4)) * kN + (q & 15) * 8);
-    cp_async_commit();
-  };
-
-  float acc[16][4];
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  const int nk = K / 16;
-  fetch(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      fetch(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    uint32_t a[4];
-    ldmatrix_x4(a, sA[kt & 1] + (warp * 16 + (lane & 15)) * kPitchA +
-                       (lane >> 4) * 8);
-    mma_row_tile(acc, a, sB[kt & 1], lane);
-    __syncthreads();
-  }
-  store_acc(C, b * M + m0 + warp * 16 + (lane >> 2), acc, lane);
-}
 
 // The streaming products: persistent blocks, TMA, wgmma (the note at the
 // top of the file). Shared memory from a 1024-byte boundary: the ring of
@@ -519,6 +496,71 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The launch-bound products (the note at the top of the file): a block
+// owns `block_rows` (16 or 32) rows of one batch element and half of the
+// columns (kSmallCols); its warps take 16 rows x kSmallWarpCols columns
+// each. Every operand byte of the block arrives by cp.async, 16 bytes a
+// thread, in one commit group; after one wait and one __syncthreads every
+// k step runs from shared memory. Dynamic shared memory: A's rows at a
+// pitch of K + 8 bf16, then B's K rows at kSmallCols + 8 (odd numbers of
+// 16-byte units, so that ldmatrix's 8 rows fall on distinct banks).
+constexpr int kSmallCols = kN / 2;          // columns a block
+constexpr int kSmallWarpCols = 16;          // columns a warp
+constexpr int kSmallSmem = 48 * 1024;       // launches without an opt-in
+
+constexpr int small_smem_bytes(int block_rows, int K) {
+  return block_rows * (K + 8) * 2 + K * (kSmallCols + 8) * 2;
+}
+
+__global__ void __launch_bounds__(2 * (kSmallCols / kSmallWarpCols) * 32)
+gemm_small_kernel(const __nv_bfloat16* __restrict__ A,
+                  const __nv_bfloat16* __restrict__ B, float* __restrict__ C,
+                  int M, int K, int b_batched, int block_rows) {
+  constexpr int NT = kSmallWarpCols / 8;
+  constexpr int pb = kSmallCols + 8, ub = kSmallCols / 8;
+  extern __shared__ __align__(16) uint8_t smem_small[];
+  const int pa = K + 8, ua = K / 8;         // 16-byte units a row of A
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_small);
+  __nv_bfloat16* sB = sA + block_rows * pa;
+  const int half = blockIdx.x & 1;
+  const int m0 = (blockIdx.x >> 1) * block_rows;
+  const int rows = min(block_rows, M - m0);
+  const int64_t b = blockIdx.y;
+  const __nv_bfloat16* Ab = A + (b * M + m0) * K;
+  const __nv_bfloat16* Bb =
+      B + (b_batched ? b * K * kN : 0) + half * kSmallCols;
+
+  for (int q = threadIdx.x; q < rows * ua; q += blockDim.x)
+    cp_async16(sA + (q / ua) * pa + (q % ua) * 8,
+               Ab + (int64_t)(q / ua) * K + (q % ua) * 8);
+  for (int q = threadIdx.x; q < K * ub; q += blockDim.x)
+    cp_async16(sB + (q / ub) * pb + (q % ub) * 8,
+               Bb + (int64_t)(q / ub) * kN + (q % ub) * 8);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % (block_rows / 16), wn = warp / (block_rows / 16);
+  if (wm * 16 >= rows) return;              // rows come 16 at a time
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const __nv_bfloat16* wB = sB + wn * kSmallWarpCols;
+  for (int kt = 0; kt < K / 16; ++kt) {
+    uint32_t a[4];
+    ldmatrix_x4(a, sA + (wm * 16 + (lane & 15)) * pa + kt * 16 +
+                       (lane >> 4) * 8);
+    mma_tiles<NT>(acc, a, wB + kt * 16 * pb, pb, lane);
+  }
+  store_tiles<NT>(C + (b * M + m0 + wm * 16 + (lane >> 2)) * kN +
+                      half * kSmallCols + wn * kSmallWarpCols +
+                      2 * (lane & 3),
+                  acc);
 }
 
 // C (walks, rows, 128) f32 = A (walks, rows, K) bf16 @ B (K, 128) (shared
@@ -837,18 +879,27 @@ extern "C" int probe_gemm(const void* A, const void* B, void* C, int batch,
                                       max_smem, st);
 }
 
-// B3 at the launch-bound shapes: the same function by mma.sync, 16 rows a
-// warp (gemm_small_kernel).
+// B3 at the launch-bound shapes: the same function by mma.sync, a block of
+// block_rows (16 or 32) rows of a batch element and 64 columns in
+// block_rows / 16 x 4 warps (gemm_small_kernel). The block is the caller's
+// (tools/mma.py::gemm_small_plan); one whose operands exceed 48 KB of
+// shared memory is refused.
 extern "C" int probe_gemm_small(const void* A, const void* B, void* C,
                                 int batch, int M, int K, int b_batched,
-                                void* stream) {
-  if (batch <= 0 || M <= 0 || K <= 0 || M % 16 || K % 16 || batch > 65535)
+                                int block_rows, void* stream) {
+  if (batch <= 0 || M <= 0 || K <= 0 || M % 16 || K % 16 || batch > 65535 ||
+      (block_rows != 16 && block_rows != 32))
     return (int)cudaErrorInvalidValue;
-  int warps = kWarps;
-  while (M % (warps * 16)) warps >>= 1;       // 4, 2 or 1 warps a block
-  dim3 grid(M / (warps * 16), batch);
-  gemm_small_kernel<<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
+  if ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B) |
+       reinterpret_cast<uintptr_t>(C)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const int smem = small_smem_bytes(block_rows, K);
+  if (smem > kSmallSmem) return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + block_rows - 1) / block_rows * (kN / kSmallCols),
+                  batch);
+  const int threads = block_rows / 16 * (kSmallCols / kSmallWarpCols) * 32;
+  gemm_small_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)A, (const __nv_bfloat16*)B, (float*)C, M, K,
-      b_batched);
+      b_batched, block_rows);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,9 @@
 
 ``construct(name, *inputs)`` runs one construct of the TPU compile bisects
 (``CONSTRUCTS``: name -> its tools/ call site) as its own kernel;
-``construct_plain`` is the ``jnp`` body of the probe written in PyTorch.
+``construct_plain`` is the ``jnp`` body of the probe written in PyTorch;
+``LIBRARY`` the one PyTorch call that computes a construct, where there is
+one (the probe's library call).
 ``roster(name, inputs, outputs)`` launches a trivial kernel with one of
 ``tools/probe_call_structure.py``'s argument rosters; what such a launch
 through the port's ctypes wrappers costs the host and the card is
@@ -59,7 +61,9 @@ ROSTER_ELEMS = 32              # floats the roster kernels touch an argument
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream of ``t``'s device, without building
+    a ``torch.cuda.Stream`` (which costs a call microseconds of host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _hat(t, x):
@@ -122,6 +126,25 @@ def construct_plain(name, x, y=None):
         lam = torch.arange(128, device=dev)
         return _hat(((lam % 16) // 2).float(), x2[..., None])
     raise ValueError(f"unknown construct {name!r}")
+
+
+# name: the one PyTorch call of the same function (float32 out); the other
+# constructs take more than one
+LIBRARY = {
+    "load_c": lambda x: x * 2.0,
+    "warm": lambda x: x * 2.0,
+    "cat_sub": lambda x: x + x,
+    "block6d": lambda x: x[0].sum(dim=(0, 1, 3), dtype=torch.float32),
+    "concat_mid": lambda x: torch.cat([x, x], 1),
+    "reshape_lead": lambda x: x.reshape(-1, x.shape[-1]).clone(),
+    "grid_6d": lambda x: x[0, 0, 0].sum(1, dtype=torch.float32),
+    "reshape_fm": lambda x: x.view(x.shape[0], 32, 64).sum(
+        -1, dtype=torch.float32),
+    "reshape_tm": lambda x: x.view(x.shape[0], 64, 32).sum(
+        -2, dtype=torch.float32),
+    "expand": lambda x: x.t()[:, :, None].expand(
+        x.shape[1], x.shape[0], 128).contiguous(),
+}
 
 
 def _out_shape_dims(name, x, y):
@@ -339,6 +362,8 @@ def cases(device, size="main"):
             f"D {name}", replaces, SOURCE,
             kernel=lambda n=name, a=ins: construct(n, *a),
             plain=lambda n=name, a=ins: construct_plain(n, *a),
+            library=(lambda f=LIBRARY[name], a=ins: f(*a))
+            if name in LIBRARY else None,
             counter=(KERNEL, name), nbytes=in_bytes + out_elems * 4.0,
             flops=2.0 * out_elems * terms,
             # float32 sums in another order; expf against torch's sigmoid

@@ -15,8 +15,10 @@ with a little arithmetic). Wrappers, their plain twins and the cases:
 * ``ring_gather`` (A4): per block the float32 sum of R bf16 rows, staged
   through a ring of Q shared-memory slots by cp.async (``staged=True``) or
   read directly; no one PyTorch call computes it.
-* ``transpose`` (A5): a batch of (R, C) float32 matrices transposed through
-  shared memory; library ``x.transpose(1, 2).contiguous()``.
+* ``transpose`` (A5): a batch of (R, C) float32 matrices transposed, at
+  the probes' (64, 16) and (16, 128) in 4 x 4 register blocks (16-byte
+  loads and stores), any other shape through a padded shared-memory tile
+  (``transpose_plan``); library ``x.transpose(1, 2).contiguous()``.
 
     python -m enarf_gan_tpu_torch.tools.gather [--device cpu]
         [--size main|sweep] [--only REGEX] [--against DIR]
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,7 +45,7 @@ KERNEL = KernelLibrary(
     symbols={"probe_row_serial": [_P, _P, _P, _I, _I, _I, _P],
              "probe_lane_gather": [_P, _P, _P] + [_I] * 8 + [_P],
              "probe_ring_gather": [_P, _P, _P] + [_I] * 5 + [_P],
-             "probe_transpose": [_P, _P, _I, _I, _I, _P]})
+             "probe_transpose": [_P, _P] + [_I] * 5 + [_P]})
 SMEM_BYTES = 232448             # a block's shared memory on an H100
 # an H100's SMs, shared memory of an SM and of a block: the card A3's
 # staging is decided for when the table lies on the CPU (no launch)
@@ -283,6 +286,67 @@ def ring_gather(tab: torch.Tensor, idx: torch.Tensor, R: int, Q: int = 8,
 
 # -------------------------------------------------------------------- A5
 
+TRANSPOSE_KERNELS = ("tile", "tile4")      # probe_transpose's `kernel`
+TRANSPOSE4_SHAPES = ((64, 16), (16, 128))   # (R, C) of transpose4_kernel
+T4_THREADS = 256
+T4_GROUPS = 2              # 32-block groups a warp of transpose4_kernel
+T4_BLOCKS_PER_SM = 5       # its __launch_bounds__: 48 registers a thread
+TILE_THREADS = 256
+
+
+class TransposePlan(NamedTuple):
+    """How ``transpose`` runs a shape: the kernel ("tile4": 4 x 4 register
+    blocks, 16-byte loads and stores, at ``TRANSPOSE4_SHAPES``; "tile": a
+    block a matrix at a time through a padded shared-memory tile), its
+    blocks of ``threads``, its shared memory, and for "tile4" the 32-block
+    groups (a 4 x 4 block a thread, ``T4_GROUPS`` groups a warp) and the
+    waves of the card the grid takes at ``T4_BLOCKS_PER_SM`` blocks an
+    SM."""
+    kernel: str
+    blocks: int
+    threads: int
+    smem_bytes: int
+    groups: int = 0
+    waves: int = 1
+
+
+@functools.lru_cache(maxsize=None)
+def transpose_plan(NB, R, C, aligned=True, sms=H100[0]):
+    """The ``TransposePlan`` of NB (R, C) matrices on a card of ``sms``
+    SMs, which ``transpose`` passes to ``probe_gather.cu::probe_transpose``;
+    ``aligned``: both pointers on 16 bytes."""
+    if (R, C) in TRANSPOSE4_SHAPES and aligned:
+        groups = NB * (R * C // 16) // 32
+        blocks = -(-groups // (T4_THREADS // 32 * T4_GROUPS))
+        return TransposePlan("tile4", blocks, T4_THREADS, 0, groups,
+                             -(-blocks // (sms * T4_BLOCKS_PER_SM)))
+    return TransposePlan("tile", max(1, min(NB, sms * 8)), TILE_THREADS,
+                         R * (C + 1) * 4)
+
+
+def transpose_blocks(plan, NB, R, C):
+    """What each block of a ``transpose_plan`` launch writes, in the
+    kernel's order: a list a block of (matrix, first, end) ranges of the
+    matrix's 4 x 4 blocks ("tile4") or whole matrices ((matrix, 0, 1),
+    "tile": block b takes b, b + blocks, ...)."""
+    if plan.kernel == "tile":
+        return [[(m, 0, 1) for m in range(b, NB, plan.blocks)]
+                for b in range(plan.blocks)]
+    bpm = R * C // 16
+    per_block = plan.threads // 32 * T4_GROUPS * 32
+    out = []
+    for b in range(plan.blocks):
+        u0, u1 = b * per_block, min((b + 1) * per_block, plan.groups * 32)
+        spans = []
+        while u0 < u1:
+            m, w = divmod(u0, bpm)
+            end = min(bpm, w + u1 - u0)
+            spans.append((m, w, end))
+            u0 += end - w
+        out.append(spans)
+    return out
+
+
 def transpose_plain(x):
     NB, R, C = x.shape
     perm = torch.arange(R * C, device=x.device).view(R, C).t().reshape(-1)
@@ -290,7 +354,8 @@ def transpose_plain(x):
 
 
 def transpose(x: torch.Tensor):
-    """(NB, R, C) float32 -> (NB, C, R), R * (C + 1) floats at most 48 KB."""
+    """(NB, R, C) float32 -> (NB, C, R), R * (C + 1) floats at most 48 KB,
+    by the kernel ``transpose_plan`` names."""
     if x.dim() != 3 or x.dtype != torch.float32:
         raise ValueError(f"x must be (NB, R, C) float32, got {tuple(x.shape)} "
                          f"{x.dtype}")
@@ -298,14 +363,21 @@ def transpose(x: torch.Tensor):
     if R * (C + 1) * 4 > 48 * 1024:
         raise ValueError(f"the kernel takes R * (C + 1) * 4 <= 48 KB, got "
                          f"{R}x{C}")
+    if NB >= 2 ** 31:
+        raise ValueError(f"the kernel takes fewer than 2**31 matrices, got "
+                         f"{NB}")
     if not x.is_cuda:
         return transpose_plain(x)
     _check_cuda(x)
     out = torch.empty((NB, C, R), dtype=x.dtype, device=x.device)
     if NB == 0:
         return out
-    _raise(KERNEL.load("probe_transpose")(x.data_ptr(), out.data_ptr(), NB, R,
-                                          C, _stream(x)), "probe_transpose")
+    plan = transpose_plan(NB, R, C, (x.data_ptr() | out.data_ptr()) % 16 == 0,
+                          _card(x.get_device())[0])
+    _raise(KERNEL.load("probe_transpose")(
+        x.data_ptr(), out.data_ptr(), NB, R, C,
+        TRANSPOSE_KERNELS.index(plan.kernel), plan.blocks, _stream(x)),
+        "probe_transpose")
     KERNEL.count("transpose")
     return out
 
@@ -400,11 +472,14 @@ def ring_case(name, replaces, tab, idx, R, Q, staged):
 
 
 def transpose_case(name, replaces, x):
+    plan = transpose_plan(*x.shape, x.data_ptr() % 16 == 0,
+                          _card(x.get_device() if x.is_cuda else None)[0])
     return Case(name, replaces, SOURCE, kernel=lambda: transpose(x),
                 plain=lambda: transpose_plain(x),
                 library=lambda: x.transpose(1, 2).contiguous(),
                 counter=(KERNEL, "transpose"), nbytes=2 * _nbytes(x),
-                info={"shape": list(x.shape)})
+                info={"shape": list(x.shape), "kernel": plan.kernel,
+                      "blocks": plan.blocks})
 
 
 def cases(device, size="main"):
@@ -529,13 +604,18 @@ def cases(device, size="main"):
                         "tools/probe_kernel_dma.py:114", small_tab, small_idx,
                         R, 0, False)
     del tab, idx
-    # A5: relay_kernel's 192 blocks x 12 relayouts of (64, 16), and swapT
+    # A5: relay_kernel's 192 blocks x 12 relayouts of (64, 16), and swapT;
+    # "check" adds shapes of the shared-memory tile kernel
     nb = 37 if small else 192 * 12
-    for name, replaces, shape in (
-            ("A5 relay (64,16) -> (16,64)", "tools/probe_kernel_dma.py:144",
-             (nb, 64, 16)),
-            ("A5 swapT (16,128) -> (128,16)",
-             "tools/probe_mosaic_coord_ops.py:69", (nb, 16, 128))):
+    shapes = [("A5 relay (64,16) -> (16,64)", "tools/probe_kernel_dma.py:144",
+               (nb, 64, 16)),
+              ("A5 swapT (16,128) -> (128,16)",
+               "tools/probe_mosaic_coord_ops.py:69", (nb, 16, 128))]
+    if small:
+        shapes += [(f"A5 other shape {r}x{c} -> {c}x{r}",
+                    "tools/probe_kernel_dma.py:144", (nb, r, c))
+                   for r, c in ((3, 5), (48, 63))]
+    for name, replaces, shape in shapes:
         yield transpose_case(name, replaces,
                              torch.randn(shape, generator=g, device=device))
 

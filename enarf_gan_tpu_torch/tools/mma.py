@@ -12,8 +12,11 @@
   float32 out, by one of two kernels that ``gemm_plan`` chooses by shape:
   "gemm" (persistent blocks, TMA and wgmma, 256-row tiles) wherever a walk
   over the rows (all of them for a shared B, one batch element's for a
-  batched B) has more than 128 rows, else "gemm_small" (mma.sync, 16 rows a
-  warp). Library: the float32-out product, ``torch.mm(..., out_dtype=
+  batched B) has more than 128 rows or the small kernel's operands do not
+  fit its shared memory, else "gemm_small" (blocks of 32 or 16 rows of a
+  batch element and 64 columns, 16 x 16 a warp, whose operands arrive in
+  one round trip, then mma.sync; ``gemm_small_plan``). Library: the
+  float32-out product, ``torch.mm(..., out_dtype=
   torch.float32)`` (a shared B) or ``torch.bmm`` (batched); the bf16-out
   ``torch.matmul`` is timed beside it (``library_bf16_out_ms``).
 
@@ -26,6 +29,7 @@ The plain twins compute the same numbers in float32 from the bf16 values
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -43,7 +47,7 @@ KERNEL = KernelLibrary(
           "gemm_small"),
     symbols={"probe_direct_gather": [_P] * 4 + [_I] * 5 + [_P],
              "probe_gemm": [_P] * 3 + [_I] * 6 + [_P],
-             "probe_gemm_small": [_P] * 3 + [_I] * 4 + [_P]})
+             "probe_gemm_small": [_P] * 3 + [_I] * 5 + [_P]})
 N = 128                      # columns of every table and output
 WINDOW_MODES = ("static", "dynamic")
 BASE_ALIGN = 512
@@ -192,6 +196,15 @@ GEMM_TILE_K = 64           # k of a TMA tile: 128 bytes of bf16
 GEMM_MIN_STAGES = 4        # B stays resident only beside this many stages
 GEMM_MAX_STAGES = 8
 SMALL_ROWS = 128           # a walk of at most this many rows: gemm_small
+# a gemm_small block: 32 rows (16 where 32 give fewer than
+# SMALL_MIN_BLOCKS blocks, ~132 SMs) x SMALL_COLS columns, a warp 16 rows x
+# SMALL_WARP_COLS columns, its operands within SMALL_SMEM_BYTES (a launch
+# without an opt-in)
+SMALL_BLOCK_ROWS = (32, 16)
+SMALL_MIN_BLOCKS = 128
+SMALL_COLS = N // 2
+SMALL_WARP_COLS = 16
+SMALL_SMEM_BYTES = 48 * 1024
 _A_STAGE = GEMM_TILE_ROWS * GEMM_TILE_K * 2     # bytes of A a stage
 _B_TILE = GEMM_TILE_K * N * 2                   # bytes of a k-tile of B
 _C_STAGING = 2 * 128 * 32 * 4                   # a 16 KB box a warpgroup
@@ -199,11 +212,13 @@ _C_STAGING = 2 * 128 * 32 * 4                   # a 16 KB box a warpgroup
 
 class GemmPlan(NamedTuple):
     """How ``gemm`` runs a shape: the kernel ("gemm": TMA and wgmma;
-    "gemm_small": mma.sync), and for "gemm" its ring stages, whether B is
-    resident in shared memory (a shared B whose k-tiles fit beside
-    ``GEMM_MIN_STAGES`` stages) or streamed through the ring with A, the
-    block's shared memory, the 256-row tiles, the bytes of A the ring holds
-    an SM, and the bytes of B the launch reads from L2."""
+    "gemm_small": one cp.async round trip, then mma.sync), the block's
+    shared memory and the bytes of B the launch reads from L2. For "gemm":
+    its ring stages, whether B is resident in shared memory (a shared B
+    whose k-tiles fit beside ``GEMM_MIN_STAGES`` stages) or streamed
+    through the ring with A, the 256-row tiles and the bytes of A the ring
+    holds an SM. For "gemm_small": the rows of a batch element a block
+    takes (and ``SMALL_COLS`` columns), its warps and the blocks."""
     kernel: str
     stages: int = 0
     b_resident: bool = False
@@ -211,6 +226,9 @@ class GemmPlan(NamedTuple):
     tiles: int = 0
     a_in_flight: int = 0
     b_l2_bytes: int = 0
+    block_rows: int = 0
+    warps: int = 0
+    blocks: int = 0
 
 
 def gemm_smem_bytes(stages, resident, nk):
@@ -222,12 +240,53 @@ def gemm_smem_bytes(stages, resident, nk):
             + 8 * (2 * GEMM_MAX_STAGES + 1))
 
 
+def gemm_small_smem_bytes(block_rows, K):
+    """A gemm_small block's dynamic shared memory
+    (``probe_mma.cu::small_smem_bytes``): A's rows and B's K rows at
+    pitches of K + 8 and ``SMALL_COLS`` + 8 bf16."""
+    return block_rows * (K + 8) * 2 + K * (SMALL_COLS + 8) * 2
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_small_plan(batch, M, K):
+    """The "gemm_small" ``GemmPlan`` of a (batch, M, K) product (B shared
+    or one a batch element), or None where no block's operands fit
+    ``SMALL_SMEM_BYTES``: blocks of 32 rows, or 16 where 32 give fewer
+    than ``SMALL_MIN_BLOCKS`` blocks, exceed M or do not fit."""
+    plans = []
+    for r in SMALL_BLOCK_ROWS:
+        smem = gemm_small_smem_bytes(r, K)
+        if r > max(M, 16) or smem > SMALL_SMEM_BYTES:
+            continue
+        blocks = batch * -(-M // r) * (N // SMALL_COLS)
+        plans.append(GemmPlan(
+            "gemm_small", smem_bytes=smem,
+            b_l2_bytes=blocks * K * SMALL_COLS * 2, block_rows=r,
+            warps=r // 16 * (SMALL_COLS // SMALL_WARP_COLS), blocks=blocks))
+    return next((p for p in plans if p.blocks >= SMALL_MIN_BLOCKS),
+                plans[-1] if plans else None)
+
+
+def gemm_small_blocks(plan, batch, M):
+    """(batch element, first row, rows, first column) of each block of a
+    "gemm_small" launch, in the kernel's order (probe_mma.cu: blockIdx.x
+    over row blocks and column halves, blockIdx.y over the batch)."""
+    r, h = plan.block_rows, N // SMALL_COLS
+    for b in range(batch):
+        for x in range(-(-M // r) * h):
+            m0 = (x // h) * r
+            yield b, m0, min(r, M - m0), (x % h) * SMALL_COLS
+
+
+@functools.lru_cache(maxsize=None)
 def gemm_plan(batch, M, K, b_batched):
     """The ``GemmPlan`` of a product on an H100 (232,448 bytes of shared
     memory a block, 132 SMs: the blocks that each read a resident B)."""
     rows = M if b_batched else batch * M       # a walk: one B's rows
     if rows <= SMALL_ROWS:
-        return GemmPlan("gemm_small")
+        small = gemm_small_plan(batch, M, K)
+        if small is not None:
+            return small
     walks = batch if b_batched else 1
     nk = -(-K // GEMM_TILE_K)
     tiles = walks * -(-rows // GEMM_TILE_ROWS)
@@ -286,7 +345,7 @@ def gemm(a, b):
     else:
         err = KERNEL.load("probe_gemm_small")(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, K,
-            int(batched), _stream(a))
+            int(batched), plan.block_rows, _stream(a))
     _raise(err, f"probe_{plan.kernel}")
     KERNEL.count(plan.kernel)
     return out
@@ -387,7 +446,10 @@ def b3_case(name, replaces, batch, M, K, b_batched, device, g):
                   "smem_bytes": plan.smem_bytes, "tiles": plan.tiles,
                   "a_in_flight_bytes": plan.a_in_flight,
                   "b_l2_bytes": plan.b_l2_bytes}
-                  if plan.kernel == "gemm" else {})})
+                  if plan.kernel == "gemm" else {
+                  "block_rows": plan.block_rows, "warps": plan.warps,
+                  "blocks": plan.blocks, "smem_bytes": plan.smem_bytes,
+                  "b_l2_bytes": plan.b_l2_bytes})})
 
 
 B1_STATIC = ((512, 768), (256, 768), (512, 1536), (1024, 768), (512, 512))

@@ -666,8 +666,10 @@ def test_probe_wrappers_refuse_on_card(cuda_device):
 def test_probe_gemm_and_onehot_ragged_on_card(cuda_device):
     """B3 across the edges of both kernels' tiles (the TMA kernel's 256
     rows and 64-deep k-tiles, resident and streamed B, more tiles than
-    SMs; the mma.sync kernel's 16-row warps), each launch counted under
-    the kernel the plan names, and B1 at ragged windows."""
+    SMs, and walks of at most 128 rows whose K is too deep for the
+    launch-bound kernel; the launch-bound kernel's blocks of 16 and 32
+    rows), each launch counted under the kernel the plan names, and B1 at
+    ragged windows."""
     from enarf_gan_tpu_torch.tools import mma
     g = torch.Generator(device=cuda_device).manual_seed(1)
     tile = mma.GEMM_TILE_ROWS
@@ -675,7 +677,8 @@ def test_probe_gemm_and_onehot_ragged_on_card(cuda_device):
               (2, tile - 16, 64 + 16, True), (1, tile + 16, 16, False),
               (2, tile + 16, 2 * 64 + 16, True), (30, 16, 64 + 16, False),
               (1, 16, 16, False), (3, tile, 4 * 64 + 16, False),
-              (4, 144, 3 * 64 + 16, False)) + mma.B3_RAGGED
+              (4, 144, 3 * 64 + 16, False), (1, 16, 1024, True),
+              (3, 128, 320, True)) + mma.B3_RAGGED
     for batch, M, K, batched in shapes:
         a = torch.randn((batch, M, K), generator=g, device=cuda_device) \
             .to(torch.bfloat16)
@@ -688,12 +691,54 @@ def test_probe_gemm_and_onehot_ragged_on_card(cuda_device):
         assert mma.KERNEL.launches_by[kernel] == before + 1, (batch, M, K)
     assert {mma.gemm_plan(b, M, K, bb).kernel
             for b, M, K, bb in shapes} == {"gemm", "gemm_small"}
+    assert mma.gemm_plan(1, 16, 1024, True).kernel == "gemm"
+    # the launch-bound kernel at its edges: batch 1 and 3 (16-row blocks),
+    # M 16-128, K 16-64 and 240 (the deepest K a 32-row block does not
+    # fit), and 32-row blocks that do not divide M (80, 48)
+    edges = [(batch, M, K) for batch in (1, 3)
+             for M, K in ((16, 16), (48, 64), (112, 48), (128, 16), (80, 32),
+                          (128, 240))] + [(40, 80, 32), (64, 48, 64)]
+    assert {mma.gemm_plan(b, M, K, True).block_rows
+            for b, M, K in edges} == {16, 32}
+    for batch, M, K in edges:
+        a = torch.randn((batch, M, K), generator=g, device=cuda_device) \
+            .to(torch.bfloat16)
+        b = torch.randn((batch, K, 128), generator=g,
+                        device=cuda_device).to(torch.bfloat16)
+        assert mma.gemm_plan(batch, M, K, True).kernel == "gemm_small"
+        before = mma.KERNEL.launches_by["gemm_small"]
+        got = mma.gemm(a, b)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, mma.gemm_plain(a, b), rtol=1e-4,
+                                   atol=1e-4 * K ** 0.5)
+        assert mma.KERNEL.launches_by["gemm_small"] == before + 1, \
+            (batch, M, K)
     for mode in mma.WINDOW_MODES:
         loc, w, tab = mma.b1_inputs(3 * 192, 192, 320, mode, cuda_device, g)
         ref = mma.onehot_gather_plain(loc, w, tab, 192, 320, mode)
         for fn in (mma.onehot_gather, mma.direct_gather):
             torch.testing.assert_close(fn(loc, w, tab, 192, 320, mode), ref,
                                        rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C", [(64, 16), (16, 128), (3, 5), (48, 63)])
+def test_transpose_ragged_on_card(cuda_device, R, C):
+    """A5 bit-equal to its twin: the register kernel at the probes' shapes
+    and the shared-memory tile kernel at the others, for 1 and 37 matrices
+    and a count no block's share divides (8 matrices of (64, 16), 4 of (16,
+    128)), and from an input off 16 bytes (the tile kernel), each launch
+    counted."""
+    from enarf_gan_tpu_torch.tools import gather
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    for NB in (1, 37, 1003):
+        flat = torch.randn(NB * R * C + 1, generator=g, device=cuda_device)
+        for x in (flat[:-1].view(NB, R, C), flat[1:].view(NB, R, C)):
+            before = gather.KERNEL.launches_by["transpose"]
+            got = gather.transpose(x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, gather.transpose_plain(x)), (NB, R, C)
+            assert gather.KERNEL.launches_by["transpose"] == before + 1
 
 
 @pytest.mark.cuda

@@ -214,7 +214,8 @@ def test_ring_gather_plain_matches_numpy():
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6 * 64 * 2048)
 
 
-@pytest.mark.parametrize("shape", [(37, 64, 16), (5, 16, 128)])
+@pytest.mark.parametrize("shape", [(37, 64, 16), (5, 16, 128), (4, 3, 5),
+                                   (2, 48, 63)])
 def test_transpose_plain_matches_swapaxes(shape):
     """relay_kernel's jnp.swapaxes and probe_mosaic_coord_ops.py's swapT
     reference x.T."""
@@ -239,6 +240,38 @@ def test_gather_wrappers_refuse_what_the_kernels_do_not_take():
                            torch.zeros(5, dtype=torch.int32), 2)
     with pytest.raises(ValueError, match="48 KB"):
         gather.transpose(torch.zeros((1, 128, 128)))
+    with pytest.raises(ValueError, match="2\\*\\*31 matrices"):
+        gather.transpose(torch.empty((2 ** 31, 1, 0)))
+
+
+@pytest.mark.parametrize("NB,R,C,aligned", [
+    (2304, 64, 16, True), (2304, 16, 128, True), (1, 64, 16, True),
+    (37, 64, 16, True), (37, 16, 128, True), (9, 16, 128, True),
+    (7, 64, 16, False), (37, 3, 5, True), (1500, 48, 63, True)])
+def test_transpose_plan_covers_every_matrix_once(NB, R, C, aligned):
+    """A5's plan: the register kernel at the probes' two shapes when both
+    pointers lie on 16 bytes (16-byte loads and stores, no shared memory),
+    in one wave of an H100 at the probe size (288 and 576 blocks, 5 an
+    SM); the shared-memory tile kernel at every other shape, within 48 KB.
+    Enumerating the plan's blocks covers every 4 x 4 block (or matrix)
+    exactly once, also where NB is no multiple of a block's share (8
+    matrices of (64, 16), 4 of (16, 128)) and the last block is short."""
+    plan = gather.transpose_plan(NB, R, C, aligned)
+    four = (R, C) in gather.TRANSPOSE4_SHAPES and aligned
+    assert plan.kernel == ("tile4" if four else "tile")
+    assert plan.kernel in gather.TRANSPOSE_KERNELS
+    assert plan.smem_bytes == (0 if four else R * (C + 1) * 4) <= 48 * 1024
+    seen = np.zeros((NB, R * C // 16 if four else 1), np.int32)
+    for spans in gather.transpose_blocks(plan, NB, R, C):
+        for m, w0, w1 in spans:
+            seen[m, w0:w1] += 1
+    assert (seen == 1).all()
+    if four:
+        assert plan.groups * 32 == NB * R * C // 16
+        assert R * C * 4 % 16 == 0
+    if NB == 2304 and four:
+        assert plan.blocks == {64: 288, 16: 576}[R] and plan.waves == 1
+        assert plan.blocks <= 132 * gather.T4_BLOCKS_PER_SM
 
 
 # ------------------------------------------------------------------ B
@@ -316,7 +349,8 @@ def test_gemm_plain_matches_pallas_chain_interpret(n, M, K):
     np.testing.assert_allclose(mma.gemm(ta, tb).numpy(), ref, rtol=1e-3)
 
 
-@pytest.mark.parametrize("batch,M,K", [(4, 128, 64), (8, 32, 16)])
+@pytest.mark.parametrize("batch,M,K", [(4, 128, 64), (8, 32, 16), (2, 16, 48),
+                                       (3, 48, 16), (1, 112, 48)])
 def test_batched_gemm_plain_matches_dot_general(batch, M, K):
     """dot_batched, dot_kshape and bdiag_dot: a batched dot_general with
     float32 accumulation."""
@@ -361,6 +395,61 @@ def test_mma_wrappers_refuse_what_the_kernels_do_not_take():
                                      .view(2, 512, 64), b)
     mma.check_gemm_kernel_inputs(flat[8:8 + 2 * 512 * 64].view(2, 512, 64),
                                  b)
+
+
+@pytest.mark.parametrize("batch,M,K,batched", [
+    (b, M, K, True) for _, _, b, M, K in mma.B3_BATCHED] + [
+    (1, 16, 16, True), (3, 48, 64, True), (1, 128, 64, True),
+    (100, 80, 32, True), (8, 16, 32, False), (1, 16, 160, True),
+    (1, 128, 240, True), (40, 80, 32, True), (64, 48, 64, True)])
+def test_gemm_small_plan_fits_an_h100(batch, M, K, batched):
+    """The launch-bound kernel's plan: at least 64 blocks at dot_batched
+    (128; the plan asks for ``SMALL_MIN_BLOCKS``), 32 rows a block or 16
+    where 32 give fewer blocks or do not fit (K = 240), 4 warps of 16 x 16
+    for each 16 rows of a 64-column block, its shared memory (A's rows and
+    B's rows at padded pitches) within 48 KB, every row it copies a
+    multiple of the 16 bytes of a cp.async, and every output row and
+    column written by exactly one block, also where the rows a block do
+    not divide M (80 = 2 x 32 + 16, 48 = 32 + 16)."""
+    plan = mma.gemm_plan(batch, M, K, batched)
+    assert plan == mma.gemm_small_plan(batch, M, K)
+    assert plan.kernel == "gemm_small"
+    assert plan.block_rows in mma.SMALL_BLOCK_ROWS
+    assert plan.warps == plan.block_rows // 16 * 4
+    assert plan.smem_bytes == mma.gemm_small_smem_bytes(
+        plan.block_rows, K) <= mma.SMALL_SMEM_BYTES
+    assert K * 2 % 16 == 0 and mma.SMALL_COLS * 2 % 16 == 0
+    # pitches of an odd number of 16-byte units: ldmatrix without conflicts
+    assert ((K + 8) * 2 // 16) % 2 == 1
+    assert ((mma.SMALL_COLS + 8) * 2 // 16) % 2 == 1
+    seen = np.zeros((batch, M, 128), np.int32)
+    blocks = list(mma.gemm_small_blocks(plan, batch, M))
+    assert len(blocks) == plan.blocks
+    for b, m0, n, c0 in blocks:
+        assert 0 < n <= plan.block_rows and n % 16 == 0
+        seen[b, m0:m0 + n, c0:c0 + mma.SMALL_COLS] += 1
+    assert (seen == 1).all()
+    assert plan.b_l2_bytes == plan.blocks * K * mma.SMALL_COLS * 2
+    if (batch, M, K) == (16, 128, 64):                  # dot_batched
+        assert plan.blocks >= 64
+    assert plan.blocks >= min(mma.SMALL_MIN_BLOCKS, batch * -(-M // 16) * 2)
+    fits32 = mma.gemm_small_smem_bytes(32, K) <= mma.SMALL_SMEM_BYTES
+    assert plan.block_rows == (32 if fits32 and M >= 32 and batch * -(
+        -M // 32) * 2 >= mma.SMALL_MIN_BLOCKS else 16)
+
+
+def test_gemm_small_refusals():
+    """A walk of at most 128 rows whose operands fit no block goes to the
+    TMA kernel, and the wrapper raises on what neither kernel takes."""
+    assert mma.gemm_small_plan(1, 16, 1024) is None
+    assert mma.gemm_plan(1, 16, 1024, True).kernel == "gemm"
+    assert mma.gemm_plan(3, 128, 320, True).kernel == "gemm"
+    assert mma.gemm_plan(1, 16, 272, True).kernel == "gemm_small"
+    assert mma.gemm_plan(1, 16, 288, True).kernel == "gemm"
+    with pytest.raises(ValueError, match="multiples of 16"):
+        mma.check_gemm_kernel_inputs(
+            torch.zeros((2, 24, 16), dtype=torch.bfloat16),
+            torch.zeros((2, 16, 128), dtype=torch.bfloat16))
 
 
 _B3_SHAPES = ([(n, M, K, False) for n, M, K in mma.B3_CHAINS]
@@ -719,6 +808,18 @@ def test_coord_ops_match_probe_numpy_references():
     ref = np.maximum(0.0, 1.0 - np.abs(tt[None, None] - x2[..., None]))
     np.testing.assert_allclose(constructs.construct("bcast", T(x)).numpy(),
                                ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", list(constructs.LIBRARY))
+def test_construct_library_call_matches_plain(name):
+    """Each construct's one PyTorch call (the probe's library call) equals
+    its plain twin at the probe's inputs, within the case's tolerance."""
+    case = next(c for c in constructs.cases("cpu") if c.name == f"D {name}")
+    torch.testing.assert_close(case.library(), case.plain(), rtol=case.rtol,
+                               atol=case.atol)
+    assert case.library().dtype == torch.float32
+    assert {c.name[2:] for c in constructs.cases("cpu")
+            if c.library is not None} == set(constructs.LIBRARY)
 
 
 @pytest.mark.parametrize("name", list(constructs.ROSTERS))
