@@ -755,6 +755,11 @@ def phase_probes(device):
             elif case.info.get("kernel") in ("tile4", "tile"):
                 line += (f"; {case.info['kernel']} kernel, "
                          f"{case.info['blocks']} blocks")
+            elif case.info.get("kernel") in ("reshape_fm_kernel",
+                                             "copy_rows_kernel"):
+                line += (f"; {case.info['kernel']}, {case.info['blocks']} "
+                         f"blocks of {case.info['threads']} threads, one "
+                         f"16-byte vector a thread")
             print(line)
             if case.info.get("inputs") == "fine chunk":
                 entries[name].update(fine_chunk_ms=t["ms"],

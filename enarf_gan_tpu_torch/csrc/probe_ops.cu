@@ -18,9 +18,14 @@
 // makes of it and what a launch costs. Each construct is one instantiation
 // of construct_kernel<kOp>: one thread per output element, grid-stride,
 // reading what the element needs (bound: bytes, or the float32 operations
-// of the reductions). The roster kernels do trivial work on 32 floats of
-// each argument, so that their time is the launch's; probe_spin holds the
-// stream for a set time, so that launches queued behind it show the
+// of the reductions). Two constructs have a kernel of their own, because
+// one thread an element of narrow loads left them slower than one PyTorch
+// call of the same function: reshape_fm (reshape_fm_kernel: 16-byte loads,
+// a shuffle reduction) and reshape_lead (copy_rows_kernel: a 16-byte copy),
+// both launched on the grid of tools/constructs.py's reduce_plan and
+// copy_plan. The roster kernels do trivial work on 32 floats
+// of each argument, so that their time is the launch's; probe_spin holds
+// the stream for a set time, so that launches queued behind it show the
 // device's own cost per launch once it drains them.
 
 #include <cuda_bf16.h>
@@ -86,8 +91,6 @@ construct_kernel(const void* __restrict__ in0, const void* __restrict__ in1,
       const int64_t tb = e / (2 * d0);
       const int r = (int)(e - tb * 2 * d0);
       v = x[tb * d0 + (r < d0 ? r : r - d0)];
-    } else if constexpr (kOp == kReshapeLead) {
-      v = x[e];
     } else if constexpr (kOp == kIotaSepw) {          // d0 = M
       const int sig = (int)(e % 16);
       const int64_t row = e / 16;                     // tb * 2M + r
@@ -107,10 +110,6 @@ construct_kernel(const void* __restrict__ in0, const void* __restrict__ in1,
       const int64_t u = e / 128;
       const int lam = (int)(e % 128);
       for (int s = 0; s < 16; ++s) v += bf(h0, (u * 16 + s) * 128 + lam);
-    } else if constexpr (kOp == kReshapeFm) {         // (TB, 2048) -> (TB, 32)
-      const int64_t tb = e / 32;
-      const int c = (int)(e % 32);
-      for (int k = 0; k < 64; ++k) v += bf(h0, tb * 2048 + c * 64 + k);
     } else if constexpr (kOp == kReshapeTm) {
       const int64_t tb = e / 32;
       const int c = (int)(e % 32);
@@ -138,6 +137,63 @@ construct_kernel(const void* __restrict__ in0, const void* __restrict__ in1,
   }
 }
 
+// reshape_fm, (TB, 2048) bf16 -> (TB, 32) float32: out[t, c] = the float32
+// sum of x[t, 64c .. 64c + 63]. Bound: bytes (each 4 KB row read once).
+// Block t of 256 threads takes row t; thread i reads the row's 16-byte
+// vector i, which is the (i % 8)-th of output i / 8's 128 bytes, so a
+// warp's load instruction covers 512 contiguous bytes (4 outputs). A lane
+// sums its 8 values in float32, the 8 lanes of an output add theirs with
+// three xor shuffles, and lane 0 stores the warp's 4 sums as one 16-byte
+// store.
+constexpr int kFmThreads = 256;        // constructs.REDUCE_THREADS
+constexpr int kFmVecs = 2048 * 2 / 16;  // 16-byte vectors a row
+
+__device__ __forceinline__ float sum8(const uint4& v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    s += f.x;
+    s += f.y;
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(kFmThreads)
+reshape_fm_kernel(const uint4* __restrict__ x, float4* __restrict__ out,
+                  long long TB) {
+  const long long row = blockIdx.x;
+  if (row >= TB) return;                // the same for the whole block
+  float s = sum8(__ldg(x + row * kFmVecs + threadIdx.x));
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  const float s1 = __shfl_sync(0xffffffffu, s, 8);
+  const float s2 = __shfl_sync(0xffffffffu, s, 16);
+  const float s3 = __shfl_sync(0xffffffffu, s, 24);
+  if ((threadIdx.x & 31) == 0)
+    out[row * (kFmThreads / 32) + (threadIdx.x >> 5)] =
+        make_float4(s, s1, s2, s3);
+}
+
+// reshape_lead: merging leading axes is a copy of n float32 words. Bound:
+// bytes. Thread i of block b copies the 16-byte vector b * 256 + i (a
+// block's vectors are 4 KB contiguous); block 0 also copies the last n % 4
+// words.
+constexpr int kCopyThreads = 256;      // constructs.COPY_THREADS
+
+__global__ void __launch_bounds__(kCopyThreads)
+copy_rows_kernel(const float4* __restrict__ x, float4* __restrict__ out,
+                 long long n) {
+  const long long n4 = n >> 2;
+  const long long i = (long long)blockIdx.x * kCopyThreads + threadIdx.x;
+  if (i < n4) out[i] = __ldg(x + i);
+  if (blockIdx.x == 0 && threadIdx.x < (n & 3))
+    reinterpret_cast<float*>(out)[n4 * 4 + threadIdx.x] =
+        reinterpret_cast<const float*>(x)[n4 * 4 + threadIdx.x];
+}
+
 template <int kOp>
 int launch_construct(const void* in0, const void* in1, void* out0, void* out1,
                      int64_t n, int d0, int d1, int d2, cudaStream_t st) {
@@ -151,9 +207,18 @@ int launch_construct(const void* in0, const void* in1, void* out0, void* out1,
 using LaunchFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
                          int, int, cudaStream_t);
 
+// null for the constructs with kernels of their own
+template <int kOp>
+constexpr LaunchFn launcher() {
+  if constexpr (kOp == kReshapeLead || kOp == kReshapeFm)
+    return nullptr;
+  else
+    return launch_construct<kOp>;
+}
+
 template <int... kOps>
 struct Table {
-  static constexpr LaunchFn fns[] = {launch_construct<kOps>...};
+  static constexpr LaunchFn fns[] = {launcher<kOps>()...};
 };
 
 using Ops = Table<0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16,
@@ -200,9 +265,39 @@ __global__ void spin_kernel(long long ns) {
 extern "C" int probe_construct(int op, const void* in0, const void* in1,
                                void* out0, void* out1, long long n, int d0,
                                int d1, int d2, void* stream) {
-  if (op < 0 || op >= kNumOps || n <= 0) return (int)cudaErrorInvalidValue;
+  if (op < 0 || op >= kNumOps || n <= 0 || Ops::fns[op] == nullptr)
+    return (int)cudaErrorInvalidValue;
   return Ops::fns[op](in0, in1, out0, out1, n, d0, d1, d2,
                       (cudaStream_t)stream);
+}
+
+static bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
+          15) == 0;
+}
+
+// reshape_fm over TB rows: `blocks` (>= TB) blocks of 256 threads, a row a
+// block (constructs.reduce_plan); x and out on 16 bytes.
+extern "C" int probe_reshape_fm(const void* x, void* out, long long TB,
+                                int blocks, void* stream) {
+  if (TB <= 0 || blocks < TB) return (int)cudaErrorInvalidValue;
+  if (!aligned16(x, out)) return (int)cudaErrorMisalignedAddress;
+  reshape_fm_kernel<<<blocks, kFmThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)x, (float4*)out, TB);
+  return (int)cudaGetLastError();
+}
+
+// reshape_lead as a copy of n float32 words: `blocks` blocks of 256
+// threads, a 16-byte vector a thread (constructs.copy_plan); x and out on
+// 16 bytes.
+extern "C" int probe_copy_rows(const void* x, void* out, long long n,
+                               int blocks, void* stream) {
+  if (n <= 0 || blocks <= 0 || (long long)blocks * kCopyThreads < (n >> 2))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(x, out)) return (int)cudaErrorMisalignedAddress;
+  copy_rows_kernel<<<blocks, kCopyThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (float4*)out, n);
+  return (int)cudaGetLastError();
 }
 
 // The argument rosters of tools/probe_call_structure.py: inputs, outputs.

@@ -5,7 +5,13 @@
 (``CONSTRUCTS``: name -> its tools/ call site) as its own kernel;
 ``construct_plain`` is the ``jnp`` body of the probe written in PyTorch;
 ``LIBRARY`` the one PyTorch call that computes a construct, where there is
-one (the probe's library call).
+one (the probe's library call), and ``LIBRARY_CARD`` such calls that exist
+only on the card. Most constructs run ``construct_kernel<op>``, one thread
+an output element; reshape_fm runs ``reshape_fm_kernel`` on the grid of
+``reduce_plan`` (a row a block, 8 lanes an output, 16-byte loads, a
+shuffle reduction) and reshape_lead ``copy_rows_kernel`` on that of
+``copy_plan`` (a 16-byte vector a thread); both take bases on 16 bytes
+only.
 ``roster(name, inputs, outputs)`` launches a trivial kernel with one of
 ``tools/probe_call_structure.py``'s argument rosters; what such a launch
 through the port's ctypes wrappers costs the host and the card is
@@ -18,6 +24,7 @@ them back to back.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -56,8 +63,41 @@ KERNEL = KernelLibrary(
     keys=tuple(CONSTRUCTS) + tuple(ROSTERS),
     symbols={**{f"probe_roster_{i}_{o}": [_P] * (i + o + 1)
                 for i, o in ROSTERS.values()},
-             "probe_spin": [ctypes.c_longlong, _P]})
+             "probe_spin": [ctypes.c_longlong, _P],
+             "probe_reshape_fm": [_P, _P, ctypes.c_longlong, _I, _P],
+             "probe_copy_rows": [_P, _P, ctypes.c_longlong, _I, _P]})
 ROSTER_ELEMS = 32              # floats the roster kernels touch an argument
+# constructs with a kernel of their own: name -> (its entry point, kernel)
+OWN_KERNELS = {"reshape_fm": ("probe_reshape_fm", "reshape_fm_kernel"),
+               "reshape_lead": ("probe_copy_rows", "copy_rows_kernel")}
+REDUCE_THREADS = 256       # reshape_fm_kernel's block: a (2048,) row
+COPY_THREADS = 256         # copy_rows_kernel's block
+
+
+class Plan(NamedTuple):
+    """The grid of ``reshape_fm_kernel`` or ``copy_rows_kernel``: ``blocks``
+    blocks of ``threads``, one 16-byte vector a thread."""
+    blocks: int
+    threads: int
+
+
+def reduce_plan(TB):
+    """reshape_fm over TB rows of 2048 bf16: a row a block of
+    ``REDUCE_THREADS`` (8 lanes an output)."""
+    return Plan(TB, REDUCE_THREADS)
+
+
+def copy_plan(numel):
+    """A copy of ``numel`` float32 words: a 16-byte vector a thread in
+    blocks of ``COPY_THREADS``; block 0 also copies the last ``numel % 4``
+    words."""
+    return Plan(max(1, -(-(numel // 4) // COPY_THREADS)), COPY_THREADS)
+
+
+def own_plan(name, x):
+    """The ``Plan`` of a construct with a kernel of its own, on ``x``."""
+    return reduce_plan(x.shape[0]) if name == "reshape_fm" \
+        else copy_plan(x.numel())
 
 
 def _stream(t):
@@ -145,6 +185,11 @@ LIBRARY = {
     "expand": lambda x: x.t()[:, :, None].expand(
         x.shape[1], x.shape[0], 128).contiguous(),
 }
+# the same, for calls that exist only on the card (torch for the CPU has no
+# float32-out bf16 bmm)
+LIBRARY_CARD = {
+    "ewr": lambda x, y: torch.bmm(x, y.mT, out_dtype=torch.float32),
+}
 
 
 def _out_shape_dims(name, x, y):
@@ -224,6 +269,9 @@ def _check_construct(name, x, y):
         raise ValueError(f"{name}: shapes {tuple(x.shape)}"
                          f"{'' if y is None else ', ' + str(tuple(y.shape))} "
                          f"are not the construct's")
+    if name in OWN_KERNELS and x.data_ptr() % 16:
+        raise ValueError(f"{name}'s kernel takes an input on 16 bytes, got "
+                         f"one {x.data_ptr() % 16} bytes off")
 
 
 def construct(name, x, y=None):
@@ -237,13 +285,22 @@ def construct(name, x, y=None):
     shape, d0, d1 = _out_shape_dims(name, x, y)
     out0 = torch.empty(shape, dtype=torch.float32, device=x.device)
     out1 = torch.empty_like(out0) if name == "multi_out" else None
-    err = KERNEL.load()(CONSTRUCTS[name][0], x.data_ptr(),
-                        None if y is None else y.data_ptr(), out0.data_ptr(),
-                        None if out1 is None else out1.data_ptr(),
-                        out0.numel(), d0, d1, 0, _stream(x))
+    if name in OWN_KERNELS:
+        symbol = OWN_KERNELS[name][0]
+        plan = own_plan(name, x)
+        err = KERNEL.load(symbol)(
+            x.data_ptr(), out0.data_ptr(),
+            x.shape[0] if name == "reshape_fm" else x.numel(), plan.blocks,
+            _stream(x))
+    else:
+        symbol = "probe_construct"
+        err = KERNEL.load()(CONSTRUCTS[name][0], x.data_ptr(),
+                            None if y is None else y.data_ptr(),
+                            out0.data_ptr(),
+                            None if out1 is None else out1.data_ptr(),
+                            out0.numel(), d0, d1, 0, _stream(x))
     if err != 0:
-        raise RuntimeError(f"probe_construct {name} launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{symbol} {name} launch failed: CUDA error {err}")
     KERNEL.count(name)
     return out0 if out1 is None else (out0, out1)
 
@@ -344,31 +401,57 @@ _REDUCE_TERMS = {"hat_bcast": 128, "mask_hat": 64, "block6d": 192,
                  "ewr": 64, "lane_slice": 4}
 
 
+# check-size shapes of the constructs with a kernel of their own: ragged
+# row counts, and a word count that is no multiple of 4
+CHECK_SHAPES = {"reshape_fm": ((1, 2048), (37, 2048)),
+                "reshape_lead": ((3, 5, 7), (37, 16, 128))}
+
+
+def construct_case(name, ins, label=""):
+    """The ``Case`` of construct ``name`` on inputs ``ins`` (``label``
+    follows its name)."""
+    replaces = CONSTRUCTS[name][1]
+    dev = ins[0].device
+    outs = construct_plain(name, *ins)
+    out_elems = sum(o.numel() for o in
+                    (outs if isinstance(outs, tuple) else (outs,)))
+    if name == "grid_6d":                      # reads plane 0, slot 0 only
+        in_bytes = ins[0][0, 0, 0].numel() * 2.0
+    else:
+        in_bytes = float(sum(t.numel() * t.element_size() for t in ins))
+    library = LIBRARY.get(name)
+    if library is None and dev.type == "cuda":
+        library = LIBRARY_CARD.get(name)
+    info = {"inputs": [list(t.shape) for t in ins]}
+    if name in OWN_KERNELS:
+        info.update(kernel=OWN_KERNELS[name][1],
+                    **own_plan(name, ins[0])._asdict())
+    return Case(
+        f"D {name}{label}", replaces, SOURCE,
+        kernel=lambda: construct(name, *ins),
+        plain=lambda: construct_plain(name, *ins),
+        library=None if library is None else (lambda: library(*ins)),
+        counter=(KERNEL, name), nbytes=in_bytes + out_elems * 4.0,
+        flops=2.0 * out_elems * _REDUCE_TERMS.get(name, 1),
+        # float32 sums in another order; expf against torch's sigmoid
+        rtol=1e-5, atol=1e-5, info=info)
+
+
 def cases(device, size="main"):
     """Every construct at its probe's shape, and every roster (the same at
-    every size: the probes' shapes are small)."""
+    every size: the probes' shapes are small); at the "check" size also the
+    ``CHECK_SHAPES`` of the constructs with a kernel of their own."""
+    device = torch.device(device)
     g = torch.Generator(device=device).manual_seed(2)
-    for name, (_, replaces) in CONSTRUCTS.items():
-        ins = construct_inputs(name, device, g)
-        outs = construct_plain(name, *ins)
-        out_elems = sum(o.numel() for o in
-                        (outs if isinstance(outs, tuple) else (outs,)))
-        if name == "grid_6d":                  # reads plane 0, slot 0 only
-            in_bytes = ins[0][0, 0, 0].numel() * 2.0
-        else:
-            in_bytes = float(sum(t.numel() * t.element_size() for t in ins))
-        terms = _REDUCE_TERMS.get(name, 1)
-        yield Case(
-            f"D {name}", replaces, SOURCE,
-            kernel=lambda n=name, a=ins: construct(n, *a),
-            plain=lambda n=name, a=ins: construct_plain(n, *a),
-            library=(lambda f=LIBRARY[name], a=ins: f(*a))
-            if name in LIBRARY else None,
-            counter=(KERNEL, name), nbytes=in_bytes + out_elems * 4.0,
-            flops=2.0 * out_elems * terms,
-            # float32 sums in another order; expf against torch's sigmoid
-            rtol=1e-5, atol=1e-5,
-            info={"inputs": [list(t.shape) for t in ins]})
+    for name in CONSTRUCTS:
+        yield construct_case(name, construct_inputs(name, device, g))
+    if size == "check":
+        for name, shapes in CHECK_SHAPES.items():
+            for shape in shapes:
+                x = torch.randn(shape, generator=g, device=device)
+                if name == "reshape_fm":
+                    x = x.to(torch.bfloat16)
+                yield construct_case(name, (x,), f" {list(shape)}")
     for name in ROSTERS:
         ins, outs = roster_args(name, device, g)
         flat = [t.reshape(-1) for t in ins]

@@ -742,6 +742,53 @@ def test_transpose_ragged_on_card(cuda_device, R, C):
 
 
 @pytest.mark.cuda
+def test_construct_own_kernels_ragged_on_card(cuda_device):
+    """reshape_fm_kernel (1e-5: float32 sums in another order) and
+    copy_rows_kernel (bit-equal) against construct_plain at ragged shapes
+    (TB 2113 and 3 M words take more than one wave), short last blocks,
+    word counts no multiple of 4; each launch counted under its construct.
+    A base off 16 bytes raises in the wrapper, and a grid too small for the
+    rows in the entry point."""
+    from enarf_gan_tpu_torch.tools import constructs
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    shapes = [("reshape_fm", s) for s in ((1, 2048), (3, 2048), (37, 2048),
+                                          (1000, 2048), (2113, 2048))] \
+        + [("reshape_lead", s) for s in ((1, 1), (1, 3), (3, 5, 7),
+                                         (37, 16, 128), (2, 7, 105),
+                                         (1000, 1000, 1), (600, 1000, 5))]
+    for name, shape in shapes:
+        x = torch.randn(shape, generator=g, device=cuda_device)
+        if name == "reshape_fm":
+            x = x.to(torch.bfloat16)
+        before = constructs.KERNEL.launches_by[name]
+        got = constructs.construct(name, x)
+        torch.cuda.synchronize()
+        tol = 1e-5 if name == "reshape_fm" else 0.0
+        torch.testing.assert_close(got, constructs.construct_plain(name, x),
+                                   rtol=tol, atol=tol)
+        assert constructs.KERNEL.launches_by[name] == before + 1, shape
+    flat = torch.zeros(37 * 2048 + 8, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16 bytes"):
+        constructs.construct("reshape_fm", flat[1:1 + 37 * 2048].view(37, 2048))
+    out = torch.empty((37, 32), device=cuda_device)
+    assert constructs.KERNEL.load("probe_reshape_fm")(
+        flat.data_ptr(), out.data_ptr(), 37, 36,
+        torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.cuda
+def test_ewr_library_call_matches_plain_on_card(cuda_device):
+    """ewr's card-only library call, the float32-out ``torch.bmm``, against
+    construct_plain at the probe's inputs (1e-5: float32 sums of exact
+    products in another order)."""
+    from enarf_gan_tpu_torch.tools import constructs
+    case = next(c for c in constructs.cases(cuda_device) if c.name == "D ewr")
+    got = case.library()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, case.plain(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_launch_cost_on_card(cuda_device):
     from enarf_gan_tpu_torch.tools import constructs, timing
     g = torch.Generator(device=cuda_device).manual_seed(3)

@@ -737,7 +737,7 @@ def jnp_body(name, x, y=None):
     if name == "concat_mid":
         return jnp.concatenate([x, x], axis=1)
     if name == "reshape_lead":
-        return x.reshape(-1, 128)
+        return x.reshape(-1, x.shape[-1])
     if name == "iota_sepw":
         TB, M = x.shape
         sig = iota(jnp.int32, (TB, 2 * M, 16), 2)
@@ -779,10 +779,20 @@ def _to_jnp(t):
     return jnp.asarray(t.numpy())
 
 
-@pytest.mark.parametrize("name", list(constructs.CONSTRUCTS))
-def test_construct_plain_matches_jnp_body(name):
-    ins = constructs.construct_inputs(name, "cpu",
-                                      torch.Generator().manual_seed(8))
+@pytest.mark.parametrize("name,shape", [
+    pytest.param(n, None, id=n) for n in constructs.CONSTRUCTS] + [
+    pytest.param(n, s, id=f"{n}-{'x'.join(map(str, s))}")
+    for n, s in (("reshape_fm", (1, 2048)), ("reshape_fm", (37, 2048)),
+                 ("reshape_lead", (3, 5, 7)))])
+def test_construct_plain_matches_jnp_body(name, shape):
+    """Each construct at its probe's inputs, and the constructs with a
+    kernel of their own also at ragged shapes (``shape``)."""
+    g = torch.Generator().manual_seed(8)
+    if shape is None:
+        ins = constructs.construct_inputs(name, "cpu", g)
+    else:
+        ins = (torch.randn(shape, generator=g).to(
+            torch.bfloat16 if name == "reshape_fm" else torch.float32),)
     got = constructs.construct(name, *ins)
     ref = jnp_body(name, *(_to_jnp(t) for t in ins))
     got = got if isinstance(got, tuple) else (got,)
@@ -818,8 +828,78 @@ def test_construct_library_call_matches_plain(name):
     torch.testing.assert_close(case.library(), case.plain(), rtol=case.rtol,
                                atol=case.atol)
     assert case.library().dtype == torch.float32
+    # on the CPU only LIBRARY's calls: LIBRARY_CARD's exist on the card
     assert {c.name[2:] for c in constructs.cases("cpu")
             if c.library is not None} == set(constructs.LIBRARY)
+    assert not set(constructs.LIBRARY_CARD) & set(constructs.LIBRARY)
+
+
+# one wave of a grid of 256-thread blocks on an H100: 132 SMs of 2,048
+# threads
+H100_WAVE_256 = 132 * 2048 // 256
+
+
+@pytest.mark.parametrize("TB", [1, 3, 37, 128, 1000])
+def test_reduce_plan_covers_every_output_once(TB):
+    """reshape_fm_kernel's grid, enumerated as the kernel walks it: block b
+    takes row b, thread t loads the row's 16-byte vector t (the (t % 8)-th
+    of output t // 8's 128 bytes), and lane 0 of warp w stores outputs 4w
+    .. 4w + 3 of the row as one 16-byte vector. Every vector of the input
+    is read once and within it, every output written once, in one wave of
+    an H100 (TB blocks)."""
+    plan = constructs.reduce_plan(TB)
+    assert plan == (TB, 256) and plan.threads == constructs.REDUCE_THREADS
+    assert plan.blocks <= H100_WAVE_256
+    rows = np.arange(plan.blocks)
+    rows = rows[rows < TB]
+    t = np.arange(plan.threads)
+    assert ((8 * t) // 64 == t // 8).all()       # a lane's 8 bf16: its output
+    assert (t // 8 // 4 == t // 32).all()        # an output's lanes: one warp
+    loads = (rows[:, None] * 256 + t).ravel()
+    assert loads.max() < TB * 2048 * 2 // 16
+    assert (np.bincount(loads, minlength=TB * 256) == 1).all()
+    stores = (rows[:, None] * 8 + np.arange(plan.threads // 32)).ravel()
+    outs = (stores[:, None] * 4 + np.arange(4)).ravel()
+    assert (np.bincount(outs, minlength=TB * 32) == 1).all()
+    assert outs.max() < TB * 32
+
+
+@pytest.mark.parametrize("numel", [1, 3, 4, 105, 262144])
+def test_copy_plan_covers_every_word_once(numel):
+    """copy_rows_kernel's grid, enumerated as the kernel walks it: thread t
+    of block b copies the 16-byte vector b * 256 + t if it lies below
+    numel // 4, and threads t < numel % 4 of block 0 the last words. Every
+    word is copied once, every vector lies within the tensor, in one wave
+    of an H100 (256 blocks at the probe's 262,144 words)."""
+    plan = constructs.copy_plan(numel)
+    assert plan.threads == constructs.COPY_THREADS == 256
+    assert plan.blocks <= H100_WAVE_256
+    n4 = numel // 4
+    vec = (np.arange(plan.blocks)[:, None] * 256
+           + np.arange(plan.threads)).ravel()
+    vec = vec[vec < n4]
+    words = np.concatenate([(vec[:, None] * 4 + np.arange(4)).ravel(),
+                            n4 * 4 + np.arange(numel % 4)])
+    assert (np.bincount(words, minlength=numel) == 1).all()
+    assert len(words) == numel and (len(vec) == 0 or vec.max() < n4)
+    if numel == 262144:
+        assert plan == (256, 256)
+
+
+def test_own_kernels_refuse_a_base_off_16_bytes():
+    """reshape_fm and reshape_lead take an input on 16 bytes only, on
+    either device (their kernels load 16-byte vectors): a contiguous view
+    at storage offset 1 raises, one 16 bytes in runs."""
+    lead = torch.randn(3 * 5 * 7 + 4)
+    fm = torch.randn(2 * 2048 + 8).to(torch.bfloat16)
+    for name, flat, shape, step in (("reshape_lead", lead, (3, 5, 7), 4),
+                                    ("reshape_fm", fm, (2, 2048), 8)):
+        n = flat.numel() - step
+        with pytest.raises(ValueError, match="16 bytes"):
+            constructs.construct(name, flat[1:1 + n].view(shape))
+        x = flat[step:].view(shape)
+        torch.testing.assert_close(constructs.construct(name, x),
+                                   constructs.construct_plain(name, x))
 
 
 @pytest.mark.parametrize("name", list(constructs.ROSTERS))
@@ -892,6 +972,32 @@ def test_against_loads_another_tree_and_pairs_its_cases(tmp_path, capsys):
     lines = gather.main(["--device", "cpu", "--only", "^A2 "])
     assert [x["probe"] for x in lines] == [c.name for c in mine]
     capsys.readouterr()
+
+
+def test_summarize_takes_medians_and_counts_pairs(tmp_path, capsys):
+    """tools/summarize.py: per probe over runs, the median and range of
+    each µs field, and the runs whose kernel was below the other tree's
+    and at or below the library call's."""
+    from enarf_gan_tpu_torch.tools import summarize
+    runs = [(3.0, 4.0, 3.5), (2.0, 1.0, 2.0), (5.0, 6.0, 4.0)]
+    paths = []
+    for i, (dev, other, lib) in enumerate(runs):
+        paths.append(str(tmp_path / f"run_{i}.jsonl"))
+        with open(paths[-1], "w") as f:
+            f.write(json.dumps({"probe": "D x", "device_us": dev,
+                                "host_us": 10.0 + i, "other_device_us": other,
+                                "library_device_us": lib}) + "\n")
+            f.write(json.dumps({"probe": "D y", "device_us": 1.0,
+                                "host_us": 2.0, "library_device_us": None})
+                    + "\n")
+    out = summarize.main(paths)
+    x, y = out["D x"], out["D y"]
+    assert x["runs"] == 3 and x["device_us"] == {"median": 3.0, "min": 2.0,
+                                                 "max": 5.0}
+    assert x["host_us"]["median"] == 11.0 and x["other_device_us"]["max"] == 6
+    assert x["below_other"] == 2 and x["at_or_below_library"] == 2
+    assert "library_device_us" not in y and "below_other" not in y
+    assert len(capsys.readouterr().out.splitlines()) == 2
 
 
 def test_warp_rows_study_needs_the_card():
