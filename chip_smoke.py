@@ -756,10 +756,15 @@ def phase_probes(device):
                 line += (f"; {case.info['kernel']} kernel, "
                          f"{case.info['blocks']} blocks")
             elif case.info.get("kernel") in ("reshape_fm_kernel",
-                                             "copy_rows_kernel"):
+                                             "vec4_kernel<false>",
+                                             "vec4_kernel<true>"):
                 line += (f"; {case.info['kernel']}, {case.info['blocks']} "
                          f"blocks of {case.info['threads']} threads, one "
                          f"16-byte vector a thread")
+            elif case.info.get("kernel") == "ewr_mma_kernel":
+                line += (f"; ewr_mma_kernel, {case.info['blocks']} blocks of "
+                         f"{case.info['threads'] // 32} warps, a warp a batch "
+                         f"element, 16 mma.sync m16n8k16")
             print(line)
             if case.info.get("inputs") == "fine chunk":
                 entries[name].update(fine_chunk_ms=t["ms"],

@@ -15,15 +15,19 @@
 //     argument roster (1 to 7 inputs, 1 or 2 outputs)
 // On this card every construct compiles (nvcc has no Mosaic layout rules);
 // the questions left are whether each gives the right answer, what ptxas
-// makes of it and what a launch costs. Each construct is one instantiation
-// of construct_kernel<kOp>: one thread per output element, grid-stride,
-// reading what the element needs (bound: bytes, or the float32 operations
-// of the reductions). Two constructs have a kernel of their own, because
-// one thread an element of narrow loads left them slower than one PyTorch
-// call of the same function: reshape_fm (reshape_fm_kernel: 16-byte loads,
-// a shuffle reduction) and reshape_lead (copy_rows_kernel: a 16-byte copy),
-// both launched on the grid of tools/constructs.py's reduce_plan and
-// copy_plan. The roster kernels do trivial work on 32 floats
+// makes of it and what a launch costs. Most constructs are one
+// instantiation of construct_kernel<kOp>: one thread per output element,
+// grid-stride, reading what the element needs (bound: bytes, or the
+// float32 operations of the reductions). Where one thread an element of
+// narrow loads left a construct slower than one PyTorch call of the same
+// function, it has a kernel of its own, on a grid that
+// tools/constructs.py's plans give: reshape_fm (reshape_fm_kernel: 16-byte
+// loads, a shuffle reduction; reduce_plan), ewr (ewr_mma_kernel: a warp a
+// batch element on mma.sync, fragments straight from global memory;
+// ewr_plan), and reshape_lead and the three doubling constructs load_c,
+// warm and cat_sub, which all compute x + x (vec4_kernel<false> and
+// <true>: a 16-byte vector a thread; copy_plan). The roster
+// kernels do trivial work on 32 floats
 // of each argument, so that their time is the launch's; probe_spin holds
 // the stream for a set time, so that launches queued behind it show the
 // device's own cost per launch once it drains them.
@@ -60,17 +64,9 @@ construct_kernel(const void* __restrict__ in0, const void* __restrict__ in1,
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < n;
        e += (int64_t)gridDim.x * blockDim.x) {
     float v = 0.f;
-    if constexpr (kOp == kLoadC || kOp == kWarm) {
-      v = x[e] * 2.f;
-    } else if constexpr (kOp == kHatBcast) {          // sum_l hat(l, x)
+    if constexpr (kOp == kHatBcast) {                 // sum_l hat(l, x)
       const float xe = x[e];
       for (int l = 0; l < 128; ++l) v += hat((float)l, xe);
-    } else if constexpr (kOp == kCatSub) {            // d0 = M
-      const int64_t u = e / d0;
-      const int j = (int)(e - u * d0);
-      // x2 = concat([x, x], 1); x2[:, :M] + x2[:, M:]
-      const int a = j, b = d0 + j;
-      v = x[u * d0 + (a < d0 ? a : a - d0)] + x[u * d0 + (b < d0 ? b : b - d0)];
     } else if constexpr (kOp == kLaneSlice) {         // in1 = win bf16, d0 = M
       const int f = (int)(e % 32);
       const int64_t uj = e / 32;                      // u * M + j
@@ -114,12 +110,6 @@ construct_kernel(const void* __restrict__ in0, const void* __restrict__ in1,
       const int64_t tb = e / 32;
       const int c = (int)(e % 32);
       for (int t = 0; t < 64; ++t) v += bf(h0, tb * 2048 + t * 32 + c);
-    } else if constexpr (kOp == kEwr) {               // (TB,16,64).(TB,32,64)
-      const int f = (int)(e % 32);
-      const int64_t tj = e / 32;                      // tb * 16 + j
-      const int64_t tb = tj / 16;
-      for (int k = 0; k < 64; ++k)
-        v += bf(h0, tj * 64 + k) * bf(h1, (tb * 32 + f) * 64 + k);
     } else if constexpr (kOp == kExpand) {            // d0 = TB, d1 = M
       const int64_t tj = e / 128;
       const int64_t tb = tj / d1;
@@ -177,21 +167,100 @@ reshape_fm_kernel(const uint4* __restrict__ x, float4* __restrict__ out,
         make_float4(s, s1, s2, s3);
 }
 
-// reshape_lead: merging leading axes is a copy of n float32 words. Bound:
-// bytes. Thread i of block b copies the 16-byte vector b * 256 + i (a
-// block's vectors are 4 KB contiguous); block 0 also copies the last n % 4
-// words.
+// reshape_lead: merging leading axes is a copy of n float32 words; load_c,
+// warm and cat_sub are each twice a float32 tensor (x * 2.0, or
+// concat([x, x], 1)[:, :M] + [:, M:], which is x + x: the same bits in
+// IEEE float32, overflow included). Bound: bytes. Thread i of block b
+// copies (kTwice: doubles) the 16-byte vector b * 256 + i, with 32-bit
+// indices and no loop (a block's vectors are 4 KB contiguous); block 0
+// also does the last n % 4 words.
 constexpr int kCopyThreads = 256;      // constructs.COPY_THREADS
 
+__device__ __forceinline__ float4 doubled(float4 v) {
+  return make_float4(v.x + v.x, v.y + v.y, v.z + v.z, v.w + v.w);
+}
+
+template <bool kTwice>
 __global__ void __launch_bounds__(kCopyThreads)
-copy_rows_kernel(const float4* __restrict__ x, float4* __restrict__ out,
-                 long long n) {
-  const long long n4 = n >> 2;
-  const long long i = (long long)blockIdx.x * kCopyThreads + threadIdx.x;
-  if (i < n4) out[i] = __ldg(x + i);
-  if (blockIdx.x == 0 && threadIdx.x < (n & 3))
-    reinterpret_cast<float*>(out)[n4 * 4 + threadIdx.x] =
-        reinterpret_cast<const float*>(x)[n4 * 4 + threadIdx.x];
+vec4_kernel(const float4* __restrict__ x, float4* __restrict__ out,
+            unsigned n) {
+  const unsigned n4 = n >> 2;
+  const unsigned i = blockIdx.x * kCopyThreads + threadIdx.x;
+  if (i < n4) out[i] = kTwice ? doubled(__ldg(x + i)) : __ldg(x + i);
+  if (blockIdx.x == 0 && threadIdx.x < (n & 3)) {
+    const float v = reinterpret_cast<const float*>(x)[n4 * 4 + threadIdx.x];
+    reinterpret_cast<float*>(out)[n4 * 4 + threadIdx.x] = kTwice ? v + v : v;
+  }
+}
+
+// ewr, (TB, 16, 64) bf16 . (TB, 32, 64) bf16 over the 64 -> (TB, 16, 32)
+// float32: out[b, m, n] = sum_k x[b, m, k] y[b, n, k]. Bound: bytes (1 MB
+// at the probe's TB 128, against 8.4 MFLOP). One warp a batch element:
+// 4 n-tiles of 8 columns x 4 k-steps of 16, 16 mma.sync.m16n8k16 (bf16 in,
+// float32 sums) into 16 accumulators a lane. A sum over k does not depend
+// on k's order, so one permutation of k, the same for both operands, lets
+// each lane build its fragments from 16-byte vectors read straight from
+// global memory (no shared memory, no ldmatrix): lane (g, t) = (lane / 4,
+// lane % 4) loads x's rows g and g + 8 and y's rows 8j + g (j < 4) at k =
+// 32c + 8t .. 32c + 8t + 7 (c < 2), 12 vectors, all before the first mma.
+// A vector's words 0 and 1 are k-step 2c's a0 / a2 (b0 / b1) and words 2
+// and 3 step 2c + 1's: lane t's k-pair 2t (2t + 8) of step 2c + h is
+// physical k 32c + 8t + 4h (+ 2), in x and in y alike. A warp's load
+// instruction covers 8 rows x 64 contiguous bytes, whole 32-byte sectors.
+// C leaves as float2s (rows g and g + 8, columns 8j + 2t, 8j + 2t + 1).
+// Blocks of kEwrWarps warps (tools/constructs.py's ewr_plan); the warps
+// past TB in the last block exit.
+constexpr int kEwrWarps = 2;           // constructs.EWR_WARPS
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(kEwrWarps * 32)
+ewr_mma_kernel(const uint4* __restrict__ x, const uint4* __restrict__ y,
+               float2* __restrict__ out, int TB) {
+  const long long b = (long long)blockIdx.x * kEwrWarps + (threadIdx.x >> 5);
+  if (b >= TB) return;                  // the same for the whole warp
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint4* xb = x + b * 16 * 8;     // 8 vectors a 128-byte row
+  const uint4* yb = y + b * 32 * 8;
+  uint4 xv[2][2], yv[4][2];             // [row g, g + 8][c], [j][c]
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    xv[0][c] = __ldg(xb + g * 8 + 4 * c + t);
+    xv[1][c] = __ldg(xb + (g + 8) * 8 + 4 * c + t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      yv[j][c] = __ldg(yb + (8 * j + g) * 8 + 4 * c + t);
+  }
+  float acc[4][4] = {};
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma_bf16(acc[j], word(xv[0][c], 2 * h), word(xv[1][c], 2 * h),
+                 word(xv[0][c], 2 * h + 1), word(xv[1][c], 2 * h + 1),
+                 word(yv[j][c], 2 * h), word(yv[j][c], 2 * h + 1));
+  float2* ob = out + b * 16 * 16;       // 16 float2 a 32-float row
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    ob[g * 16 + 4 * j + t] = make_float2(acc[j][0], acc[j][1]);
+    ob[(g + 8) * 16 + 4 * j + t] = make_float2(acc[j][2], acc[j][3]);
+  }
 }
 
 template <int kOp>
@@ -207,10 +276,12 @@ int launch_construct(const void* in0, const void* in1, void* out0, void* out1,
 using LaunchFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
                          int, int, cudaStream_t);
 
-// null for the constructs with kernels of their own
+// null for the constructs with kernels of their own (no construct_kernel
+// instantiation is compiled for them)
 template <int kOp>
 constexpr LaunchFn launcher() {
-  if constexpr (kOp == kReshapeLead || kOp == kReshapeFm)
+  if constexpr (kOp == kLoadC || kOp == kCatSub || kOp == kReshapeLead ||
+                kOp == kWarm || kOp == kReshapeFm || kOp == kEwr)
     return nullptr;
   else
     return launch_construct<kOp>;
@@ -287,16 +358,33 @@ extern "C" int probe_reshape_fm(const void* x, void* out, long long TB,
   return (int)cudaGetLastError();
 }
 
-// reshape_lead as a copy of n float32 words: `blocks` blocks of 256
-// threads, a 16-byte vector a thread (constructs.copy_plan); x and out on
-// 16 bytes.
-extern "C" int probe_copy_rows(const void* x, void* out, long long n,
-                               int blocks, void* stream) {
-  if (n <= 0 || blocks <= 0 || (long long)blocks * kCopyThreads < (n >> 2))
+// reshape_lead as a copy, or load_c, warm and cat_sub as twice (`twice`
+// nonzero), of n float32 words: `blocks` blocks of 256 threads, a 16-byte
+// vector a thread (constructs.copy_plan); x and out on 16 bytes, n and the
+// grid's threads within 2^32 (32-bit indices).
+extern "C" int probe_vec4(const void* x, void* out, long long n, int twice,
+                          int blocks, void* stream) {
+  if (n <= 0 || n >= (1LL << 32) || blocks <= 0 || blocks > (1 << 24) ||
+      (long long)blocks * kCopyThreads < (n >> 2))
     return (int)cudaErrorInvalidValue;
   if (!aligned16(x, out)) return (int)cudaErrorMisalignedAddress;
-  copy_rows_kernel<<<blocks, kCopyThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)x, (float4*)out, n);
+  auto kernel = twice ? vec4_kernel<true> : vec4_kernel<false>;
+  kernel<<<blocks, kCopyThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (float4*)out, (unsigned)n);
+  return (int)cudaGetLastError();
+}
+
+// ewr over TB batch elements: `blocks` blocks of kEwrWarps warps, a warp a
+// batch element (constructs.ewr_plan); x, y and out on 16 bytes.
+extern "C" int probe_ewr(const void* x, const void* y, void* out,
+                         long long TB, int blocks, void* stream) {
+  if (TB <= 0 || TB > INT32_MAX || blocks <= 0 ||
+      (long long)blocks * kEwrWarps < TB)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(x, y) || !aligned16(y, out))
+    return (int)cudaErrorMisalignedAddress;
+  ewr_mma_kernel<<<blocks, kEwrWarps * 32, 0, (cudaStream_t)stream>>>(
+      (const uint4*)x, (const uint4*)y, (float2*)out, (int)TB);
   return (int)cudaGetLastError();
 }
 

@@ -7,11 +7,14 @@
 ``LIBRARY`` the one PyTorch call that computes a construct, where there is
 one (the probe's library call), and ``LIBRARY_CARD`` such calls that exist
 only on the card. Most constructs run ``construct_kernel<op>``, one thread
-an output element; reshape_fm runs ``reshape_fm_kernel`` on the grid of
-``reduce_plan`` (a row a block, 8 lanes an output, 16-byte loads, a
-shuffle reduction) and reshape_lead ``copy_rows_kernel`` on that of
-``copy_plan`` (a 16-byte vector a thread); both take bases on 16 bytes
-only.
+an output element; those in ``OWN_KERNELS`` run a kernel of their own:
+reshape_fm ``reshape_fm_kernel`` on the grid of ``reduce_plan`` (a row a
+block, 8 lanes an output, 16-byte loads, a shuffle reduction),
+ewr ``ewr_mma_kernel`` on that of ``ewr_plan`` (a warp a batch element,
+16 ``mma.sync`` on fragments loaded straight from global memory), and
+reshape_lead, a copy, and load_c, warm and cat_sub, which all compute
+x + x, ``vec4_kernel<false>`` and ``<true>`` on that of ``copy_plan`` (a
+16-byte vector a thread). These take bases on 16 bytes only.
 ``roster(name, inputs, outputs)`` launches a trivial kernel with one of
 ``tools/probe_call_structure.py``'s argument rosters; what such a launch
 through the port's ctypes wrappers costs the host and the card is
@@ -29,7 +32,8 @@ from typing import NamedTuple
 import torch
 
 from enarf_gan_tpu_torch.cuda_build import KernelLibrary
-from enarf_gan_tpu_torch.tools.timing import Case, run_cli
+from enarf_gan_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, Case,
+                                              run_cli)
 
 SOURCE = "enarf_gan_tpu_torch/csrc/probe_ops.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -65,18 +69,23 @@ KERNEL = KernelLibrary(
                 for i, o in ROSTERS.values()},
              "probe_spin": [ctypes.c_longlong, _P],
              "probe_reshape_fm": [_P, _P, ctypes.c_longlong, _I, _P],
-             "probe_copy_rows": [_P, _P, ctypes.c_longlong, _I, _P]})
+             "probe_vec4": [_P, _P, ctypes.c_longlong, _I, _I, _P],
+             "probe_ewr": [_P, _P, _P, ctypes.c_longlong, _I, _P]})
 ROSTER_ELEMS = 32              # floats the roster kernels touch an argument
 # constructs with a kernel of their own: name -> (its entry point, kernel)
 OWN_KERNELS = {"reshape_fm": ("probe_reshape_fm", "reshape_fm_kernel"),
-               "reshape_lead": ("probe_copy_rows", "copy_rows_kernel")}
+               "reshape_lead": ("probe_vec4", "vec4_kernel<false>"),
+               "ewr": ("probe_ewr", "ewr_mma_kernel"),
+               **{name: ("probe_vec4", "vec4_kernel<true>")
+                  for name in ("load_c", "warm", "cat_sub")}}
 REDUCE_THREADS = 256       # reshape_fm_kernel's block: a (2048,) row
-COPY_THREADS = 256         # copy_rows_kernel's block
+COPY_THREADS = 256         # vec4_kernel's block
+EWR_WARPS = 2              # ewr_mma_kernel's warps a block (PERF.md, PR 12)
 
 
 class Plan(NamedTuple):
-    """The grid of ``reshape_fm_kernel`` or ``copy_rows_kernel``: ``blocks``
-    blocks of ``threads``, one 16-byte vector a thread."""
+    """The grid of a construct's own kernel: ``blocks`` blocks of
+    ``threads``."""
     blocks: int
     threads: int
 
@@ -94,10 +103,19 @@ def copy_plan(numel):
     return Plan(max(1, -(-(numel // 4) // COPY_THREADS)), COPY_THREADS)
 
 
+def ewr_plan(TB):
+    """ewr over TB batch elements: a warp an element in blocks of
+    ``EWR_WARPS`` warps; the warps past TB in the last block exit."""
+    return Plan(-(-TB // EWR_WARPS), 32 * EWR_WARPS)
+
+
 def own_plan(name, x):
     """The ``Plan`` of a construct with a kernel of its own, on ``x``."""
-    return reduce_plan(x.shape[0]) if name == "reshape_fm" \
-        else copy_plan(x.numel())
+    if name == "reshape_fm":
+        return reduce_plan(x.shape[0])
+    if name == "ewr":
+        return ewr_plan(x.shape[0])
+    return copy_plan(x.numel())
 
 
 def _stream(t):
@@ -269,9 +287,10 @@ def _check_construct(name, x, y):
         raise ValueError(f"{name}: shapes {tuple(x.shape)}"
                          f"{'' if y is None else ', ' + str(tuple(y.shape))} "
                          f"are not the construct's")
-    if name in OWN_KERNELS and x.data_ptr() % 16:
-        raise ValueError(f"{name}'s kernel takes an input on 16 bytes, got "
-                         f"one {x.data_ptr() % 16} bytes off")
+    for t in (x, y):
+        if name in OWN_KERNELS and t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}'s kernel takes inputs on 16 bytes, got "
+                             f"one {t.data_ptr() % 16} bytes off")
 
 
 def construct(name, x, y=None):
@@ -288,10 +307,17 @@ def construct(name, x, y=None):
     if name in OWN_KERNELS:
         symbol = OWN_KERNELS[name][0]
         plan = own_plan(name, x)
-        err = KERNEL.load(symbol)(
-            x.data_ptr(), out0.data_ptr(),
-            x.shape[0] if name == "reshape_fm" else x.numel(), plan.blocks,
-            _stream(x))
+        if name == "ewr":
+            err = KERNEL.load(symbol)(x.data_ptr(), y.data_ptr(),
+                                      out0.data_ptr(), x.shape[0],
+                                      plan.blocks, _stream(x))
+        elif name == "reshape_fm":
+            err = KERNEL.load(symbol)(x.data_ptr(), out0.data_ptr(),
+                                      x.shape[0], plan.blocks, _stream(x))
+        else:
+            err = KERNEL.load(symbol)(x.data_ptr(), out0.data_ptr(),
+                                      x.numel(), name != "reshape_lead",
+                                      plan.blocks, _stream(x))
     else:
         symbol = "probe_construct"
         err = KERNEL.load()(CONSTRUCTS[name][0], x.data_ptr(),
@@ -401,10 +427,26 @@ _REDUCE_TERMS = {"hat_bcast": 128, "mask_hat": 64, "block6d": 192,
                  "ewr": 64, "lane_slice": 4}
 
 
-# check-size shapes of the constructs with a kernel of their own: ragged
-# row counts, and a word count that is no multiple of 4
+# check-size shapes of the constructs with a kernel of their own (x's; ewr's
+# y is (TB, 32, 64)): ragged row and batch counts, and word counts that are
+# no multiple of 4
 CHECK_SHAPES = {"reshape_fm": ((1, 2048), (37, 2048)),
-                "reshape_lead": ((3, 5, 7), (37, 16, 128))}
+                "reshape_lead": ((3, 5, 7), (37, 16, 128)),
+                "ewr": ((1, 16, 64), (37, 16, 64)),
+                "cat_sub": ((3, 5, 1), (37, 16, 1)),
+                "load_c": ((3, 5, 1), (37, 16, 1)),
+                "warm": ((3, 5), (37, 128))}
+
+
+def check_inputs(name, shape, device, g):
+    """Normal inputs of construct ``name`` with x of ``shape``."""
+    x = torch.randn(shape, generator=g, device=device)
+    if name in _BF16_INPUTS:
+        x = x.to(torch.bfloat16)
+    if name == "ewr":
+        return x, torch.randn((shape[0], 32, 64), generator=g,
+                              device=device).to(torch.bfloat16)
+    return (x,)
 
 
 def construct_case(name, ins, label=""):
@@ -426,6 +468,9 @@ def construct_case(name, ins, label=""):
     if name in OWN_KERNELS:
         info.update(kernel=OWN_KERNELS[name][1],
                     **own_plan(name, ins[0])._asdict())
+    # copies and doubling: exact; else float32 sums in another order, expf
+    # against torch's sigmoid
+    tol = 0.0 if info.get("kernel", "").startswith("vec4_kernel") else 1e-5
     return Case(
         f"D {name}{label}", replaces, SOURCE,
         kernel=lambda: construct(name, *ins),
@@ -433,8 +478,8 @@ def construct_case(name, ins, label=""):
         library=None if library is None else (lambda: library(*ins)),
         counter=(KERNEL, name), nbytes=in_bytes + out_elems * 4.0,
         flops=2.0 * out_elems * _REDUCE_TERMS.get(name, 1),
-        # float32 sums in another order; expf against torch's sigmoid
-        rtol=1e-5, atol=1e-5, info=info)
+        rate=BF16_FLOPS if name == "ewr" else F32_FLOPS,
+        rtol=tol, atol=tol, info=info)
 
 
 def cases(device, size="main"):
@@ -448,10 +493,8 @@ def cases(device, size="main"):
     if size == "check":
         for name, shapes in CHECK_SHAPES.items():
             for shape in shapes:
-                x = torch.randn(shape, generator=g, device=device)
-                if name == "reshape_fm":
-                    x = x.to(torch.bfloat16)
-                yield construct_case(name, (x,), f" {list(shape)}")
+                yield construct_case(name, check_inputs(name, shape, device, g),
+                                     f" {list(shape)}")
     for name in ROSTERS:
         ins, outs = roster_args(name, device, g)
         flat = [t.reshape(-1) for t in ins]

@@ -743,37 +743,61 @@ def test_transpose_ragged_on_card(cuda_device, R, C):
 
 @pytest.mark.cuda
 def test_construct_own_kernels_ragged_on_card(cuda_device):
-    """reshape_fm_kernel (1e-5: float32 sums in another order) and
-    copy_rows_kernel (bit-equal) against construct_plain at ragged shapes
-    (TB 2113 and 3 M words take more than one wave), short last blocks,
-    word counts no multiple of 4; each launch counted under its construct.
-    A base off 16 bytes raises in the wrapper, and a grid too small for the
-    rows in the entry point."""
+    """reshape_fm_kernel (1e-5: float32 sums in another order),
+    ewr_mma_kernel (1e-5: float32 sums of exact products in another order),
+    vec4_kernel<false> (reshape_lead) and <true> (load_c, warm and cat_sub;
+    bit-equal) against construct_plain at ragged shapes (TB 2113, 3 M words
+    and 1.2 M words take more than one wave), short last blocks, word
+    counts that are and are not multiples of 4; each launch counted under
+    its construct. A base off 16 bytes raises in the wrapper, and a grid
+    too small for the rows in the entry point."""
     from enarf_gan_tpu_torch.tools import constructs
     g = torch.Generator(device=cuda_device).manual_seed(5)
     shapes = [("reshape_fm", s) for s in ((1, 2048), (3, 2048), (37, 2048),
                                           (1000, 2048), (2113, 2048))] \
         + [("reshape_lead", s) for s in ((1, 1), (1, 3), (3, 5, 7),
                                          (37, 16, 128), (2, 7, 105),
-                                         (1000, 1000, 1), (600, 1000, 5))]
+                                         (1000, 1000, 1), (600, 1000, 5))] \
+        + [("ewr", (TB, 16, 64)) for TB in (1, 3, 37, 1000, 2113)] \
+        + [(n, s) for n in ("cat_sub", "load_c")
+           for s in ((1, 1, 1), (1, 3, 1), (3, 5, 1), (2, 2, 1), (37, 16, 1),
+                     (600, 1999, 1), (601, 1999, 1))] \
+        + [("warm", s) for s in ((1, 1), (3, 5), (37, 128), (1024, 1200),
+                                 (1001, 1203))]
     for name, shape in shapes:
-        x = torch.randn(shape, generator=g, device=cuda_device)
-        if name == "reshape_fm":
-            x = x.to(torch.bfloat16)
+        ins = constructs.check_inputs(name, shape, cuda_device, g)
         before = constructs.KERNEL.launches_by[name]
-        got = constructs.construct(name, x)
+        got = constructs.construct(name, *ins)
         torch.cuda.synchronize()
-        tol = 1e-5 if name == "reshape_fm" else 0.0
-        torch.testing.assert_close(got, constructs.construct_plain(name, x),
+        tol = 1e-5 if name in ("reshape_fm", "ewr") else 0.0
+        torch.testing.assert_close(got, constructs.construct_plain(name, *ins),
                                    rtol=tol, atol=tol)
         assert constructs.KERNEL.launches_by[name] == before + 1, shape
+    stream = torch.cuda.current_stream().cuda_stream
     flat = torch.zeros(37 * 2048 + 8, dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="16 bytes"):
         constructs.construct("reshape_fm", flat[1:1 + 37 * 2048].view(37, 2048))
     out = torch.empty((37, 32), device=cuda_device)
     assert constructs.KERNEL.load("probe_reshape_fm")(
-        flat.data_ptr(), out.data_ptr(), 37, 36,
-        torch.cuda.current_stream().cuda_stream) != 0
+        flat.data_ptr(), out.data_ptr(), 37, 36, stream) != 0
+    x, y = constructs.check_inputs("ewr", (37, 16, 64), cuda_device, g)
+    for t in (x, y):
+        off = torch.zeros(t.numel() + 8, dtype=torch.bfloat16,
+                          device=cuda_device)[1:1 + t.numel()].view(t.shape)
+        with pytest.raises(ValueError, match="16 bytes"):
+            constructs.construct("ewr", *((off, y) if t is x else (x, off)))
+    out = torch.empty((37, 16, 32), device=cuda_device)
+    ewr = constructs.KERNEL.load("probe_ewr")
+    assert ewr(x.data_ptr(), y.data_ptr(), out.data_ptr(), 37, 18,
+               stream) != 0                    # 36 warps for 37 elements
+    w = torch.zeros(1001 * 1203 + 4, device=cuda_device)
+    with pytest.raises(ValueError, match="16 bytes"):
+        constructs.construct("warm", w[1:1 + 1001 * 1203].view(1001, 1203))
+    out = torch.empty(1001 * 1203, device=cuda_device)
+    for twice in (0, 1):
+        assert constructs.KERNEL.load("probe_vec4")(
+            w.data_ptr(), out.data_ptr(), 1001 * 1203, twice,
+            constructs.copy_plan(1001 * 1203).blocks - 1, stream) != 0
 
 
 @pytest.mark.cuda

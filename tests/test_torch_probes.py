@@ -15,6 +15,7 @@ Tolerances:
 """
 import functools
 import json
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -783,16 +784,21 @@ def _to_jnp(t):
     pytest.param(n, None, id=n) for n in constructs.CONSTRUCTS] + [
     pytest.param(n, s, id=f"{n}-{'x'.join(map(str, s))}")
     for n, s in (("reshape_fm", (1, 2048)), ("reshape_fm", (37, 2048)),
-                 ("reshape_lead", (3, 5, 7)))])
+                 ("reshape_lead", (3, 5, 7)), ("ewr", (1, 16, 64)),
+                 ("ewr", (37, 16, 64)), ("cat_sub", (3, 5, 1)),
+                 ("cat_sub", (37, 16, 1)), ("load_c", (3, 5, 1)),
+                 ("load_c", (37, 16, 1)), ("warm", (3, 5)),
+                 ("warm", (37, 128)))])
 def test_construct_plain_matches_jnp_body(name, shape):
     """Each construct at its probe's inputs, and the constructs with a
-    kernel of their own also at ragged shapes (``shape``)."""
+    kernel of their own also at ragged shapes (``shape``: x's, as
+    ``constructs.CHECK_SHAPES`` has them)."""
     g = torch.Generator().manual_seed(8)
     if shape is None:
         ins = constructs.construct_inputs(name, "cpu", g)
     else:
-        ins = (torch.randn(shape, generator=g).to(
-            torch.bfloat16 if name == "reshape_fm" else torch.float32),)
+        assert shape in constructs.CHECK_SHAPES[name]
+        ins = constructs.check_inputs(name, shape, "cpu", g)
     got = constructs.construct(name, *ins)
     ref = jnp_body(name, *(_to_jnp(t) for t in ins))
     got = got if isinstance(got, tuple) else (got,)
@@ -866,10 +872,10 @@ def test_reduce_plan_covers_every_output_once(TB):
 
 @pytest.mark.parametrize("numel", [1, 3, 4, 105, 262144])
 def test_copy_plan_covers_every_word_once(numel):
-    """copy_rows_kernel's grid, enumerated as the kernel walks it: thread t
-    of block b copies the 16-byte vector b * 256 + t if it lies below
-    numel // 4, and threads t < numel % 4 of block 0 the last words. Every
-    word is copied once, every vector lies within the tensor, in one wave
+    """vec4_kernel's grid, enumerated as the kernel walks it: thread t of
+    block b copies (or doubles) the 16-byte vector b * 256 + t if it lies
+    below numel // 4, and threads t < numel % 4 of block 0 the last words.
+    Every word is copied once, every vector lies within the tensor, in one wave
     of an H100 (256 blocks at the probe's 262,144 words)."""
     plan = constructs.copy_plan(numel)
     assert plan.threads == constructs.COPY_THREADS == 256
@@ -887,19 +893,124 @@ def test_copy_plan_covers_every_word_once(numel):
 
 
 def test_own_kernels_refuse_a_base_off_16_bytes():
-    """reshape_fm and reshape_lead take an input on 16 bytes only, on
-    either device (their kernels load 16-byte vectors): a contiguous view
-    at storage offset 1 raises, one 16 bytes in runs."""
+    """The constructs with a kernel of their own take inputs on 16 bytes
+    only, on either device (their kernels load 16-byte vectors): a
+    contiguous view at storage offset 1 raises (ewr's x or y), one 16 bytes
+    in runs."""
     lead = torch.randn(3 * 5 * 7 + 4)
     fm = torch.randn(2 * 2048 + 8).to(torch.bfloat16)
+    coords = torch.randn(3 * 5 + 4)
     for name, flat, shape, step in (("reshape_lead", lead, (3, 5, 7), 4),
-                                    ("reshape_fm", fm, (2, 2048), 8)):
+                                    ("reshape_fm", fm, (2, 2048), 8),
+                                    ("cat_sub", coords, (3, 5, 1), 4),
+                                    ("load_c", coords, (3, 5, 1), 4),
+                                    ("warm", coords, (3, 5), 4)):
         n = flat.numel() - step
         with pytest.raises(ValueError, match="16 bytes"):
             constructs.construct(name, flat[1:1 + n].view(shape))
         x = flat[step:].view(shape)
         torch.testing.assert_close(constructs.construct(name, x),
                                    constructs.construct_plain(name, x))
+    xf = torch.randn(2 * 16 * 64 + 8).to(torch.bfloat16)
+    yf = torch.randn(2 * 32 * 64 + 8).to(torch.bfloat16)
+    x, y = xf[8:].view(2, 16, 64), yf[8:].view(2, 32, 64)
+    for bad in ((xf[1:1 + x.numel()].view(2, 16, 64), y),
+                (x, yf[1:1 + y.numel()].view(2, 32, 64))):
+        with pytest.raises(ValueError, match="16 bytes"):
+            constructs.construct("ewr", *bad)
+    torch.testing.assert_close(constructs.construct("ewr", x, y),
+                               constructs.construct_plain("ewr", x, y))
+
+
+@pytest.mark.parametrize("TB", [1, 3, 37, 128, 1000, 2113])
+def test_ewr_plan_gives_every_batch_element_a_warp(TB):
+    """ewr_mma_kernel's grid: warp w of block b takes batch element b *
+    warps + w, every element gets one warp, the warps past TB lie in the
+    last block only, and the grid is one wave of an H100 (132 SMs of 2,048
+    threads; 32 blocks an SM at most). The block is the one that
+    ``probe_ewr`` launches (``kEwrWarps`` in probe_ops.cu)."""
+    plan = constructs.ewr_plan(TB)
+    warps = plan.threads // 32
+    assert plan.threads % 32 == 0 and warps == constructs.EWR_WARPS
+    src = (Path(constructs.__file__).parents[1] / "csrc/probe_ops.cu")
+    assert f"constexpr int kEwrWarps = {warps};" in src.read_text()
+    elem = (np.arange(plan.blocks)[:, None] * warps
+            + np.arange(warps)).ravel()
+    assert (np.bincount(elem[elem < TB], minlength=TB) == 1).all()
+    assert (elem >= TB).sum() < warps
+    assert plan.blocks <= 132 * min(32, 2048 // plan.threads)
+
+
+@pytest.mark.parametrize("TB", [1, 3, 37])
+def test_ewr_fragments_form_every_product_once(TB):
+    """ewr_mma_kernel emulated lane by lane in numpy. Its loads as the
+    kernel indexes them: lane (g, t) = (lane / 4, lane % 4) of the warp of
+    batch element b reads the 16-byte vectors 4c + t (c < 2) of x's rows g
+    and g + 8 and of y's rows 8j + g (j < 4). Its fragments on the PTX
+    layout of mma.m16n8k16 (A row-major: a0 (g, 2t..2t+1), a1 (g + 8, ..),
+    a2 (g, 2t+8..2t+9), a3 (g + 8, ..); B column-major: b0 (k 2t..2t+1,
+    n g), b1 (k 2t+8..2t+9, n g); C: c0, c1 (g, 2t..2t+1), c2, c3 (g + 8,
+    ..)), k-step 2c + h taking words 2h and 2h + 1 of each vector. Every
+    vector lies within its 128-byte row; in each step A's column k and B's
+    row k hold the same physical k (one permutation of k for both
+    operands); every (b, m, n, k) product is formed once; and C from the
+    emulated fragments, stored as the kernel's float2s, equals x @ y.mT
+    on the probe's kind of inputs (1e-5)."""
+    g_ = torch.Generator().manual_seed(TB)
+    x, y = constructs.check_inputs("ewr", (TB, 16, 64), "cpu", g_)
+    xv = x.float().numpy().reshape(-1, 8)     # 16-byte vectors (8 bf16)
+    yv = y.float().numpy().reshape(-1, 8)
+    plan = constructs.ewr_plan(TB)
+    warps = plan.threads // 32
+    out = np.zeros(TB * 16 * 32, np.float32)
+    stored = np.zeros(TB * 16 * 32, int)
+    formed = np.zeros((TB, 16, 32, 64), int)
+    for b in range(plan.blocks * warps):
+        if b >= TB:                           # the warps past TB exit
+            continue
+        acc = np.zeros((4, 16, 8), np.float32)        # [j] C tile
+        for c in range(2):
+            # each lane's vectors: (flat vector index) as the kernel has it
+            for h in range(2):
+                a_k = np.full((16, 16), -1)   # physical k of A[m, kk]
+                a_v = np.zeros((16, 16), np.float32)
+                b_k = np.full((4, 16, 8), -1)
+                b_v = np.zeros((4, 16, 8), np.float32)
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    for row, vec in ((g, b * 128 + g * 8 + 4 * c + t),
+                                     (g + 8, b * 128 + (g + 8) * 8 + 4 * c
+                                      + t)):
+                        assert vec // 8 == b * 16 + row   # within its row
+                        k = (vec % 8) * 8 + np.arange(8)
+                        for w, kk in ((2 * h, 2 * t), (2 * h + 1, 2 * t + 8)):
+                            a_k[row, kk:kk + 2] = k[2 * w:2 * w + 2]
+                            a_v[row, kk:kk + 2] = xv[vec, 2 * w:2 * w + 2]
+                    for j in range(4):
+                        vec = b * 256 + (8 * j + g) * 8 + 4 * c + t
+                        assert vec // 8 == b * 32 + 8 * j + g
+                        k = (vec % 8) * 8 + np.arange(8)
+                        for w, kk in ((2 * h, 2 * t), (2 * h + 1, 2 * t + 8)):
+                            b_k[j, kk:kk + 2, g] = k[2 * w:2 * w + 2]
+                            b_v[j, kk:kk + 2, g] = yv[vec, 2 * w:2 * w + 2]
+                assert (a_k >= 0).all() and (b_k >= 0).all()
+                perm = a_k[0]                 # this step's 16 physical k
+                assert (a_k == perm).all() and (b_k == perm[:, None]).all()
+                for j in range(4):
+                    formed[b, :, 8 * j:8 * j + 8, perm] += 1
+                    acc[j] += a_v @ b_v[j]
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for j in range(4):
+                for row in (g, g + 8):        # (c0, c1), (c2, c3)
+                    f2 = b * 256 + row * 16 + 4 * j + t     # float2 index
+                    out[2 * f2:2 * f2 + 2] = acc[j, row, 2 * t:2 * t + 2]
+                    stored[2 * f2:2 * f2 + 2] += 1
+    assert (formed == 1).all()
+    assert (stored == 1).all()
+    ref = (x.float() @ y.float().mT).numpy()
+    np.testing.assert_allclose(out.reshape(TB, 16, 32), ref, rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("name", list(constructs.ROSTERS))
