@@ -9,8 +9,9 @@ NVIDIA GPU.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (unirow: one full fine chunk; tilewin: one full
    fine chunk, m = 16, and one full coarse-corner chunk, m = 4; kernel 3 in
-   each mode at the fine chunk, on window rows built from the texel table
-   and held to ``pack_tilewin``'s; the backward kernels 1b and 2b at one
+   each mode at the fine chunk on the texel table, and held to its
+   window-row formulation on window rows built from the texel table and
+   held to ``pack_tilewin``'s; the backward kernels 1b and 2b at one
    training fine pass of 4 images, against autograd through the plain
    versions), times both with CUDA events in turns, and computes each
    kernel's bound from this run's inputs: the distinct table bytes the
@@ -102,6 +103,12 @@ plain combine.
     python3 chip_smoke.py --gan
 
 runs only phase 1 and phase 7 (about a minute on an H100).
+
+    python3 chip_smoke.py --modes
+
+runs phase 1, kernel 2's and kernel 3's checks at the fine chunk (phase
+2), and the tiled training steps of phase 6 in the hat mode and in each of
+kernel 3's modes (s/iter and peak memory a mode; a few minutes on an H100).
 
     python3 chip_smoke.py --probes
 
@@ -451,23 +458,42 @@ def phase_tilewin_check(device, m, S, label):
             "window_bound_ms": window_ms}
 
 
+def _window_texels(texels, bases):
+    """The distinct texels of the table that the 8x8 windows at ``bases``
+    cover (a window past the plane covers fewer)."""
+    import torch
+    Hp, Wp = texels.shape[2:4]
+    b = torch.unique(bases).long()
+    t = torch.arange(8, device=b.device)
+    bt = b % (Hp * Wp) // Wp
+    bs = b % Wp
+    inside = ((bt[:, None, None] + t[:, None]) < Hp) \
+        & ((bs[:, None, None] + t) < Wp)
+    cover = b[:, None, None] + t[:, None] * Wp + t
+    return int(torch.unique(cover[inside]).numel())
+
+
 def phase_modes_check(device):
     """Kernel 3 in each mode vs its plain version at kernel 2's full fine
-    chunk. It reads window rows, which the texel path builds from the texel
-    table (``windows_from_texels``): first those rows are held to
-    ``pack_tilewin``'s, bit for bit, and the texel path's kernel-3 result
-    to the kernel on ``pack_tilewin``'s tables. Its bound is kernel 2's:
-    the same function on the same inputs (the bf16 rounding of the
+    chunk, through ``tilewin_combine`` on the texel table, as the main path
+    launches it (``ms``: its time, the tensor map's encoding included).
+    Then the same plan through kernel 3's window-row formulation (its stage
+    build's "full" variant, ``tools/ablate.py::modes_stage``) on the window
+    rows that ``windows_from_texels`` builds from the texel table and
+    ``window_rows`` names, which are first held to ``pack_tilewin``'s rows
+    of the same draws, bit for bit: its tiles are the same numbers, so
+    the two results agree within 1e-6, else the texel fetch is at fault
+    (``rows_ms``: its time on rows built beforehand). Its bound is kernel
+    2's: the same function on the same inputs (the bf16 rounding of the
     t-weights changes no byte or operation the function needs). What its
-    formulation does is printed beside it: whole 4 KB window rows read once
-    each, and the (32 x 16) @ (16 x 128) t-contraction per (unit, slot,
-    plane), on the bf16 tensor cores ("dot", "bdiag") or in float32 ("vpu",
-    the parity's 16 nonzero rows). ``ms`` is the kernel's time on rows
-    built beforehand; ``path_ms`` is the time of ``tilewin_combine`` in the
-    mode on the texel table, which rebuilds the whole batch's window rows
-    at each launch."""
+    formulation does is printed beside it: each (unit, slot, plane) loads
+    its window's whole 4 KB tile through L2 (the distinct texels of the
+    windows once from the table at least), and the (32 x 16) @ (16 x 128)
+    t-contraction, on the bf16 tensor cores ("dot", "bdiag") or in
+    float32 ("vpu", the halves' 16 nonzero rows)."""
     import torch
     from enarf_gan_tpu_torch.ops import tilewin_kernel as tk
+    from enarf_gan_tpu_torch.tools.ablate import modes_stage
     targs = _tilewin_inputs(device, 16, NF)
     wargs = _tilewin_inputs(device, 16, NF, layout="windows")
     Mp, U = wargs[2].shape[2], wargs[2].shape[3]
@@ -479,45 +505,53 @@ def phase_modes_check(device):
     same = bool(torch.equal(feat_t[frows_t.long()], wargs[0][wargs[2].long()])
                 and torch.equal(mask_t[mrows_t.long()],
                                 wargs[1][wargs[3].long()]))
-    print(f"kernel 3's window rows from the texel table vs pack_tilewin's "
-          f"rows of the same plan: {'equal' if same else 'DIFFERENT'}")
+    print(f"window rows from the texel table vs pack_tilewin's rows of the "
+          f"same plan: {'equal' if same else 'DIFFERENT'}")
     assert same
-    del feat_t, mask_t
-    bound_ms, bound_by, nbytes, flops, (table_bytes, _, _), _, \
-        (_, _, d_sec, d_rows) = _tilewin_bound(targs, 16)
-    form_bytes = _tilewin_io_bytes(wargs, 16) + d_rows * 4096 + d_sec * 32
+    del wargs
+    rows = (feat_t, mask_t, frows_t, mrows_t, *targs[3:6], *targs[7:9])
+    bound_ms, bound_by, nbytes, flops, (_, _, d_sec), _, _ = \
+        _tilewin_bound(targs, 16)
+    d_win = _window_texels(texels, bases)
+    tiles = bases.numel()
+    form_bytes = _tilewin_io_bytes(targs, 16) + d_win * 64 + d_sec * 32
     out = {}
     for mode in MODES:
-        with torch.no_grad():
-            via = tk.tilewin_combine(*targs, mode=mode)
-            direct = tk.launch_modes(*wargs, mode=mode)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(via, direct)), mode
+        path = "vpu" if mode == "vpu" else "dot"
         err, kern_ms, plain_ms = _compare_and_time(
-            lambda: tk.launch_modes(*wargs, mode=mode),
-            lambda: tk.tilewin_combine_plain(*wargs, round_t=mode != "vpu"),
-            f"tilewin_combine_modes {mode} at U={U} m=16 Mp={Mp}")
+            lambda: tk.tilewin_combine(*targs, mode=mode),
+            lambda: tk.tilewin_combine_texels_plain(*targs,
+                                                    round_t=mode != "vpu"),
+            f"tilewin_combine_modes {mode} at U={U} m=16 Mp={Mp} texels "
+            f"{tuple(texels.shape)} bf16")
         with torch.no_grad():
-            path_ms = _cuda_time_ms(
-                lambda: tk.tilewin_combine(*targs, mode=mode), 5)
+            got = tk.tilewin_combine(*targs, mode=mode)
+            via_rows = modes_stage(*rows, path, "full")
+            torch.cuda.synchronize()
+            diff = max(float((a - b).abs().max())
+                       for a, b in zip(got, via_rows))
+            rows_ms = _cuda_time_ms(lambda: modes_stage(*rows, path, "full"),
+                                    20)
+        print(f"  the window-row formulation of the same plan: max|d| "
+              f"{diff:.3e} (bound 1e-6), {rows_ms:.4f} ms")
+        assert diff <= 1e-6, (mode, diff)
         if mode == "vpu":
-            form_flops, rate = U * Mp * 3 * 2 * 16 * 8 * 128 * 2, F32_FLOPS
+            form_flops, rate = tiles * 2 * 16 * 8 * 128 * 2, F32_FLOPS
         else:
-            form_flops, rate = U * Mp * 3 * 32 * 16 * 128 * 2, BF16_FLOPS
+            form_flops, rate = tiles * 32 * 16 * 128 * 2, BF16_FLOPS
         form_ms, form_by = _bound(form_bytes, form_flops, rate)
         print(f"  kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
               f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.2f} GFLOP), kernel 2's on the texel table; its "
-              f"formulation: {d_rows} distinct 4 KB rows and {d_sec} mask "
-              f"sectors, {form_bytes / 1e6:.1f} MB, "
-              f"{form_flops / 1e9:.2f} GFLOP "
+              f"formulation: {tiles} tiles of 4 KB through L2 "
+              f"({tiles * 4096 / 1e6:.1f} MB), {d_win} distinct window "
+              f"texels and {d_sec} mask sectors from the table, "
+              f"{form_bytes / 1e6:.1f} MB, {form_flops / 1e9:.2f} GFLOP "
               f"({'float32' if mode == 'vpu' else 'bf16 tensor cores'}), "
-              f"least {form_ms:.4f} ms by {form_by}; the texel path gives "
-              f"the same numbers in {path_ms:.4f} ms with its window rows "
-              f"rebuilt")
+              f"least {form_ms:.4f} ms by {form_by}")
         out[mode] = {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
-                     "path_ms": path_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
+                     "rows_ms": rows_ms, "rows_max_abs_diff": diff,
                      "formulation_bytes": form_bytes,
                      "formulation_ms": form_ms}
     return out
@@ -1229,8 +1263,7 @@ def phase_train_modes(gen, config, ds, batch, device, n_accum):
     a hat step, from the same weights: each must launch kernel 3 in its
     mode, and its loss must match the hat step's within 1e-3 relative.
     Then TIMED_STEPS more steps in the mode give its s/iter, and the peak
-    memory of all of them is the mode's (a matrix mode's steps rebuild the
-    window rows from the texel table at each launch)."""
+    memory of all of them is the mode's."""
     import os
     import torch
     from enarf_gan_tpu_torch.ops import tilewin_kernel
@@ -1287,6 +1320,22 @@ def phase_train_modes(gen, config, ds, batch, device, n_accum):
                    "step_s_iter": out[mode][3],
                    "step_peak_gib": out[mode][4] / 2**30}
             for mode in ("hat",) + MODES}
+
+
+def modes_study(device, root):
+    """Kernel 3 beside kernel 2: both at the fine chunk (phase 2), then the
+    tiled training step in the hat mode and in each of kernel 3's modes
+    (phase 6's model, batch and split)."""
+    import os
+    from enarf_gan_tpu_torch.ops import tilewin_kernel
+    phase_tilewin_check(device, 16, NF, "fine")
+    phase_modes_check(device)
+    config, ds, batch, tiled, exact = build_training(
+        device, os.path.join(root, "train"))
+    del exact
+    tt = phase_train(tiled, config, ds, batch, device, "tiled",
+                     (tilewin_kernel.KERNEL, tilewin_kernel.KERNEL_BWD))
+    phase_train_modes(tiled, config, ds, batch, device, tt["n_accum"])
 
 
 def build_gan(device, root):
@@ -1919,6 +1968,7 @@ def main():
                "--learn-collapse": learn_collapse,
                "--learn-gradcheck": learn_gradcheck,
                "--probes": lambda device, root: probe_sweeps(device),
+               "--modes": modes_study,
                "--gan": phase_gan}
     if sys.argv[1:2] and sys.argv[1] in studies:
         with tempfile.TemporaryDirectory() as root:

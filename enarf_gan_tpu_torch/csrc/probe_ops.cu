@@ -24,9 +24,11 @@
 // tools/constructs.py's plans give: reshape_fm (reshape_fm_kernel: 16-byte
 // loads, a shuffle reduction; reduce_plan), ewr (ewr_mma_kernel: a warp a
 // batch element on mma.sync, fragments straight from global memory;
-// ewr_plan), and reshape_lead and the three doubling constructs load_c,
+// ewr_plan), reshape_lead and the three doubling constructs load_c,
 // warm and cat_sub, which all compute x + x (vec4_kernel<false> and
-// <true>: a 16-byte vector a thread; copy_plan). The roster
+// <true>: a 16-byte vector a thread; copy_plan), and expand
+// (expand_kernel: a 16-byte store a thread of one broadcast word;
+// copy_plan). The roster
 // kernels do trivial work on 32 floats
 // of each argument, so that their time is the launch's; probe_spin holds
 // the stream for a set time, so that launches queued behind it show the
@@ -110,11 +112,6 @@ construct_kernel(const void* __restrict__ in0, const void* __restrict__ in1,
       const int64_t tb = e / 32;
       const int c = (int)(e % 32);
       for (int t = 0; t < 64; ++t) v += bf(h0, tb * 2048 + t * 32 + c);
-    } else if constexpr (kOp == kExpand) {            // d0 = TB, d1 = M
-      const int64_t tj = e / 128;
-      const int64_t tb = tj / d1;
-      const int j = (int)(tj - tb * d1);
-      v = x[(int64_t)j * d0 + tb];
     } else if constexpr (kOp == kBcast) {             // d0 = TB, d1 = M
       const int lam = (int)(e % 128);
       const int64_t row = e / 128;                    // tb * 2M + r
@@ -191,6 +188,24 @@ vec4_kernel(const float4* __restrict__ x, float4* __restrict__ out,
     const float v = reinterpret_cast<const float*>(x)[n4 * 4 + threadIdx.x];
     reinterpret_cast<float*>(out)[n4 * 4 + threadIdx.x] = kTwice ? v + v : v;
   }
+}
+
+// expand, x (M, TB) float32 -> (TB, M, 128) float32: out[tb, j, l] =
+// x[j, tb]. Bound: bytes (1 MB written from 8 KB read at the probe's M 16,
+// TB 128). Thread i of block b stores the 16-byte vector v = b * 256 + i,
+// four copies of x[j, tb] with tb * M + j = v / 32: a warp stores one
+// 512-byte row of 128 words and reads one word, at one address for all its
+// lanes. 32-bit indices and no loop, on copy_plan's grid (the rows' 128
+// words make every vector whole).
+__global__ void __launch_bounds__(kCopyThreads)
+expand_kernel(const float* __restrict__ x, float4* __restrict__ out,
+              unsigned TB, unsigned M) {
+  const unsigned v = blockIdx.x * kCopyThreads + threadIdx.x;
+  const unsigned row = v >> 5;          // tb * M + j
+  if (row >= TB * M) return;
+  const unsigned tb = row / M;
+  const float e = __ldg(x + (row - tb * M) * TB + tb);
+  out[v] = make_float4(e, e, e, e);
 }
 
 // ewr, (TB, 16, 64) bf16 . (TB, 32, 64) bf16 over the 64 -> (TB, 16, 32)
@@ -281,7 +296,8 @@ using LaunchFn = int (*)(const void*, const void*, void*, void*, int64_t, int,
 template <int kOp>
 constexpr LaunchFn launcher() {
   if constexpr (kOp == kLoadC || kOp == kCatSub || kOp == kReshapeLead ||
-                kOp == kWarm || kOp == kReshapeFm || kOp == kEwr)
+                kOp == kWarm || kOp == kReshapeFm || kOp == kEwr ||
+                kOp == kExpand)
     return nullptr;
   else
     return launch_construct<kOp>;
@@ -371,6 +387,20 @@ extern "C" int probe_vec4(const void* x, void* out, long long n, int twice,
   auto kernel = twice ? vec4_kernel<true> : vec4_kernel<false>;
   kernel<<<blocks, kCopyThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)x, (float4*)out, (unsigned)n);
+  return (int)cudaGetLastError();
+}
+
+// expand of x (M, TB) into (TB, M, 128): `blocks` blocks of 256 threads, a
+// 16-byte vector of the output a thread (constructs.copy_plan); out on 16
+// bytes, the output's vectors within 2^32 (32-bit indices).
+extern "C" int probe_expand(const void* x, void* out, long long TB,
+                            long long M, int blocks, void* stream) {
+  if (TB <= 0 || M <= 0 || TB * M >= (1LL << 27) || blocks <= 0 ||
+      (long long)blocks * kCopyThreads < TB * M * 32)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(x, out)) return (int)cudaErrorMisalignedAddress;
+  expand_kernel<<<blocks, kCopyThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float4*)out, (unsigned)TB, (unsigned)M);
   return (int)cudaGetLastError();
 }
 

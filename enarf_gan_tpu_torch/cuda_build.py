@@ -69,6 +69,14 @@ def build_library(name: str, sources: Sequence[str], flags: Sequence[str] = ()
     return ctypes.CDLL(out), log
 
 
+def raw_stream(t) -> int:
+    """The handle of the current CUDA stream of ``t``'s device, for a
+    kernel's launch, without building a ``torch.cuda.Stream`` (which costs a
+    call microseconds of host time)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 class KernelLibrary:
     """One kernel's library, built at first use, and its launch count.
 

@@ -14,11 +14,11 @@ default "hat") picks the formulation, as in the JAX package:
   ``_combine_kernel_hat``), m = 4 or 16;
 * "dot", "bdiag", "vpu": ``csrc/tilewin_combine_modes.cu`` (kernel 3,
   replaces ``_combine_kernel`` and ``_combine_kernel_bdiag``), m = 16: the
-  t-contraction as a matrix product over whole window rows, on the tensor
-  cores with the t-weights rounded to bf16 ("dot", "bdiag") or in float32
-  FMAs ("vpu"). It reads the TPU's window rows, which the wrapper builds
-  from the texel table without gradient (``windows_from_texels``, the rows
-  of ``ops/tilewin.py::pack_tilewin`` bit for bit).
+  t-contraction as a matrix product over each whole 8x8 window, on the
+  tensor cores with the t-weights rounded to bf16 ("dot", "bdiag") or in
+  float32 FMAs ("vpu"). It loads each window's tile (the TPU's window row:
+  64 texels x 32 channels) from the texel table itself, by TMA, with
+  kernel 2's arguments.
 
 Each kernel does the table reads itself. On the card the combine is a
 ``torch.autograd.Function`` whose backward is ``csrc/tilewin_combine_bwd.cu``
@@ -35,6 +35,10 @@ The JAX package's window tables (``pack_tilewin``: every stride-2 8x8
 window of the padded planes, 198 MB of features and 142 MB of masks an
 image at 256² planes) stay as the reference layout: ``tilewin_combine_plain``
 combines them, and the texel twin computes the same numbers.
+``windows_from_texels`` builds them from the texel table and
+``window_rows`` names a texel plan's rows in them: the CPU tests and
+``chip_smoke.py`` hold kernel 3 to its window-row formulation with them
+(``tools/ablate.py::modes_stage``); no launch on the card calls them.
 
 A unit is one (patch, sample): U = n_patch * S units, each with m member
 rays (m = 16 for 4x4 patches, m = 4 on the coarse-corner pass).
@@ -48,7 +52,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from enarf_gan_tpu_torch.cuda_build import KernelLibrary
+from enarf_gan_tpu_torch.cuda_build import KernelLibrary, raw_stream
 from enarf_gan_tpu_torch.ops.activation import straight_through_clamp
 from enarf_gan_tpu_torch.ops.unirow import (FEAT_BLOCK, MASK_BLOCK,
                                             TEXEL_WIDTH)
@@ -72,7 +76,7 @@ KERNEL = KernelLibrary("tilewin_combine", "tilewin_combine_bf16",
                        + [ctypes.c_void_p], keys=KERNEL_MEMBERS)
 KERNEL_MODES = KernelLibrary("tilewin_combine_modes",
                              "tilewin_combine_modes_bf16",
-                             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                              + [ctypes.c_void_p], keys=MATRIX_MODES)
 KERNEL_BWD = KernelLibrary("tilewin_combine_bwd", "tilewin_combine_bwd_bf16",
                            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
@@ -267,8 +271,10 @@ def windows_from_texels(texels: torch.Tensor, nb: int,
     bf16, the 8x8 windows at base (2bi, 2bj) of the padded planes (bone k's
     mask rows from lane 32 + k). Bone k < K's rows and, at F = 32, every
     feature row equal ``pack_tilewin``'s: the same bf16 values, the same
-    zeros past the table. Kernel 3's input; built without gradient (its gradient goes
-    through kernel 2b into the texel table)."""
+    zeros past the table. Built without gradient: the input of kernel 3's
+    window-row formulation (``tools/ablate.py::modes_stage``), which the
+    tests and ``chip_smoke.py`` hold kernel 3 to; kernel 3 itself reads
+    the texel table."""
     B, _, Hp, Wp, _ = texels.shape
     span = (nb - 1) * STRIDE + WIN
     with torch.no_grad():
@@ -368,7 +374,9 @@ def _check_inputs(texels, bases, bones, xt, xs, valid, feat_dim, S, mode):
 
 def _check_window_inputs(feat_table, mask_table, frows, mrows, xt, xs, valid,
                          feat_dim, S, mode):
-    """The window-table inputs of kernel 3 and of the window twin."""
+    """The window-table inputs of kernel 3's window-row formulation (its
+    stage build, ``tools/ablate.py::modes_stage``) and of the window
+    twin."""
     if feat_table.dim() != 3 or feat_table.dtype != torch.bfloat16 \
             or feat_table.shape[1] * feat_table.shape[2] < NTEX * feat_dim:
         raise ValueError(f"feat_table must be (R, SUB, LANE) bfloat16 holding "
@@ -412,74 +420,34 @@ def _check_kernel_shapes(texels, bases, xt, feat_dim):
     return B, Hp - 2, Wp - 2, Mp, m, U
 
 
-def launch_modes(feat_table, mask_table, frows, mrows, xt, xs, valid,
-                 feat_dim, S, clamp_mask, mode):
-    """Kernel 3 in ``mode`` on window rows (``windows_from_texels``):
-    feature (B, F, n) and cand_w (B, Mp, n_patch, 16, S), no gradient."""
-    _check_window_inputs(feat_table, mask_table, frows, mrows, xt, xs, valid,
-                         feat_dim, S, mode)
-    if mode not in MATRIX_MODES:
-        raise ValueError(f"kernel 3 runs the modes {MATRIX_MODES}, got "
-                         f"{mode!r}")
-    inputs = (feat_table, mask_table, frows, mrows, xt, xs, valid)
-    if not feat_table.is_cuda or not all(t.is_contiguous() for t in inputs):
-        raise ValueError("kernel 3 takes contiguous CUDA tensors")
-    if feat_dim != KERNEL_FEAT_DIM or \
-            feat_table.shape[1] * feat_table.shape[2] != NTEX * feat_dim:
-        raise ValueError(f"the CUDA kernel takes feat_dim {KERNEL_FEAT_DIM} "
-                         f"(rows of {NTEX * KERNEL_FEAT_DIM} lanes), got "
-                         f"feat_dim {feat_dim}")
-    B, _, Mp, U = frows.shape
-    if B > 65535 or Mp * U * 16 >= 2 ** 31:
-        raise ValueError(f"shape too large for the kernel: B={B} Mp={Mp} "
-                         f"U={U}")
-    n = U * 16
-    feature = torch.empty((B, feat_dim, n), dtype=torch.float32,
-                          device=feat_table.device)
-    cand_w = torch.empty((B, Mp, U // S, 16, S), dtype=torch.float32,
-                         device=feat_table.device)
-    if U == 0:
-        return feature, cand_w
-    stream = torch.cuda.current_stream(feat_table.device).cuda_stream
-    ptrs = [t.data_ptr() for t in inputs] + [feature.data_ptr(),
-                                             cand_w.data_ptr()]
-    err = KERNEL_MODES.load()(*ptrs, B, Mp, U, S, int(clamp_mask),
-                              int(mode != "vpu"), stream)
-    if err != 0:
-        raise RuntimeError(f"tilewin_combine_modes kernel ({mode}) launch "
-                           f"failed: CUDA error {err}")
-    KERNEL_MODES.count(mode)
-    return feature, cand_w
-
-
 def _launch_kernel(texels, bases, bones, xt, xs, valid, feat_dim, S,
                    clamp_mask, mode="hat"):
-    """Kernel 2 ("hat") on the texel table, or kernel 3 (the matrix modes)
-    on window rows built from it: feature (B, F, n) and cand_w
-    (B, Mp, n_patch, m, S)."""
+    """Kernel 2 ("hat") or kernel 3 (the matrix modes) on the texel table:
+    feature (B, F, n) and cand_w (B, Mp, n_patch, m, S)."""
     B, H, W, Mp, m, U = _check_kernel_shapes(texels, bases, xt, feat_dim)
-    if mode != "hat":
-        if H != W:
-            raise ValueError(f"kernel 3 takes square planes, got {H}x{W}")
-        nb = num_bases(H)
-        feat_w, mask_w = windows_from_texels(texels, nb)
-        frows, mrows = window_rows(bases, bones, H + 2, W + 2, nb)
-        return launch_modes(feat_w, mask_w, frows, mrows, xt, xs, valid,
-                            feat_dim, S, clamp_mask, mode)
     feature = torch.empty((B, feat_dim, U * m), dtype=torch.float32,
                           device=texels.device)
     cand_w = torch.empty((B, Mp, U // S, m, S), dtype=torch.float32,
                          device=texels.device)
     if U == 0:
         return feature, cand_w
-    stream = torch.cuda.current_stream(texels.device).cuda_stream
     ptrs = [t.data_ptr() for t in (texels, bases, bones, xt, xs, valid,
                                    feature, cand_w)]
-    err = KERNEL.load()(*ptrs, B, H, W, Mp, m, U, S, int(clamp_mask), stream)
+    if mode == "hat":
+        lib, key = KERNEL, m
+        err = KERNEL.load()(*ptrs, B, H, W, Mp, m, U, S, int(clamp_mask),
+                            raw_stream(texels))
+    else:
+        if texels.data_ptr() % 16:
+            raise ValueError("kernel 3 loads the texel table by TMA: it "
+                             "takes a table on 16 bytes")
+        lib, key = KERNEL_MODES, mode
+        err = KERNEL_MODES.load()(*ptrs, B, H, W, Mp, U, S, int(clamp_mask),
+                                  int(mode != "vpu"), raw_stream(texels))
     if err != 0:
-        raise RuntimeError(f"tilewin_combine kernel launch failed: CUDA error "
-                           f"{err}")
-    KERNEL.count(m)
+        raise RuntimeError(f"{lib.name} kernel ({key}) launch failed: CUDA "
+                           f"error {err}")
+    lib.count(key)
     return feature, cand_w
 
 
@@ -500,11 +468,10 @@ def launch_backward(texels, bases, bones, xt, xs, valid, dfeature, dcand_w,
         return dtexels, dxt, dxs
     dfeature = dfeature.float().contiguous()
     dcand_w = dcand_w.float().contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = KERNEL_BWD.load()(
         *(t.data_ptr() for t in (texels, bases, bones, xt, xs, valid,
                                  dfeature, dcand_w, dtexels, dxt, dxs)),
-        B, H, W, Mp, U, S, int(clamp_mask), stream)
+        B, H, W, Mp, U, S, int(clamp_mask), raw_stream(texels))
     if err != 0:
         raise RuntimeError(f"tilewin_combine backward kernel launch failed: "
                            f"CUDA error {err}")

@@ -15,11 +15,12 @@ Kernel 2 (``hat_stage``, on the texel table; twin
 ``tilewin_combine_texels_plain(..., stage=)``): "full", "stream" (no table
 reads), "noweights" (bilinear fractions 0.5), "nomask" (no mask read,
 cand_w = 0.5^3), "nofeat" (feature texels 1).
-Kernel 3 (``modes_stage``, "dot" or "vpu" path; twin ``modes_stage_plain``):
-"full", "stream", "featA" (t-weights 1), "featD" (product replaced by a sum
-of the staged rows), "featB" (s-weights 1), "feat" (no mask), "mask" (no
-feature product). The build of each library prints each instantiation's
-ptxas line (``chip_smoke.py``), the counterpart of
+Kernel 3 (``modes_stage``, "dot" or "vpu" path; twin ``modes_stage_plain``;
+the kernel's code on the TPU's window rows, which its TMA loads as it
+loads the texel table's windows): "full", "stream", "featA" (t-weights 1),
+"featD" (product replaced by a sum of the staged tiles), "featB" (s-weights
+1), "feat" (no mask), "mask" (no feature product). The build of each
+library prints each instantiation's ptxas line (``chip_smoke.py``), the counterpart of
 ``tools/probe_kernel_stages.py`` and ``tools/probe_kernel_variants.py``.
 Kernel 1b (``unirow_bwd_stage``, built from ``csrc/unirow_combine_bwd.cu``
 with ``-DUNIROW_STAGE_ENTRY``; twin ``unirow_bwd_stage_plain``; timed by
@@ -55,7 +56,7 @@ KERNEL_STAGES = KernelLibrary(
     keys=HAT_STAGES, source="tilewin_combine.cu", flags=STAGE_FLAGS)
 KERNEL_MODES_STAGES = KernelLibrary(
     "tilewin_combine_modes_stages", "tilewin_combine_modes_stage_bf16",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     keys=tuple(f"{p}/{s}" for p in PATHS for s in MODES_STAGES),
     source="tilewin_combine_modes.cu", flags=STAGE_FLAGS)
 # kernel 1b's stages, in the order of the C enum
@@ -114,7 +115,12 @@ def hat_stage(texels, bases, bones, xt, xs, valid, S, clamp_mask, stage):
 def modes_stage(feat_table, mask_table, frows, mrows, xt, xs, valid, S,
                 clamp_mask, path, stage):
     """Kernel 3 in its "dot" (tensor-core) or "vpu" path with one stage
-    doctored (``MODES_STAGES``), on window rows."""
+    doctored (``MODES_STAGES``), on window rows: the kernel's code with its
+    tiles loaded from the rows that ``frows`` names and its mask logits
+    from the rows ``mrows`` names (rows of 64 texels x 32 channels, on 16
+    bytes). Stage "full" on the rows of a texel plan
+    (``windows_from_texels``, ``window_rows``) is ``tilewin_combine``'s
+    result in that mode, number for number."""
     if path not in PATHS or stage not in MODES_STAGES:
         raise ValueError(f"path in {PATHS} and stage in {MODES_STAGES}, got "
                          f"{path!r}, {stage!r}")
@@ -123,9 +129,18 @@ def modes_stage(feat_table, mask_table, frows, mrows, xt, xs, valid, S,
     if not feat_table.is_cuda:
         return modes_stage_plain(*args, S, clamp_mask, path, stage)
     B, _, Mp, U = frows.shape
+    R = feat_table.shape[0]
+    if tuple(feat_table.shape[1:]) != (16, 128) or R >= 2 ** 31 \
+            or B > 65535 or Mp * U * 16 >= 2 ** 31:
+        raise ValueError(f"kernel 3's stage build takes (R, 16, 128) rows "
+                         f"and a plan within int32, got rows "
+                         f"{tuple(feat_table.shape)}, B={B} Mp={Mp} U={U}")
+    if feat_table.data_ptr() % 16:
+        raise ValueError("kernel 3 loads the rows by TMA: it takes rows on "
+                         "16 bytes")
     return _launch(KERNEL_MODES_STAGES, f"{path}/{stage}", args,
                    _outputs(feat_table.device, B, Mp, 16, U, S),
-                   (B, Mp, U, S, int(clamp_mask), int(path == "dot"),
+                   (R, B, Mp, U, S, int(clamp_mask), int(path == "dot"),
                     MODES_STAGES.index(stage)))
 
 

@@ -14,7 +14,9 @@ ewr ``ewr_mma_kernel`` on that of ``ewr_plan`` (a warp a batch element,
 16 ``mma.sync`` on fragments loaded straight from global memory), and
 reshape_lead, a copy, and load_c, warm and cat_sub, which all compute
 x + x, ``vec4_kernel<false>`` and ``<true>`` on that of ``copy_plan`` (a
-16-byte vector a thread). These take bases on 16 bytes only.
+16-byte vector a thread), and expand ``expand_kernel`` on the same plan of
+its output (a 16-byte store a thread, four copies of one input word).
+These take bases on 16 bytes only.
 ``roster(name, inputs, outputs)`` launches a trivial kernel with one of
 ``tools/probe_call_structure.py``'s argument rosters; what such a launch
 through the port's ctypes wrappers costs the host and the card is
@@ -31,7 +33,7 @@ from typing import NamedTuple
 
 import torch
 
-from enarf_gan_tpu_torch.cuda_build import KernelLibrary
+from enarf_gan_tpu_torch.cuda_build import KernelLibrary, raw_stream
 from enarf_gan_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, Case,
                                               run_cli)
 
@@ -70,12 +72,15 @@ KERNEL = KernelLibrary(
              "probe_spin": [ctypes.c_longlong, _P],
              "probe_reshape_fm": [_P, _P, ctypes.c_longlong, _I, _P],
              "probe_vec4": [_P, _P, ctypes.c_longlong, _I, _I, _P],
-             "probe_ewr": [_P, _P, _P, ctypes.c_longlong, _I, _P]})
+             "probe_ewr": [_P, _P, _P, ctypes.c_longlong, _I, _P],
+             "probe_expand": [_P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                              _I, _P]})
 ROSTER_ELEMS = 32              # floats the roster kernels touch an argument
 # constructs with a kernel of their own: name -> (its entry point, kernel)
 OWN_KERNELS = {"reshape_fm": ("probe_reshape_fm", "reshape_fm_kernel"),
                "reshape_lead": ("probe_vec4", "vec4_kernel<false>"),
                "ewr": ("probe_ewr", "ewr_mma_kernel"),
+               "expand": ("probe_expand", "expand_kernel"),
                **{name: ("probe_vec4", "vec4_kernel<true>")
                   for name in ("load_c", "warm", "cat_sub")}}
 REDUCE_THREADS = 256       # reshape_fm_kernel's block: a (2048,) row
@@ -115,13 +120,9 @@ def own_plan(name, x):
         return reduce_plan(x.shape[0])
     if name == "ewr":
         return ewr_plan(x.shape[0])
+    if name == "expand":                       # the output's words
+        return copy_plan(x.numel() * 128)
     return copy_plan(x.numel())
-
-
-def _stream(t):
-    """The handle of the current stream of ``t``'s device, without building
-    a ``torch.cuda.Stream`` (which costs a call microseconds of host time)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _hat(t, x):
@@ -310,21 +311,25 @@ def construct(name, x, y=None):
         if name == "ewr":
             err = KERNEL.load(symbol)(x.data_ptr(), y.data_ptr(),
                                       out0.data_ptr(), x.shape[0],
-                                      plan.blocks, _stream(x))
+                                      plan.blocks, raw_stream(x))
         elif name == "reshape_fm":
             err = KERNEL.load(symbol)(x.data_ptr(), out0.data_ptr(),
-                                      x.shape[0], plan.blocks, _stream(x))
+                                      x.shape[0], plan.blocks, raw_stream(x))
+        elif name == "expand":                 # x (M, TB)
+            err = KERNEL.load(symbol)(x.data_ptr(), out0.data_ptr(),
+                                      x.shape[1], x.shape[0], plan.blocks,
+                                      raw_stream(x))
         else:
             err = KERNEL.load(symbol)(x.data_ptr(), out0.data_ptr(),
                                       x.numel(), name != "reshape_lead",
-                                      plan.blocks, _stream(x))
+                                      plan.blocks, raw_stream(x))
     else:
         symbol = "probe_construct"
         err = KERNEL.load()(CONSTRUCTS[name][0], x.data_ptr(),
                             None if y is None else y.data_ptr(),
                             out0.data_ptr(),
                             None if out1 is None else out1.data_ptr(),
-                            out0.numel(), d0, d1, 0, _stream(x))
+                            out0.numel(), d0, d1, 0, raw_stream(x))
     if err != 0:
         raise RuntimeError(f"{symbol} {name} launch failed: CUDA error {err}")
     KERNEL.count(name)
@@ -356,7 +361,7 @@ def roster(name, inputs, outputs):
         out = roster_plain(name, [t.reshape(-1) for t in inputs])
         return out
     err = KERNEL.load(f"probe_roster_{n_in}_{n_out}")(
-        *(t.data_ptr() for t in (*inputs, *outputs)), _stream(inputs[0]))
+        *(t.data_ptr() for t in (*inputs, *outputs)), raw_stream(inputs[0]))
     if err != 0:
         raise RuntimeError(f"probe_roster {name} launch failed: CUDA error "
                            f"{err}")
@@ -435,7 +440,8 @@ CHECK_SHAPES = {"reshape_fm": ((1, 2048), (37, 2048)),
                 "ewr": ((1, 16, 64), (37, 16, 64)),
                 "cat_sub": ((3, 5, 1), (37, 16, 1)),
                 "load_c": ((3, 5, 1), (37, 16, 1)),
-                "warm": ((3, 5), (37, 128))}
+                "warm": ((3, 5), (37, 128)),
+                "expand": ((1, 1), (5, 3), (16, 37))}
 
 
 def check_inputs(name, shape, device, g):
@@ -468,9 +474,11 @@ def construct_case(name, ins, label=""):
     if name in OWN_KERNELS:
         info.update(kernel=OWN_KERNELS[name][1],
                     **own_plan(name, ins[0])._asdict())
-    # copies and doubling: exact; else float32 sums in another order, expf
-    # against torch's sigmoid
-    tol = 0.0 if info.get("kernel", "").startswith("vec4_kernel") else 1e-5
+    # copies, doubling and expand: exact; else float32 sums in another
+    # order, expf against torch's sigmoid
+    tol = 0.0 if info.get("kernel", "").startswith(("vec4_kernel",
+                                                    "expand_kernel")) \
+        else 1e-5
     return Case(
         f"D {name}{label}", replaces, SOURCE,
         kernel=lambda: construct(name, *ins),

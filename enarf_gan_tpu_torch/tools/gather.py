@@ -34,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from enarf_gan_tpu_torch.cuda_build import KernelLibrary
+from enarf_gan_tpu_torch.cuda_build import KernelLibrary, raw_stream
 from enarf_gan_tpu_torch.tools.timing import Case, L2_BYTES, run_cli
 
 SOURCE = "enarf_gan_tpu_torch/csrc/probe_gather.cu"
@@ -52,12 +52,6 @@ SMEM_BYTES = 232448             # a block's shared memory on an H100
 H100 = (132, 233472, SMEM_BYTES)
 LANE_MODES = ("table", "tile", "lane")
 RING_DEPTHS = (2, 4, 8, 16)
-
-
-def _stream(t):
-    """The handle of the current stream of ``t``'s device, without building
-    a ``torch.cuda.Stream`` (which costs a call microseconds of host time)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _raise(err, what):
@@ -107,12 +101,12 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor, serial_rows: int = 0):
     if serial_rows > 0:
         _raise(KERNEL.load("probe_row_serial")(
             tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, row_bytes,
-            serial_rows, _stream(tab)), "probe_row_serial")
+            serial_rows, raw_stream(tab)), "probe_row_serial")
         KERNEL.count("serial")
     else:
         _raise(KERNEL.load("probe_row_gather")(
             tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, row_bytes,
-            _stream(tab)), "probe_row_gather")
+            raw_stream(tab)), "probe_row_gather")
         KERNEL.count("row")
     return out
 
@@ -244,7 +238,7 @@ def _lane_launch(tab, idx, mode, group, stage_tx):
     _raise(KERNEL.load("probe_lane_gather")(
         tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, L, tab.shape[0],
         tab.element_size(), LANE_MODES.index(mode), group, stage_tx, blocks,
-        _stream(tab)), "probe_lane_gather")
+        raw_stream(tab)), "probe_lane_gather")
     KERNEL.count("lane_smem" if stage_tx else "lane")
     return out
 
@@ -279,7 +273,7 @@ def ring_gather(tab: torch.Tensor, idx: torch.Tensor, R: int, Q: int = 8,
     out = torch.empty(idx.shape[0] // R, dtype=torch.float32, device=tab.device)
     _raise(KERNEL.load("probe_ring_gather")(
         tab.data_ptr(), idx.data_ptr(), out.data_ptr(), out.shape[0], R, Q,
-        row_bytes, int(staged), _stream(tab)), "probe_ring_gather")
+        row_bytes, int(staged), raw_stream(tab)), "probe_ring_gather")
     KERNEL.count("ring" if staged else "direct")
     return out
 
@@ -376,7 +370,7 @@ def transpose(x: torch.Tensor):
                           _card(x.get_device())[0])
     _raise(KERNEL.load("probe_transpose")(
         x.data_ptr(), out.data_ptr(), NB, R, C,
-        TRANSPOSE_KERNELS.index(plan.kernel), plan.blocks, _stream(x)),
+        TRANSPOSE_KERNELS.index(plan.kernel), plan.blocks, raw_stream(x)),
         "probe_transpose")
     KERNEL.count("transpose")
     return out

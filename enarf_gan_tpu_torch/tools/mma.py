@@ -35,7 +35,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from enarf_gan_tpu_torch.cuda_build import KernelLibrary
+from enarf_gan_tpu_torch.cuda_build import KernelLibrary, raw_stream
 from enarf_gan_tpu_torch.tools.gather import H100, SMEM_BYTES
 from enarf_gan_tpu_torch.tools.timing import BF16_FLOPS, Case, run_cli
 
@@ -52,12 +52,6 @@ N = 128                      # columns of every table and output
 WINDOW_MODES = ("static", "dynamic")
 BASE_ALIGN = 512
 TILE = 512
-
-
-def _stream(t):
-    """The handle of the current stream of ``t``'s device, without building
-    a ``torch.cuda.Stream`` (which costs a call microseconds of host time)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _raise(err, what):
@@ -138,7 +132,7 @@ def onehot_gather(loc, w, tab, G, WIN, mode="static"):
     _raise(KERNEL.load()(loc.data_ptr(), w.data_ptr(), loc.data_ptr(),
                          tab.data_ptr(), out.data_ptr(), S, G, WIN,
                          tab.shape[0], WINDOW_MODES.index(mode),
-                         _stream(tab)), "probe_onehot_gather")
+                         raw_stream(tab)), "probe_onehot_gather")
     KERNEL.count(f"onehot_{mode}")
     return out
 
@@ -153,7 +147,7 @@ def direct_gather(loc, w, tab, G, WIN, mode="static"):
     out = torch.empty((S, N), dtype=torch.float32, device=tab.device)
     _raise(KERNEL.load("probe_direct_gather")(
         loc.data_ptr(), w.data_ptr(), tab.data_ptr(), out.data_ptr(), S, G,
-        WIN, tab.shape[0], int(mode == "dynamic"), _stream(tab)),
+        WIN, tab.shape[0], int(mode == "dynamic"), raw_stream(tab)),
         "probe_direct_gather")
     KERNEL.count("direct")
     return out
@@ -184,7 +178,8 @@ def tile_gather(tile, loc, tab):
     out = torch.empty((S, N), dtype=torch.float32, device=tab.device)
     _raise(KERNEL.load()(loc.data_ptr(), loc.data_ptr(), tile.data_ptr(),
                          tab.data_ptr(), out.data_ptr(), S, TILE, TILE,
-                         tab.shape[0], 2, _stream(tab)), "probe_onehot_gather")
+                         tab.shape[0], 2, raw_stream(tab)),
+           "probe_onehot_gather")
     KERNEL.count("tile")
     return out
 
@@ -341,11 +336,11 @@ def gemm(a, b):
     if plan.kernel == "gemm":
         err = KERNEL.load("probe_gemm")(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, K,
-            int(batched), plan.stages, int(plan.b_resident), _stream(a))
+            int(batched), plan.stages, int(plan.b_resident), raw_stream(a))
     else:
         err = KERNEL.load("probe_gemm_small")(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, M, K,
-            int(batched), plan.block_rows, _stream(a))
+            int(batched), plan.block_rows, raw_stream(a))
     _raise(err, f"probe_{plan.kernel}")
     KERNEL.count(plan.kernel)
     return out

@@ -457,6 +457,96 @@ def test_tilewin_modes_kernel_matches_plain_on_card(cuda_device, mode,
     torch.testing.assert_close(f, f_ref, rtol=1e-4, atol=1e-5)
 
 
+def _no_window_tables(monkeypatch):
+    """Make the window-table builders raise: kernel 3's launch reads the
+    texel table and must call neither."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("kernel 3's launch built window tables")
+    monkeypatch.setattr(tilewin_kernel, "windows_from_texels", refuse)
+    monkeypatch.setattr(tilewin_kernel, "window_rows", refuse)
+
+
+@pytest.mark.parametrize("mode", ["dot", "vpu", "bdiag"])
+def test_modes_launch_passes_the_texel_table(monkeypatch, mode):
+    """Kernel 3's launch, with the CUDA entry point replaced by a recorder:
+    it gets kernel 2's inputs (the texel table, bases, bones, xt, xs,
+    valid), the outputs, (B, H, W, Mp, U, S, clamp, tensor) and the raw
+    stream handle, counts one launch under its mode, and builds no window
+    table."""
+    _no_window_tables(monkeypatch)
+    args = _tilewin_args(16, 3, 5)
+    calls = []
+
+    def entry(*a):
+        calls.append(a)
+        return 0
+
+    monkeypatch.setattr(tilewin_kernel.KERNEL_MODES, "load", lambda: entry)
+    monkeypatch.setattr(tilewin_kernel, "raw_stream", lambda t: 1234)
+    before = dict(tilewin_kernel.KERNEL_MODES.launches_by)
+    f, w = tilewin_kernel._launch_kernel(*args, 32, 5, True, mode=mode)
+    (a,) = calls
+    assert a[:6] == tuple(t.data_ptr() for t in args)
+    assert a[6:8] == (f.data_ptr(), w.data_ptr())
+    B, Mp, U = args[1].shape[0], args[1].shape[2], args[1].shape[3]
+    assert a[8:] == (B, 16, 16, Mp, U, 5, 1, int(mode != "vpu"), 1234)
+    assert tilewin_kernel.KERNEL_MODES.launches_by[mode] == before[mode] + 1
+    assert tuple(f.shape) == (B, 32, U * 16)
+    assert tuple(w.shape) == (B, Mp, U // 5, 16, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dot", "vpu", "bdiag"])
+@pytest.mark.parametrize("edge", [False, True])
+def test_tilewin_modes_kernel_matches_window_rows_on_card(
+        cuda_device, monkeypatch, mode, edge):
+    """Kernel 3 through ``tilewin_combine`` (which builds no window table)
+    against the texel twin (1e-4 / 1e-5) and against its window-row
+    formulation on the rows ``windows_from_texels`` builds (1e-6: the same
+    tiles), on clustered members and on a plan at the far corner of every
+    plane, whose windows reach past the plane (the TMA's zero fill) and
+    whose last image's are the table's last texels."""
+    if edge:
+        rng = np.random.default_rng(8)
+        Bn, Mp, n_patch, S, F, K, ts = 2, 2, 3, 4, 32, 6, 16
+        planes = rng.normal(size=(Bn, (F + K) * 3, ts, ts)).astype(np.float32)
+        tables = tilewin.pack_tilewin_texels(torch.from_numpy(planes), F, K)
+        pos = rng.uniform(0.8, 1.3, (Bn, 3, Mp, n_patch, 16, S)) \
+            .astype(np.float32)
+        slot_idx = rng.integers(0, K, (Bn, Mp, n_patch, S)).astype(np.int32)
+        valid = (np.abs(pos) < 1).all(axis=1) \
+            & (rng.random(pos[:, 0].shape) < 0.9)
+        plan = tilewin.texel_plan(tables, torch.from_numpy(pos),
+                                  torch.from_numpy(slot_idx),
+                                  torch.from_numpy(valid))
+        args = [t.to(cuda_device) for t in (tables.texels, plan.bases,
+                                            plan.bones, plan.xt, plan.xs,
+                                            plan.valid)]
+        nb = tilewin_kernel.num_bases(ts)
+        last = (args[1] % (ts + 2) ** 2) // (ts + 2) // 2 == nb - 1
+        assert bool(last.any())
+    else:
+        S = 5
+        args = list(_tilewin_args(16, 3, S, device=cuda_device))
+    texels, bases, bones = args[:3]
+    Hp, Wp = texels.shape[2:4]
+    nb = tilewin_kernel.num_bases(Hp - 2)
+    feat, mask = tilewin_kernel.windows_from_texels(texels, nb)
+    frows, mrows = tilewin_kernel.window_rows(bases, bones, Hp, Wp, nb)
+    _no_window_tables(monkeypatch)
+    with torch.no_grad():
+        got = tilewin_kernel.tilewin_combine(*args, 32, S, False, mode=mode)
+        rows = ablate.modes_stage(feat, mask, frows, mrows, *args[3:6], S,
+                                  False, "vpu" if mode == "vpu" else "dot",
+                                  "full")
+        torch.cuda.synchronize()
+        ref = tilewin_kernel.tilewin_combine_texels_plain(
+            *args, 32, S, False, round_t=mode != "vpu")
+    for a, b, r in zip(got, rows, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+        assert float((a - b).abs().max()) <= 1e-6
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_patch,S,clamp", [(3, 5, False), (37, 7, True)])
 def test_tilewin_backward_kernel_matches_plain_on_card(cuda_device, n_patch,
@@ -746,9 +836,10 @@ def test_construct_own_kernels_ragged_on_card(cuda_device):
     """reshape_fm_kernel (1e-5: float32 sums in another order),
     ewr_mma_kernel (1e-5: float32 sums of exact products in another order),
     vec4_kernel<false> (reshape_lead) and <true> (load_c, warm and cat_sub;
-    bit-equal) against construct_plain at ragged shapes (TB 2113, 3 M words
-    and 1.2 M words take more than one wave), short last blocks, word
-    counts that are and are not multiples of 4; each launch counted under
+    bit-equal) and expand_kernel (bit-equal) against construct_plain at
+    ragged shapes (TB 2113, 3 M words and 1.2 M words take more than one
+    wave), short last blocks, word counts that are and are not multiples
+    of 4, M and TB that are no powers of two; each launch counted under
     its construct. A base off 16 bytes raises in the wrapper, and a grid
     too small for the rows in the entry point."""
     from enarf_gan_tpu_torch.tools import constructs
@@ -763,7 +854,9 @@ def test_construct_own_kernels_ragged_on_card(cuda_device):
            for s in ((1, 1, 1), (1, 3, 1), (3, 5, 1), (2, 2, 1), (37, 16, 1),
                      (600, 1999, 1), (601, 1999, 1))] \
         + [("warm", s) for s in ((1, 1), (3, 5), (37, 128), (1024, 1200),
-                                 (1001, 1203))]
+                                 (1001, 1203))] \
+        + [("expand", s) for s in ((1, 1), (5, 3), (16, 37), (16, 128),
+                                   (7, 3001), (33, 2113))]
     for name, shape in shapes:
         ins = constructs.check_inputs(name, shape, cuda_device, g)
         before = constructs.KERNEL.launches_by[name]
@@ -798,6 +891,11 @@ def test_construct_own_kernels_ragged_on_card(cuda_device):
         assert constructs.KERNEL.load("probe_vec4")(
             w.data_ptr(), out.data_ptr(), 1001 * 1203, twice,
             constructs.copy_plan(1001 * 1203).blocks - 1, stream) != 0
+    x = torch.randn((33, 2113), generator=g, device=cuda_device)
+    out = torch.empty((2113, 33, 128), device=cuda_device)
+    assert constructs.KERNEL.load("probe_expand")(
+        x.data_ptr(), out.data_ptr(), 2113, 33,
+        constructs.copy_plan(out.numel()).blocks - 1, stream) != 0
 
 
 @pytest.mark.cuda

@@ -892,6 +892,38 @@ def test_copy_plan_covers_every_word_once(numel):
         assert plan == (256, 256)
 
 
+@pytest.mark.parametrize("M,TB", [(1, 1), (5, 3), (16, 37), (16, 128)])
+def test_expand_plan_stores_every_output_vector_once(M, TB):
+    """expand_kernel emulated as it walks copy_plan's grid of its output:
+    thread t of block b stores vector v = b * 256 + t if v / 32 < TB * M,
+    four copies of x[j, tb] with (tb, j) = divmod(v / 32, M). Every vector
+    of the (TB, M, 128) output is stored once, a warp's 32 vectors are one
+    512-byte row of (tb, j) and read one word, the grid is one wave of an
+    H100 (256 blocks at the probe's M 16, TB 128), and the emulation is
+    ``construct_plain``'s output bit for bit."""
+    g = torch.Generator().manual_seed(M * TB)
+    (x,) = constructs.check_inputs("expand", (M, TB), "cpu", g)
+    plan = constructs.own_plan("expand", x)
+    assert plan == constructs.copy_plan(TB * M * 128)
+    assert plan.threads == constructs.COPY_THREADS
+    assert plan.blocks <= H100_WAVE_256
+    v = (np.arange(plan.blocks)[:, None] * 256
+         + np.arange(plan.threads)).ravel()
+    row = v // 32
+    v, row = v[row < TB * M], row[row < TB * M]
+    tb, j = row // M, row % M
+    assert (np.bincount(v, minlength=TB * M * 32) == 1).all()
+    warps = v.reshape(-1, 32)
+    assert (warps[:, 1:] - warps[:, :-1] == 1).all()
+    assert (np.ptp(row.reshape(-1, 32), axis=1) == 0).all()
+    out = np.empty((TB * M * 32, 4), np.float32)
+    out[v] = x.numpy().ravel()[j * TB + tb][:, None]
+    assert np.array_equal(out.reshape(TB, M, 128),
+                          constructs.construct_plain("expand", x).numpy())
+    if (M, TB) == (16, 128):
+        assert plan == (256, 256)
+
+
 def test_own_kernels_refuse_a_base_off_16_bytes():
     """The constructs with a kernel of their own take inputs on 16 bytes
     only, on either device (their kernels load 16-byte vectors): a
@@ -904,7 +936,8 @@ def test_own_kernels_refuse_a_base_off_16_bytes():
                                     ("reshape_fm", fm, (2, 2048), 8),
                                     ("cat_sub", coords, (3, 5, 1), 4),
                                     ("load_c", coords, (3, 5, 1), 4),
-                                    ("warm", coords, (3, 5), 4)):
+                                    ("warm", coords, (3, 5), 4),
+                                    ("expand", coords, (5, 3), 4)):
         n = flat.numel() - step
         with pytest.raises(ValueError, match="16 bytes"):
             constructs.construct(name, flat[1:1 + n].view(shape))

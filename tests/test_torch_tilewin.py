@@ -21,6 +21,8 @@ Tolerances:
   formula on the same bf16 rows: 1e-5 (only the order of f32 sums
   differs).
 """
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -363,6 +365,153 @@ def test_windows_from_texels_are_pack_tilewins_rows():
     nb2 = 3 * nb * nb
     assert torch.equal(mask.reshape(B, 32, nb2, 64)[:, :K].reshape(-1, 64),
                        tt.mask)
+
+
+# kernel 3's tile fetch (csrc/tilewin_combine_modes.cu), emulated as the
+# card runs it: the box of a TMA tensor map, the 64-byte swizzle, tile_off,
+# and the ldmatrix.x4.trans and mma.m16n8k16 fragments that read the tile
+
+MODES_CU = (Path(ttk.__file__).parents[1] / "csrc/tilewin_combine_modes.cu")
+
+
+def _tile_off(t, s, f):
+    """tile_off of tilewin_combine_modes.cu: the bf16 offset in a tile of
+    texel (t, s), channel f."""
+    return (s * 8 + t) * 32 + ((((f >> 3) ^ (t >> 1)) & 3) << 3) + (f & 7)
+
+
+def _tma_tiles(flat, dims, strides, origins):
+    """The tiles that TMA loads write to shared memory: the box (32, 8, 8,
+    1) of a tensor map of ``dims`` (innermost first) with element
+    ``strides`` at each of ``origins`` (n, 4), zeros where the box leaves
+    the tensor, laid out dim 0 innermost, then the 64-byte swizzle (bits
+    4-5 of the byte address xor-ed with bits 7-8). (n, 2048) values."""
+    e = np.arange(2048)
+    box = (e % 32, e // 32 % 8, e // 256, 0 * e)
+    coord = [origins[:, d, None] + box[d] for d in range(4)]
+    inside = np.all([(c >= 0) & (c < n) for c, n in zip(coord, dims)], 0)
+    addr = sum(c * st for c, st in zip(coord, strides))
+    vals = np.where(inside, flat[np.where(inside, addr, 0)], 0)
+    byte = 2 * e
+    tiles = np.empty_like(vals)
+    tiles[:, (byte ^ (((byte >> 7) & 3) << 4)) // 2] = vals
+    return tiles, inside
+
+
+def test_kernel3_tiles_are_the_window_rows():
+    """Kernel 3 loads each window's tile by TMA from the texel table, its
+    tensor map listing t before s: (64 lanes, H+2, W+2, B*3 planes) with
+    element strides (1, (W+2)*64, 64, (H+2)*(W+2)*64), a box (32, 8, 8, 1)
+    at (0, bt, bs, plane) of the window's base texel. Emulated for every
+    window of every plane (the last bases of a plane reach past it, and
+    the table's last plane is the box's last), the tile it reads at
+    tile_off(t, s, f) is the window row of ``windows_from_texels`` at
+    sublane 2t + s/4, lane 32 (s % 4) + f, bit for bit, zeros past the
+    plane included; tile_off covers the tile once. The stage build's map
+    over the window rows ((32, 8, 8, R), strides (1, 256, 32, 2048)) lands
+    the same tile."""
+    src = MODES_CU.read_text()
+    for line in ("const cuuint32_t box[4] = {kF, kWin, kWin, 1};",
+                 "CU_TENSOR_MAP_SWIZZLE_64B",
+                 "return (s * kWin + t) * kF + ((((f >> 3) ^ (t >> 1)) & 3) "
+                 "<< 3) + (f & 7);",
+                 "Wp * line, line, Hp * Wp * line);",
+                 "kWin * kF * 2, kF * 2, kTileBytes);"):
+        assert line in src, line
+    tx = texel_tables(planes_np())
+    texels = tx.texels
+    nB3, Hp, Wp = B * 3, TS + 2, TS + 2
+    nb = ttk.num_bases(TS)
+    feat, _ = ttk.windows_from_texels(texels, nb)
+    rows = feat.float().numpy().reshape(-1, 16, 128)
+    plane, bi, bj = np.meshgrid(np.arange(nB3), np.arange(nb), np.arange(nb),
+                                indexing="ij")
+    bases = ((plane * Hp + 2 * bi) * Wp + 2 * bj).reshape(-1)
+    pl, rem = bases // (Hp * Wp), bases % (Hp * Wp)
+    origins = np.stack([0 * bases, rem // Wp, rem % Wp, pl], 1)
+    tiles, inside = _tma_tiles(texels.float().numpy().reshape(-1),
+                               (64, Hp, Wp, nB3),
+                               (1, Wp * 64, 64, Hp * Wp * 64), origins)
+    assert (~inside).any(axis=1).sum() > 0 and pl.max() == nB3 - 1
+    t, s, f = np.meshgrid(np.arange(8), np.arange(8), np.arange(32),
+                          indexing="ij")
+    off = _tile_off(t, s, f)
+    assert (np.bincount(off.ravel(), minlength=2048) == 1).all()
+    want = rows[:, 2 * t + s // 4, 32 * (s % 4) + f]
+    assert np.array_equal(tiles[:, off], want)
+    past = ~inside.reshape(-1, 8, 8, 32).transpose(0, 2, 1, 3)  # [n][t][s]
+    assert (want[past] == 0).all() and past.any()
+    r = np.arange(len(rows))
+    tiles_rows, _ = _tma_tiles(rows.reshape(-1), (32, 8, 8, len(rows)),
+                               (1, 256, 32, 2048),
+                               np.stack([0 * r, 0 * r, 0 * r, r], 1))
+    assert np.array_equal(tiles_rows, tiles)
+
+
+def test_kernel3_fragments_form_the_window_product():
+    """Kernel 3's mma operands emulated lane by lane from an emulated tile
+    (random bf16 values). Each lane's ldmatrix.x4.trans row address (matrix
+    lane / 8: half h = (lane / 8) % 2 and column tile nt + lane / 16, row t
+    = lane % 8, at tile_off(t, 4h + q, 8 (ntile % 4))) puts the 8 rows of
+    every matrix on 8 distinct 16-byte bank groups (no conflict), and the
+    .trans distribution (lane (g, c) = (lane / 4, lane % 4) gets rows 2c,
+    2c + 1 at column g) gives B fragments b0 (k 2c, 2c + 1) and b1 (k 2c +
+    8, 2c + 9) holding W[k, n] = window row (sublane 2 (k % 8) + k / 8,
+    lane 8 ntile + n). The A fragments as the kernel packs them (members
+    g, g + 8; t = 2c, 2c + 1; a0 = {lo, hi, 0, 0} for half 0 and a1 = {0,
+    0, lo, hi} for half 1) are A_h[j, k] = w_j(k % 8) [k / 8 == h], and
+    the two products D_h = A_h @ W are the TPU's sum over t of w_j(t) times
+    sublane 2t + h, to float64 rounding."""
+    rng = np.random.default_rng(3)
+    rows = torch.from_numpy(rng.normal(size=(16, 128)).astype(np.float32)) \
+        .to(torch.bfloat16).double().numpy()
+    # the tile holding this row (tile_off of each sublane and lane)
+    t, s, f = np.meshgrid(np.arange(8), np.arange(8), np.arange(32),
+                          indexing="ij")
+    tile = np.zeros(2048)
+    tile[_tile_off(t, s, f)] = rows[2 * t + s // 4, 32 * (s % 4) + f]
+    w = torch.from_numpy(rng.random((16, 8)).astype(np.float32)) \
+        .to(torch.bfloat16).double().numpy()
+    lane = np.arange(32)
+    g, c = lane // 4, lane % 4
+    A = np.zeros((2, 16, 16))
+    for L in range(32):          # lo: member g, hi: member g + 8
+        lo = (w[g[L], 2 * c[L]], w[g[L], 2 * c[L] + 1])
+        hi = (w[g[L] + 8, 2 * c[L]], w[g[L] + 8, 2 * c[L] + 1])
+        for h, regs in ((0, (lo, hi, (0, 0), (0, 0))),
+                        (1, ((0, 0), (0, 0), lo, hi))):
+            for reg, (row, col) in enumerate(((g[L], 2 * c[L]),
+                                              (g[L] + 8, 2 * c[L]),
+                                              (g[L], 2 * c[L] + 8),
+                                              (g[L] + 8, 2 * c[L] + 8))):
+                A[h, row, col:col + 2] = regs[reg]
+    for h in range(2):
+        want = np.zeros((16, 16))
+        want[:, 8 * h:8 * h + 8] = w
+        assert np.array_equal(A[h], want)
+    sigma = 2 * (np.arange(16) % 8) + np.arange(16) // 8
+    for nt in range(0, 16, 2):
+        ntile = nt + (lane >> 4)
+        addr = _tile_off(lane & 7, 4 * ((lane >> 3) & 1) + (ntile >> 2),
+                         (ntile & 3) * 8)
+        assert (addr % 8 == 0).all()
+        for m in range(4):
+            banks = (addr[8 * m:8 * m + 8] * 2 // 16) % 8
+            assert len(set(banks)) == 8, (nt, m)
+        mat = tile[addr[:, None] + np.arange(8)]      # row lane: 8 values
+        for hh in range(2):
+            Bt = np.zeros((16, 8))
+            for L in range(32):
+                for reg, k0 in ((2 * hh, 2 * c[L]), (2 * hh + 1,
+                                                      2 * c[L] + 8)):
+                    Bt[k0:k0 + 2, g[L]] = mat[8 * reg + 2 * c[L]:
+                                              8 * reg + 2 * c[L] + 2, g[L]]
+            lam = 8 * (nt + hh) + np.arange(8)
+            assert np.array_equal(Bt, rows[sigma][:, lam])
+            for h in range(2):
+                ref = w @ rows[2 * np.arange(8) + h][:, lam]
+                np.testing.assert_allclose(A[h] @ Bt, ref, rtol=1e-12,
+                                           atol=0)
 
 
 @pytest.mark.parametrize("layout,m,clamp", [("clustered", 16, False),
