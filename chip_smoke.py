@@ -791,10 +791,16 @@ def phase_probes(device):
                          f"{case.info['blocks']} blocks")
             elif case.info.get("kernel") in ("reshape_fm_kernel",
                                              "vec4_kernel<false>",
-                                             "vec4_kernel<true>"):
+                                             "vec4_kernel<true>",
+                                             "concat_mid_kernel"):
                 line += (f"; {case.info['kernel']}, {case.info['blocks']} "
                          f"blocks of {case.info['threads']} threads, one "
                          f"16-byte vector a thread")
+            elif "variant" in case.info:             # A1's row_plan
+                line += (f"; row_units_kernel, {case.info['variant']} hints, "
+                         f"{case.info['per_thread']} {case.info['unit']}-byte"
+                         f" units a thread, {case.info['blocks']} blocks; "
+                         f"sector floor {case.info['sector_floor_ms']:.4f} ms")
             elif case.info.get("kernel") == "ewr_mma_kernel":
                 line += (f"; ewr_mma_kernel, {case.info['blocks']} blocks of "
                          f"{case.info['threads'] // 32} warps, a warp a batch "

@@ -17,11 +17,29 @@
 // the bytes it must move (indices and rows read once, outputs written once,
 // over 3.35 TB/s) says how close a gather of that shape comes to HBM's rate.
 //
-// A1 row gather: out[i, :] = tab[idx[i], :]. One thread per 16-byte unit of
-//   a row (8- or 4-byte units where the row width allows no wider), and
-//   consecutive threads on consecutive units, so a warp reads 512
-//   contiguous bytes of one row (a 4 KB row takes 8 warps; narrow rows put
-//   several rows into one warp). Grid-stride over the output.
+// A1 row gather: out[i, :] = tab[idx[i], :]. Bound by bytes: the rows read
+//   once from a random place in the table, the indices, the output written
+//   once. The first design (one unit a thread an iteration of a grid-stride
+//   loop over 16 blocks an SM, a 64-bit division and an index load a unit)
+//   took 48.3 us at 2 and 4 KB rows against index_select's 46.7 / 46.9 on
+//   an H100 SXM at 700 W (PERF.md §6, A1). row_units_kernel reads the
+//   output as a run of units (16 bytes, or 8 or 4 where the row width or a
+//   pointer allows no wider) and gives each thread 16 bytes of it (one
+//   unit, two or four), with 32-bit indices and no loop, every load before
+//   the first store: warp w takes the 32 k units from 32 k w, lane l those
+//   at l + 32 j (j < k), so that each load and store instruction of a warp
+//   covers 512 contiguous bytes of the output and whole sectors of the
+//   rows. A unit's row is its index over the units a row, by a
+//   multiply-shift division. A random row of 128 bytes and more is read past L1
+//   (ld.global.nc.L1::no_allocate) and the output, which nothing reads
+//   again, leaves by streaming stores (st.global.cs); narrower rows and
+//   the launch-bound sizes, which these hints slowed (8 B rows 281.5 us
+//   with them, 262.1 without), take __ldg and plain stores. More bytes in
+//   flight a thread (2 to 8 units, or 4 to 8 whole rows under 16 bytes by
+//   one 16-byte index load and 16-byte stores) measured slower at every
+//   width (PERF.md §6, A1), as did whole rows by TMA bulk copies through
+//   shared memory (2 and 4 KB: 48.2 / 48.9 us); tools/gather.py::row_plan
+//   chooses the unit, the hints and the grid.
 // A2 warp-serial loop: out[i, :] = tab[idx[i], :] again, each warp walking k
 //   rows in turn (the counterpart of kern_dslice's loop of dynamic slices,
 //   which the TPU ran as one program: k = 1024 is one loop for all rows).
@@ -98,11 +116,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-int grid_for(int64_t work, int per_block, int cap) {
-  const int64_t g = (work + per_block - 1) / per_block;
-  return (int)(g < 1 ? 1 : (g > cap ? cap : g));
-}
-
 int sm_count() {
   static int n = 0;                    // read once: a launch is host-bound
   if (n == 0) {
@@ -152,16 +165,72 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---------------------------------------------------------------- A1, A2
 
-template <typename V>
+// 16-, 8- and 4-byte loads that leave no line in L1 (a table row is read
+// once), and streaming stores (the output is not read again)
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint2 ld_stream(const uint2* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint32_t ld_stream(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(v)
+               : "l"(p));
+  return v;
+}
+
+// n / d for n < 2^31 by a multiply and a shift (d >= 1, set on the host)
+struct FastDiv {
+  uint32_t d, m, s;
+  explicit FastDiv(uint32_t d_) : d(d_), s(0) {
+    while ((1u << s) < d) ++s;
+    m = (uint32_t)((((uint64_t)1 << 32) * (((uint64_t)1 << s) - d)) / d + 1);
+  }
+  __device__ __forceinline__ uint32_t div(uint32_t n) const {
+    return (__umulhi(n, m) + n) >> s;
+  }
+};
+
+// total (n units) below 2^31; `units` the units a row. A thread takes 16
+// bytes: kK units of V. kStream: the loads past L1 and the streaming
+// stores, else __ldg and plain stores.
+template <typename V, bool kStream>
 __global__ void __launch_bounds__(kThreads)
-row_gather_kernel(const V* __restrict__ tab, const int32_t* __restrict__ idx,
-                  V* __restrict__ out, int64_t n, int units) {
-  const int64_t total = n * units;
-  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-       e < total; e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t i = e / units;
-    const int u = (int)(e - i * units);
-    out[e] = tab[(int64_t)__ldg(idx + i) * units + u];
+row_units_kernel(const V* __restrict__ tab, const int32_t* __restrict__ idx,
+                 V* __restrict__ out, uint32_t total, FastDiv units) {
+  constexpr int kK = 16 / sizeof(V);
+  const uint32_t upr = units.d;
+  const uint32_t e0 = (blockIdx.x * kThreads + (threadIdx.x & ~31u)) * kK +
+                      (threadIdx.x & 31);
+  uint32_t row[kK];
+  int32_t at[kK];
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {              // every index first
+    const uint32_t e = e0 + 32 * j;
+    row[j] = units.div(e);
+    at[j] = e < total ? __ldg(idx + row[j]) : 0;
+  }
+  V v[kK];
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {              // then every row load
+    const uint32_t e = e0 + 32 * j;
+    if (e < total) {
+      const V* src = tab + (int64_t)at[j] * upr + (e - row[j] * upr);
+      v[j] = kStream ? ld_stream(src) : __ldg(src);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+    if (e0 + 32 * j >= total) continue;
+    if (kStream) __stcs(out + e0 + 32 * j, v[j]);
+    else out[e0 + 32 * j] = v[j];
   }
 }
 
@@ -301,40 +370,59 @@ int opt_in_smem(K kern, bool& done) {
   return err;
 }
 
-template <typename V>
-int launch_rows(const void* tab, const void* idx, void* out, int64_t n,
-                int row_bytes, int rows_per_warp, cudaStream_t st) {
-  const int units = row_bytes / (int)sizeof(V);
-  if (rows_per_warp > 0) {
-    const int grid = (int)((n + rows_per_warp - 1) / rows_per_warp);
-    // bulk stores when every warp's rows and chunks start on 16 bytes
-    const bool bulk = (int64_t)rows_per_warp * row_bytes % 16 == 0 &&
-                      n * row_bytes % 16 == 0;
+int launch_serial(const void* tab, const void* idx, void* out, int n,
+                  int row_bytes, int rows_per_warp, cudaStream_t st) {
+  // bulk stores when every warp's rows and chunks start on 16 bytes
+  const bool bulk = (int64_t)rows_per_warp * row_bytes % 16 == 0 &&
+                    (int64_t)n * row_bytes % 16 == 0;
+  auto go = [&](auto vec) {
+    using V = decltype(vec);
+    const int units = row_bytes / (int)sizeof(V);
     static bool opted[2] = {false, false};
     auto* kern = bulk ? row_warp_kernel<V, true> : row_warp_kernel<V, false>;
     const int err = opt_in_smem(kern, opted[bulk]);
     if (err) return err;
-    kern<<<grid, 32, row_warp_smem<V>(rows_per_warp, units), st>>>(
-        (const V*)tab, (const int32_t*)idx, (V*)out, (int)n, units,
-        rows_per_warp);
-  } else {
-    row_gather_kernel<V><<<grid_for(n * units, kThreads, sm_count() * 16),
-                           kThreads, 0, st>>>(
-        (const V*)tab, (const int32_t*)idx, (V*)out, n, units);
-  }
+    kern<<<(n + rows_per_warp - 1) / rows_per_warp, 32,
+           row_warp_smem<V>(rows_per_warp, units), st>>>(
+        (const V*)tab, (const int32_t*)idx, (V*)out, n, units, rows_per_warp);
+    return (int)cudaGetLastError();
+  };
+  if (row_bytes % 16 == 0) return go(uint4{});
+  if (row_bytes % 8 == 0) return go(uint2{});
+  return go(uint32_t{});
+}
+
+template <typename V>
+int launch_units(const void* tab, const void* idx, void* out, uint32_t total,
+                 int units, bool stream, int blocks, cudaStream_t st) {
+  auto* kern = stream ? row_units_kernel<V, true> : row_units_kernel<V, false>;
+  kern<<<blocks, kThreads, 0, st>>>((const V*)tab, (const int32_t*)idx,
+                                    (V*)out, total, FastDiv((uint32_t)units));
   return (int)cudaGetLastError();
 }
 
+// A1 on the plan of tools/gather.py::row_plan; refuses a plan whose grid
+// does not cover the rows or whose unit the pointers do not allow
 int rows_entry(const void* tab, const void* idx, void* out, int n,
-               int row_bytes, int rows_per_warp, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 0 || row_bytes <= 0 || row_bytes % 4) return (int)cudaErrorInvalidValue;
-  if (row_bytes % 16 == 0)
-    return launch_rows<uint4>(tab, idx, out, n, row_bytes, rows_per_warp, st);
-  if (row_bytes % 8 == 0)
-    return launch_rows<uint2>(tab, idx, out, n, row_bytes, rows_per_warp, st);
-  return launch_rows<uint32_t>(tab, idx, out, n, row_bytes, rows_per_warp,
-                               st);
+               int row_bytes, int unit, bool stream, int blocks,
+               cudaStream_t st) {
+  if (n <= 0 || row_bytes <= 0 || blocks <= 0 ||
+      (unit != 4 && unit != 8 && unit != 16) || row_bytes % unit)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)tab | (uintptr_t)out) % unit)
+    return (int)cudaErrorMisalignedAddress;
+  const int units = row_bytes / unit;
+  const int64_t total = (int64_t)n * units;
+  if (total >= (1LL << 31) || (int64_t)blocks * kThreads * (16 / unit) < total)
+    return (int)cudaErrorInvalidValue;
+  if (unit == 16)
+    return launch_units<uint4>(tab, idx, out, (uint32_t)total, units,
+                               stream, blocks, st);
+  if (unit == 8)
+    return launch_units<uint2>(tab, idx, out, (uint32_t)total, units,
+                               stream, blocks, st);
+  return launch_units<uint32_t>(tab, idx, out, (uint32_t)total, units, stream,
+                                blocks, st);
 }
 
 // -------------------------------------------------------------------- A3
@@ -706,19 +794,26 @@ transpose_kernel(const float* __restrict__ x, float* __restrict__ out,
 // Plain C entry points (loaded with ctypes). All tensors contiguous; each
 // launches on `stream` and returns cudaGetLastError() (0 on success).
 
-// A1: out (n, row_bytes) = tab (rows, row_bytes)[idx (n,) int32];
-// row_bytes a multiple of 4.
+// A1: out (n, row_bytes) = tab (rows, row_bytes)[idx (n,) int32]; row_bytes
+// a multiple of `unit` (16, 8 or 4, which the table and output pointers
+// lie on), the n row_bytes / unit units of the output below 2^31. The plan
+// (tools/gather.py::row_plan): 16 bytes a thread in `blocks` blocks of
+// 256, with the streaming hints (`streaming` nonzero) or without.
 extern "C" int probe_row_gather(const void* tab, const void* idx, void* out,
-                                int n, int row_bytes, void* stream) {
-  return rows_entry(tab, idx, out, n, row_bytes, 0, stream);
+                                int n, int row_bytes, int unit, int streaming,
+                                int blocks, void* stream) {
+  return rows_entry(tab, idx, out, n, row_bytes, unit, streaming != 0, blocks,
+                    (cudaStream_t)stream);
 }
 
 // A2: the same function, one warp walking rows_per_warp rows in turn.
 extern "C" int probe_row_serial(const void* tab, const void* idx, void* out,
                                 int n, int row_bytes, int rows_per_warp,
                                 void* stream) {
-  if (rows_per_warp <= 0) return (int)cudaErrorInvalidValue;
-  return rows_entry(tab, idx, out, n, row_bytes, rows_per_warp, stream);
+  if (n <= 0 || row_bytes <= 0 || row_bytes % 4 || rows_per_warp <= 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_serial(tab, idx, out, n, row_bytes, rows_per_warp,
+                       (cudaStream_t)stream);
 }
 
 // A3: out (n, L) from tab with idx (n, L) int32; elem_bytes 2 or 4; mode 0:

@@ -26,9 +26,9 @@
 // batch element on mma.sync, fragments straight from global memory;
 // ewr_plan), reshape_lead and the three doubling constructs load_c,
 // warm and cat_sub, which all compute x + x (vec4_kernel<false> and
-// <true>: a 16-byte vector a thread; copy_plan), and expand
-// (expand_kernel: a 16-byte store a thread of one broadcast word;
-// copy_plan). The roster
+// <true>: a 16-byte vector a thread; copy_plan), expand (expand_kernel: a
+// 16-byte store a thread of one broadcast word; copy_plan) and concat_mid
+// (concat_mid_kernel: a 16-byte vector a thread; copy_plan). The roster
 // kernels do trivial work on 32 floats
 // of each argument, so that their time is the launch's; probe_spin holds
 // the stream for a set time, so that launches queued behind it show the
@@ -85,10 +85,6 @@ construct_kernel(const void* __restrict__ in0, const void* __restrict__ in1,
       for (int pg = 0; pg < 3 * d1; ++pg)
         for (int s = 0; s < 16; ++s)
           v += bf(h0, (((int64_t)pg * d0 + tb) * 16 + s) * 128 + lam);
-    } else if constexpr (kOp == kConcatMid) {         // d0 = M
-      const int64_t tb = e / (2 * d0);
-      const int r = (int)(e - tb * 2 * d0);
-      v = x[tb * d0 + (r < d0 ? r : r - d0)];
     } else if constexpr (kOp == kIotaSepw) {          // d0 = M
       const int sig = (int)(e % 16);
       const int64_t row = e / 16;                     // tb * 2M + r
@@ -208,6 +204,29 @@ expand_kernel(const float* __restrict__ x, float4* __restrict__ out,
   out[v] = make_float4(e, e, e, e);
 }
 
+// concat_mid, x (TB, M) float32 -> (TB, 2M): out[tb] = [x[tb], x[tb]].
+// Bound: bytes (8 KB read, 16 KB written at the probe's TB 128, M 16).
+// kVec (M a multiple of 4): thread i of block b stores the 16-byte vector
+// v = b * 256 + i, of row tb = v / (M / 2), which is x's vector tb M / 4 +
+// (v mod M / 2) mod M / 4; 32-bit indices and no loop, on copy_plan's grid
+// of the output. Else the same map word by word, a word a thread
+// (word_plan).
+template <bool kVec>
+__global__ void __launch_bounds__(kCopyThreads)
+concat_mid_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  unsigned TB, unsigned M) {
+  const unsigned i = blockIdx.x * kCopyThreads + threadIdx.x;
+  const unsigned q = kVec ? M >> 2 : M;        // vectors (words) of a row
+  if (i >= 2 * TB * q) return;
+  const unsigned tb = i / (2 * q), c = i - tb * 2 * q;
+  const unsigned src = tb * q + (c < q ? c : c - q);
+  if (kVec)
+    reinterpret_cast<float4*>(out)[i] =
+        __ldg(reinterpret_cast<const float4*>(x) + src);
+  else
+    out[i] = __ldg(x + src);
+}
+
 // ewr, (TB, 16, 64) bf16 . (TB, 32, 64) bf16 over the 64 -> (TB, 16, 32)
 // float32: out[b, m, n] = sum_k x[b, m, k] y[b, n, k]. Bound: bytes (1 MB
 // at the probe's TB 128, against 8.4 MFLOP). One warp a batch element:
@@ -297,7 +316,7 @@ template <int kOp>
 constexpr LaunchFn launcher() {
   if constexpr (kOp == kLoadC || kOp == kCatSub || kOp == kReshapeLead ||
                 kOp == kWarm || kOp == kReshapeFm || kOp == kEwr ||
-                kOp == kExpand)
+                kOp == kExpand || kOp == kConcatMid)
     return nullptr;
   else
     return launch_construct<kOp>;
@@ -401,6 +420,23 @@ extern "C" int probe_expand(const void* x, void* out, long long TB,
   if (!aligned16(x, out)) return (int)cudaErrorMisalignedAddress;
   expand_kernel<<<blocks, kCopyThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float4*)out, (unsigned)TB, (unsigned)M);
+  return (int)cudaGetLastError();
+}
+
+// concat_mid of x (TB, M) into (TB, 2M): `blocks` blocks of 256 threads, a
+// 16-byte vector of the output a thread where M is a multiple of 4
+// (constructs.copy_plan), else a word a thread (constructs.word_plan); x
+// and out on 16 bytes, the output's words within 2^31 (32-bit indices).
+extern "C" int probe_concat_mid(const void* x, void* out, long long TB,
+                                long long M, int blocks, void* stream) {
+  const bool vec = M % 4 == 0;
+  if (TB <= 0 || M <= 0 || 2 * TB * M >= (1LL << 31) || blocks <= 0 ||
+      (long long)blocks * kCopyThreads < 2 * TB * M / (vec ? 4 : 1))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(x, out)) return (int)cudaErrorMisalignedAddress;
+  auto kernel = vec ? concat_mid_kernel<true> : concat_mid_kernel<false>;
+  kernel<<<blocks, kCopyThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, (unsigned)TB, (unsigned)M);
   return (int)cudaGetLastError();
 }
 

@@ -14,9 +14,11 @@ ewr ``ewr_mma_kernel`` on that of ``ewr_plan`` (a warp a batch element,
 16 ``mma.sync`` on fragments loaded straight from global memory), and
 reshape_lead, a copy, and load_c, warm and cat_sub, which all compute
 x + x, ``vec4_kernel<false>`` and ``<true>`` on that of ``copy_plan`` (a
-16-byte vector a thread), and expand ``expand_kernel`` on the same plan of
-its output (a 16-byte store a thread, four copies of one input word).
-These take bases on 16 bytes only.
+16-byte vector a thread), expand ``expand_kernel`` on the same plan of
+its output (a 16-byte store a thread, four copies of one input word), and
+concat_mid ``concat_mid_kernel`` on the same plan of its output (a
+16-byte vector a thread; a word a thread, ``word_plan``, where the row is
+no whole vectors). These take bases on 16 bytes only.
 ``roster(name, inputs, outputs)`` launches a trivial kernel with one of
 ``tools/probe_call_structure.py``'s argument rosters; what such a launch
 through the port's ctypes wrappers costs the host and the card is
@@ -74,13 +76,16 @@ KERNEL = KernelLibrary(
              "probe_vec4": [_P, _P, ctypes.c_longlong, _I, _I, _P],
              "probe_ewr": [_P, _P, _P, ctypes.c_longlong, _I, _P],
              "probe_expand": [_P, _P, ctypes.c_longlong, ctypes.c_longlong,
-                              _I, _P]})
+                              _I, _P],
+             "probe_concat_mid": [_P, _P, ctypes.c_longlong,
+                                  ctypes.c_longlong, _I, _P]})
 ROSTER_ELEMS = 32              # floats the roster kernels touch an argument
 # constructs with a kernel of their own: name -> (its entry point, kernel)
 OWN_KERNELS = {"reshape_fm": ("probe_reshape_fm", "reshape_fm_kernel"),
                "reshape_lead": ("probe_vec4", "vec4_kernel<false>"),
                "ewr": ("probe_ewr", "ewr_mma_kernel"),
                "expand": ("probe_expand", "expand_kernel"),
+               "concat_mid": ("probe_concat_mid", "concat_mid_kernel"),
                **{name: ("probe_vec4", "vec4_kernel<true>")
                   for name in ("load_c", "warm", "cat_sub")}}
 REDUCE_THREADS = 256       # reshape_fm_kernel's block: a (2048,) row
@@ -108,6 +113,12 @@ def copy_plan(numel):
     return Plan(max(1, -(-(numel // 4) // COPY_THREADS)), COPY_THREADS)
 
 
+def word_plan(numel):
+    """A copy of ``numel`` float32 words a word a thread, in blocks of
+    ``COPY_THREADS``."""
+    return Plan(max(1, -(-numel // COPY_THREADS)), COPY_THREADS)
+
+
 def ewr_plan(TB):
     """ewr over TB batch elements: a warp an element in blocks of
     ``EWR_WARPS`` warps; the warps past TB in the last block exit."""
@@ -122,6 +133,8 @@ def own_plan(name, x):
         return ewr_plan(x.shape[0])
     if name == "expand":                       # the output's words
         return copy_plan(x.numel() * 128)
+    if name == "concat_mid":                   # the output's vectors or words
+        return (copy_plan if x.shape[1] % 4 == 0 else word_plan)(2 * x.numel())
     return copy_plan(x.numel())
 
 
@@ -319,6 +332,10 @@ def construct(name, x, y=None):
             err = KERNEL.load(symbol)(x.data_ptr(), out0.data_ptr(),
                                       x.shape[1], x.shape[0], plan.blocks,
                                       raw_stream(x))
+        elif name == "concat_mid":             # x (TB, M)
+            err = KERNEL.load(symbol)(x.data_ptr(), out0.data_ptr(),
+                                      x.shape[0], x.shape[1], plan.blocks,
+                                      raw_stream(x))
         else:
             err = KERNEL.load(symbol)(x.data_ptr(), out0.data_ptr(),
                                       x.numel(), name != "reshape_lead",
@@ -441,7 +458,10 @@ CHECK_SHAPES = {"reshape_fm": ((1, 2048), (37, 2048)),
                 "cat_sub": ((3, 5, 1), (37, 16, 1)),
                 "load_c": ((3, 5, 1), (37, 16, 1)),
                 "warm": ((3, 5), (37, 128)),
-                "expand": ((1, 1), (5, 3), (16, 37))}
+                "expand": ((1, 1), (5, 3), (16, 37)),
+                # M of whole vectors (4, 16, 36) and of words (1, 3, 5)
+                "concat_mid": ((3, 4), (37, 16), (5, 36), (3, 1), (37, 3),
+                               (2, 5))}
 
 
 def check_inputs(name, shape, device, g):
@@ -477,7 +497,8 @@ def construct_case(name, ins, label=""):
     # copies, doubling and expand: exact; else float32 sums in another
     # order, expf against torch's sigmoid
     tol = 0.0 if info.get("kernel", "").startswith(("vec4_kernel",
-                                                    "expand_kernel")) \
+                                                    "expand_kernel",
+                                                    "concat_mid_kernel")) \
         else 1e-5
     return Case(
         f"D {name}{label}", replaces, SOURCE,

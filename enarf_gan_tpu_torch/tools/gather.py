@@ -6,6 +6,9 @@ with a little arithmetic). Wrappers, their plain twins and the cases:
 
 * ``row_gather`` (A1): out[i] = tab[idx[i]], rows of any width that is a
   multiple of 4 bytes; plain ``tab[idx]``, library ``torch.index_select``.
+  Its grid and cache hints come from ``row_plan``: 16 bytes a thread (one
+  16-byte unit, or two or four of 8 or 4 bytes where the width or a
+  pointer allows no wider), the streaming hints for wide rows.
   ``row_gather(..., serial_rows=k)`` (A2) walks k rows a warp in turn.
 * ``lane_gather`` (A3): out[i, l] = tab[idx[i, l], l] (``mode`` "table"),
   within groups of G rows ("tile"), or tab[i, idx[i, l]] ("lane"); library
@@ -35,13 +38,15 @@ from typing import NamedTuple
 import torch
 
 from enarf_gan_tpu_torch.cuda_build import KernelLibrary, raw_stream
-from enarf_gan_tpu_torch.tools.timing import Case, L2_BYTES, run_cli
+from enarf_gan_tpu_torch.tools.timing import (Case, HBM_BYTES_PER_S, L2_BYTES,
+                                              run_cli)
 
 SOURCE = "enarf_gan_tpu_torch/csrc/probe_gather.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KEYS = ("row", "serial", "lane", "lane_smem", "ring", "direct", "transpose")
 KERNEL = KernelLibrary(
-    "probe_gather", "probe_row_gather", [_P, _P, _P, _I, _I, _P], keys=KEYS,
+    "probe_gather", "probe_row_gather", [_P, _P, _P] + [_I] * 5 + [_P],
+    keys=KEYS,
     symbols={"probe_row_serial": [_P, _P, _P, _I, _I, _I, _P],
              "probe_lane_gather": [_P, _P, _P] + [_I] * 8 + [_P],
              "probe_ring_gather": [_P, _P, _P] + [_I] * 5 + [_P],
@@ -80,9 +85,54 @@ def row_gather_plain(tab, idx):
     return tab[idx.long()]
 
 
+ROW_THREADS = 256          # a block of row_units_kernel
+STREAM_BYTES = 128         # rows from here take the streaming hints
+SM_THREADS = 2048          # threads an SM holds: one wave of the card
+
+
+class RowPlan(NamedTuple):
+    """How ``row_gather`` runs A1 (``probe_gather.cu::row_units_kernel``):
+    the output as a run of ``unit``-byte units, ``units`` of them (16
+    bytes) a thread, warp w the 32 ``units`` units from 32 ``units`` w and
+    lane l every 32nd from the l-th, in ``blocks`` blocks of ``threads``;
+    ``variant`` "stream" reads the table past L1 and writes by streaming
+    stores, "plain" by ``__ldg`` and plain stores."""
+    variant: str
+    unit: int
+    units: int
+    blocks: int
+    threads: int
+
+
+def row_unit(row_bytes, align=16):
+    """The widest unit (16, 8 or 4 bytes) that divides the row and the
+    pointers' alignment ``align``."""
+    return next(u for u in (16, 8, 4) if row_bytes % u == 0 and align % u == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def row_plan(n, row_bytes, align=16, sms=H100[0]):
+    """The ``RowPlan`` of a gather of n rows of ``row_bytes`` (a multiple of
+    4) on a card of ``sms`` SMs, with the table and output pointers on
+    ``align`` bytes: 16 bytes a thread, one thread each; the streaming
+    hints for rows of ``STREAM_BYTES`` and more when the threads outnumber
+    one wave of the card (they slowed narrower rows and the launch-bound
+    sizes: PERF.md §6, A1)."""
+    unit = row_unit(row_bytes, align)
+    k = 16 // unit
+    threads = -(-n * (row_bytes // unit) // k)
+    variant = "stream" if row_bytes >= STREAM_BYTES and \
+        threads > sms * SM_THREADS else "plain"
+    return RowPlan(variant, unit, k, max(1, -(-threads // ROW_THREADS)),
+                   ROW_THREADS)
+
+
 def row_gather(tab: torch.Tensor, idx: torch.Tensor, serial_rows: int = 0):
     """out (n, *tab.shape[1:]) = tab[idx]; idx (n,) int32. ``serial_rows``
-    > 0 runs A2, each warp copying that many rows in turn."""
+    > 0 runs A2, each warp copying that many rows in turn; else A1 on
+    ``row_plan``'s plan. On the card, rows are a multiple of 4 bytes and
+    fewer than 2**31, and A1 takes an output of fewer than 2**31 of its
+    units (8 GB of 4-byte units, 32 GB of 16-byte ones)."""
     if tab.dim() < 1 or tab.shape[0] == 0:
         raise ValueError(f"tab must have rows, got {tuple(tab.shape)}")
     _check_rows_index(idx)
@@ -91,9 +141,9 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor, serial_rows: int = 0):
     _check_cuda(tab, idx)
     row_bytes = tab.numel() // tab.shape[0] * tab.element_size()
     n = idx.shape[0]
-    if row_bytes % 4 or n >= 2 ** 31 or n * row_bytes // 16 >= 2 ** 40:
+    if row_bytes % 4 or n >= 2 ** 31:
         raise ValueError(f"the kernel takes rows of a multiple of 4 bytes, "
-                         f"got {row_bytes} B, n={n}")
+                         f"fewer than 2**31 of them, got {row_bytes} B, n={n}")
     out = torch.empty((n,) + tuple(tab.shape[1:]), dtype=tab.dtype,
                       device=tab.device)
     if n == 0:
@@ -103,11 +153,18 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor, serial_rows: int = 0):
             tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, row_bytes,
             serial_rows, raw_stream(tab)), "probe_row_serial")
         KERNEL.count("serial")
-    else:
-        _raise(KERNEL.load("probe_row_gather")(
-            tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, row_bytes,
-            raw_stream(tab)), "probe_row_gather")
-        KERNEL.count("row")
+        return out
+    off = (tab.data_ptr() | out.data_ptr()) % 16
+    align = off & -off if off else 16
+    plan = row_plan(n, row_bytes, align, _card(tab.get_device())[0])
+    if n * row_bytes // plan.unit >= 2 ** 31:
+        raise ValueError(f"the kernel takes fewer than 2**31 units of output, "
+                         f"got {n} rows of {row_bytes // plan.unit}")
+    _raise(KERNEL.load("probe_row_gather")(
+        tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n, row_bytes,
+        plan.unit, plan.variant == "stream", plan.blocks, raw_stream(tab)),
+        "probe_row_gather")
+    KERNEL.count("row")
     return out
 
 
@@ -387,6 +444,9 @@ ROW_WIDTHS = (("8 B mask quad", torch.bfloat16, 4),
               ("288 B unitable pad (72 f32)", torch.float32, 72),
               ("2 KB (8,128) bf16 tile", torch.bfloat16, 1024),
               ("4 KB (16,128) bf16 window row", torch.bfloat16, 2048))
+# ragged widths of the check size (float32 elements a row): rows of 4, 12,
+# 20 and 4,100 B, all of 4-byte units
+RAGGED_WIDTHS = (1, 3, 5, 1025)
 # table sizes of the sweep: in L2, and the main path's tables (PERF.md §3)
 TABLE_BYTES = (("8 MB (in L2)", 8e6), ("101 MB (unirow)", 101e6),
                ("142 MB (tilewin masks)", 142e6),
@@ -413,17 +473,31 @@ def _nbytes(*ts):
 
 
 def row_case(name, replaces, tab, idx, serial_rows=0, info=None):
-    out_bytes = idx.shape[0] * tab[0].numel() * tab.element_size()
+    """A1 (A2 with ``serial_rows``) on ``row_plan``'s plan.
+    ``sector_floor_ms``: the time of HBM's traffic when each row read costs
+    whole 32-byte sectors (an 8-byte row one sector), beside the bound of
+    the bytes the function needs."""
+    n, row_bytes = idx.shape[0], tab[0].numel() * tab.element_size()
+    out_bytes = n * row_bytes
     table_bytes = tab.numel() * tab.element_size()
-    info = dict(info or {}, rows=idx.shape[0],
-                row_bytes=tab[0].numel() * tab.element_size(),
-                table_bytes=table_bytes, fits_l2=table_bytes <= L2_BYTES)
+    info = dict(info or {}, rows=n, row_bytes=row_bytes,
+                table_bytes=table_bytes, fits_l2=table_bytes <= L2_BYTES,
+                sector_floor_ms=(n * -(-row_bytes // 32) * 32 + out_bytes
+                                 + _nbytes(idx)) / HBM_BYTES_PER_S * 1e3)
+    if not serial_rows:
+        p = row_plan(n, row_bytes, 16, _sms(tab))
+        info.update(variant=p.variant, unit=p.unit, per_thread=p.units,
+                    blocks=p.blocks)
     return Case(name, replaces, SOURCE,
                 kernel=lambda: row_gather(tab, idx, serial_rows),
                 plain=lambda: row_gather_plain(tab, idx),
                 library=lambda: torch.index_select(tab, 0, idx),
                 counter=(KERNEL, "serial" if serial_rows else "row"),
                 nbytes=2.0 * out_bytes + _nbytes(idx), info=info)
+
+
+def _sms(t):
+    return _card(t.get_device() if t.is_cuda else None)[0]
 
 
 def lane_case(name, replaces, tab, idx, mode="table", group=8, stage=None):
@@ -494,11 +568,18 @@ def cases(device, size="main"):
             tab = _table(rows, width, dtype, device, g)
             for sort in ((False, True) if size == "sweep" else (False,)):
                 idx = _index(n, rows, device, g, sort)
-                yield row_case(f"A1 row gather, {label}, {t_label}, "
-                               f"{'sorted' if sort else 'random'}",
-                               "tools/bench_unitable.py:59", tab, idx,
-                               info={"order": "sorted" if sort else "random"})
+                name = (f"A1 row gather, {label}, {t_label}, "
+                        f"{'sorted' if sort else 'random'}")
+                info = {"order": "sorted" if sort else "random"}
+                yield row_case(name, "tools/bench_unitable.py:59", tab, idx,
+                               info=info)
             del tab
+    if small:
+        for width in RAGGED_WIDTHS:
+            tab = _table(257, width, torch.float32, device, g)
+            yield row_case(f"A1 row gather, ragged {4 * width} B",
+                           "tools/bench_unitable.py:59", tab,
+                           _index(1000, 257, device, g))
     # the probes' own row gathers
     for name, replaces, rows, width, dtype, n in (
             ("A1 kern_take (8192,128) f32, 1024 rows",
@@ -508,7 +589,8 @@ def cases(device, size="main"):
             ("A1 gather_sub (512,256) f32, 1024 rows",
              "tools/probe_mosaic_caps.py:67", 512, 256, torch.float32, 1024)):
         tab = _table(rows, width, dtype, device, g)
-        yield row_case(name, replaces, tab, _index(n, rows, device, g))
+        idx = _index(n, rows, device, g)
+        yield row_case(name, replaces, tab, idx)
     tab = _table(8192, 128, torch.float32, device, g)
     idx = _index(100 if small else 1024, 8192, device, g)
     for k in ((7, 1024) if small else

@@ -628,6 +628,52 @@ def test_row_gather_ragged_on_card(cuda_device, width, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("row_bytes", [4, 8, 12, 20, 64, 128, 256, 264, 288,
+                                       2048, 4096, 4100])
+def test_row_gather_plans_on_card(cuda_device, row_bytes):
+    """A1 bit-equal to its twin at every width of the sweep and the ragged
+    ones, at n of one row, a ragged 4,099 and one past a wave of the card's
+    threads, so that rows of 128 bytes and more run under both cache hints
+    of row_plan (the plain ones at one row, the streaming ones past a
+    wave), a table off 16 bytes (8- or 4-byte units) and an index off 16
+    bytes; each launch counted once. A plan whose grid is one block short
+    is refused."""
+    from enarf_gan_tpu_torch.tools import gather
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    words = row_bytes // 4
+    flat = torch.randn((301 * words + 4,), generator=g, device=cuda_device)
+    sms = gather._card(torch.cuda.current_device())[0]
+    wave = sms * gather.SM_THREADS * 16 // row_bytes + 1
+    hints = set()
+    for tab in (flat[:301 * words].view(301, words),
+                flat[1:1 + 301 * words].view(301, words)):
+        off = tab.data_ptr() % 16
+        for n in (1, 4099, wave):
+            plan = gather.row_plan(n, row_bytes, off & -off if off else 16,
+                                   sms)
+            hints.add(plan.variant)
+            idx_flat = torch.randint(0, 301, (n + 1,), generator=g,
+                                     device=cuda_device, dtype=torch.int32)
+            for idx in (idx_flat[:n], idx_flat[1:]):
+                ref = gather.row_gather_plain(tab, idx)
+                before = gather.KERNEL.launches_by["row"]
+                got = gather.row_gather(tab, idx)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), (row_bytes, n, plan)
+                assert gather.KERNEL.launches_by["row"] == before + 1
+    assert hints == ({"plain", "stream"} if row_bytes >= gather.STREAM_BYTES
+                     else {"plain"}), hints
+    plan = gather.row_plan(4099, row_bytes, 16, sms)
+    idx = torch.randint(0, 301, (4099,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    out = torch.empty((4099, words), device=cuda_device)
+    assert gather.KERNEL.load("probe_row_gather")(
+        flat.data_ptr(), idx.data_ptr(), out.data_ptr(), 4099, row_bytes,
+        plan.unit, 0, plan.blocks - 1,
+        torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 7, 1024, 1500])
 def test_row_gather_warp_loop_on_card(cuda_device, k):
     """A2, one warp walking k rows: bit-equal to the twin at row widths from
@@ -836,7 +882,8 @@ def test_construct_own_kernels_ragged_on_card(cuda_device):
     """reshape_fm_kernel (1e-5: float32 sums in another order),
     ewr_mma_kernel (1e-5: float32 sums of exact products in another order),
     vec4_kernel<false> (reshape_lead) and <true> (load_c, warm and cat_sub;
-    bit-equal) and expand_kernel (bit-equal) against construct_plain at
+    bit-equal), expand_kernel and concat_mid_kernel (vectors and words;
+    bit-equal) against construct_plain at
     ragged shapes (TB 2113, 3 M words and 1.2 M words take more than one
     wave), short last blocks, word counts that are and are not multiples
     of 4, M and TB that are no powers of two; each launch counted under
@@ -856,7 +903,10 @@ def test_construct_own_kernels_ragged_on_card(cuda_device):
         + [("warm", s) for s in ((1, 1), (3, 5), (37, 128), (1024, 1200),
                                  (1001, 1203))] \
         + [("expand", s) for s in ((1, 1), (5, 3), (16, 37), (16, 128),
-                                   (7, 3001), (33, 2113))]
+                                   (7, 3001), (33, 2113))] \
+        + [("concat_mid", s) for s in ((1, 1), (3, 4), (37, 16), (128, 16),
+                                       (5, 36), (3, 1), (37, 3), (2, 5),
+                                       (2113, 16), (2113, 33), (1000, 1204))]
     for name, shape in shapes:
         ins = constructs.check_inputs(name, shape, cuda_device, g)
         before = constructs.KERNEL.launches_by[name]
@@ -896,6 +946,12 @@ def test_construct_own_kernels_ragged_on_card(cuda_device):
     assert constructs.KERNEL.load("probe_expand")(
         x.data_ptr(), out.data_ptr(), 2113, 33,
         constructs.copy_plan(out.numel()).blocks - 1, stream) != 0
+    for TB, M in ((2113, 16), (2113, 33)):
+        x = torch.randn((TB, M), generator=g, device=cuda_device)
+        out = torch.empty((TB, 2 * M), device=cuda_device)
+        assert constructs.KERNEL.load("probe_concat_mid")(
+            x.data_ptr(), out.data_ptr(), TB, M,
+            constructs.own_plan("concat_mid", x).blocks - 1, stream) != 0
 
 
 @pytest.mark.cuda

@@ -150,6 +150,81 @@ def test_row_gather_plain_matches_pallas_interpret(kind):
         ref)
 
 
+# A1's widths: ROW_WIDTHS' bytes and the ragged ones of the check size
+A1_WIDTHS = sorted({w * torch.tensor([], dtype=dt).element_size()
+                    for _, dt, w in gather.ROW_WIDTHS}
+                   | {4 * w for w in gather.RAGGED_WIDTHS})
+
+
+def _row_plan_copies(plan, n, row_bytes):
+    """The copies a launch of ``plan`` makes, as row_units_kernel walks its
+    grid: (output byte offset, output row whose index names the table row,
+    byte within that row) of each ``plan.unit``-byte unit."""
+    lanes = np.arange(plan.blocks * plan.threads)
+    upr, k = row_bytes // plan.unit, plan.units
+    e = ((lanes // 32) * 32 * k + lanes % 32)[:, None] + 32 * np.arange(k)
+    e = e.ravel()
+    e = e[e < n * upr]
+    return e * plan.unit, e // upr, (e % upr) * plan.unit
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 1000])
+@pytest.mark.parametrize("row_bytes", A1_WIDTHS)
+def test_row_plan_writes_every_output_byte_once(row_bytes, n):
+    """row_units_kernel emulated as it walks ``row_plan``'s grid, at every
+    width of the sweep and the ragged ones, with both pointers on 16, 8 and
+    4 bytes: 16 bytes a thread in units of the
+    widest size the row and pointers allow; every byte of the output is
+    written exactly once, from the byte of the table row its index names,
+    by units that lie within the row; the grid covers the units with no
+    block to spare."""
+    rng = np.random.default_rng(n * 7 + row_bytes)
+    tab = rng.integers(0, 256, (11, row_bytes), dtype=np.uint8)
+    idx = rng.integers(0, 11, n)
+    ref = tab[idx].ravel()
+    for align in (16, 8, 4):
+        plan = gather.row_plan(n, row_bytes, align)
+        assert plan.unit == max(u for u in (4, 8, 16)
+                                if row_bytes % u == 0 and align % u == 0)
+        assert plan.unit * plan.units == 16 and plan.threads == 256
+        dst, row, off = _row_plan_copies(plan, n, row_bytes)
+        assert (off + plan.unit <= row_bytes).all()
+        dst_bytes = (dst[:, None] + np.arange(plan.unit)).ravel()
+        src_bytes = ((idx[row] * row_bytes + off)[:, None]
+                     + np.arange(plan.unit)).ravel()
+        assert (np.bincount(dst_bytes, minlength=n * row_bytes) == 1).all(), \
+            plan
+        out = np.empty(n * row_bytes, np.uint8)
+        out[dst_bytes] = tab.ravel()[src_bytes]
+        np.testing.assert_array_equal(out, ref, err_msg=str(plan))
+        per_block = plan.threads * plan.units
+        units = n * row_bytes // plan.unit
+        assert (plan.blocks - 1) * per_block < units <= \
+            plan.blocks * per_block, plan
+
+
+def test_row_plan_at_the_probe_sizes():
+    """The plan of each A1 probe: 16 bytes a thread everywhere (two 8-byte
+    units at the 8-byte mask quad and at 264 B); the streaming hints from
+    128-byte rows on at the 198 MB table and on A4's rows, none at the
+    64-byte texel, the mask quad and the launch-bound sizes (512 KB to 1 MB
+    out), which keep the grids of the earlier kernel (one 16-byte unit a
+    thread on the most blocks)."""
+    P = gather.RowPlan
+    for row_bytes, unit, hints in ((8, 8, "plain"), (64, 16, "plain"),
+                                   (128, 16, "stream"), (256, 16, "stream"),
+                                   (264, 8, "stream"), (288, 16, "stream"),
+                                   (2048, 16, "stream"),
+                                   (4096, 16, "stream")):
+        n = int(64e6 // row_bytes)
+        assert gather.row_plan(n, row_bytes) == P(
+            hints, unit, 16 // unit, -(-n * row_bytes // 16 // 256), 256)
+    assert gather.row_plan(147456, 4096) == P("stream", 16, 1, 147456, 256)
+    for n, row_bytes, blocks in ((1024, 512, 128), (4096, 256, 256),
+                                 (1024, 1024, 256)):
+        assert gather.row_plan(n, row_bytes) == P("plain", 16, 1, blocks, 256)
+
+
 def _pallas_dg(tab, idx, n_blk):
     """tools/bench_gather.py:147-152 dg_kernel (a closure there) in
     interpret mode, with the probe's grid and VMEM block specs."""
@@ -788,7 +863,9 @@ def _to_jnp(t):
                  ("ewr", (37, 16, 64)), ("cat_sub", (3, 5, 1)),
                  ("cat_sub", (37, 16, 1)), ("load_c", (3, 5, 1)),
                  ("load_c", (37, 16, 1)), ("warm", (3, 5)),
-                 ("warm", (37, 128)))])
+                 ("warm", (37, 128)))] + [
+    pytest.param("concat_mid", s, id=f"concat_mid-{'x'.join(map(str, s))}")
+    for s in constructs.CHECK_SHAPES["concat_mid"]])
 def test_construct_plain_matches_jnp_body(name, shape):
     """Each construct at its probe's inputs, and the constructs with a
     kernel of their own also at ragged shapes (``shape``: x's, as
@@ -924,6 +1001,40 @@ def test_expand_plan_stores_every_output_vector_once(M, TB):
         assert plan == (256, 256)
 
 
+@pytest.mark.parametrize("TB,M", [(37, 4), (128, 16), (5, 36), (3, 1),
+                                  (37, 3), (2, 5)])
+def test_concat_mid_plan_stores_every_output_once(TB, M):
+    """concat_mid_kernel emulated as it walks its plan: where M is a
+    multiple of 4, copy_plan of the output, thread i of block b storing
+    the 16-byte vector v = b * 256 + i of row tb = v / (M / 2), x's vector
+    tb M / 4 + (v mod M / 2) mod M / 4; else word_plan, the same map a word
+    a thread. Every vector (word) of the output is stored once, the grid is
+    one wave of an H100 (4 blocks at the probe's (128, 16)), and the
+    emulation is ``construct_plain``'s output bit for bit."""
+    g = torch.Generator().manual_seed(TB * M)
+    (x,) = constructs.check_inputs("concat_mid", (TB, M), "cpu", g)
+    plan = constructs.own_plan("concat_mid", x)
+    vec = M % 4 == 0
+    w = 4 if vec else 1                         # words a thread
+    assert plan == (constructs.copy_plan if vec else constructs.word_plan)(
+        2 * TB * M)
+    assert plan.threads == constructs.COPY_THREADS
+    assert plan.blocks <= H100_WAVE_256
+    q = M // w
+    i = np.arange(plan.blocks * plan.threads)
+    i = i[i < 2 * TB * q]
+    tb, c = i // (2 * q), i % (2 * q)
+    src = tb * q + np.where(c < q, c, c - q)
+    assert (np.bincount(i, minlength=2 * TB * q) == 1).all()
+    assert (plan.blocks - 1) * plan.threads < 2 * TB * q
+    out = np.empty((2 * TB * q, w), np.float32)
+    out[i] = x.numpy().reshape(-1, w)[src]
+    assert np.array_equal(out.reshape(TB, 2 * M),
+                          constructs.construct_plain("concat_mid", x).numpy())
+    if (TB, M) == (128, 16):
+        assert plan == (4, 256)
+
+
 def test_own_kernels_refuse_a_base_off_16_bytes():
     """The constructs with a kernel of their own take inputs on 16 bytes
     only, on either device (their kernels load 16-byte vectors): a
@@ -937,7 +1048,8 @@ def test_own_kernels_refuse_a_base_off_16_bytes():
                                     ("cat_sub", coords, (3, 5, 1), 4),
                                     ("load_c", coords, (3, 5, 1), 4),
                                     ("warm", coords, (3, 5), 4),
-                                    ("expand", coords, (5, 3), 4)):
+                                    ("expand", coords, (5, 3), 4),
+                                    ("concat_mid", coords, (3, 5), 4)):
         n = flat.numel() - step
         with pytest.raises(ValueError, match="16 bytes"):
             constructs.construct(name, flat[1:1 + n].view(shape))
