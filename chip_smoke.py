@@ -25,8 +25,9 @@ NVIDIA GPU.
    feature adds, no feature adds, no mask adds) is held to its twins and
    timed beside it.
    Then the probes of ``enarf_gan_tpu_torch/tools`` (the TPU probe kernels
-   of ``tools/`` as Hopper microbenchmarks: row and lane gathers, tensor-core
-   gathers and products, stage ablations of kernels 2 and 3, one-construct
+   of ``tools/`` as Hopper microbenchmarks: row and lane gathers, the
+   one-hot gathers read as direct row gathers, products on the tensor
+   cores, stage ablations of kernels 2 and 3, one-construct
    kernels and launch cost): each kernel and variant against its plain twin
    at a small size, then at its probe's main size once more and timed with
    its plain twin, the one PyTorch call of the same function where there is
@@ -115,8 +116,7 @@ kernel 3's modes (s/iter and peak memory a mode; a few minutes on an H100).
 runs phase 1 and every probe module's full sweep (row widths x table sizes
 x index order, A2 at 1, 8, 64 and 1,024 rows a warp, A3 by table height
 from 384 to 196,608 rows in float32 and bf16 on the kept design, ring
-depths, every one-hot shape with its direct gather), one JSON line a
-measurement.
+depths, B3 at its ragged shapes), one JSON line a measurement.
 """
 import json
 import re
@@ -801,6 +801,19 @@ def phase_probes(device):
                          f"{case.info['per_thread']} {case.info['unit']}-byte"
                          f" units a thread, {case.info['blocks']} blocks; "
                          f"sector floor {case.info['sector_floor_ms']:.4f} ms")
+            elif case.info.get("kernel") == "pair_rows_kernel":   # B1, B2
+                line += (f"; pair_rows_kernel, {case.info['blocks']} blocks "
+                         f"of {case.info['threads']} threads, "
+                         f"{case.info['samples_per_warp']} samples a warp, "
+                         f"{case.info['cols_per_thread']} float32 columns a "
+                         f"thread from 16 bytes of each row, "
+                         f"{case.info['hints']}; bound by {t['bound_by']}; "
+                         f"the one-hot formulation "
+                         f"{case.info['formulation_ms']:.4f} ms on the "
+                         f"tensor cores")
+                if "group_floor_ms" in case.info:
+                    line += (f"; rows from HBM once a group "
+                             f"{case.info['group_floor_ms']:.4f} ms")
             elif case.info.get("kernel") == "ewr_mma_kernel":
                 line += (f"; ewr_mma_kernel, {case.info['blocks']} blocks of "
                          f"{case.info['threads'] // 32} warps, a warp a batch "

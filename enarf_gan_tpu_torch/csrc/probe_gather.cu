@@ -112,6 +112,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "fast_div.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -185,18 +187,6 @@ __device__ __forceinline__ uint32_t ld_stream(const uint32_t* p) {
                : "l"(p));
   return v;
 }
-
-// n / d for n < 2^31 by a multiply and a shift (d >= 1, set on the host)
-struct FastDiv {
-  uint32_t d, m, s;
-  explicit FastDiv(uint32_t d_) : d(d_), s(0) {
-    while ((1u << s) < d) ++s;
-    m = (uint32_t)((((uint64_t)1 << 32) * (((uint64_t)1 << s) - d)) / d + 1);
-  }
-  __device__ __forceinline__ uint32_t div(uint32_t n) const {
-    return (__umulhi(n, m) + n) >> s;
-  }
-};
 
 // total (n units) below 2^31; `units` the units a row. A thread takes 16
 // bytes: kK units of V. kStream: the loads past L1 and the streaming

@@ -1,4 +1,4 @@
-// Tensor-core gathers and products for Hopper (sm_90a): family B of the
+// Row gathers and tensor-core products for Hopper (sm_90a): family B of the
 // probes (Python side enarf_gan_tpu_torch/tools/mma.py).
 //
 // Replaces the TPU probe kernels
@@ -8,33 +8,53 @@
 //   tools/bisect_hat_kernel.py bdiag_dot, tools/bisect_kernel_ops.py
 //   dot_kshape, tools/probe_mosaic_caps.py dot_batched       (B3)
 // The TPU gathered rows by multiplying a one-hot matrix into a window of the
-// table on its matrix unit, because it could not address single rows; these
-// kernels ask what that formulation costs on Hopper's tensor cores, beside a
-// direct gather of the same rows.
+// table on its matrix unit, because it could not address single rows. This
+// card can, so B1 and B2 read each sample's rows straight from the table;
+// only B3 is a product. N is 128 throughout (the lanes of a TPU row).
 //
-// B1, B2 and gemm_small_kernel use mma.sync.m16n8k16 bf16 with float32
-// sums, B fragments loaded by ldmatrix.x4.trans from row-major (k, 128)
-// tiles staged in shared memory (rows padded to 136 bf16 so that
-// ldmatrix's 8 rows fall on distinct banks), as kernel 3 does
-// (tilewin_combine_modes.cu). In B1 and B2 a warp owns 16 rows of the
-// output and all 128 columns: 16 n-tiles, 64 float32 sums a thread. N is
-// 128 throughout (the lanes of a TPU row).
+// B1 one-hot windowed gather: per sample two rows loc and weights w;
+//   out[s, :] = w0' tab[base + j0, :] + w1' tab[base + j1, :] in float32,
+//   j = loc - base, base 0 (a static window: the whole (WIN, 128) bf16
+//   table) or, for a dynamic window, the first row of the sample's group of
+//   G, capped at n_rows - WIN and rounded down to 512; w' the weights as the
+//   TPU's one-hot row holds them: summed where j0 = j1, rounded to bf16, 0
+//   for a row outside [0, WIN). Any G that divides S, any WIN <= n_rows.
+// B2 sorted-tile gather: out[s, :] = tab[tile[s / 512] * 512 + loc[s], :]
+//   in float32 (the one-hot product of one row, weight 1).
+// Both are bound by bytes: loc and w, each row once, the float32 output
+//   (S x 512 bytes: 604 of B1's 623 MB at S = 1,179,648, 0.186 ms at 3.35
+//   TB/s; B2's 2.15 GB and its 50.3 MB table, 0.661 ms). The one-hot
+//   formulation's S x WIN x 128 x 2 operations (0.16-0.47 ms on the tensor
+//   cores) are the TPU formulation's cost, not the function's. The first
+//   design ran that formulation on mma.sync: a block of 64 samples streamed
+//   the whole window through shared memory and multiplied every k-tile
+//   (3.6 GB from L2 at (512, 768), 1.01-1.53 ms), and B2 a 128 KB tile a
+//   block (8.6 GB, 2.28 ms). pair_rows_kernel, one kernel for both (a
+//   template of the mode), gives a warp two samples and a half-warp each,
+//   a thread 8 columns from 16 bytes of each of its rows, no loop: the
+//   group by FastDiv's multiply-shift, the sample's pair of rows and of
+//   weights by two 8-byte loads, the table's loads under an L2 evict-last
+//   policy, and the output by streaming stores (st.global.cs), so that the
+//   output's stream pushes as little of a dynamic window's 50.3 MB table
+//   out of the 50 MB L2 as it can. Shuffles then exchange the halves so
+//   that lane l stores unit l of each sample: each store instruction
+//   writes one sample's whole 512 bytes. On an NVIDIA H100 80GB HBM3 at
+//   700 W (PERF.md section 6, B1 and B2): 8 bytes of each row a thread
+//   (a warp a sample) tied this at static windows and lost 7-12% at
+//   dynamic ones and B2; 16-byte row loads stored straight from the lane
+//   that loaded them (32 bytes a lane, so each store instruction fills
+//   half of every sector it touches) lost 18-28% at static windows; a
+//   static window staged in shared memory by persistent blocks lost
+//   20-23%; the sample's loads by its first lane, shuffled, lost 0.5-2%.
+//   Static windows reach 85% of the bytes bound. A dynamic window and B2
+//   reach 73-76%: their rows come from HBM about once a group (B2: a block),
+//   because the table does not stay in L2 beside the output from one group
+//   that reads a row to the next (tools/mma.py::group_floor_ms).
 //
-// B1 one-hot windowed gather: per sample two local rows loc and weights w;
-//   out[s, :] = sum_k A[s, k] slab[k, :] with A[s, k] = bf16(w0 [k == j0] +
-//   w1 [k == j1]), j = loc - base, over a (WIN, 128) bf16 slab: the whole
-//   table (static window) or WIN rows from a 512-aligned base that each
-//   group of G samples takes from its first sample's row (dynamic). The A
-//   fragments are built in registers from each thread's two samples; the
-//   slab streams through shared memory in chunks of 64 rows, double
-//   buffered, and every k-tile is multiplied, as the TPU's one-hot product
-//   did. Bound: the tensor-core operations (S x WIN x 128 x 2) or the bytes
-//   (indices, weights, the slab once a block, the float32 output).
-// B1 direct: the same function read straight from the two rows (16 threads
-//   a sample, 16 bytes each), the question being whether the one-hot
-//   product ever beats it.
-// B2 sorted-tile one-hot gather: block of 512 samples, one row each, weight
-//   1, from the 512-row tile that the block's entry in `tile` names.
+// gemm_small_kernel uses mma.sync.m16n8k16 bf16 with float32 sums, B
+// fragments loaded by ldmatrix.x4.trans from row-major (k, 128) tiles
+// staged in shared memory (rows padded so that ldmatrix's 8 rows fall on
+// distinct banks), as kernel 3 does (tilewin_combine_modes.cu).
 // B3 products: C (batch, M, 128) f32 = A (batch, M, K) bf16 @ B (K, 128)
 //   bf16, B shared by the batch (the chain) or one a batch element. At the
 //   chain shapes, (1024, 512, 768), (1024, 512, 256) and (256, 1024, 1024),
@@ -106,17 +126,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fast_div.cuh"
+
 namespace {
 
 constexpr int kN = 128;             // output columns
-constexpr int kPitchB = kN + 8;     // padded shared row of B: 272 B
-constexpr int kChunk = 64;          // slab rows a stage (B1, B2)
-constexpr int kWarps = 4;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 __device__ __forceinline__ void mma_acc(float (&d)[4], const uint32_t (&a)[4],
                                         uint32_t b0, uint32_t b1) {
@@ -198,139 +212,133 @@ __device__ __forceinline__ void store_tiles(float* o0,
 // ------------------------------------------------------------ B1 and B2
 
 enum { kStatic = 0, kDynamic = 1, kTile = 2 };
+constexpr int kRowThreads = 256;    // a block of pair_rows_kernel
+constexpr int kTileRows = 512;      // B2: samples a block and rows a tile
 
-__device__ __forceinline__ int64_t window_base(int mode, const int32_t* loc,
-                                               const int32_t* tile,
-                                               int64_t group, int G, int WIN,
-                                               int n_rows) {
-  if (mode == kStatic) return 0;
-  if (mode == kTile) return (int64_t)__ldg(tile + group) * WIN;
-  int64_t base = __ldg(loc + group * G * 2);     // the group's first row
-  if (base > n_rows - WIN) base = n_rows - WIN;
-  return (base / 512) * 512;
+// an L2 policy that keeps the lines it loads ahead of the streaming stores
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
 }
+
+// 16 bytes of a table row, read through L1 under the L2 policy `pol`
+__device__ __forceinline__ uint4 ld_row(const __nv_bfloat16* p,
+                                        uint64_t pol) {
+  uint4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p), "l"(pol));
+  return v;
+}
+
+// four bf16 (two words) as float32: the bits moved into the high half
+__device__ __forceinline__ float4 bf16x4(uint32_t lo, uint32_t hi) {
+  return make_float4(__uint_as_float(lo << 16),
+                     __uint_as_float(lo & 0xffff0000u),
+                     __uint_as_float(hi << 16),
+                     __uint_as_float(hi & 0xffff0000u));
+}
+
+// w0 a + w1 b: both products are exact in float32 (bf16 times bf16), so
+// the sum rounds once whether or not the compiler fuses it
+__device__ __forceinline__ float4 pair_sum(float w0, float4 a, float w1,
+                                           float4 b) {
+  return make_float4(w0 * a.x + w1 * b.x, w0 * a.y + w1 * b.y,
+                     w0 * a.z + w1 * b.z, w0 * a.w + w1 * b.w);
+}
+
+__device__ __forceinline__ float4 shfl4(float4 v, int src) {
+  return make_float4(__shfl_sync(0xffffffffu, v.x, src),
+                     __shfl_sync(0xffffffffu, v.y, src),
+                     __shfl_sync(0xffffffffu, v.z, src),
+                     __shfl_sync(0xffffffffu, v.w, src));
+}
+
+// A sample's rows of the table and their weights. B1: as the one-hot row
+// of the TPU kernel has them: j = row - base, the weights summed where j0
+// equals j1, rounded to bf16, and 0 for a row outside [0, WIN), whose j is
+// then clamped into the window (a finite row times 0); base 0 (static) or
+// the group's first row capped at n_rows - WIN and rounded down to a
+// multiple of 512 (& ~511: a floor, also below 0). B2: the row of the
+// block's tile, weight 1.
+struct Pair {
+  int64_t r0, r1;
+  float w0, w1;
+};
 
 template <int kMode>
-__global__ void __launch_bounds__(kWarps * 32)
-onehot_gather_kernel(const int32_t* __restrict__ loc,
-                     const float* __restrict__ w,
-                     const int32_t* __restrict__ tile,
-                     const __nv_bfloat16* __restrict__ tab,
-                     float* __restrict__ out, int G, int WIN, int n_rows) {
-  __shared__ __align__(16) __nv_bfloat16 s_slab[2][kChunk * kPitchB];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g4 = lane >> 2, c = lane & 3;
-  const int64_t s_block = (int64_t)blockIdx.x * kWarps * 16;
-  const int64_t group = s_block / G;
-  const int64_t base =
-      window_base(kMode, loc, tile, group, G, WIN, n_rows);
-
-  // this thread's two samples (A rows g4 and g4 + 8): local rows, weights
-  int j[2][2];
-  float wt[2][2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int64_t s = s_block + warp * 16 + g4 + 8 * h;
-    if (kMode == kTile) {
-      j[h][0] = j[h][1] = __ldg(loc + s);
-      wt[h][0] = 1.f;
-      wt[h][1] = 0.f;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        j[h][e] = (int)(__ldg(loc + 2 * s + e) - base);
-        wt[h][e] = __ldg(w + 2 * s + e);
-      }
-    }
+__device__ __forceinline__ Pair load_pair(const int32_t* __restrict__ loc,
+                                          const float* __restrict__ w,
+                                          const int32_t* __restrict__ tile,
+                                          uint32_t s, FastDiv group, int WIN,
+                                          int n_rows) {
+  Pair p;
+  if (kMode == kTile) {
+    p.r0 = p.r1 = (int64_t)__ldg(tile + s / kTileRows) * kTileRows +
+                  __ldg(loc + s);
+    p.w0 = 1.f;
+    p.w1 = 0.f;
+    return p;
   }
-  auto onehot = [&](int h, int k) {
-    float v = 0.f;
-    if (k == j[h][0]) v += wt[h][0];
-    if (kMode != kTile && k == j[h][1]) v += wt[h][1];
-    return v;
-  };
-
-  float acc[16][4];
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  auto fetch = [&](int chunk) {
-    const __nv_bfloat16* src = tab + (base + (int64_t)chunk * kChunk) * kN;
-    __nv_bfloat16* dst = s_slab[chunk & 1];
-    for (int q = threadIdx.x; q < kChunk * 16; q += blockDim.x)
-      cp_async16(dst + (q >> 4) * kPitchB + (q & 15) * 8,
-                 src + (q >> 4) * kN + (q & 15) * 8);
-    cp_async_commit();
-  };
-  const int n_chunks = WIN / kChunk;
-  fetch(0);
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      fetch(ch + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kt = 0; kt < kChunk / 16; ++kt) {
-      const int k0 = ch * kChunk + kt * 16 + 2 * c;
-      const uint32_t a[4] = {pack_bf16(onehot(0, k0), onehot(0, k0 + 1)),
-                             pack_bf16(onehot(1, k0), onehot(1, k0 + 1)),
-                             pack_bf16(onehot(0, k0 + 8), onehot(0, k0 + 9)),
-                             pack_bf16(onehot(1, k0 + 8), onehot(1, k0 + 9))};
-      mma_tiles<16>(acc, a, s_slab[ch & 1] + kt * 16 * kPitchB, kPitchB,
-                    lane);
-    }
-    __syncthreads();   // the buffer is refilled two chunks on
-  }
-  store_tiles<16>(out + (s_block + warp * 16 + g4) * kN + 2 * c, acc);
-}
-
-// the same function read straight from the rows: 16 threads a sample
-__global__ void __launch_bounds__(256)
-direct_gather_kernel(const int32_t* __restrict__ loc,
-                     const float* __restrict__ w,
-                     const __nv_bfloat16* __restrict__ tab,
-                     float* __restrict__ out, int64_t S, int G, int WIN,
-                     int n_rows, int dynamic) {
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t s = t >> 4;
-  const int part = (int)(t & 15);              // 8 channels a thread
-  if (s >= S) return;
-  const int64_t base = window_base(dynamic ? kDynamic : kStatic, loc, nullptr,
-                                   s / G, G, WIN, n_rows);
-  int j0 = (int)(__ldg(loc + 2 * s) - base);
-  int j1 = (int)(__ldg(loc + 2 * s + 1) - base);
-  float w0 = __ldg(w + 2 * s), w1 = __ldg(w + 2 * s + 1);
-  if (j0 == j1) {                              // the one-hot sums, then rounds
+  int base = 0;
+  if (kMode == kDynamic)
+    base = min(__ldg(loc + 2 * group.div(s) * group.d), n_rows - WIN) & ~511;
+  const int2 l = __ldg(reinterpret_cast<const int2*>(loc) + s);
+  const float2 ww = __ldg(reinterpret_cast<const float2*>(w) + s);
+  int j0 = l.x - base, j1 = l.y - base;
+  float w0 = ww.x, w1 = ww.y;
+  if (j0 == j1) {
     w0 += w1;
     w1 = 0.f;
   }
-  w0 = (j0 >= 0 && j0 < WIN) ? __bfloat162float(__float2bfloat16_rn(w0)) : 0.f;
-  w1 = (j1 >= 0 && j1 < WIN) ? __bfloat162float(__float2bfloat16_rn(w1)) : 0.f;
-  j0 = min(max(j0, 0), WIN - 1);
-  j1 = min(max(j1, 0), WIN - 1);
-  const uint4 r0 = __ldg(reinterpret_cast<const uint4*>(
-                             tab + (base + j0) * kN) + part);
-  const uint4 r1 = __ldg(reinterpret_cast<const uint4*>(
-                             tab + (base + j1) * kN) + part);
-  const __nv_bfloat162* h0 = reinterpret_cast<const __nv_bfloat162*>(&r0);
-  const __nv_bfloat162* h1 = reinterpret_cast<const __nv_bfloat162*>(&r1);
-  float v[8];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 a = __bfloat1622float2(h0[k]);
-    const float2 b = __bfloat1622float2(h1[k]);
-    v[2 * k] = w0 * a.x + w1 * b.x;
-    v[2 * k + 1] = w0 * a.y + w1 * b.y;
+  p.w0 = (unsigned)j0 < (unsigned)WIN
+             ? __bfloat162float(__float2bfloat16_rn(w0)) : 0.f;
+  p.w1 = (unsigned)j1 < (unsigned)WIN
+             ? __bfloat162float(__float2bfloat16_rn(w1)) : 0.f;
+  p.r0 = base + min(max(j0, 0), WIN - 1);
+  p.r1 = base + min(max(j1, 0), WIN - 1);
+  return p;
+}
+
+// B1 (kStatic, kDynamic) and B2 (kTile): out (S, 128) f32. A warp takes
+// two samples, a half-warp each, and a thread 8 columns from 16 bytes of
+// each of its sample's rows; the halves are then exchanged by shuffles so
+// that lane l stores unit l (16 bytes) of each sample and every store
+// instruction of the warp writes one sample's 512 bytes. No loop.
+template <int kMode>
+__global__ void __launch_bounds__(kRowThreads)
+pair_rows_kernel(const int32_t* __restrict__ loc, const float* __restrict__ w,
+                 const int32_t* __restrict__ tile,
+                 const __nv_bfloat16* __restrict__ tab,
+                 float* __restrict__ out, uint32_t S, FastDiv group, int WIN,
+                 int n_rows) {
+  const uint32_t t = blockIdx.x * kRowThreads + threadIdx.x;
+  const uint32_t s0 = (t >> 5) * 2;
+  const int lane = (int)(t & 31);
+  const uint32_t s = s0 + (lane >> 4);
+  const int c = (lane & 15) * 8;
+  const uint64_t pol = evict_last_policy();
+  float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+  if (s < S) {
+    const Pair p = load_pair<kMode>(loc, w, tile, s, group, WIN, n_rows);
+    const uint4 a = ld_row(tab + p.r0 * kN + c, pol);
+    if (kMode == kTile) {
+      lo = bf16x4(a.x, a.y);
+      hi = bf16x4(a.z, a.w);
+    } else {
+      const uint4 b = ld_row(tab + p.r1 * kN + c, pol);
+      lo = pair_sum(p.w0, bf16x4(a.x, a.y), p.w1, bf16x4(b.x, b.y));
+      hi = pair_sum(p.w0, bf16x4(a.z, a.w), p.w1, bf16x4(b.z, b.w));
+    }
   }
-  float4* o = reinterpret_cast<float4*>(out + s * kN + part * 8);
-  o[0] = make_float4(v[0], v[1], v[2], v[3]);
-  o[1] = make_float4(v[4], v[5], v[6], v[7]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {      // unit `lane` of sample s0 + h
+    const int src = 16 * h + (lane >> 1);
+    const float4 a = shfl4(lo, src), b = shfl4(hi, src);
+    if (s0 + h < S)
+      __stcs(reinterpret_cast<float4*>(out + (int64_t)(s0 + h) * kN) + lane,
+             (lane & 1) ? b : a);
+  }
 }
 
 // -------------------------------------------------------------------- B3
@@ -716,18 +724,6 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-template <int kMode>
-int launch_onehot(const void* loc, const void* w, const void* tile,
-                  const void* tab, void* out, int64_t S, int G, int WIN,
-                  int n_rows, cudaStream_t st) {
-  onehot_gather_kernel<kMode><<<(unsigned)(S / (kWarps * 16)), kWarps * 32, 0,
-                                st>>>(
-      (const int32_t*)loc, (const float*)w, (const int32_t*)tile,
-      (const __nv_bfloat16*)tab, (float*)out, G, WIN, n_rows);
-  return (int)cudaGetLastError();
-}
-
-
 // ---------------------------------------------------------- B3, the host
 
 // cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime so
@@ -794,44 +790,45 @@ int launch_gemm_tma(const CUtensorMap& ma, const CUtensorMap& mb,
 
 // B1 / B2: out (S, 128) f32 from tab (n_rows, 128) bf16. mode 0 (static
 // window: n_rows == WIN) and 1 (dynamic base): loc (S, 2) int32 global rows,
-// w (S, 2) f32; mode 2 (sorted tile): loc (S,) int32 in [0, WIN), tile
-// (S / G,) int32 tile of each group, w unused. G a multiple of 64 dividing
-// S; WIN a multiple of 64.
-extern "C" int probe_onehot_gather(const void* loc, const void* w,
-                                   const void* tile, const void* tab,
-                                   void* out, int S, int G, int WIN,
-                                   int n_rows, int mode, void* stream) {
+// w (S, 2) f32, G dividing S, WIN at most n_rows; mode 2 (sorted tile): loc
+// (S,) int32 in [0, 512), tile (S / 512,) int32 tile of each block of 512
+// samples, G = WIN = 512, w unused. S below 2^26; tab on 16 bytes, loc and
+// w on 8 (B1), out on 16. The grid is the caller's
+// (tools/mma.py::pair_plan): `blocks` blocks of 256 threads, two samples a
+// warp; a grid that does not cover the samples is refused.
+extern "C" int probe_pair_rows(const void* loc, const void* w,
+                               const void* tile, const void* tab, void* out,
+                               int S, int G, int WIN, int n_rows, int mode,
+                               int blocks, void* stream) {
+  if (S <= 0 || S >= (1 << 26) || G <= 0 || S % G || WIN <= 0 ||
+      WIN > n_rows || mode < kStatic || mode > kTile ||
+      (mode == kStatic && WIN != n_rows) ||
+      (mode == kTile && (G != kTileRows || WIN != kTileRows)) ||
+      (int64_t)blocks * (kRowThreads / 32) * 2 < S)
+    return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(tab) | reinterpret_cast<uintptr_t>(out)) &
+       15) ||
+      (mode != kTile && ((reinterpret_cast<uintptr_t>(loc) |
+                          reinterpret_cast<uintptr_t>(w)) & 7)))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
-  if (S <= 0 || G <= 0 || G % (kWarps * 16) || S % G || WIN <= 0 ||
-      WIN % kChunk || WIN > n_rows)
-    return (int)cudaErrorInvalidValue;
-  switch (mode) {
-    case kStatic:
-      return launch_onehot<kStatic>(loc, w, tile, tab, out, S, G, WIN, n_rows, st);
-    case kDynamic:
-      return launch_onehot<kDynamic>(loc, w, tile, tab, out, S, G, WIN, n_rows, st);
-    case kTile:
-      return launch_onehot<kTile>(loc, w, tile, tab, out, S, G, WIN, n_rows, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// B1 direct: the same function as modes 0 and 1 of probe_onehot_gather,
-// from the two rows of each sample.
-extern "C" int probe_direct_gather(const void* loc, const void* w,
-                                   const void* tab, void* out, int S, int G,
-                                   int WIN, int n_rows, int dynamic,
-                                   void* stream) {
-  if (S <= 0 || G <= 0 || S % G || WIN <= 0 || WIN > n_rows)
-    return (int)cudaErrorInvalidValue;
-  const int64_t threads = (int64_t)S * 16;
-  direct_gather_kernel<<<(unsigned)((threads + 255) / 256), 256, 0,
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)loc, (const float*)w, (const __nv_bfloat16*)tab,
-      (float*)out, S, G, WIN, n_rows, dynamic);
+  const FastDiv group((uint32_t)G);
+  const int32_t* l = (const int32_t*)loc;
+  const float* ww = (const float*)w;
+  const int32_t* tl = (const int32_t*)tile;
+  const __nv_bfloat16* tb = (const __nv_bfloat16*)tab;
+  float* o = (float*)out;
+  if (mode == kStatic)
+    pair_rows_kernel<kStatic><<<blocks, kRowThreads, 0, st>>>(
+        l, ww, tl, tb, o, (uint32_t)S, group, WIN, n_rows);
+  else if (mode == kDynamic)
+    pair_rows_kernel<kDynamic><<<blocks, kRowThreads, 0, st>>>(
+        l, ww, tl, tb, o, (uint32_t)S, group, WIN, n_rows);
+  else
+    pair_rows_kernel<kTile><<<blocks, kRowThreads, 0, st>>>(
+        l, ww, tl, tb, o, (uint32_t)S, group, WIN, n_rows);
   return (int)cudaGetLastError();
 }
-
 
 // B3: C (batch, M, 128) f32 = A (batch, M, K) bf16 @ B, B (K, 128) bf16
 // shared (b_batched 0) or (batch, K, 128); M and K multiples of 16, every

@@ -22,7 +22,7 @@ tpu_timeit.py (timing harness)         timing.py
 bench_gather.py:155 dg_kernel          gather.lane_gather (A3)
 bench_dyngather2.py:115, :144          mma.tile_gather (B2)
 bench_dyngather2.py:176 dg_kernel      gather.lane_gather (A3)
-bench_pallas_prims.py:73 one-hot       mma.onehot_gather, mma.direct_gather (B1)
+bench_pallas_prims.py:73 one-hot       mma.onehot_gather (B1)
 bench_pallas_prims.py:105 chain        mma.gemm (B3)
 bench_unitable.py:59 kern_take         gather.row_gather (A1)
 bench_unitable.py:73 kern_dslice       gather.row_gather(serial_rows=) (A2)

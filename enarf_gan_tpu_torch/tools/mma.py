@@ -1,13 +1,17 @@
-"""Family B of the probes: tensor-core gathers and products
+"""Family B of the probes: row gathers and tensor-core products
 (``csrc/probe_mma.cu``).
 
-* ``onehot_gather`` (B1): per sample two local rows ``loc`` and weights
-  ``w``; out[s] = bf16(weighted one-hot row) @ slab, the slab being the whole
-  (WIN, 128) bf16 table ("static") or WIN rows from a 512-aligned base taken
-  from each group's first row ("dynamic"); on the tensor cores.
-  ``direct_gather`` is the same function read straight from the two rows.
+* ``onehot_gather`` (B1): per sample two rows ``loc`` and weights ``w``;
+  out[s] = the two rows of the sample's window, weighted as the TPU
+  kernel's one-hot row weights them (bf16, summed where the rows coincide,
+  0 outside the window), the window being the whole (WIN, 128) bf16 table
+  ("static") or WIN rows from a 512-aligned base taken from each group's
+  first row ("dynamic"). The TPU multiplied the one-hot rows into the
+  window on its matrix unit; here ``pair_rows_kernel`` reads the two rows
+  straight from the table (``pair_plan``), and the formulation's time on
+  the tensor cores is printed beside (``formulation_ms``).
 * ``tile_gather`` (B2): blocks of 512 samples, one row each from the
-  512-row tile the block's ``tile`` entry names.
+  512-row tile the block's ``tile`` entry names; the same kernel.
 * ``gemm`` (B3): (batch, M, K) @ (K, 128) or (batch, K, 128), bf16 in,
   float32 out, by one of two kernels that ``gemm_plan`` chooses by shape:
   "gemm" (persistent blocks, TMA and wgmma, 256-row tiles) wherever a walk
@@ -37,21 +41,23 @@ import torch.nn.functional as F
 
 from enarf_gan_tpu_torch.cuda_build import KernelLibrary, raw_stream
 from enarf_gan_tpu_torch.tools.gather import H100, SMEM_BYTES
-from enarf_gan_tpu_torch.tools.timing import BF16_FLOPS, Case, run_cli
+from enarf_gan_tpu_torch.tools.timing import (BF16_FLOPS, HBM_BYTES_PER_S,
+                                              Case, run_cli)
 
 SOURCE = "enarf_gan_tpu_torch/csrc/probe_mma.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = KernelLibrary(
-    "probe_mma", "probe_onehot_gather", [_P] * 5 + [_I] * 5 + [_P],
-    keys=("onehot_static", "onehot_dynamic", "tile", "direct", "gemm",
-          "gemm_small"),
-    symbols={"probe_direct_gather": [_P] * 4 + [_I] * 5 + [_P],
-             "probe_gemm": [_P] * 3 + [_I] * 6 + [_P],
+    "probe_mma", "probe_pair_rows", [_P] * 5 + [_I] * 6 + [_P],
+    keys=("onehot_static", "onehot_dynamic", "tile", "gemm", "gemm_small"),
+    symbols={"probe_gemm": [_P] * 3 + [_I] * 6 + [_P],
              "probe_gemm_small": [_P] * 3 + [_I] * 5 + [_P]})
 N = 128                      # columns of every table and output
 WINDOW_MODES = ("static", "dynamic")
 BASE_ALIGN = 512
 TILE = 512
+PAIR_THREADS = 256         # a block of pair_rows_kernel
+PAIR_SAMPLES = PAIR_THREADS // 16   # two samples a warp, 8 columns a thread
+PAIR_MAX_S = 2 ** 26       # samples the kernel takes: 32-bit thread indices
 
 
 def _raise(err, what):
@@ -111,46 +117,68 @@ def _check_b1(loc, w, tab, G, WIN, mode):
     if tab.dtype != torch.bfloat16 or tab.dim() != 2 or tab.shape[1] != N:
         raise ValueError(f"tab must be (rows, {N}) bfloat16, got "
                          f"{tuple(tab.shape)} {tab.dtype}")
-    if G <= 0 or S % G or WIN > tab.shape[0] or \
+    if G <= 0 or S % G or WIN <= 0 or WIN > tab.shape[0] or \
             (mode == "static" and WIN != tab.shape[0]):
         raise ValueError(f"G={G} must divide S={S}; WIN={WIN} must fit the "
                          f"table (and be its height for a static window)")
 
 
-def onehot_gather(loc, w, tab, G, WIN, mode="static"):
-    """(S, 128) float32: the weighted one-hot rows of each sample times its
-    group's (WIN, 128) slab, on the tensor cores."""
-    _check_b1(loc, w, tab, G, WIN, mode)
-    if not tab.is_cuda:
-        return onehot_gather_plain(loc, w, tab, G, WIN, mode)
-    _check_cuda(loc, w, tab)
-    S = loc.shape[0]
-    if G % 64 or WIN % 64 or S >= 2 ** 31:
-        raise ValueError(f"the kernel takes G and WIN multiples of 64, got "
-                         f"G={G} WIN={WIN}")
+class PairPlan(NamedTuple):
+    """How ``onehot_gather`` and ``tile_gather`` run on the card:
+    ``pair_rows_kernel`` in ``blocks`` blocks of ``threads`` threads, two
+    samples a warp, a half-warp each; a thread 8 float32 columns from 16
+    bytes of each of its sample's rows, exchanged by shuffles so that each
+    store of the warp writes one sample's 512 bytes; no loop. Its stores
+    stream (``st.global.cs``) and its table loads carry an L2 evict-last
+    policy."""
+    blocks: int
+    threads: int
+
+
+def pair_plan(S):
+    """The ``PairPlan`` of S samples: ``PAIR_SAMPLES`` a block."""
+    return PairPlan(-(-S // PAIR_SAMPLES), PAIR_THREADS)
+
+
+def check_pair_kernel_inputs(S, tab, pairs=()):
+    """Raises on what ``pair_rows_kernel`` does not take: 2**26 samples or
+    more (its thread indices are 32-bit), a table that does not start on
+    16 bytes (a thread reads 16 bytes of a row) or B1's ``loc`` and ``w``
+    (``pairs``) off 8 bytes (a thread reads a sample's pair of rows and of
+    weights, 8 bytes each)."""
+    if S >= PAIR_MAX_S:
+        raise ValueError(f"the kernel takes fewer than 2**26 samples, "
+                         f"got {S}")
+    if tab.data_ptr() % 16:
+        raise ValueError("the kernel takes a table that starts on a 16-byte "
+                         "aligned address")
+    if any(t.data_ptr() % 8 for t in pairs):
+        raise ValueError("the kernel takes loc and w that start on 8-byte "
+                         "aligned addresses")
+
+
+def _pair_rows(loc, w, tile, tab, S, G, WIN, mode, key):
     out = torch.empty((S, N), dtype=torch.float32, device=tab.device)
-    _raise(KERNEL.load()(loc.data_ptr(), w.data_ptr(), loc.data_ptr(),
+    _raise(KERNEL.load()(loc.data_ptr(), w.data_ptr(), tile.data_ptr(),
                          tab.data_ptr(), out.data_ptr(), S, G, WIN,
-                         tab.shape[0], WINDOW_MODES.index(mode),
-                         raw_stream(tab)), "probe_onehot_gather")
-    KERNEL.count(f"onehot_{mode}")
+                         tab.shape[0], mode, pair_plan(S).blocks,
+                         raw_stream(tab)), "probe_pair_rows")
+    KERNEL.count(key)
     return out
 
 
-def direct_gather(loc, w, tab, G, WIN, mode="static"):
-    """``onehot_gather``'s function from the two rows of each sample."""
+def onehot_gather(loc, w, tab, G, WIN, mode="static"):
+    """(S, 128) float32: each sample's two rows of its group's (WIN, 128)
+    window of tab, weighted as the TPU kernel's one-hot row weights them
+    (``onehot_weights``), read straight from the two rows
+    (``pair_rows_kernel`` on ``pair_plan``'s grid)."""
     _check_b1(loc, w, tab, G, WIN, mode)
     if not tab.is_cuda:
         return onehot_gather_plain(loc, w, tab, G, WIN, mode)
     _check_cuda(loc, w, tab)
-    S = loc.shape[0]
-    out = torch.empty((S, N), dtype=torch.float32, device=tab.device)
-    _raise(KERNEL.load("probe_direct_gather")(
-        loc.data_ptr(), w.data_ptr(), tab.data_ptr(), out.data_ptr(), S, G,
-        WIN, tab.shape[0], int(mode == "dynamic"), raw_stream(tab)),
-        "probe_direct_gather")
-    KERNEL.count("direct")
-    return out
+    check_pair_kernel_inputs(loc.shape[0], tab, (loc, w))
+    return _pair_rows(loc, w, loc, tab, loc.shape[0], G, WIN,
+                      WINDOW_MODES.index(mode), f"onehot_{mode}")
 
 
 # ------------------------------------------------------------------- B2
@@ -162,7 +190,8 @@ def tile_gather_plain(tile, loc, tab):
 
 def tile_gather(tile, loc, tab):
     """(S, 128) float32: sample s of block b (512 a block) is row loc[s] of
-    the 512-row tile tile[b] of tab, as a one-hot product."""
+    the 512-row tile tile[b] of tab, read straight from the row
+    (``pair_rows_kernel``, as ``onehot_gather``)."""
     S = loc.shape[0]
     if loc.dtype != torch.int32 or loc.dim() != 1 or tile.dtype != torch.int32 \
             or tile.dim() != 1 or tile.shape[0] * TILE != S:
@@ -175,13 +204,8 @@ def tile_gather(tile, loc, tab):
     if not tab.is_cuda:
         return tile_gather_plain(tile, loc, tab)
     _check_cuda(tile, loc, tab)
-    out = torch.empty((S, N), dtype=torch.float32, device=tab.device)
-    _raise(KERNEL.load()(loc.data_ptr(), loc.data_ptr(), tile.data_ptr(),
-                         tab.data_ptr(), out.data_ptr(), S, TILE, TILE,
-                         tab.shape[0], 2, raw_stream(tab)),
-           "probe_onehot_gather")
-    KERNEL.count("tile")
-    return out
+    check_pair_kernel_inputs(S, tab)
+    return _pair_rows(loc, loc, tile, tab, S, TILE, TILE, 2, "tile")
 
 
 # ------------------------------------------------------------------- B3
@@ -368,28 +392,52 @@ def b1_inputs(S, G, WIN, mode, device, g):
     return loc.reshape(S, 2).to(torch.int32), w, tab
 
 
-def b1_case(S, G, WIN, mode, device, g, direct=False):
+def _pair_info(S):
+    plan = pair_plan(S)
+    return {"kernel": "pair_rows_kernel", "blocks": plan.blocks,
+            "threads": plan.threads, "samples_per_warp": 2,
+            "cols_per_thread": 8,
+            "hints": "streaming stores, L2 evict-last table loads"}
+
+
+def group_floor_ms(nbytes, rows, group, n_rows):
+    """A case's bytes bound (``nbytes`` over HBM's rate) again with each
+    group's distinct rows read from HBM once a group, as they are where the
+    table does not stay in L2 from one group that reads a row to the next
+    (a 50.3 MB table beside the output's stream): ``rows`` (S, k) the rows
+    each sample reads, ``group`` (S,) its group (B2: its block)."""
+    per_group = torch.unique(group[:, None] * n_rows + rows).numel()
+    extra = (per_group - torch.unique(rows).numel()) * N * 2.0
+    return (nbytes + extra) / HBM_BYTES_PER_S * 1e3
+
+
+def b1_case(S, G, WIN, mode, device, g):
     loc, w, tab = b1_inputs(S, G, WIN, mode, device, g)
-    kern = direct_gather if direct else onehot_gather
     tab_f = tab.float()
     base = window_bases(loc, G, WIN, tab.shape[0], mode)
     j, wb = onehot_weights(loc, w, base, WIN)
     gl = base[:, None] + j
     rows_needed = int(torch.unique(gl).numel())   # the rows the function reads
+    # the function's bytes: loc and w, each row it reads once, the float32
+    # output
+    nbytes = _nbytes(loc, w) + rows_needed * N * 2.0 + S * N * 4.0
+    floor = {} if mode == "static" else {"group_floor_ms": group_floor_ms(
+        nbytes, gl, torch.arange(S, device=device) // G, tab.shape[0])}
     return Case(
-        f"B1 {'direct two-row gather' if direct else 'one-hot gather'} "
-        f"{mode} G={G} WIN={WIN}", "tools/bench_pallas_prims.py:73", SOURCE,
-        kernel=lambda: kern(loc, w, tab, G, WIN, mode),
+        f"B1 one-hot gather {mode} G={G} WIN={WIN}",
+        "tools/bench_pallas_prims.py:73", SOURCE,
+        kernel=lambda: onehot_gather(loc, w, tab, G, WIN, mode),
         plain=lambda: onehot_gather_plain(loc, w, tab, G, WIN, mode),
         # one PyTorch call of the same sums: embedding_bag over float32 rows
         library=lambda: F.embedding_bag(gl, tab_f, mode="sum",
                                         per_sample_weights=wb),
-        counter=(KERNEL, "direct" if direct else f"onehot_{mode}"),
-        nbytes=_nbytes(loc, w) + rows_needed * N * 2.0 + S * N * 4.0,
-        flops=0.0 if direct else float(S) * WIN * N * 2, rate=BF16_FLOPS,
-        # the same bf16 products, summed in float32 in another order
+        counter=(KERNEL, f"onehot_{mode}"), nbytes=nbytes,
+        # the same two bf16 products, summed in float32 in another order
         rtol=1e-6, atol=1e-6,
-        info={"S": S, "G": G, "WIN": WIN, "window": mode})
+        info={"S": S, "G": G, "WIN": WIN, "window": mode,
+              **_pair_info(S), **floor,
+              # the TPU's formulation: the one-hot product on tensor cores
+              "formulation_ms": S * WIN * N * 2.0 / BF16_FLOPS * 1e3})
 
 
 def b2_case(n_blocks, device, g):
@@ -399,19 +447,25 @@ def b2_case(n_blocks, device, g):
     loc = torch.randint(0, TILE, (n_blocks * TILE,), generator=g,
                         device=device, dtype=torch.int32)
     tab = torch.randn((n_rows, N), generator=g, device=device).to(torch.bfloat16)
+    tab_f = tab.float()
     rows = tile.long().repeat_interleave(TILE) * TILE + loc.long()
     S = n_blocks * TILE
+    nbytes = _nbytes(tile, loc) + min(S * N * 2.0, _nbytes(tab)) \
+        + S * N * 4.0
+    floor = group_floor_ms(nbytes, rows[:, None],
+                           torch.arange(S, device=device) // TILE, n_rows)
     return Case(
         f"B2 sorted-tile one-hot gather, {n_blocks} blocks of {TILE}",
         "tools/bench_dyngather2.py:144", SOURCE,
         kernel=lambda: tile_gather(tile, loc, tab),
         plain=lambda: tile_gather_plain(tile, loc, tab),
-        library=lambda: torch.index_select(tab, 0, rows),
-        counter=(KERNEL, "tile"),
-        nbytes=_nbytes(tile, loc) + min(n_blocks * TILE * N * 2.0,
-                                        _nbytes(tab)) + S * N * 4.0,
-        flops=float(S) * TILE * N * 2, rate=BF16_FLOPS, rtol=0, atol=0,
-        info={"S": S, "blocks": n_blocks, "tile": TILE,
+        # one PyTorch call of the same function: float32 rows by index
+        library=lambda: torch.index_select(tab_f, 0, rows),
+        extra_library={"bf16_out": lambda: torch.index_select(tab, 0, rows)},
+        counter=(KERNEL, "tile"), nbytes=nbytes, rtol=0, atol=0,
+        info={"S": S, "blocks_of_512": n_blocks, "tile": TILE,
+              **_pair_info(S), "group_floor_ms": floor,
+              "formulation_ms": S * TILE * N * 2.0 / BF16_FLOPS * 1e3,
               "also_replaces": "tools/bench_dyngather2.py:115"})
 
 
@@ -469,11 +523,9 @@ B3_RAGGED = ((3, GEMM_TILE_ROWS + 16, 80, True),
 
 
 def cases(device, size="main"):
-    """B1 at bench_pallas_prims.py's (G, WIN) list (S = 1,179,648) with the
-    direct gather beside it, B2 at 8192 blocks, B3 at the chain and batched
-    shapes. "check" shrinks S, blocks and batches; "check" and "sweep" add
-    B3 at the ragged shapes; "sweep" adds the direct gather at every B1
-    shape."""
+    """B1 at bench_pallas_prims.py's (G, WIN) list (S = 1,179,648), B2 at
+    8192 blocks, B3 at the chain and batched shapes. "check" shrinks S,
+    blocks and batches; "check" and "sweep" add B3 at the ragged shapes."""
     small = size == "check"
     g = torch.Generator(device=device).manual_seed(1)
     S = 1_179_648 if not small else None
@@ -481,8 +533,6 @@ def cases(device, size="main"):
         for G, WIN in shapes:
             s = 2 * G if small else S // G * G
             yield b1_case(s, G, WIN, mode, device, g)
-            if size == "sweep" or (G, WIN) == (512, 768):
-                yield b1_case(s, G, WIN, mode, device, g, direct=True)
     yield b2_case(3 if small else 8192, device, g)
     for n, M, K in B3_CHAINS:
         n = 2 if small else n

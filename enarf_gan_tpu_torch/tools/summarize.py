@@ -19,13 +19,20 @@ FIELDS = ("device_us", "host_us", "library_device_us", "library_host_us",
 
 
 def summarize(lines):
-    """{probe: summary} of probe lines (dicts) from several runs."""
+    """{probe: summary} of probe lines (dicts) from several runs; a probe
+    timed beside another tree's probe of another name (``other_probe``) is
+    summarised apart, under "<probe> | <other_probe>"."""
     by_probe = {}
     for line in lines:
-        by_probe.setdefault(line["probe"], []).append(line)
+        other = line.get("other_probe")
+        key = line["probe"] if other in (None, line["probe"]) \
+            else f"{line['probe']} | {other}"
+        by_probe.setdefault(key, []).append(line)
     out = {}
-    for probe, runs in by_probe.items():
-        s = {"probe": probe, "runs": len(runs)}
+    for key, runs in by_probe.items():
+        s = {"probe": runs[0]["probe"], "runs": len(runs)}
+        if key != s["probe"]:
+            s["other_probe"] = runs[0]["other_probe"]
         for f in FIELDS:
             vals = [r[f] for r in runs if r.get(f) is not None]
             if vals:
@@ -39,7 +46,7 @@ def summarize(lines):
         if libs:
             s["at_or_below_library"] = sum(
                 r["device_us"] <= r["library_device_us"] for r in libs)
-        out[probe] = s
+        out[key] = s
     return out
 
 

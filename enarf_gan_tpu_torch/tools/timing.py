@@ -248,9 +248,19 @@ def other_tree(module, root: str):
     return mod
 
 
+def _same_inputs(case: Case, other: Case) -> bool:
+    """The two cases replace one TPU kernel, and every ``info`` key they
+    share (the shapes, the window mode) has the same value."""
+    return case.replaces == other.replaces and all(
+        case.info[k] == v for k, v in other.info.items() if k in case.info)
+
+
 def pair_cases(mine: list, theirs: list) -> list:
     """(case, the other tree's case or None): by name, then the rest by
-    the TPU kernel they replace, in order."""
+    the TPU kernel they replace, in order; then each other case still left
+    (a kernel the other tree has beside its own for the same function)
+    after the first case of these with the same inputs, as one more
+    pair."""
     left = {c.name: c for c in theirs}
     out = [(c, left.pop(c.name, None)) for c in mine]
     for i, (c, o) in enumerate(out):
@@ -259,6 +269,11 @@ def pair_cases(mine: list, theirs: list) -> list:
                      None)
             if o is not None:
                 out[i] = (c, left.pop(o.name))
+    for o in left.values():
+        i = next((i for i, (c, _) in enumerate(out) if _same_inputs(c, o)),
+                 None)
+        if i is not None:
+            out.insert(i + 1, (out[i][0], o))
     return out
 
 

@@ -785,8 +785,17 @@ def test_probe_wrappers_refuse_on_card(cuda_device):
         gather.transpose(torch.zeros((2, 16, 8), device=dev).transpose(1, 2))
     g = torch.Generator(device=dev).manual_seed(0)
     loc, w, slab = mma.b1_inputs(96, 48, 128, "static", dev, g)
-    with pytest.raises(ValueError, match="multiples of 64"):
-        mma.onehot_gather(loc, w, slab, 48, 128)
+    words = torch.zeros(2 * 96 + 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="8-byte"):        # 4 bytes off
+        mma.onehot_gather(words[1:-1].view(96, 2), w, slab, 48, 128)
+    rows = torch.zeros(129 * 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):       # 8 bytes off
+        mma.onehot_gather(loc, w, rows[4:4 + 128 * 128].view(128, 128), 48,
+                          128)
+    many = torch.zeros((mma.PAIR_MAX_S, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="2\\*\\*26"):
+        mma.onehot_gather(many, many.float(), slab, 64, 128)
+    del many
     a = torch.zeros((2, 16, 24), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="multiples of 16"):
         mma.gemm(a, torch.zeros((24, 128), dtype=torch.bfloat16, device=dev))
@@ -804,8 +813,9 @@ def test_probe_gemm_and_onehot_ragged_on_card(cuda_device):
     rows and 64-deep k-tiles, resident and streamed B, more tiles than
     SMs, and walks of at most 128 rows whose K is too deep for the
     launch-bound kernel; the launch-bound kernel's blocks of 16 and 32
-    rows), each launch counted under the kernel the plan names, and B1 at
-    ragged windows."""
+    rows), each launch counted under the kernel the plan names; B1 at
+    ragged groups and windows and B2 at 1 and 3 blocks, each launch
+    counted."""
     from enarf_gan_tpu_torch.tools import mma
     g = torch.Generator(device=cuda_device).manual_seed(1)
     tile = mma.GEMM_TILE_ROWS
@@ -849,12 +859,38 @@ def test_probe_gemm_and_onehot_ragged_on_card(cuda_device):
                                    atol=1e-4 * K ** 0.5)
         assert mma.KERNEL.launches_by["gemm_small"] == before + 1, \
             (batch, M, K)
+    # B1 at groups and windows no multiple of 64, a last block left
+    # partial (G = 5), rows outside the window and coinciding; B2 at 1 and
+    # 3 blocks, bit-equal
     for mode in mma.WINDOW_MODES:
-        loc, w, tab = mma.b1_inputs(3 * 192, 192, 320, mode, cuda_device, g)
-        ref = mma.onehot_gather_plain(loc, w, tab, 192, 320, mode)
-        for fn in (mma.onehot_gather, mma.direct_gather):
-            torch.testing.assert_close(fn(loc, w, tab, 192, 320, mode), ref,
-                                       rtol=1e-6, atol=1e-6)
+        for G in (48, 192, 5):
+            for WIN in (80, 320):
+                S = 3 * G
+                loc, w, tab = mma.b1_inputs(S, G, WIN, mode, cuda_device, g)
+                loc[1, 1] = loc[1, 0]
+                loc[2, 0] += WIN
+                if G == 5:
+                    assert S % mma.PAIR_SAMPLES and S % 2
+                key = f"onehot_{mode}"
+                before = mma.KERNEL.launches_by[key]
+                got = mma.onehot_gather(loc, w, tab, G, WIN, mode)
+                torch.cuda.synchronize()
+                assert mma.KERNEL.launches_by[key] == before + 1
+                torch.testing.assert_close(
+                    got, mma.onehot_gather_plain(loc, w, tab, G, WIN, mode),
+                    rtol=1e-6, atol=1e-6)
+    tab = torch.randn((4 * mma.TILE, 128), generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    for n_blocks in (1, 3):
+        tile = torch.randint(0, 4, (n_blocks,), generator=g,
+                             device=cuda_device, dtype=torch.int32)
+        loc = torch.randint(0, mma.TILE, (n_blocks * mma.TILE,), generator=g,
+                            device=cuda_device, dtype=torch.int32)
+        before = mma.KERNEL.launches_by["tile"]
+        got = mma.tile_gather(tile, loc, tab)
+        torch.cuda.synchronize()
+        assert mma.KERNEL.launches_by["tile"] == before + 1
+        assert torch.equal(got, mma.tile_gather_plain(tile, loc, tab))
 
 
 @pytest.mark.cuda

@@ -374,7 +374,9 @@ def _pallas_onehot(loc, w, table, G, WIN, dynamic):
 
 @pytest.mark.parametrize("mode,G,WIN", [("static", 64, 128),
                                         ("static", 128, 192),
-                                        ("dynamic", 64, 128)])
+                                        ("dynamic", 64, 128),
+                                        ("static", 48, 80),
+                                        ("dynamic", 48, 80)])
 def test_onehot_gather_plain_matches_pallas_interpret(mode, G, WIN):
     g = torch.Generator().manual_seed(4)
     loc, w, tab = mma.b1_inputs(4 * G, G, WIN, mode, "cpu", g)
@@ -385,7 +387,7 @@ def test_onehot_gather_plain_matches_pallas_interpret(mode, G, WIN):
     loc[1, 1] = loc[1, 0]                # two rows that coincide
     ref = _pallas_onehot(loc.numpy(), w.numpy(), tab.float().numpy(), G, WIN,
                          mode == "dynamic")
-    for fn in (mma.onehot_gather_plain, mma.onehot_gather, mma.direct_gather):
+    for fn in (mma.onehot_gather_plain, mma.onehot_gather):
         got = fn(loc, w, tab, G, WIN, mode).numpy()
         np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
     # the TPU kernel's rounding of the weights matters at this tolerance
@@ -394,17 +396,143 @@ def test_onehot_gather_plain_matches_pallas_interpret(mode, G, WIN):
         assert np.abs(unrounded - ref).max() > 1e-4
 
 
-def test_tile_gather_plain_matches_numpy_onehot():
+@pytest.mark.parametrize("n_blocks", [1, 3])
+def test_tile_gather_plain_matches_numpy_onehot(n_blocks):
     """bench_dyngather2.py:135 kernel2: one-hot(loc) @ tab[t*512 : +512]."""
     rng = np.random.default_rng(5)
     tab = _bf16(rng.normal(size=(2048, 128)))
-    tile = rng.integers(0, 4, 3).astype(np.int32)
-    loc = rng.integers(0, 512, 3 * 512).astype(np.int32)
+    tile = rng.integers(0, 4, n_blocks).astype(np.int32)
+    loc = rng.integers(0, 512, n_blocks * 512).astype(np.int32)
     ref = np.concatenate([np.eye(512)[loc[b * 512:(b + 1) * 512]]
                           @ tab[t * 512:(t + 1) * 512]
                           for b, t in enumerate(tile)])
     got = mma.tile_gather(T(tile), T(loc), T(tab).to(torch.bfloat16))
     np.testing.assert_array_equal(got.numpy(), ref.astype(np.float32))
+
+
+def _fast_div(n, d):
+    """fast_div.cuh's FastDiv: n // d by a multiply and a shift, with the
+    host's multiplier and the card's 32-bit high product."""
+    s = 0
+    while (1 << s) < d:
+        s += 1
+    m = ((1 << 32) * ((1 << s) - d)) // d + 1
+    assert 0 < m < 1 << 32
+    n = np.asarray(n, np.uint64)
+    return ((n * np.uint64(m) >> np.uint64(32)) + n) >> np.uint64(s)
+
+
+@pytest.mark.parametrize("d", [1, 5, 48, 192, 512, 1023, 1024, 4096, 65537])
+def test_fast_div_divides_every_index_the_kernels_take(d):
+    """The division of pair_rows_kernel (a sample's group) and
+    row_units_kernel (a unit's row) is exact for every 32-bit index below
+    2**31: checked at both ends, around every multiple of d near them, and
+    at random indices."""
+    rng = np.random.default_rng(d)
+    ends = np.concatenate([np.arange(0, 4096), 2 ** 31 - 1 - np.arange(4096),
+                           rng.integers(0, 2 ** 31, 200_000)])
+    near = (ends // d * d)[:, None] + np.arange(-1, 2)
+    n = np.concatenate([ends, near.ravel()])
+    n = n[(n >= 0) & (n < 2 ** 31)]
+    np.testing.assert_array_equal(_fast_div(n, d), n // d)
+
+
+def _pair_rows_emulated(plan, S, G, WIN, mode, loc, w, tab, tile=None):
+    """pair_rows_kernel emulated over ``pair_plan``'s grid: the half-warp
+    of each sample, the 8 columns a thread loads from each of its rows, its
+    group by ``_fast_div``, the dynamic base by ``& ~511`` (a floor, also
+    below 0), the weights as ``load_pair`` forms them; then the exchange,
+    lane l of a warp storing unit l (4 columns) of each of the warp's two
+    samples from lane 16 h + l // 2. Returns the output and how often each
+    float32 of it was written."""
+    t = np.arange(plan.blocks * plan.threads, dtype=np.int64)
+    lane = t % 32
+    s = (t // 32) * 2 + lane // 16
+    live = s < S
+    cols = ((lane % 16) * 8)[:, None] + np.arange(8)
+    tab_f = tab.float().numpy()
+    vals = np.zeros((t.size, 8), np.float32)       # what each thread holds
+    sl, cl = s[live], cols[live]
+    if mode == "tile":
+        rows = tile.numpy()[sl // mma.TILE].astype(np.int64) * mma.TILE \
+            + loc.numpy()[sl]
+        vals[live] = tab_f[rows[:, None], cl]
+    else:
+        lo, wv = loc.numpy().astype(np.int64), w.numpy()
+        base = np.zeros_like(sl)
+        if mode == "dynamic":
+            first = lo.ravel()[2 * _fast_div(sl, G).astype(np.int64) * G]
+            base = np.minimum(first, tab.shape[0] - WIN) & ~511
+        j0, j1 = lo[sl, 0] - base, lo[sl, 1] - base
+        w0, w1 = wv[sl, 0].copy(), wv[sl, 1].copy()
+        same = j0 == j1
+        w0[same] += w1[same]
+        w1[same] = 0
+        r16 = lambda x: T(x).to(torch.bfloat16).float().numpy()  # noqa
+        w0 = np.where((j0 >= 0) & (j0 < WIN), r16(w0), np.float32(0))
+        w1 = np.where((j1 >= 0) & (j1 < WIN), r16(w1), np.float32(0))
+        r0 = base + np.clip(j0, 0, WIN - 1)
+        r1 = base + np.clip(j1, 0, WIN - 1)
+        vals[live] = (w0[:, None] * tab_f[r0[:, None], cl]
+                      + w1[:, None] * tab_f[r1[:, None], cl])
+    out = np.full((S, N_B), np.nan, np.float32)
+    seen = np.zeros((S, N_B), np.int64)
+    for h in range(2):
+        dst = (t // 32) * 2 + h
+        src = t - lane + 16 * h + lane // 2
+        part = vals[src].reshape(-1, 2, 4)[np.arange(t.size), lane % 2]
+        ok = dst < S
+        dcols = (4 * lane)[ok, None] + np.arange(4)
+        out[dst[ok, None], dcols] = part[ok]
+        np.add.at(seen, (dst[ok, None], dcols), 1)
+    return out, seen
+
+
+N_B = mma.N
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+@pytest.mark.parametrize("G,WIN", [(48, 80), (192, 320), (5, 80)])
+def test_pair_rows_kernel_emulated_matches_plain(mode, G, WIN):
+    """B1's kernel, emulated on ``pair_plan``'s grid, writes every float32
+    of the output once and equals the plain twin bit for bit, at groups
+    that are no multiple of 64 and windows no multiple of 64, a last block
+    and warp left partial (G = 5), rows outside the window and coinciding
+    rows, and (dynamic) groups whose first row lies within WIN of the
+    table's end."""
+    g = torch.Generator().manual_seed(G + WIN)
+    S = 3 * G
+    loc, w, tab = mma.b1_inputs(S, G, WIN, mode, "cpu", g)
+    loc[1, 1] = loc[1, 0]
+    loc[2, 0] = -3 if mode == "static" else loc[2, 0] + WIN   # outside
+    if mode == "dynamic":
+        loc[G, 0] = tab.shape[0] - 7                # capped at n_rows - WIN
+    plan = mma.pair_plan(S)
+    assert plan.threads == mma.PAIR_THREADS == 16 * mma.PAIR_SAMPLES
+    assert (plan.blocks - 1) * mma.PAIR_SAMPLES < S \
+        <= plan.blocks * mma.PAIR_SAMPLES
+    if G == 5:
+        assert S % mma.PAIR_SAMPLES and S % 2     # a partial block and warp
+    out, seen = _pair_rows_emulated(plan, S, G, WIN, mode, loc, w, tab)
+    assert (seen == 1).all()
+    np.testing.assert_array_equal(
+        out, mma.onehot_gather_plain(loc, w, tab, G, WIN, mode).numpy())
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3])
+def test_pair_rows_kernel_emulated_matches_tile_plain(n_blocks):
+    """B2's kernel (the same kernel, tile mode) emulated on its grid:
+    every float32 written once, bit-equal to ``tile_gather_plain``."""
+    g = torch.Generator().manual_seed(n_blocks)
+    S = n_blocks * mma.TILE
+    tile = torch.randint(0, 4, (n_blocks,), generator=g, dtype=torch.int32)
+    loc = torch.randint(0, mma.TILE, (S,), generator=g, dtype=torch.int32)
+    tab = torch.randn((4 * mma.TILE, N_B), generator=g).to(torch.bfloat16)
+    out, seen = _pair_rows_emulated(mma.pair_plan(S), S, mma.TILE, mma.TILE,
+                                    "tile", loc, None, tab, tile)
+    assert (seen == 1).all()
+    np.testing.assert_array_equal(
+        out, mma.tile_gather_plain(tile, loc, tab).numpy())
 
 
 @pytest.mark.parametrize("n,M,K", [(3, 64, 256), (2, 128, 64)])
@@ -450,6 +578,8 @@ def test_mma_wrappers_refuse_what_the_kernels_do_not_take():
         mma.onehot_gather(loc, w, tab, 64, 128, "sliding")
     with pytest.raises(ValueError, match="divide"):
         mma.onehot_gather(loc, w, tab, 48, 128)
+    with pytest.raises(ValueError, match="fit"):
+        mma.onehot_gather(loc, w, tab, 64, 129, "dynamic")
     with pytest.raises(ValueError, match="height"):
         mma.onehot_gather(loc, w, tab, 64, 64)
     with pytest.raises(ValueError, match="bf16"):
@@ -471,6 +601,16 @@ def test_mma_wrappers_refuse_what_the_kernels_do_not_take():
                                      .view(2, 512, 64), b)
     mma.check_gemm_kernel_inputs(flat[8:8 + 2 * 512 * 64].view(2, 512, 64),
                                  b)
+    with pytest.raises(ValueError, match="2\\*\\*26"):
+        mma.check_pair_kernel_inputs(mma.PAIR_MAX_S, tab, (loc, w))
+    words = torch.zeros(2 * 128 + 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="8-byte"):
+        mma.check_pair_kernel_inputs(128, tab, (words[1:-1].view(128, 2), w))
+    mma.check_pair_kernel_inputs(128, tab, (words[2:].view(128, 2), w))
+    rows = torch.zeros(129 * 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):      # 8 bytes off
+        mma.check_pair_kernel_inputs(128, rows[4:4 + 128 * 128].view(128, 128))
+    mma.check_pair_kernel_inputs(128, rows[8:8 + 128 * 128].view(128, 128))
 
 
 @pytest.mark.parametrize("batch,M,K,batched", [
@@ -1228,6 +1368,57 @@ def test_against_loads_another_tree_and_pairs_its_cases(tmp_path, capsys):
     lines = gather.main(["--device", "cpu", "--only", "^A2 "])
     assert [x["probe"] for x in lines] == [c.name for c in mine]
     capsys.readouterr()
+
+
+_C_TYPES = {"int": "c_int", "long long": "c_longlong", "int64_t": "c_longlong"}
+
+
+@pytest.mark.parametrize("module", ["gather", "mma", "constructs"])
+def test_entry_points_match_their_c_signatures(module):
+    """Each probe library's ctypes argument types are those of its C entry
+    point in the source, argument by argument (a pointer as c_void_p), so
+    that no call passes too few arguments or cuts a pointer to 32 bits on
+    the card."""
+    import ctypes
+    import re
+    lib = {"gather": gather, "mma": mma, "constructs": constructs}[module] \
+        .KERNEL
+    src = (Path(mma.__file__).parents[1] / "csrc" / lib.source).read_text()
+    found = {m.group(1): m.group(2) for m in re.finditer(
+        r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    assert set(lib.symbols) <= set(found)
+    for name, argtypes in lib.symbols.items():
+        want = []
+        for arg in found[name].split(","):
+            kind = " ".join(arg.split()[:-1]).replace("const ", "")
+            want.append(ctypes.c_void_p if "*" in arg
+                        else getattr(ctypes, _C_TYPES[kind]))
+        assert list(argtypes) == want, name
+
+
+def test_against_pairs_a_kernel_the_other_tree_has_beside_its_own():
+    """``pair_cases``: a case of the other tree left after the pairing by
+    name (there a second kernel of the same function, as B1's direct
+    gather was) is paired once more with this tree's case of the same
+    inputs, after that case's own pair; ``summarize`` keeps the two pairs
+    of that case apart."""
+    import dataclasses
+    from enarf_gan_tpu_torch.tools import summarize, timing
+    cpu = torch.device("cpu")
+    mine = [c for c in mma.cases(cpu, "check") if c.name.startswith("B1 ")]
+    mine = mine[:3]
+    extra = dataclasses.replace(
+        mine[1], name="B1 direct two-row gather",
+        info={k: mine[1].info[k] for k in ("S", "G", "WIN", "window")})
+    pairs = timing.pair_cases(mine, mine + [extra])
+    assert [(c.name, o.name) for c, o in pairs] == [
+        (mine[0].name, mine[0].name), (mine[1].name, mine[1].name),
+        (mine[1].name, extra.name), (mine[2].name, mine[2].name)]
+    lines = [{"probe": c.name, "other_probe": o.name, "device_us": 1.0,
+              "other_device_us": 2.0} for c, o in pairs]
+    out = summarize.summarize(lines)
+    assert len(out) == 4 and out[mine[1].name]["below_other"] == 1
+    assert out[f"{mine[1].name} | {extra.name}"]["other_probe"] == extra.name
 
 
 def test_summarize_takes_medians_and_counts_pairs(tmp_path, capsys):
