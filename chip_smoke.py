@@ -13,7 +13,9 @@ NVIDIA GPU.
    window-row formulation on window rows built from the texel table and
    held to ``pack_tilewin``'s; the backward kernels 1b and 2b at one
    training fine pass of 4 images, against autograd through the plain
-   versions), times both with CUDA events in turns, and computes each
+   versions; kernels 1f and 1bf, kernels 1 and 1b on a float32 texel
+   table, at the same shapes), times both with CUDA events in turns, and
+   computes each
    kernel's bound from this run's inputs: the distinct table bytes the
    function needs (64-byte feature halves of texels and 32-byte mask
    sectors that valid members touch; all of them read the texel table, and
@@ -85,7 +87,20 @@ NVIDIA GPU.
    over all of them and over the tri-plane generator's, which alone come
    through the combine's backward); on the tiled path the tri-plane bound
    must also reject 2b's gradients with their mask lanes zeroed.
-8. Overfits one 64² frame for 200 iterations on both paths at full width:
+8. The published float32 DSO config through the port's CLI functions
+   (``enarf_gan_tpu_torch.train_DSO``, ``DSO_demo``): ``configs/DSO_train/
+   ZJU/313_denarf.yml`` over its ``default.yml``, read by the port's YAML
+   reader with only the data roots, ``out_root`` and the iteration count
+   replaced (float32 planes: kernels 1f and 1bf), trained on a synthetic
+   512² cache of 16 images at full width (1 warm-up, 3 timed and 1
+   profiled iteration: s/iter, peak memory, launches a step); then
+   ``--validation`` on 2 frames (PSNR and SSIM, cropped) and the demo
+   (``configs/DSO_demo/ZJU/313_denarf.yml``) on 2 samples at 512², its PNGs
+   read back. Then the float32 GAN of ``configs/enarfgan_train/AIST/
+   config.yml`` over its ``default.yml`` (128², bs 12 in 2 micro-batches,
+   the exact sampler): 1 warm-up and 2 timed G + D iterations through
+   ``training.gan``, a profile of a G step, and one 128² sample.
+9. Overfits one 64² frame for 200 iterations on both paths at full width:
    the PSNR must beat the blank frame's by more than 2 dB.
 
 The second-to-last line is a JSON record of the kernels, the last line
@@ -104,6 +119,11 @@ plain combine.
     python3 chip_smoke.py --gan
 
 runs only phase 1 and phase 7 (about a minute on an H100).
+
+    python3 chip_smoke.py --float32
+
+runs phase 1, kernels 1f and 1bf's checks (phase 2) and the float32
+configs' runs (phase 8's first half).
 
     python3 chip_smoke.py --modes
 
@@ -202,6 +222,17 @@ GAN_CONFIG = {
              "r1_loss_coef": 10, "tri_plane_reg_coef": 0.001},
     "replace": True, "num_iter": 800000, "n_accum_step": 2,
     "resume": None, "resume_latest": False}
+# the published float32 configs (no plane_sample_dtype: float32 planes,
+# kernels 1f and 1bf), read from the files by the port's YAML reader
+DSO_F32_CONFIG = ("configs/DSO_train/ZJU/313_denarf.yml",
+                  "configs/DSO_train/default.yml")
+DEMO_F32_CONFIG = ("configs/DSO_demo/ZJU/313_denarf.yml",
+                   "configs/DSO_demo/default.yml")
+GAN_F32_CONFIG = ("configs/enarfgan_train/AIST/config.yml",
+                  "configs/enarfgan_train/default.yml")
+CLI_FRAMES, CLI_CAMERAS = 4, 4   # the synthetic 512² training cache: 16
+CLI_ITERS = 1 + TIMED_STEPS + 1   # warm-up, timed, profiled
+GAN_F32_TIMED = 2
 GAN_POSES = 4             # full-image GAN frames a path
 GAN_GRAD_REL_L2 = 1e-2    # G-step gradients, kernels vs plain combine: the
                           # atomics' order, and near-ties (bone slots, fine
@@ -309,6 +340,7 @@ def _compare_and_time(kern, plain, label):
 
 def phase_setup():
     import torch
+    from enarf_gan_tpu_torch import use_full_float32
     from enarf_gan_tpu_torch.ops import tilewin_kernel, unirow
     from enarf_gan_tpu_torch.tools import ablate
     smi = subprocess.run(
@@ -317,10 +349,9 @@ def phase_setup():
     print(f"card: {smi.stdout.strip().splitlines()[0]}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
-    # full float32 in matmuls and convolutions (cuDNN defaults to TF32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("allow_tf32: matmul False, cudnn False")
+    use_full_float32()     # as the CLIs do: no TF32 (cuDNN's default)
+    print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+          f"cudnn {torch.backends.cudnn.allow_tf32}")
     kernels = {"unirow_combine": unirow.KERNEL,
                "unirow_combine_bwd": unirow.KERNEL_BWD,
                "tilewin_combine": tilewin_kernel.KERNEL,
@@ -351,29 +382,58 @@ def phase_setup():
           + "; ".join(f"{k} {v} B" for k, v in smem.items()))
 
 
-def phase_unirow_check(device):
-    """Kernel 1 vs its plain twin at one full fine chunk of the exact
-    path. The bound counts the texel table's bytes the function needs;
-    the quad-row table's (the TPU layout) is printed beside it."""
+def _quadtable_bytes(rows, cand_idx, valid, feat_dim, H, W, K):
+    """The float32 quad-table yardstick (the JAX package's float32 layout,
+    ``ops/quadtable.py``: a 4F-lane feature quad row a cell, a 4-lane mask
+    quad row a bone and cell): the feature rows of valid candidates and the
+    32-byte sectors holding every candidate's mask quad row. Returns
+    (bytes, distinct feature rows, distinct mask sectors)."""
+    import torch
+    B = rows.shape[0]
+    cells = 3 * (H + 1) * (W + 1)
+    base = torch.arange(B, device=rows.device).view(B, 1, 1, 1)
+    grow = rows.long() + base * cells
+    keep = (valid != 0)[:, None].expand_as(grow)
+    d_rows = int(torch.unique(grow[keep]).numel())
+    # mask row (k*3 + p)*(H+1)*(W+1) + cell = k*cells + row, 16 bytes each
+    mrow = cand_idx.long()[:, None] * cells + rows.long() + base * K * cells
+    d_sec = int(torch.unique(mrow // 2).numel())
+    return d_rows * 4 * feat_dim * 4 + d_sec * 32, d_rows, d_sec
+
+
+def phase_unirow_check(device, dtype=None):
+    """Kernel 1 (bf16 texels) or 1f (``dtype`` float32) vs its plain twin at
+    one full fine chunk of the exact path. The bound counts the texel
+    table's bytes the function needs; the TPU layout's (bf16 quad rows; for
+    float32 the JAX package's quad tables) is printed beside it."""
+    import torch
     from enarf_gan_tpu_torch.ops import unirow
     from enarf_gan_tpu_torch.tools.ablate import (texel_table_bytes,
                                                   unirow_inputs)
+    dtype = dtype or torch.bfloat16
     F_, M, H = 32, 4, 256
     n = FINE_CHUNK_POINTS
-    args = unirow_inputs(device, 1, n, H, M, seed=SEED)[:5]
+    args = unirow_inputs(device, 1, n, H, M, seed=SEED, dtype=dtype)[:5]
     texels = args[0]
+    name = "unirow_combine" + ("_f32" if dtype == torch.float32 else "")
     err, kern_ms, plain_ms = _compare_and_time(
         lambda: unirow.unirow_combine(*args, F_, False),
         lambda: unirow.gather_combine_texels_plain(*args, F_, False),
-        f"unirow_combine at n={n} M={M} texels {tuple(texels.shape)} bf16")
+        f"{name} at n={n} M={M} texels {tuple(texels.shape)} {dtype}")
     inputs = sum(a.numel() * a.element_size() for a in args[1:])
     outputs = (F_ + M) * n * 4
     flops = n * M * 3 * (4 * F_ * 2 + 4 * 2) + n * M * F_ * 2
     table_bytes, d_tex, d_sec = texel_table_bytes(texels, args[1], args[3],
                                                   args[4], F_)
     bound_ms, bound_by = _bound(table_bytes + inputs + outputs, flops)
-    quad_bytes, d_rows, d_qsec = _unirow_table_bytes(args[1], args[3],
-                                                     args[4], F_, H, H)
+    if dtype == torch.float32:
+        quad_bytes, d_rows, d_qsec = _quadtable_bytes(args[1], args[3],
+                                                      args[4], F_, H, H, 23)
+        layout = "float32 quad tables"
+    else:
+        quad_bytes, d_rows, d_qsec = _unirow_table_bytes(args[1], args[3],
+                                                         args[4], F_, H, H)
+        layout = "quad rows"
     quad_ms, _ = _bound(quad_bytes + inputs + outputs, flops)
     print(f"  kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms; "
           f"{args[1].numel()} (plane, candidate, point) reads on {d_tex} "
@@ -381,11 +441,12 @@ def phase_unirow_check(device):
           f"mask sectors: texel table {table_bytes / 1e6:.1f} MB, inputs "
           f"{inputs / 1e6:.1f} MB, outputs {outputs / 1e6:.1f} MB; bound "
           f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP); "
-          f"quad-row yardstick: {d_rows} distinct rows and {d_qsec} mask "
+          f"{layout} yardstick: {d_rows} distinct rows and {d_qsec} mask "
           f"sectors, {quad_bytes / 1e6:.1f} MB, bound {quad_ms:.4f} ms")
     return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "quad_row_bound_ms": quad_ms,
+            ("quad_table_bound_ms" if dtype == torch.float32
+             else "quad_row_bound_ms"): quad_ms,
             "valid": int((args[4] != 0).sum()), "points": n}
 
 
@@ -582,27 +643,30 @@ def _grad_check(label, kern, plain, names):
         (times[0] + times[3]) / 2
 
 
-def phase_unirow_bwd_check(device):
-    """Kernel 1b at one training fine pass: 4 images x 4096 rays x Nf 64,
-    4 candidates, against autograd through the plain twin (image by image:
-    images share no texels). The kernel's time includes zeroing the dense
-    float32 texel gradient, which the bound counts as written. Then its
-    stage ablations (``tools/ablate.py``: scalar feature adds, no feature
-    adds, no mask adds), each held to its doctored twin and timed in turns
-    with the full kernel."""
+def phase_unirow_bwd_check(device, dtype=None):
+    """Kernel 1b (bf16 texels) or 1bf (``dtype`` float32) at one training
+    fine pass: 4 images x 4096 rays x Nf 64, 4 candidates, against autograd
+    through the plain twin (image by image: images share no texels). The
+    kernel's time includes zeroing the dense float32 texel gradient, which
+    the bound counts as written. Then, for kernel 1b, its stage ablations
+    (``tools/ablate.py``: scalar feature adds, no feature adds, no mask
+    adds), each held to its doctored twin and timed in turns with the full
+    kernel."""
     import torch
     from enarf_gan_tpu_torch.ops import unirow
     from enarf_gan_tpu_torch.tools import ablate
+    dtype = dtype or torch.bfloat16
     F_, H, B, n = 32, 256, TRAIN_IMAGES, FINE_CHUNK_POINTS
-    args = ablate.unirow_inputs(device, B, n, H, seed=SEED + 5)
+    args = ablate.unirow_inputs(device, B, n, H, seed=SEED + 5, dtype=dtype)
     texels, rows, wq4, ci, cv, dfeature, dcand_w = args
     M = rows.shape[2]
 
     def kern():
         return unirow.launch_backward(*args, F_, False)
 
+    name = "unirow_combine_bwd" + ("_f32" if dtype == torch.float32 else "")
     err, kern_ms, plain_ms = _grad_check(
-        f"unirow_combine_bwd at B={B} n={n} M={M}", kern,
+        f"{name} at B={B} n={n} M={M} {dtype} texels", kern,
         lambda: ablate.unirow_bwd_plain(*args), ("texels", "wq4"))
     table_bytes, d_tex, d_sec = ablate.texel_table_bytes(texels, rows, ci, cv,
                                                          F_)
@@ -610,19 +674,26 @@ def phase_unirow_bwd_check(device):
     outputs = texels.numel() * 4 + wq4.numel() * 4
     flops = 3 * (n * M * 3 * (4 * F_ * 2 + 4 * 2) + n * M * F_ * 2) * B
     bound_ms, bound_by = _bound(table_bytes + inputs + outputs, flops)
-    quad_bytes, _, _ = _unirow_table_bytes(rows, ci, cv, F_, H, H)
-    quad_out = B * 3 * (H + 1) * (H + 1) * unirow.row_width(F_) * 4 \
-        + wq4.numel() * 4
+    if dtype == torch.float32:     # the gradients of both quad tables
+        quad_bytes, _, _ = _quadtable_bytes(rows, ci, cv, F_, H, H, 23)
+        quad_out = B * 3 * (H + 1) * (H + 1) * (4 * F_ + 4 * 23) * 4 \
+            + wq4.numel() * 4
+    else:
+        quad_bytes, _, _ = _unirow_table_bytes(rows, ci, cv, F_, H, H)
+        quad_out = B * 3 * (H + 1) * (H + 1) * unirow.row_width(F_) * 4 \
+            + wq4.numel() * 4
     quad_ms, _ = _bound(quad_bytes + inputs + quad_out, flops)
     print(f"  kernel {kern_ms:.4f} ms (with the zeroed float32 texel "
           f"gradient), plain {plain_ms:.4f} ms; texel reads "
           f"{table_bytes / 1e6:.1f} MB ({d_tex} texels, {d_sec} mask "
           f"sectors), other inputs {inputs / 1e6:.1f} MB, outputs "
           f"{outputs / 1e6:.1f} MB; bound {bound_ms:.4f} ms by {bound_by}; "
-          f"quad-row yardstick: table reads {quad_bytes / 1e6:.1f} MB, "
+          f"{'quad-table' if dtype == torch.float32 else 'quad-row'} "
+          f"yardstick: table reads {quad_bytes / 1e6:.1f} MB, "
           f"outputs {quad_out / 1e6:.1f} MB, bound {quad_ms:.4f} ms")
     stage_ms = {}
-    for stage in ablate.UNIROW_BWD_STAGES[1:]:
+    stages = ablate.UNIROW_BWD_STAGES[1:] if dtype == torch.bfloat16 else ()
+    for stage in stages:
         got = ablate.unirow_bwd_stage(*args, stage)
         torch.cuda.synchronize()
         ref = ablate.unirow_bwd_stage_plain(*args, stage)
@@ -643,7 +714,8 @@ def phase_unirow_bwd_check(device):
               + ", ".join(f"{x:.4f}" for x in times))
     return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "quad_row_bound_ms": quad_ms, "stage_ms": stage_ms,
+            ("quad_table_bound_ms" if dtype == torch.float32
+             else "quad_row_bound_ms"): quad_ms, "stage_ms": stage_ms,
             "valid": int((cv != 0).sum()), "points": B * n}
 
 
@@ -1093,7 +1165,8 @@ def phase_launch_cost(probes, frames, ms_host):
 def _all_kernels():
     from enarf_gan_tpu_torch.ops import tilewin_kernel, unirow
     return (unirow.KERNEL, unirow.KERNEL_BWD, tilewin_kernel.KERNEL,
-            tilewin_kernel.KERNEL_BWD, tilewin_kernel.KERNEL_MODES)
+            tilewin_kernel.KERNEL_BWD, tilewin_kernel.KERNEL_MODES,
+            unirow.KERNEL_F32, unirow.KERNEL_BWD_F32)
 
 
 def _reset_all_counts():
@@ -1732,6 +1805,313 @@ def phase_gan(device, root):
             "grad_rel": {"tiled": rel_t, "exact": rel_e}}
 
 
+def _repo_path(rel):
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
+def _read_config(pair, replace):
+    """The config pair read by the port's YAML reader
+    (``config.yaml_config``), with the keys of ``replace`` ("a.b.c": value)
+    set; prints each replacement."""
+    from enarf_gan_tpu_torch.config import yaml_config
+    config = yaml_config(*map(_repo_path, pair))
+    print(f"{pair[0]} over {pair[1]} (the port's YAML reader), replaced:")
+    for key, value in replace.items():
+        node = config
+        *path, leaf = key.split(".")
+        for k in path:
+            node = node[k]
+        print(f"  {key}: {node.get(leaf)!r} -> {value!r}")
+        node[leaf] = value
+    return config
+
+
+def _sample_data(path, items):
+    """A demo's ``sample_data.npz``: the poses, bone lengths and cameras of
+    dataset ``items``."""
+    import os
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "sample_data.npz"),
+             **{k: np.stack([item[k] for item in items])
+                for k in ("pose_3d", "bone_length", "intrinsics")})
+
+
+def phase_dso_cli(device, root):
+    """The published float32 DSO config through the port's CLI functions:
+    ``configs/DSO_train/ZJU/313_denarf.yml`` trained on a synthetic 512²
+    cache of 16 images (``train_DSO.train``: CLI_ITERS iterations, the
+    first a warm-up, the next TIMED_STEPS timed, the last profiled;
+    kernels 1f and 1bf, no other unirow or tilewin kernel; the model's
+    seeded weights perturbed by 0.3 as in phase 6), then
+    ``train_DSO.validation`` on 2 frames (PSNR, SSIM, cropped) and the demo
+    (``DSO_demo.demo``, ``configs/DSO_demo/ZJU/313_denarf.yml``) on 2
+    samples at 512², its PNGs read back."""
+    import os
+    import torch
+    from enarf_gan_tpu_torch import DSO_demo, train_DSO
+    from enarf_gan_tpu_torch.data.datasets import SSODataset
+    from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
+    from enarf_gan_tpu_torch.ops import unirow
+    from enarf_gan_tpu_torch.training import dso
+    from enarf_gan_tpu_torch.utils.logging import read_png
+    train_root, val_root = (os.path.join(root, d) for d in ("train", "val"))
+    config = _read_config(DSO_F32_CONFIG, {
+        "out_root": root, "dataset.train.data_root": train_root,
+        "dataset.val.train.data_root": train_root,
+        "dataset.val.novel_view.data_root": val_root,
+        "dataset.val.novel_pose.data_root": val_root + "_pose"})
+    nerf = config.generator_params.nerf_params
+    assert "plane_sample_dtype" not in nerf
+    size = config.dataset.image_size
+    t0 = time.perf_counter()
+    make_synthetic_human_cache(train_root, size=size, n_frames=CLI_FRAMES,
+                               n_camera=CLI_CAMERAS)
+    for seed, key in ((1, "novel_view"), (2, "novel_pose")):
+        make_synthetic_human_cache(config.dataset.val[key].data_root,
+                                   size=size, n_frames=1, n_camera=1,
+                                   seed=seed)
+    print(f"synthetic {size}² caches: {CLI_FRAMES * CLI_CAMERAS} training "
+          f"images, 2 validation frames ({time.perf_counter() - t0:.1f} s)")
+    print(f"  iterations: num_iter {config.num_iter} -> {CLI_ITERS} "
+          f"(--iterations); bs {config.dataset.bs}, "
+          f"{config.dataset.image_size}², {config.generator_params.ray_batchsize}"
+          f" rays an image, Nc {nerf.Nc} + Nf {nerf.Nf}, float32 planes")
+
+    real, build = dso.make_train_step, dso.build_generator
+    ends, counts, peak, prof = [], [], [], {}
+
+    def perturbed_build(*a, **k):
+        """The CLI's model with its seeded weights perturbed by 0.3: a fresh
+        DSO model renders an all-zero mask, and a few steps do not change
+        that, so the demo's PNGs would be constant."""
+        gen = build(*a, **k)
+        g = torch.Generator().manual_seed(SEED + 29)
+        with torch.no_grad():
+            for p in gen.parameters():
+                p.add_(0.3 * torch.randn(p.shape, generator=g).to(p.device))
+        return gen
+
+    def timed_step_factory(*a, **k):
+        step = real(*a, **k)
+
+        def timed(*sa, **sk):
+            if len(ends) == CLI_ITERS - 1:           # the profiled step
+                ms = (ends[TIMED_STEPS] - ends[0]) / TIMED_STEPS * 1e3
+                out = {}
+                prof["profile"] = _profile(
+                    lambda: out.update(m=step(*sa, **sk)),
+                    "CLI float32 training profile", ms, "step")
+                m = out["m"]
+            else:
+                m = step(*sa, **sk)
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            if len(ends) == 1:                       # after the warm-up
+                torch.cuda.reset_peak_memory_stats()
+            if len(ends) == 1 + TIMED_STEPS:
+                peak.append(torch.cuda.max_memory_allocated())
+            counts.append((unirow.KERNEL_F32.launches,
+                           unirow.KERNEL_BWD_F32.launches))
+            return m
+
+        return timed
+
+    _reset_all_counts()
+    with mock.patch.object(dso, "make_train_step", timed_step_factory), \
+            mock.patch.object(dso, "build_generator", perturbed_build):
+        gen, _, history = train_DSO.train(config, device, CLI_ITERS)
+    launches = {k.name: k.launches for k in _all_kernels()}
+    s_iter = (ends[TIMED_STEPS] - ends[0]) / TIMED_STEPS
+    f_step = (counts[TIMED_STEPS][0] - counts[0][0]) / TIMED_STEPS
+    b_step = (counts[TIMED_STEPS][1] - counts[0][1]) / TIMED_STEPS
+    assert len(history) == CLI_ITERS and np.isfinite(history).all(), history
+    assert launches["unirow_combine_f32"] > 0 and \
+        launches["unirow_combine_bwd_f32"] > 0, launches
+    assert all(v == 0 for k, v in launches.items() if not k.endswith("_f32")), \
+        launches
+    assert gen.nerf.texel_dtype == torch.float32
+    out_dir = train_DSO.out_dir_of(config)
+    snap = os.path.join(out_dir, "snapshot_latest.pth")
+    assert os.path.exists(snap), snap
+    print(f"CLI float32 training (313_denarf.yml): {s_iter:.3f} s/iter over "
+          f"{TIMED_STEPS} iterations (the loader's batches included), peak "
+          f"{peak[0] / 2**30:.2f} GiB allocated, losses "
+          + ", ".join(f"{x:.5f}" for x in history)
+          + f"; kernel launches {launches}; a step: 1f {f_step:g}, 1bf "
+          f"{b_step:g}; snapshot {snap}")
+    del gen
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    val = train_DSO.validation(config, device)
+    val_s = time.perf_counter() - t0
+    assert set(val) == {"novel_view", "novel_pose"}, val
+    for key, metrics in val.items():
+        assert np.isfinite(metrics["color_PSNR"]) and \
+            np.isfinite(metrics["color_SSIM"]), val
+    print(f"CLI --validation on 2 frames (crop on, PSNR and SSIM): "
+          f"{val_s:.2f} s; " + "; ".join(
+              f"{k} PSNR {m['color_PSNR']:.3f} dB, SSIM {m['color_SSIM']:.4f}"
+              for k, m in val.items()))
+
+    demo_cfg = _read_config(DEMO_F32_CONFIG, {
+        "out_root": root, "sample_path": os.path.join(root, "samples"),
+        "canonical_pose_path": os.path.join(train_root, "canonical.npy")})
+    _sample_data(demo_cfg.sample_path,
+                 [SSODataset(config.dataset.val[k], size=size)[0]
+                  for k in ("novel_view", "novel_pose")])
+    _reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = DSO_demo.demo(demo_cfg, device)
+    torch.cuda.synchronize()
+    ms_frame = (time.perf_counter() - t0) / len(paths) * 1e3
+    frame_launches = unirow.KERNEL_F32.launches / len(paths)
+    assert unirow.KERNEL_BWD_F32.launches == 0 and frame_launches > 0
+    for p in paths:
+        img = read_png(p)
+        assert img.shape == (size, size, 3) and img.min() < img.max(), \
+            (p, img.shape, img.min(), img.max())
+    print(f"CLI demo: {len(paths)} samples at {size}² read back from their PNGs "
+          f"({[os.path.basename(p) for p in paths]}), {ms_frame:.1f} ms a "
+          f"sample with its snapshot load spread over them, kernel 1f "
+          f"launches a frame {frame_launches:g}")
+    device_ms, _, port = prof["profile"]
+    return {"s_iter": s_iter, "peak_gib": peak[0] / 2**30,
+            "launches": launches, "step_launches": (f_step, b_step),
+            "step_ms": (port.get("unirow_combine_kernel", (0.0, 0))[0],
+                        port.get("unirow_combine_bwd_kernel", (0.0, 0))[0]),
+            "frame_launches": frame_launches, "ms_frame": ms_frame,
+            "val": val}
+
+
+def phase_gan_f32(device, root):
+    """The float32 GAN of ``configs/enarfgan_train/AIST/config.yml`` read by
+    the port's YAML reader (data roots and ``out_root`` replaced): seeded
+    weights perturbed by 0.3, 1 warm-up and GAN_F32_TIMED timed G + D
+    iterations through ``training.gan`` (kernels 1f and 1bf, no other
+    unirow or tilewin kernel), a profile of a G step, and one 128² sample
+    through ``make_gan_full_renderer``."""
+    import torch
+    from enarf_gan_tpu_torch.data.datasets import (HumanDataset,
+                                                   HumanPoseDataset)
+    from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
+    from enarf_gan_tpu_torch.data.loader import collate
+    from enarf_gan_tpu_torch.models.generator import (make_gan_full_renderer,
+                                                      register_canonical_pose)
+    from enarf_gan_tpu_torch.ops import unirow
+    from enarf_gan_tpu_torch.training import gan
+    t0 = time.perf_counter()
+    config = _read_config(GAN_F32_CONFIG, {
+        "out_root": root, "dataset.train.data_root": root,
+        "dataset.train.pose_prior_root": root})
+    nerf = config.generator_params.nerf_params
+    assert "plane_sample_dtype" not in nerf and "tile_patch" not in nerf
+    size, bs = config.dataset.image_size, config.dataset.bs
+    make_synthetic_human_cache(root, size=size, n_frames=3, n_camera=4)
+    img_ds = HumanDataset(config.dataset.train, size=size,
+                          return_bone_params=False, num_repeat_in_epoch=1)
+    pose_ds = HumanPoseDataset(size=size,
+                               data_root=config.dataset.train.pose_prior_root,
+                               num_repeat_in_epoch=1)
+    batch = gan.prepare_gan_batch(collate([img_ds[i] for i in range(bs)]),
+                                  collate([pose_ds[i] for i in range(bs)]),
+                                  device)
+    g = torch.Generator().manual_seed(SEED + 31)
+    gen, dis = gan.build_models(config, pose_ds.num_bone, pose_ds.parents,
+                                device, generator=g)
+    with torch.no_grad():
+        for p in gen.parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=g).to(device))
+    register_canonical_pose(gen, pose_ds.canonical_pose, "center_fixed",
+                            pose_ds.parents)
+    assert gen.nerf.texel_dtype == torch.float32 and \
+        not gen.nerf.supports_tiled_sampling()
+    real = batch["real_img"]
+    poses = {k: v for k, v in batch.items() if k != "real_img"}
+    rng = torch.Generator(device=device).manual_seed(SEED + 33)
+    g_step, d_step, _ = gan.make_gan_steps(
+        config, gen, dis, *gan.init_gan_state(config, gen, dis,
+                                              pose_ds.canonical_pose))
+    print(f"GAN float32 (config.yml): bs {bs} x {size}², n_accum_step "
+          f"{config.n_accum_step}, z_dim {gen.z_dim}, "
+          f"{sum(p.numel() for p in gen.parameters())} generator parameters; "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    fake, _ = g_step(poses, rng)
+    d_step(fake, real)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(GAN_F32_TIMED):
+        fake, gm = g_step(poses, rng)
+        metrics.append({**gm, **d_step(fake, real)})
+    torch.cuda.synchronize()
+    s_iter = (time.perf_counter() - t0) / GAN_F32_TIMED
+    launches = {k.name: k.launches for k in _all_kernels()}
+    peak = torch.cuda.max_memory_allocated()
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    assert all(np.isfinite(v) for m in metrics for v in m.values()), metrics
+    assert launches["unirow_combine_f32"] > 0 and \
+        launches["unirow_combine_bwd_f32"] > 0, launches
+    assert all(v == 0 for k, v in launches.items() if not k.endswith("_f32")), \
+        launches
+    print(f"GAN float32 training: {s_iter:.3f} s/iter (G + D) over "
+          f"{GAN_F32_TIMED} iterations, peak {peak / 2**30:.2f} GiB "
+          f"allocated; losses " + "; ".join(
+              ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+              for m in metrics)
+          + f"; kernel launches a G step "
+          + str({k: v / GAN_F32_TIMED for k, v in launches.items()}))
+    t0 = time.perf_counter()
+    g_step(poses, rng)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3
+    device_ms, _, port = _profile(lambda: g_step(poses, rng),
+                                  "GAN float32 G step profile", ms_step,
+                                  "G step")
+    render = make_gan_full_renderer(gen)
+    z = torch.randn((1, 4 * gen.z_dim), generator=g).to(device)
+    _reset_all_counts()
+    color, mask, disp = render(poses["pose_to_camera"][:1],
+                               poses["bone_length"][:1], z,
+                               poses["inv_intrinsics"][:1],
+                               generator=torch.Generator(
+                                   device=device).manual_seed(1))
+    torch.cuda.synchronize()
+    assert color.shape == (3, size, size) and mask.shape == (size, size)
+    assert all(bool(torch.isfinite(x).all()) for x in (color, mask, disp))
+    assert float(mask.sum()) > 0, "empty GAN foreground mask"
+    assert unirow.KERNEL_F32.launches > 0
+    print(f"GAN float32 sample {size}²: foreground share "
+          f"{float((mask > 0.05).float().mean()):.3f}, kernel 1f launches "
+          f"{unirow.KERNEL_F32.launches}")
+    return {"s_iter": s_iter, "peak_gib": peak / 2**30,
+            "step_launches": (launches["unirow_combine_f32"] / GAN_F32_TIMED,
+                              launches["unirow_combine_bwd_f32"]
+                              / GAN_F32_TIMED),
+            "step_ms": (port.get("unirow_combine_kernel", (0.0, 0))[0],
+                        port.get("unirow_combine_bwd_kernel", (0.0, 0))[0]),
+            "g_step_device_ms": device_ms,
+            "frame_launches": unirow.KERNEL_F32.launches}
+
+
+def float32_study(device, root):
+    """``--float32``: kernels 1f and 1bf against their plain twins (phase
+    2's shapes), then the published float32 configs through the port's CLI
+    functions and ``training.gan`` (phase 8's first half)."""
+    import os
+    import torch
+    phase_unirow_check(device, torch.float32)
+    phase_unirow_bwd_check(device, torch.float32)
+    torch.cuda.empty_cache()
+    phase_dso_cli(device, os.path.join(root, "cli"))
+    torch.cuda.empty_cache()
+    phase_gan_f32(device, os.path.join(root, "gan32"))
+
+
 def _learn_setup(device, root, label, tile, seed):
     """The learning config, dataset, loader and fresh model from ``seed``
     on the one LEARN_SIZE² frame of the cache at ``root``."""
@@ -1988,7 +2368,8 @@ def main():
                "--learn-gradcheck": learn_gradcheck,
                "--probes": lambda device, root: probe_sweeps(device),
                "--modes": modes_study,
-               "--gan": phase_gan}
+               "--gan": phase_gan,
+               "--float32": float32_study}
     if sys.argv[1:2] and sys.argv[1] in studies:
         with tempfile.TemporaryDirectory() as root:
             studies[sys.argv[1]](device, root)
@@ -1999,6 +2380,8 @@ def main():
           for m, S, label in ((16, NF, "fine"), (4, NC, "coarse-corner"))}
     k3 = phase_modes_check(device)
     k1b = phase_unirow_bwd_check(device)
+    k1f = phase_unirow_check(device, torch.float32)
+    k1bf = phase_unirow_bwd_check(device, torch.float32)
     k2b = phase_tilewin_bwd_check(device)
     torch.cuda.empty_cache()
     probes = phase_probes(device)
@@ -2061,6 +2444,12 @@ def main():
         torch.cuda.empty_cache()
         print(f"training phases done at {time.perf_counter() - t_start:.1f} s")
         gan = phase_gan(device, os.path.join(root, "gan"))
+        torch.cuda.empty_cache()
+        cli = phase_dso_cli(device, os.path.join(root, "cli"))
+        torch.cuda.empty_cache()
+        gan32 = phase_gan_f32(device, os.path.join(root, "gan32"))
+        torch.cuda.empty_cache()
+        print(f"float32 phases done at {time.perf_counter() - t_start:.1f} s")
         phase_learn(device, os.path.join(root, "learn"))
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
@@ -2148,6 +2537,29 @@ def main():
              "hat_step_s_iter": k3_steps["hat"]["step_s_iter"],
              "hat_step_peak_gib": k3_steps["hat"]["step_peak_gib"],
              **k3_gan}))
+    # kernels 1f and 1bf: launches in the published float32 DSO config's
+    # CLI training (the counts reset before it), a step's launches and
+    # device ms (its profiled step), a 512² demo frame's, and the float32
+    # GAN's G step
+    for i, (name, k) in enumerate((("unirow_combine_f32 (kernel 1f)", k1f),
+                                   ("unirow_combine_bwd_f32 (kernel 1bf, "
+                                    "4 images' fine pass)", k1bf))):
+        k.update(step_launches=cli["step_launches"][i],
+                 step_ms=cli["step_ms"][i],
+                 dso_cli_s_iter=cli["s_iter"],
+                 dso_cli_peak_gib=cli["peak_gib"],
+                 frame_launches=cli["frame_launches"] if i == 0 else 0,
+                 gan_step_launches=gan32["step_launches"][i],
+                 gan_step_ms=gan32["step_ms"][i],
+                 gan_s_iter=gan32["s_iter"], gan_peak_gib=gan32["peak_gib"],
+                 gan_g_step_device_ms=gan32["g_step_device_ms"])
+        entries.insert(2 + i, entry(
+            name, "unirow_combine_bwd.cu" if i else "unirow_combine.cu",
+            "enarf_gan_tpu/ops/unirow.py:" + ("234" if i else "115"),
+            cli["launches"]["unirow_combine_bwd_f32" if i
+                            else "unirow_combine_f32"],
+            {"replaces_float32": "enarf_gan_tpu/ops/quadtable.py:111 "
+             + ("(its XLA VJP)" if i else "(XLA)"), **k}))
     print(json.dumps({"kernels": entries + probes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,13 @@
-// Unirow gather + combine, backward, for Hopper (sm_90a).
+// Unirow gather + combine, backward, for Hopper (sm_90a). Kernels 1b (bf16
+// texel table) and 1bf (float32 texel table): one template, two entry
+// points.
 //
 // Replaces the JAX package's hand VJP of the unirow combine,
 // enarf_gan_tpu/ops/unirow.py::_combine_bwd (XLA, no Pallas), and the
 // transpose of its row gather (the scatter-add of the row cotangents into
-// the table that jnp.take's VJP does).
+// the table that jnp.take's VJP does); in float32 (kernel 1bf), XLA's
+// autodiff of enarf_gan_tpu/ops/quadtable.py::sample_candidates_quadtable
+// (the transposes of its two row gathers and of its combine).
 //
 // The forward (csrc/unirow_combine.cu) computes, per (batch b, point i,
 // candidate m, plane p), from the 4 corner texels of the texel table
@@ -25,19 +29,23 @@
 // in float32. valid takes no gradient (it comes from a bool).
 //
 // What bounds it: the atomic adds into the gradient, then bytes. It
-// re-reads the forward's texels (mostly L2 hits, as the forward's), reads
-// the inputs and dfeature once, and adds into a float32 texel gradient of
-// (B, 3, H+2, W+2, 64): 51 MB an image at 256^2 planes (the TPU layout's
-// (B, R, 256) float32 table gradient was 203 MB), so one image's gradient
-// lines stay in L2 while its blocks run. The adds of the 4 cells that share
+// re-reads the forward's texels (mostly L2 hits in bf16, as the forward's;
+// the float32 table is 51.1 MB an image, just over the L2), reads the inputs
+// and dfeature once, and adds into a float32 texel gradient of (B, 3, H+2,
+// W+2, 64) for either table type: 51 MB an image at 256^2 planes (the TPU
+// layout's (B, R, 256) float32 table gradient was 203 MB), so in bf16 one
+// image's gradient lines stay in L2 while its blocks run; in float32 the
+// table and its gradient share it. The adds of the 4 cells that share
 // a texel meet there in float32. Lanes 32+K..63 are never written. A valid
 // candidate makes 48 sectors of feature adds (12 texels x 128 bytes) and
 // 12 scattered 4-byte mask adds; the stage build (tools/ablate.py) measures
 // each kind's share.
 //
 // Design: the forward's (one warp per point, half a warp a candidate, lane
-// (h, q, c), see unirow_texels.cuh; 4 blocks an SM); the block stages its 8
-// points' dfeature through shared memory (32-byte coalesced reads). A
+// (h, q, c), see unirow_texels.cuh; 4 blocks an SM in either type: the
+// float32 lane's 12 more registers of texels are offset by its dot-product
+// channels being its add channels); the block stages its 8 points'
+// dfeature through shared memory (32-byte coalesced reads). A
 // candidate's 13 dot products (12 dwq4 and <dfeature, feat_m>) take one
 // transposed butterfly over the 4 chunk lanes (3 shuffles: lane c ends with
 // plane sum4_entry(c)'s <texel_qp, dfeature>) and a 16-lane sum (4
@@ -74,9 +82,9 @@ __device__ __forceinline__ void red_add_v4(float* addr, float a, float b,
                :: "l"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
 }
 
-template <int kStage>
+template <typename T, int kStage>
 __global__ void __launch_bounds__(kWarps * 32, kBwdBlocksPerSM)
-unirow_combine_bwd_kernel(const __nv_bfloat16* __restrict__ tex,
+unirow_combine_bwd_kernel(const T* __restrict__ tex,
                           const int32_t* __restrict__ rows,
                           const float* __restrict__ wq4,
                           const int32_t* __restrict__ cand_idx,
@@ -101,24 +109,24 @@ unirow_combine_bwd_kernel(const __nv_bfloat16* __restrict__ tex,
   __syncthreads();
   if (pt >= n) return;                                     // warp-uniform
 
-  float df[8];                     // channels 8c..8c+7: the dot products
+  float df[8];                     // the lane's texel channels: the dots
   float dr[8];                     // 4c..4c+3, 16+4c..16+4c+3: the adds
 #pragma unroll
-  for (int j = 0; j < 8; ++j) df[j] = dft[8 * L.c + j][warp];
+  for (int j = 0; j < 8; ++j) df[j] = dft[Texel<T>::channel(L.c, j)][warp];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     dr[j] = dft[4 * L.c + j][warp];
     dr[4 + j] = dft[16 + 4 * L.c + j][warp];
   }
-  const Inputs in = inputs_of(tex, rows, wq4, cand_idx, valid, b, H, W, M, n,
-                              pt);
+  const Inputs<T> in = inputs_of(tex, rows, wq4, cand_idx, valid, b, H, W, M,
+                                 n, pt);
   const float* dcw_p = dcand_w + (int64_t)b * M * n + pt;
   float* dtb = dtex + (int64_t)b * 3 * (H + 2) * (W + 2) * kTexel;
   float* dwq_p = dwq4 + (int64_t)b * 12 * M * n + pt;
   const int pe = sum4_entry(L.c);    // the plane this lane's dot sums end on
 
   for (int m0 = 0; m0 < M; m0 += 2) {                      // warp-uniform
-    Cand k;
+    Cand<T> k;
     load_cand(k, in, L, m0 + L.h);
     const float dcw_in = k.active ? __ldcs(dcw_p + k.off) : 0.f;
     const Sig s = sigmoids(k, clamp);
@@ -128,7 +136,7 @@ unirow_combine_bwd_kernel(const __nv_bfloat16* __restrict__ tex,
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
       float f[8];
-      unpack8(k.feat[p], f);
+      Texel<T>::unpack(k.feat[p], f);
       d[p] = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) d[p] += f[j] * df[j];
@@ -147,7 +155,7 @@ unirow_combine_bwd_kernel(const __nv_bfloat16* __restrict__ tex,
     if (has_plane) {
       const float dlogit = dcw * s.cw * (1.f - pick3(s.sig, pe));
       __stcs(dwq_p + (L.q * 3 + pe) * in.ps + k.off,
-             wt * dp + bf16_bits(pick3(k.mask, pe)) * dlogit);
+             wt * dp + pick3(k.mask, pe) * dlogit);
       const float dm = w_pe * dlogit;
       if (kStage != kNoMask && dm != 0.f)
         atomicAdd(dtb + pick3(k.tex, pe) * kTexel + kF + k.idx, dm);
@@ -172,15 +180,15 @@ unirow_combine_bwd_kernel(const __nv_bfloat16* __restrict__ tex,
   }
 }
 
-template <int kStage>
+template <typename T, int kStage>
 int launch(const void* texels, const void* rows, const void* wq4,
            const void* cand_idx, const void* valid, const void* dfeature,
            const void* dcand_w, void* dtexels, void* dwq4, int B, int H,
            int W, int M, int n, int clamp, void* stream) {
   dim3 grid((n + kWarps - 1) / kWarps, B);
-  unirow_combine_bwd_kernel<kStage>
+  unirow_combine_bwd_kernel<T, kStage>
       <<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)texels, (const int32_t*)rows, (const float*)wq4,
+      (const T*)texels, (const int32_t*)rows, (const float*)wq4,
       (const int32_t*)cand_idx, (const float*)valid, (const float*)dfeature,
       (const float*)dcand_w, (float*)dtexels, (float*)dwq4, H, W, M, n,
       clamp);
@@ -189,8 +197,10 @@ int launch(const void* texels, const void* rows, const void* wq4,
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Shapes, all contiguous:
-//   texels (B, 3, H+2, W+2, 64) bf16; rows (B, 3, M, n) int32 cell rows;
+// Plain C entry points (loaded with ctypes), kernel 1b (bf16 texels) and
+// kernel 1bf (float32 texels). Shapes, all contiguous:
+//   texels (B, 3, H+2, W+2, 64) bf16 / float32; rows (B, 3, M, n) int32
+//   cell rows;
 //   wq4 (B, 4, 3, M, n) f32; cand_idx (B, M, n) int32 in [0, 32);
 //   valid (B, M, n) f32; dfeature (B, 32, n) f32; dcand_w (B, M, n) f32
 //   -> dtexels (B, 3, H+2, W+2, 64) f32, which the caller zeroes (the kernel
@@ -202,8 +212,20 @@ extern "C" int unirow_combine_bwd_bf16(const void* texels, const void* rows,
                                        const void* dcand_w, void* dtexels,
                                        void* dwq4, int B, int H, int W, int M,
                                        int n, int clamp, void* stream) {
-  return launch<kFull>(texels, rows, wq4, cand_idx, valid, dfeature, dcand_w,
-                       dtexels, dwq4, B, H, W, M, n, clamp, stream);
+  return launch<__nv_bfloat16, kFull>(texels, rows, wq4, cand_idx, valid,
+                                      dfeature, dcand_w, dtexels, dwq4, B, H,
+                                      W, M, n, clamp, stream);
+}
+
+extern "C" int unirow_combine_bwd_f32(const void* texels, const void* rows,
+                                      const void* wq4, const void* cand_idx,
+                                      const void* valid, const void* dfeature,
+                                      const void* dcand_w, void* dtexels,
+                                      void* dwq4, int B, int H, int W, int M,
+                                      int n, int clamp, void* stream) {
+  return launch<float, kFull>(texels, rows, wq4, cand_idx, valid, dfeature,
+                              dcand_w, dtexels, dwq4, B, H, W, M, n, clamp,
+                              stream);
 }
 
 #ifdef UNIROW_STAGE_ENTRY
@@ -216,8 +238,9 @@ extern "C" int unirow_combine_bwd_stage_bf16(
     int M, int n, int clamp, int stage, void* stream) {
 #define UNIROW_STAGE_CASE(K)                                                 \
   case K:                                                                    \
-    return launch<K>(texels, rows, wq4, cand_idx, valid, dfeature, dcand_w,  \
-                     dtexels, dwq4, B, H, W, M, n, clamp, stream);
+    return launch<__nv_bfloat16, K>(texels, rows, wq4, cand_idx, valid,     \
+                                    dfeature, dcand_w, dtexels, dwq4, B, H,  \
+                                    W, M, n, clamp, stream);
   switch (stage) {
     UNIROW_STAGE_CASE(kFull)
     UNIROW_STAGE_CASE(kScalar)

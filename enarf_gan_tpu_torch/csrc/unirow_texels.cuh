@@ -2,14 +2,18 @@
 // the texel table's layout, the lane mapping, the loads of one candidate's
 // texels and inputs, its sigmoids, and the transposed warp sums.
 //
-// Texel table (ops/unirow.py::pack_texels): (B, 3, H+2, W+2, 64) bf16, one
-// 128-byte line a texel, lanes [32 feature | 32 mask, bone k at lane 32+k].
-// Row r = p*(H+1)*(W+1) + t*(W+1) + s names cell (t, s) of plane p; its
-// corner q is texel (p, t + q/2, s + q%2).
+// Texel table (ops/unirow.py::pack_texels): (B, 3, H+2, W+2, 64) of bf16 (a
+// 128-byte line a texel) or float32 (256 bytes), lanes [32 feature | 32
+// mask, bone k at lane 32+k]. Row r = p*(H+1)*(W+1) + t*(W+1) + s names cell
+// (t, s) of plane p; its corner q is texel (p, t + q/2, s + q%2).
 //
 // Lane mapping: one warp per point; lane = 16h + 4q + c, where half h takes
-// candidates h, h+2, ..., q is the corner and c the 16-byte chunk (channels
-// 8c..8c+7) of the corner's 64-byte feature half.
+// candidates h, h+2, ..., q is the corner and c one of the 4 lanes that
+// share the corner's feature half, 8 channels a lane (Texel<T>::channel):
+// bf16, one 16-byte load of channels 8c..8c+7 (the half is 64 bytes);
+// float32, two 16-byte loads, channels 4c..4c+3 and 16+4c..16+4c+3, so each
+// load instruction of the 4 lanes reads 64 contiguous bytes of the 128-byte
+// half (two whole sectors).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +27,66 @@ constexpr int kTexel = 64;      // lanes of a texel: 32 feature, 32 mask
 constexpr int kWarps = 8;       // points per block
 constexpr unsigned kAll = 0xffffffffu;
 
+// What differs between the two texel types: a lane's 8 feature channels of
+// one corner (Chunk, its loads and its unpacking to float32), which channel
+// is its entry j, and the load of one mask logit.
+template <typename T>
+struct Texel;
+
+template <>
+struct Texel<__nv_bfloat16> {
+  using Chunk = uint4;                       // channels 8c..8c+7
+  __device__ static __forceinline__ Chunk zero() {
+    return make_uint4(0u, 0u, 0u, 0u);
+  }
+  __device__ static __forceinline__ Chunk load(const __nv_bfloat16* t, int c) {
+    return __ldg(reinterpret_cast<const uint4*>(t) + c);
+  }
+  __device__ static __forceinline__ void unpack(const Chunk& v,
+                                                float (&f)[8]) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static __forceinline__ int channel(int c, int j) {
+    return 8 * c + j;
+  }
+  __device__ static __forceinline__ float mask(const __nv_bfloat16* t,
+                                               int k) {
+    const unsigned short x =
+        __ldg(reinterpret_cast<const unsigned short*>(t) + kF + k);
+    return __uint_as_float((uint32_t)x << 16);
+  }
+};
+
+template <>
+struct Texel<float> {
+  struct Chunk {
+    float4 lo, hi;                           // channels 4c.., 16+4c..
+  };
+  __device__ static __forceinline__ Chunk zero() {
+    return {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+  __device__ static __forceinline__ Chunk load(const float* t, int c) {
+    const float4* v = reinterpret_cast<const float4*>(t);
+    return {__ldg(v + c), __ldg(v + 4 + c)};
+  }
+  __device__ static __forceinline__ void unpack(const Chunk& v,
+                                                float (&f)[8]) {
+    f[0] = v.lo.x; f[1] = v.lo.y; f[2] = v.lo.z; f[3] = v.lo.w;
+    f[4] = v.hi.x; f[5] = v.hi.y; f[6] = v.hi.z; f[7] = v.hi.w;
+  }
+  __device__ static __forceinline__ int channel(int c, int j) {
+    return j < 4 ? 4 * c + j : 16 + 4 * c + (j - 4);
+  }
+  __device__ static __forceinline__ float mask(const float* t, int k) {
+    return __ldg(t + kF + k);
+  }
+};
+
 struct Lane {
   int h, q, c;                  // half-warp, corner, feature chunk
 };
@@ -34,8 +98,9 @@ __device__ __forceinline__ Lane lane_of(int tid) {
 
 // One point's inputs: pointers offset to (b, pt); (plane p, candidate m) is
 // at p*ps + m*n (rows), (q*3 + p)*ps + m*n (wq4), m*n (cand_idx, valid).
+template <typename T>
 struct Inputs {
-  const __nv_bfloat16* tex;     // batch item b's texel table
+  const T* tex;                 // batch item b's texel table
   const int32_t* rows;
   const float* wq;
   const int32_t* idx;
@@ -44,8 +109,9 @@ struct Inputs {
   int n, H, W, M;
 };
 
-__device__ __forceinline__ Inputs inputs_of(
-    const __nv_bfloat16* tex, const int32_t* rows, const float* wq4,
+template <typename T>
+__device__ __forceinline__ Inputs<T> inputs_of(
+    const T* tex, const int32_t* rows, const float* wq4,
     const int32_t* cand_idx, const float* valid, int b, int H, int W, int M,
     int n, int pt) {
   const int64_t ps = (int64_t)M * n;
@@ -64,25 +130,12 @@ __device__ __forceinline__ int64_t corner_a(int r, int H, int W) {
   return ((int64_t)p * (H + 2) + t) * (W + 2) + s;
 }
 
-__device__ __forceinline__ float bf16_bits(unsigned short x) {
-  return __uint_as_float((uint32_t)x << 16);
-}
-
-// 8 bf16 lanes (one 16-byte chunk) to float32.
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 // What a lane holds of one candidate: its corner's chunk and mask logit on
 // each plane, its corner's weights, and where that corner's texels are.
+template <typename T>
 struct Cand {
-  uint4 feat[3];
-  unsigned short mask[3];
+  typename Texel<T>::Chunk feat[3];
+  float mask[3];
   float w[3];
   int64_t tex[3];               // texel index of corner q, per plane
   int64_t off;                  // m*n
@@ -92,10 +145,11 @@ struct Cand {
 };
 
 // All of a candidate's loads are issued here, before any is used: the
-// streaming inputs (evict-first, read once), then 3 uint4 feature chunks and
-// 3 two-byte mask loads a lane (one 32-byte sector a texel), i.e. the 12
-// texels of the candidate across the half-warp.
-__device__ __forceinline__ void load_cand(Cand& k, const Inputs& in,
+// streaming inputs (evict-first, read once), then 3 feature chunks (bf16:
+// one 16-byte load; float32: two) and 3 mask loads a lane (one 32-byte
+// sector a texel), i.e. the 12 texels of the candidate across the half-warp.
+template <typename T>
+__device__ __forceinline__ void load_cand(Cand<T>& k, const Inputs<T>& in,
                                           const Lane& L, int m) {
   k.active = m < in.M;
   k.off = (int64_t)(k.active ? m : 0) * in.n;
@@ -103,8 +157,8 @@ __device__ __forceinline__ void load_cand(Cand& k, const Inputs& in,
   k.v = 0.f;
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    k.feat[p] = make_uint4(0u, 0u, 0u, 0u);
-    k.mask[p] = 0;
+    k.feat[p] = Texel<T>::zero();
+    k.mask[p] = 0.f;
     k.w[p] = 0.f;
     k.tex[p] = 0;
   }
@@ -120,9 +174,9 @@ __device__ __forceinline__ void load_cand(Cand& k, const Inputs& in,
   }
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    const __nv_bfloat16* t = in.tex + k.tex[p] * kTexel;
-    k.feat[p] = __ldg(reinterpret_cast<const uint4*>(t) + L.c);
-    k.mask[p] = __ldg(reinterpret_cast<const unsigned short*>(t) + kF + k.idx);
+    const T* t = in.tex + k.tex[p] * kTexel;
+    k.feat[p] = Texel<T>::load(t, L.c);
+    k.mask[p] = Texel<T>::mask(t, k.idx);
   }
 }
 
@@ -133,12 +187,13 @@ struct Sig {
 
 // The candidate's mask logit on each plane (its 4 corners summed across
 // the lanes of q: 2 shuffles a plane), sigmoids and their product.
-__device__ __forceinline__ Sig sigmoids(const Cand& k, int clamp) {
+template <typename T>
+__device__ __forceinline__ Sig sigmoids(const Cand<T>& k, int clamp) {
   Sig s;
   s.cw = 1.f;
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    float l = k.w[p] * bf16_bits(k.mask[p]);
+    float l = k.w[p] * k.mask[p];
     l += __shfl_xor_sync(kAll, l, 4);
     l += __shfl_xor_sync(kAll, l, 8);
     if (clamp) l = fminf(fmaxf(l, -2.f), 5.f);

@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -91,6 +92,9 @@ class KernelLibrary:
     callers ``reset_counts()`` to count the launches of one run. A library
     built for several variants (member counts, modes) names them in
     ``keys``; ``count(key)`` then also adds one to ``launches_by[key]``.
+    ``entry(symbol, argtypes)`` is another entry point of the same library
+    with a launch count of its own (the kernel's other instantiation): it
+    shares the library's one build.
     """
 
     def __init__(self, name: str, symbol: str, argtypes: Sequence,
@@ -106,21 +110,34 @@ class KernelLibrary:
         self.fns = {}
         self.build_log = ""
         self.build_seconds = 0.0
+        self.owner = None          # the library an ``entry`` belongs to
+        self._lock = threading.Lock()
         self.reset_counts()
 
+    def entry(self, symbol: str, argtypes: Sequence) -> "KernelLibrary":
+        other = KernelLibrary(symbol, symbol, argtypes, source=self.source,
+                              flags=self.flags)
+        other.owner = self
+        return other
+
     def load(self, symbol: Optional[str] = None):
-        if self.lib is None:
-            t0 = time.perf_counter()
-            self.lib, self.build_log = build_library(self.name, [self.source],
-                                                     self.flags)
-            if self.build_log:
-                self.build_seconds = time.perf_counter() - t0
-            for sym, argtypes in self.symbols.items():
-                fn = getattr(self.lib, sym)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-                self.fns[sym] = fn
-            self.fn = self.fns[self.symbol]
+        with self._lock:
+            if self.lib is None:
+                t0 = time.perf_counter()
+                if self.owner is not None:
+                    self.owner.load()
+                    self.lib = self.owner.lib
+                else:
+                    self.lib, self.build_log = build_library(
+                        self.name, [self.source], self.flags)
+                if self.build_log:
+                    self.build_seconds = time.perf_counter() - t0
+                for sym, argtypes in self.symbols.items():
+                    fn = getattr(self.lib, sym)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                    self.fns[sym] = fn
+                self.fn = self.fns[self.symbol]
         return self.fns[symbol or self.symbol]
 
     def count(self, key=None):

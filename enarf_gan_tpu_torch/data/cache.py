@@ -6,6 +6,7 @@ alpha), camera_intrinsic (N, 3, 3), smpl_pose (N, 24, 4, 4) and, optional,
 camera_rotation (N, 3, 3), camera_translation (N, 3, 1), frame_id (N,) and
 disparity (N, H, W). The reference's ``cache.pickle`` with blosc-packed
 images is read too where ``blosc`` is installed (imported only then).
+``load_sample_data`` reads the demo's poses and cameras (``sample_data``).
 """
 from __future__ import annotations
 
@@ -63,3 +64,16 @@ def save_cache_npz(data_root: str, **arrays) -> str:
     path = os.path.join(data_root, "cache.npz")
     np.savez_compressed(path, **arrays)
     return path
+
+
+def load_sample_data(path: str):
+    """The demo's samples, a list of dicts (pose_3d, bone_length,
+    intrinsics, ...): a pickled list of dicts, or an ``.npz`` of stacked
+    arrays (``path`` with or without the suffix)."""
+    if path.endswith(".npz") or os.path.exists(path + ".npz"):
+        p = path if path.endswith(".npz") else path + ".npz"
+        data = dict(np.load(p))
+        n = len(next(iter(data.values())))
+        return [{k: v[i] for k, v in data.items()} for i in range(n)]
+    with open(path, "rb") as f:
+        return pickle.load(f)

@@ -428,9 +428,9 @@ def make_dso_full_renderer(gen: DSONARFGenerator, render_size: int,
     one, as the JAX factory routes them. Fine-sampler uniforms come from
     ``draws`` (one (u, jitter) pair per chunk: (rays, Nf) on the exact
     path, (patches, Nf) on the tiled one) or from ``generator``.
-    Pixel-unit intrinsics only; the JAX package's normalized-intrinsics and
-    crop options come with the port's DSO_demo CLI (ROADMAP Queue 1,
-    item 2)."""
+    Pixel-unit intrinsics and the whole image only, as the demo and
+    ``validate`` render; the JAX package's normalized-intrinsics and crop
+    options have no caller in the port."""
     full = dso_render_entire_img_tiled if gen.nerf.supports_tiled_sampling() \
         else dso_render_entire_img
 

@@ -7,9 +7,12 @@ Ported: the default variant, whose planes a StyleGAN2 generates
 variant, sampled through the
 candidate-sparse unirow path (``ops/unirow.py``) or, for ``tile_patch``
 models on the patch-tiled renderer, the patch-window path
-(``ops/tilewin.py``); both read the bf16 texel table of
-``ops/unirow.py::pack_texels``. Other variants and samplers raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+(``ops/tilewin.py``); both read the texel table of
+``ops/unirow.py::pack_texels``, in the planes' ``plane_sample_dtype``: bf16
+for both paths, float32 (the default, where the JAX package samples its
+quad tables, ``ops/quadtable.py``) for the unirow path. Other variants and
+samplers raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 
 Parameter and buffer names are the reference's (``tri_plane``,
 ``tri_plane_gen.*``, ``flow_generator.*``, ``mlp.layers.*``, ``density_fc.*``,
@@ -242,26 +245,34 @@ class TriPlaneNARF(nn.Module):
         path; the selector variants render through the exact renderer."""
         return self.params.tile_patch > 0 and self.uses_candidate_sampling()
 
+    @property
+    def texel_dtype(self) -> torch.dtype:
+        """The texel table's type: bf16 for ``plane_sample_dtype``
+        "bfloat16", float32 otherwise (the JAX package's rule)."""
+        return torch.bfloat16 if self.params.plane_sample_dtype == "bfloat16" \
+            else torch.float32
+
     def _check_unirow(self) -> None:
         p = self.params
         if not self.uses_candidate_sampling():
             raise NotImplementedError(
                 "only the candidate-sparse tri-plane-mask path is ported; the "
                 "dense and selector paths are ROADMAP Queue 1, item 5")
-        if (p.plane_sample_dtype != "bfloat16" or p.feat_dim > 32
-                or self.num_bone > MASK_BLOCK):
+        if p.feat_dim > 32 or self.num_bone > MASK_BLOCK:
             raise NotImplementedError(
-                "only the unirow sampler (bf16 planes, feat_dim <= 32, <= 32 "
-                "bones) is ported; f32 sampling through a dtype-templated "
-                "unirow kernel is ROADMAP Queue 2, item 3")
+                "the texel samplers take feat_dim <= 32 and <= 32 bones (the "
+                "JAX package's quad tables beyond that are ROADMAP Queue 2, "
+                "item 3)")
 
     def pack_planes(self, tri_plane_feature: torch.Tensor) -> Tuple[torch.Tensor]:
         """Pack planes once per frame into the unirow sampler's texel
-        table (``ops/unirow.py::pack_texels``; the JAX package packs quad
-        rows), as a 1-tuple (the JAX package's packed-table convention)."""
+        table (``ops/unirow.py::pack_texels``, bf16 or float32 by
+        ``plane_sample_dtype``; the JAX package packs quad rows, or for
+        float32 planes quad tables), as a 1-tuple (the JAX package's
+        packed-table convention)."""
         self._check_unirow()
         return (pack_texels(tri_plane_feature, self.params.feat_dim,
-                            self.num_bone),)
+                            self.num_bone, dtype=self.texel_dtype),)
 
     def heads(self, feature, z_rend, ray_direction):
         """density_fc + color MLP (the JAX ``_DensityColorHeads``); returns
@@ -338,6 +349,11 @@ class TriPlaneNARF(nn.Module):
                 "tile_patch needs the candidate-sparse tri-plane-mask path "
                 "(not no_selector / selector_mlp / max_bones_per_point >= "
                 "num_bone)")
+        if self.texel_dtype != torch.bfloat16:
+            raise NotImplementedError(
+                "the patch-tiled sampler takes bf16 planes (the JAX package "
+                "rounds float32 planes' window tables to bf16); float32 with "
+                "tile_patch is ROADMAP Queue 2, item 3")
         return pack_tilewin_texels(tri_plane_feature, self.params.feat_dim,
                                    self.num_bone)
 

@@ -14,23 +14,26 @@ Two layouts of the same planes:
   an image at 256² planes. ``gather_combine_plain`` combines it, the plain
   twin of the JAX package's ``jnp.take`` + ``_combine_xla``.
 * ``pack_texels``, the layout the card reads: the one-texel zero-padded
-  planes channels-last, (B, 3, H+2, W+2, 64) bf16, one 128-byte line a
-  texel holding [32 feature lanes | 32 mask lanes, bone k at lane 32+k].
-  25.6 MB an image at 256² planes, so an image's table stays in the H100's
-  50 MB L2. Corner q of cell (t, s) is texel (t + q//2, s + q%2), so the
-  rows of ``candidate_rows`` address both layouts.
+  planes channels-last, (B, 3, H+2, W+2, 64) bf16 or float32 (the planes'
+  ``plane_sample_dtype``), one 128- or 256-byte line a texel holding [32
+  feature lanes | 32 mask lanes, bone k at lane 32+k]. 25.6 MB an image at
+  256² planes in bf16, so an image's table stays in the H100's 50 MB L2;
+  51.1 MB in float32. Corner q of cell (t, s) is texel (t + q//2, s + q%2),
+  so the rows of ``candidate_rows`` address both layouts.
 
 ``unirow_combine`` gathers a candidate's four texels on each plane and
 combines them: bilinear feature sum over planes, the candidate bone's mask
 logit, the product of sigmoids over planes, and the candidate-weighted
 feature sum. On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/unirow_combine.cu`` (which replaces the Pallas kernel
-``_combine_kernel``) and, for the gradient, ``csrc/unirow_combine_bwd.cu``
-(which replaces the JAX package's XLA VJP ``_combine_bwd``) through a
-``torch.autograd.Function``; on a CPU tensor it runs
-``gather_combine_texels_plain``, which autograd differentiates. Gradients
-reach the texel table (and through ``pack_texels`` the planes) and ``wq4``
-(and through ``candidate_rows`` the candidate positions).
+``csrc/unirow_combine.cu`` (kernel 1 on a bf16 table, which replaces the
+Pallas kernel ``_combine_kernel``; kernel 1f on a float32 table, which
+replaces the XLA gathers and combine of the JAX package's float32 sampler
+``ops/quadtable.py::sample_candidates_quadtable``) and, for the gradient,
+``csrc/unirow_combine_bwd.cu`` (kernels 1b and 1bf, which replace the XLA
+VJPs of the two) through a ``torch.autograd.Function``; on a CPU tensor it
+runs ``gather_combine_texels_plain``, which autograd differentiates.
+Gradients reach the texel table (and through ``pack_texels`` the planes)
+and ``wq4`` (and through ``candidate_rows`` the candidate positions).
 """
 from __future__ import annotations
 
@@ -185,20 +188,32 @@ def gather_combine_texels_plain(texels, rows, wq4, cand_idx, valid,
     return _combine(fq, mq, wq4.movedim(1, -1), valid, clamp_mask)
 
 
-KERNEL = KernelLibrary("unirow_combine", "unirow_combine_bf16",
-                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
+_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# one library a source, one launch count an entry point: kernels 1 and 1b
+# on bf16 texels, 1f and 1bf on float32 texels
+KERNEL = KernelLibrary("unirow_combine", "unirow_combine_bf16", _FWD_ARGS)
 KERNEL_BWD = KernelLibrary("unirow_combine_bwd", "unirow_combine_bwd_bf16",
-                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p])
+                           _BWD_ARGS)
+KERNEL_F32 = KERNEL.entry("unirow_combine_f32", _FWD_ARGS)
+KERNEL_BWD_F32 = KERNEL_BWD.entry("unirow_combine_bwd_f32", _BWD_ARGS)
+TEXEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def kernels_for(dtype: torch.dtype):
+    """The forward and backward kernels that take a texel table of
+    ``dtype``."""
+    if dtype == torch.float32:
+        return KERNEL_F32, KERNEL_BWD_F32
+    return KERNEL, KERNEL_BWD
 
 
 def _check_inputs(texels, rows, wq4, cand_idx, valid):
-    if texels.dim() != 5 or texels.dtype != torch.bfloat16 \
+    if texels.dim() != 5 or texels.dtype not in TEXEL_DTYPES \
             or texels.shape[1] != 3 or texels.shape[4] != TEXEL_WIDTH:
         raise ValueError(f"the texel table must be (B, 3, H+2, W+2, "
-                         f"{TEXEL_WIDTH}) bfloat16 (pack_texels), got "
-                         f"{tuple(texels.shape)} {texels.dtype}")
+                         f"{TEXEL_WIDTH}) bfloat16 or float32 (pack_texels), "
+                         f"got {tuple(texels.shape)} {texels.dtype}")
     B = texels.shape[0]
     if rows.dim() != 4 or rows.shape[:2] != (B, 3):
         raise ValueError(f"rows must be (B, 3, M, n), got {tuple(rows.shape)}")
@@ -233,30 +248,33 @@ def _kernel_shape(texels, rows, feat_dim):
 
 
 def _launch_kernel(texels, rows, wq4, cand_idx, valid, feat_dim, clamp_mask):
-    """Kernel 1: feature (B, F, n), cand_w (B, M, n)."""
+    """Kernel 1 (bf16 texels) or 1f (float32): feature (B, F, n), cand_w
+    (B, M, n)."""
     B, H, W, M, n = _kernel_shape(texels, rows, feat_dim)
     feature = torch.empty((B, feat_dim, n), dtype=torch.float32,
                           device=texels.device)
     cand_w = torch.empty((B, M, n), dtype=torch.float32, device=texels.device)
     if n == 0:
         return feature, cand_w
-    fn = KERNEL.load()
+    kernel = kernels_for(texels.dtype)[0]
+    fn = kernel.load()
     stream = torch.cuda.current_stream(texels.device).cuda_stream
     err = fn(texels.data_ptr(), rows.data_ptr(), wq4.data_ptr(),
              cand_idx.data_ptr(), valid.data_ptr(), feature.data_ptr(),
              cand_w.data_ptr(), B, H, W, M, n, int(clamp_mask), stream)
     if err != 0:
-        raise RuntimeError(f"unirow_combine kernel launch failed: CUDA error "
+        raise RuntimeError(f"{kernel.name} kernel launch failed: CUDA error "
                            f"{err}")
-    KERNEL.count()
+    kernel.count()
     return feature, cand_w
 
 
 def launch_backward(texels, rows, wq4, cand_idx, valid, dfeature, dcand_w,
                     feat_dim, clamp_mask):
-    """Kernel 1b: the gradients of ``unirow_combine``'s two outputs with
-    respect to the texel table, (B, 3, H+2, W+2, 64) float32 (mask lanes
-    of bones >= K stay zero), and to ``wq4``."""
+    """Kernel 1b (bf16 texels) or 1bf (float32): the gradients of
+    ``unirow_combine``'s two outputs with respect to the texel table,
+    (B, 3, H+2, W+2, 64) float32 for either table type (mask lanes of bones
+    >= K stay zero), and to ``wq4``."""
     B, H, W, M, n = _kernel_shape(texels, rows, feat_dim)
     dtexels = torch.zeros(texels.shape, dtype=torch.float32,
                           device=texels.device)
@@ -265,21 +283,22 @@ def launch_backward(texels, rows, wq4, cand_idx, valid, dfeature, dcand_w,
         return dtexels, dwq4
     dfeature = dfeature.float().contiguous()
     dcand_w = dcand_w.float().contiguous()
-    fn = KERNEL_BWD.load()
+    kernel = kernels_for(texels.dtype)[1]
+    fn = kernel.load()
     stream = torch.cuda.current_stream(texels.device).cuda_stream
     err = fn(texels.data_ptr(), rows.data_ptr(), wq4.data_ptr(),
              cand_idx.data_ptr(), valid.data_ptr(), dfeature.data_ptr(),
              dcand_w.data_ptr(), dtexels.data_ptr(), dwq4.data_ptr(),
              B, H, W, M, n, int(clamp_mask), stream)
     if err != 0:
-        raise RuntimeError(f"unirow_combine backward kernel launch failed: "
-                           f"CUDA error {err}")
-    KERNEL_BWD.count()
+        raise RuntimeError(f"{kernel.name} kernel launch failed: CUDA error "
+                           f"{err}")
+    kernel.count()
     return dtexels, dwq4
 
 
 class _UnirowCombine(torch.autograd.Function):
-    """Kernel 1 forward, kernel 1b backward."""
+    """Kernel 1 (1f) forward, kernel 1b (1bf) backward."""
 
     @staticmethod
     def forward(ctx, texels, rows, wq4, cand_idx, valid, feat_dim,
@@ -296,8 +315,9 @@ class _UnirowCombine(torch.autograd.Function):
                                         dfeature, dcand_w, ctx.feat_dim,
                                         ctx.clamp_mask)
         # dtexels is float32, the four cells that share a texel summed in
-        # it; autograd rounds it once to the bf16 table's type here, and
-        # pack_texels' backward carries it on to the planes
+        # it; autograd rounds it once to a bf16 table's type here (a float32
+        # table takes it as it is), and pack_texels' backward carries it on
+        # to the planes
         return dtexels, None, dwq4, None, None, None, None
 
 
@@ -306,7 +326,7 @@ def unirow_combine(texels, rows, wq4, cand_idx, valid, feat_dim: int,
     """Gather + combine the candidates' texels.
 
     Args:
-        texels: (B, 3, H+2, W+2, 64) bf16 from ``pack_texels``.
+        texels: (B, 3, H+2, W+2, 64) bf16 or float32 from ``pack_texels``.
         rows: (B, 3, M, n) int32 cell of each (plane, candidate, point)
             within its batch item, p*(H+1)*(W+1) + t*(W+1) + s.
         wq4: (B, 4, 3, M, n) f32 bilinear corner weights.
@@ -315,8 +335,9 @@ def unirow_combine(texels, rows, wq4, cand_idx, valid, feat_dim: int,
         feature (B, F, n) f32 and cand_w (B, M, n) f32.
 
     Differentiable in ``texels`` and ``wq4``; ``valid`` takes no gradient
-    (asking for one raises). CUDA tensors go to kernel 1, and its gradient
-    to kernel 1b (or raise); CPU tensors to ``gather_combine_texels_plain``.
+    (asking for one raises). CUDA tensors go to kernel 1 (bf16 texels) or
+    1f (float32), and their gradients to kernel 1b or 1bf (or raise); CPU
+    tensors to ``gather_combine_texels_plain``.
     """
     _check_inputs(texels, rows, wq4, cand_idx, valid)
     if texels.is_cuda:
@@ -352,7 +373,7 @@ def sample_candidates_unirow(
     """Fused part probability + weighted feature over candidate bones.
 
     Args:
-        texels: (B, 3, H+2, W+2, 64) bf16 from ``pack_texels``.
+        texels: (B, 3, H+2, W+2, 64) bf16 or float32 from ``pack_texels``.
         cand_pos: (B, n, M, 3); cand_idx: (B, n, M) int32;
         cand_valid: (B, n, M) bool.
     Returns:

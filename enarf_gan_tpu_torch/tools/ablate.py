@@ -339,18 +339,20 @@ def chunk_inputs(device, m, S, B=1, seed=0, H=TRI_PLANE_SIZE,
             plan.valid, F_, S, False)
 
 
-def unirow_inputs(device, B, n, H=TRI_PLANE_SIZE, M=4, K=23, seed=0):
+def unirow_inputs(device, B, n, H=TRI_PLANE_SIZE, M=4, K=23, seed=0,
+                  dtype=torch.bfloat16):
     """The unirow kernels' inputs at random positions (``chip_smoke.py``'s
     checks): B images of n points, M candidates (about 30% invalid), 256²
-    planes by default: (texels, rows, wq4, cand_idx, valid, dfeature,
-    dcand_w), the last two kernel 1b's cotangents."""
+    planes by default, a texel table of ``dtype`` (bf16: kernels 1 and 1b;
+    float32: 1f and 1bf): (texels, rows, wq4, cand_idx, valid, dfeature,
+    dcand_w), the last two the backward's cotangents."""
     g = torch.Generator().manual_seed(seed)
     planes = torch.randn((B, (F_ + K) * 3, H, H), generator=g).to(device)
     pos = (torch.rand((B, n, M, 3), generator=g) * 2.4 - 1.2).to(device)
     idx = torch.randint(0, K, (B, n, M), generator=g,
                         dtype=torch.int32).to(device)
     valid = (torch.rand((B, n, M), generator=g) > 0.3).to(device)
-    texels = unirow.pack_texels(planes, F_, K)
+    texels = unirow.pack_texels(planes, F_, K, dtype=dtype)
     rows, wq4, ci, cv = unirow.candidate_rows(pos, idx, valid, H, H)
     dfeature = torch.randn((B, F_, n), generator=g).to(device)
     dcand_w = torch.randn((B, M, n), generator=g).to(device)

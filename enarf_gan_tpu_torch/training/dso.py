@@ -30,7 +30,8 @@ from enarf_gan_tpu_torch.models.generator import (DSONARFGenerator,
 from enarf_gan_tpu_torch.models.narf import NARFParams
 from enarf_gan_tpu_torch.training import checkpoint as ckpt
 from enarf_gan_tpu_torch.training.losses import photometric_loss
-from enarf_gan_tpu_torch.utils.logging import JsonLog, MetricsWriter
+from enarf_gan_tpu_torch.utils.logging import (JsonLog, MetricsWriter,
+                                              save_img_grid)
 
 MAX_CONSECUTIVE_NONFINITE = 100    # optax.apply_if_finite's limit
 BATCH_KEYS = ("img", "mask", "pose_3d", "frame_time", "bone_length",
@@ -165,11 +166,18 @@ def prepare_batch(batch: Dict[str, np.ndarray],
 
 def validate(gen: DSONARFGenerator, config, val_loaders,
              generator: Optional[torch.Generator] = None,
-             num_data: Optional[int] = None) -> Dict:
-    """Full-image validation through ``make_dso_full_renderer``: the mean
-    mask and color MSE, color PSNR and SSIM over each loader's frames (only
-    the "train" loader when ``num_data`` is 1). LPIPS waits for its
-    weights."""
+             num_data: Optional[int] = None, crop: bool = False,
+             metrics=("SSIM", "PSNR"), save_dir: Optional[str] = None,
+             iteration: int = 0) -> Dict:
+    """Full-image validation through ``make_dso_full_renderer``: over each
+    loader's frames (only the "train" loader when ``num_data`` is 1, and
+    its first ``num_data`` frames), the mean mask and color MSE and the
+    color ``metrics`` ("PSNR", "SSIM"; "LPIPS" waits for its weights and is
+    left out). With ``crop`` each frame is cropped to the bounding box of
+    its ground-truth mask after the full-image render (a frame with an
+    empty mask is skipped), as the JAX package does. With ``save_dir`` the
+    last frame of each loader, rendered beside the ground truth, is saved
+    as ``<loader>_<iteration rounded down to 5000>.png``."""
     device = next(gen.parameters()).device
     size = config.dataset.image_size
     bg_color = config.dataset.bg_color
@@ -183,7 +191,9 @@ def validate(gen: DSONARFGenerator, config, val_loaders,
             continue
         n_total = len(loader.dataset.imgs)
         n_eval = n_total if num_data is None else min(num_data, n_total)
-        acc = {"color": 0.0, "mask": 0.0, "color_SSIM": 0.0, "color_PSNR": 0.0}
+        acc = {"color": 0.0, "mask": 0.0}
+        acc.update({f"color_{m}": 0.0 for m in metrics if m != "LPIPS"})
+        done = 0
         for i in range(n_eval):
             item = loader.dataset[i]
             img = item["img"][None]
@@ -194,14 +204,31 @@ def validate(gen: DSONARFGenerator, config, val_loaders,
                 to(item["camera_rotation"]), generator=generator)
             color = color.cpu().numpy()[None]
             gmask = gmask.cpu().numpy()[None]
+            if crop:
+                ys, xs = np.where(item["mask"] > 0)
+                if len(xs) == 0:
+                    continue
+                x0, y0, x1, y1 = xs.min(), ys.min(), xs.max(), ys.max()
+                mask = mask[:, y0:y1, x0:x1]
+                img = img[:, :, y0:y1, x0:x1]
+                color = color[:, :, y0:y1, x0:x1]
+                gmask = gmask[:, y0:y1, x0:x1]
             if np.isnan(color).any():
                 print("NaN is detected")
             color = color + bg_color * (1 - gmask[:, None])
             acc["mask"] += mse(mask, gmask)
             acc["color"] += mse(img, color)
-            acc["color_PSNR"] += psnr_fn(img, color)
-            acc["color_SSIM"] += ssim_fn(img[0], color[0])
-        out[key] = {k: v / max(n_eval, 1) for k, v in acc.items()}
+            for m in metrics:
+                if m == "PSNR":
+                    acc["color_PSNR"] += psnr_fn(img, color)
+                elif m == "SSIM":
+                    acc["color_SSIM"] += ssim_fn(img[0], color[0])
+            done += 1
+            if save_dir and i == n_eval - 1:
+                save_img_grid(np.concatenate([color, img], axis=-1),
+                              os.path.join(save_dir, f"{key}_"
+                                           f"{iteration // 5000 * 5000}.png"))
+        out[key] = {k: v / max(done, 1) for k, v in acc.items()}
     return out
 
 
@@ -217,7 +244,8 @@ def train_loop(config, gen: DSONARFGenerator, datasets, loaders,
     directory's latest snapshot: the iteration and the generator, not the
     optimiser (as the reference). Random numbers come from ``generator``
     (default: seeded with ``config.seed``, or 0, on the model's device).
-    Returns (gen, optimizer, loss history).
+    Snapshots are written every ``save_interval`` iterations and after the
+    last one. Returns (gen, optimizer, loss history).
     """
     device = next(gen.parameters()).device
     out_dir = os.path.join(config.out_root, "result", config.out)
@@ -240,6 +268,12 @@ def train_loop(config, gen: DSONARFGenerator, datasets, loaders,
     train_step = make_train_step(gen, optimizer, config.loss,
                                  config.dataset.bg_color,
                                  n_accum=int(config.get("n_accum_step", 1)))
+
+    def save(iteration):
+        ckpt.save_checkpoint(out_dir, {
+            "iteration": iteration, "gen": gen.state_dict(),
+            "gen_opt": optimizer.state_dict()}, iteration)
+
     num_iter = max_iterations or config.num_iter
     start = time.time()
     accum_time = 0.0
@@ -261,13 +295,12 @@ def train_loop(config, gen: DSONARFGenerator, datasets, loaders,
             if iteration % config.tensorboard_interval == 0:
                 writer.scalar(iteration, history[-1], "gen")
             if iteration % config.save_interval == 0:
-                ckpt.save_checkpoint(out_dir, {
-                    "iteration": iteration, "gen": gen.state_dict(),
-                    "gen_opt": optimizer.state_dict()}, iteration)
+                save(iteration)
             if iteration % config.val_interval == 0 and val_loaders:
                 accum_time += time.time() - start
                 vloss = validate(gen, config, val_loaders, generator,
-                                 num_data=1)
+                                 num_data=1, save_dir=out_dir,
+                                 iteration=iteration)
                 entry = {"accumulated_train_time": accum_time,
                          "train_loss_color":
                              train_losses["color"] / config.val_interval,
@@ -279,5 +312,7 @@ def train_loop(config, gen: DSONARFGenerator, datasets, loaders,
                 jlog.update(iteration, entry)
                 train_losses = {"color": 0.0, "mask": 0.0}
                 start = time.time()
+    if iteration % config.save_interval:
+        save(iteration)
     writer.close()
     return gen, optimizer, history

@@ -16,8 +16,9 @@ Adam (b1 0, b2 0.99, eps 1e-8) at lr 1e-3 * bs / 32 for G and
 2e-3 * bs / 32 for D, with the JAX package's skip of a non-finite step
 (``dso.Optimizer``). Metrics stay on the device and are fetched every 10
 iterations. Snapshots hold {iteration, gen, dis, gen_opt, dis_opt}. The
-real, fake and bone-mask image grids wait for the port's PNG writer
-(ROADMAP Queue 1, item 2). On the card the renders run the hand-written
+real, fake and bone-mask image grids come with the GAN CLIs (ROADMAP Queue
+1, item 4; the PNG writer is ``utils/logging.py::save_img_grid``). On the
+card the renders run the hand-written
 kernels forward and backward (tilewin 2 and 2b on the tiled path, unirow 1
 and 1b on the exact one).
 """

@@ -69,6 +69,18 @@ def build_pair(size=16, ray_batchsize=64, seed=7, **overrides):
     return gen, variables, port, scene
 
 
+def jax_dso_variables(jgen, jbatch, canonical_pose, seed=0):
+    """``jdso.init_state``'s variables with the init jitted: seconds, where
+    the op-by-op init takes about half a minute on the CPU."""
+    key = jax.random.PRNGKey(seed)
+    variables = jax.jit(jgen.init)(key, key, *(
+        jbatch[k] for k in ("pose_3d", "camera_rotation", "mask",
+                            "frame_time", "bone_length", "inv_intrinsics")))
+    return register_canonical_pose(variables, canonical_pose,
+                                   jgen.nerf_params.origin_location,
+                                   np.asarray(jgen.parent_id))
+
+
 def jax_fine_draws(rng, n_chunks, chunk, Nf):
     """The (u, jitter) pair JAX's render_entire_img draws for each chunk."""
     out = []
@@ -178,10 +190,13 @@ GAN_SMALL = dict(Nc=6, Nf=6, hidden_size=16, tri_plane_size=16, w_dim=32,
 GAN_KW = dict(z_dim=8, crop_background=True, channel_max=32)
 
 
-def build_gan_pair(size=16, B=2, train_ray_chunk=128, seed=7, **overrides):
+def build_gan_pair(size=16, B=2, train_ray_chunk=128, seed=7,
+                   variables=None, **overrides):
     """(jax gen, jax variables, port gen, scene, z) for one GAN generator:
     JAX's weights perturbed, its w_avg statistics random (so truncation
-    and their update show), both carried into the port."""
+    and their update show), both carried into the port. ``variables``
+    (another pair's; they depend neither on B nor on the planes' sampling
+    dtype) skips JAX's init."""
     kw = {**GAN_SMALL, "render_bs": train_ray_chunk, **overrides}
     gen = TriNARFGenerator(nerf_params=NARFParams(**kw), size=size,
                            num_bone=24, parent_id=PARENTS,
@@ -190,18 +205,19 @@ def build_gan_pair(size=16, B=2, train_ray_chunk=128, seed=7, **overrides):
     pose_cam, world, bl, inv_K, canonical, _ = scene
     z = np.random.RandomState(seed).randn(
         B, GAN_KW["z_dim"] * 4).astype(np.float32)
-    rng = jax.random.PRNGKey(0)
-    variables = jax.jit(gen.init)(rng, rng, jnp.asarray(pose_cam),
-                                  jnp.asarray(world), jnp.asarray(bl),
-                                  jnp.asarray(z), jnp.asarray(inv_K))
-    variables = register_canonical_pose(variables, canonical, "center_fixed",
-                                        np.asarray(SMPL_PARENTS))
-    variables = perturbed(variables, seed)
-    leaves, tree = jax.tree_util.tree_flatten(variables["stats"])
-    keys = jax.random.split(jax.random.PRNGKey(seed + 1), len(leaves))
-    variables["stats"] = jax.tree_util.tree_unflatten(
-        tree, [0.5 * jax.random.normal(k, x.shape) for k, x in
-               zip(keys, leaves)])
+    if variables is None:
+        rng = jax.random.PRNGKey(0)
+        variables = jax.jit(gen.init)(rng, rng, jnp.asarray(pose_cam),
+                                      jnp.asarray(world), jnp.asarray(bl),
+                                      jnp.asarray(z), jnp.asarray(inv_K))
+        variables = register_canonical_pose(
+            variables, canonical, "center_fixed", np.asarray(SMPL_PARENTS))
+        variables = perturbed(variables, seed)
+        leaves, tree = jax.tree_util.tree_flatten(variables["stats"])
+        keys = jax.random.split(jax.random.PRNGKey(seed + 1), len(leaves))
+        variables["stats"] = jax.tree_util.tree_unflatten(
+            tree, [0.5 * jax.random.normal(k, x.shape) for k, x in
+                   zip(keys, leaves)])
     port = tgen.TriNARFGenerator(
         TNARFParams(**kw), size=size, num_bone=24, parent_id=PARENTS,
         train_ray_chunk=train_ray_chunk, device="cpu", **GAN_KW)

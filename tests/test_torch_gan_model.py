@@ -25,7 +25,9 @@ of pixels off by more than 1e-4 (a whole patch counted on the tiled
 path): 5% exact, 15% tiled (2.1% and 9.4% at this seed), and the mean
 |d| of the image by 2e-2. The gradients are compared on a loss over the
 pixels that agree: relative L2 error 2e-2 per parameter (as
-tests/test_torch_train_parity.py).
+tests/test_torch_train_parity.py). The exact case's weights also run on
+float32 planes (the default sampling of ``config.yml``), against JAX's
+float32 quad tables run op by op: 1e-4 of the scale (see that test).
 
 The ``cuda`` tests run the same forward and its gradients through the
 kernels (1 and 1b exact, 2 and 2b tiled) and through the plain combine on
@@ -176,6 +178,44 @@ def test_gan_forward_matches_eager_jax_on_every_pixel(case):
         b = np.asarray(b)
         d = np.abs(a.numpy() - b).max()
         assert d <= 1e-5 * max(1.0, float(np.abs(b).max())), (name, d)
+
+
+@pytest.mark.parametrize("case", ["exact"], indirect=True)
+def test_gan_float32_forward_matches_eager_jax(case):
+    """The exact case's weights on float32 planes, shaped as
+    ``configs/enarfgan_train/AIST/config.yml`` (the default float32
+    sampling, the exact sampler, the cropped learned background): the
+    training forward of one pose against JAX's run op by op, with JAX's
+    draws. JAX samples its float32 quad tables (``ops/quadtable.py``), the
+    port its float32 texel table (kernel 1f's plain twin here). Every
+    pixel of image, mask and foreground within 1e-4 of the output's scale:
+    here the planes carry full float32 mantissas, JAX sums each
+    candidate's four corners, its planes and the candidates in another
+    order than the port, and the density's exp carries those roundings on
+    (1.1e-5 to 1.5e-5 of the scale at two draws of this model)."""
+    import jax
+    import jax.numpy as jnp
+    from _torch_parity import build_gan_pair, jax_gan_randoms
+    jgen, variables, port, scene, z = build_gan_pair(
+        B=1, size=SIZE, tile_patch=0, plane_sample_dtype="float32",
+        variables=case["variables"])
+    assert port.nerf.texel_dtype == torch.float32
+    pose_cam, world, bl, inv_K, _, _ = scene
+    inputs = (pose_cam, world, bl, z, inv_K)
+    rng = jax.random.PRNGKey(5)
+    with jax.disable_jit():
+        (img, mask, aux), _ = jgen.apply(
+            variables, rng, *map(jnp.asarray, inputs), train=True,
+            mutable=["stats"])
+    with torch.no_grad():
+        got = port(*map(_t, inputs), train=True,
+                   **jax_gan_randoms(rng, port, 1))
+    assert (got[1].numpy() > 0.05).sum() > 20
+    for name, a, b in (("image", got[0], img), ("mask", got[1], mask),
+                       ("foreground", got[2]["fg_color"], aux["fg_color"])):
+        b = np.asarray(b)
+        d = np.abs(a.numpy() - b).max()
+        assert d <= 1e-4 * max(1.0, float(np.abs(b).max())), (name, d)
 
 
 def test_gan_parameter_gradients_match_jax(case):

@@ -1,7 +1,8 @@
 """The port imports none of jax, flax, yaml or PIL, directly or through the
 JAX package or the JAX probes of ``tools/``: a fresh interpreter that
 refuses those imports must import every module of ``enarf_gan_tpu_torch``
-(its ``tools`` subpackage included) and ``chip_smoke.py``."""
+(its ``tools`` subpackage and the CLIs included) and ``chip_smoke.py``, read
+a config pair with ``config.yaml_config`` and write and read a PNG."""
 import os
 import subprocess
 import sys
@@ -26,6 +27,14 @@ names = [m.name for m in pkgutil.walk_packages(enarf_gan_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from enarf_gan_tpu_torch.config import yaml_config
+from enarf_gan_tpu_torch.utils.logging import decode_png, encode_png
+import numpy as np
+c = yaml_config("configs/DSO_train/ZJU/313_denarf.yml",
+                "configs/DSO_train/default.yml")
+assert c.generator_params.nerf_params.Nf == 64, c
+rgb = np.arange(24, dtype=np.uint8).reshape(2, 4, 3)
+assert (decode_png(encode_png(rgb)) == rgb).all()
 print(" ".join(names))
 """
 
@@ -45,5 +54,6 @@ def test_port_imports_without_jax_flax_yaml_pil():
                    "interop", "data.cache", "data.mask2d",
                    "data.datasets", "data.loader", "data.fixtures",
                    "tools", "tools.timing", "tools.gather", "tools.mma",
-                   "tools.ablate", "tools.constructs"):
+                   "tools.ablate", "tools.constructs", "ops.quadtable",
+                   "train_DSO", "DSO_demo"):
         assert f"enarf_gan_tpu_torch.{module}" in names, module

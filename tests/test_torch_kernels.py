@@ -7,8 +7,9 @@ machine with a GPU and no jax; there, skip the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 Tolerance, kernel vs plain: both compute in float32 from the same bf16
-rows; the sums run in another order and the exp is another
-implementation, so 1e-4 relative / 1e-5 absolute (the forward kernels).
+(or float32: kernels 1f and 1bf) rows; the sums run in another order and
+the exp is another implementation, so 1e-4 relative / 1e-5 absolute (the
+forward kernels).
 The backward kernels add into the table gradients with atomics, in an
 order that changes from run to run, and the plain gradients come from
 autograd's scatter-adds: relative L2 error 1e-4 per gradient.
@@ -22,16 +23,18 @@ from enarf_gan_tpu_torch.ops import tilewin, tilewin_kernel, unirow
 from enarf_gan_tpu_torch.tools import ablate
 
 
-def _combine_args(B, n, M, H=16, F=32, K=23, seed=2, device="cpu"):
-    """The texel table and candidate inputs of ``unirow_combine``; points
-    outside every bone and on the plane edges (in the zero padding)."""
+def _combine_args(B, n, M, H=16, F=32, K=23, seed=2, device="cpu",
+                  dtype=torch.bfloat16):
+    """The texel table (of ``dtype``) and candidate inputs of
+    ``unirow_combine``; points outside every bone and on the plane edges
+    (in the zero padding)."""
     rng = np.random.default_rng(seed)
     planes = rng.normal(size=(B, (F + K) * 3, H, H)).astype(np.float32)
     pos = rng.uniform(-1.4, 1.4, (B, n, M, 3)).astype(np.float32)
     pos[:, :2] = 2.0                     # points outside every bone
     idx = rng.integers(0, K, (B, n, M)).astype(np.int32)
     valid = rng.random((B, n, M)) > 0.3
-    table = unirow.pack_texels(torch.from_numpy(planes), F, K)
+    table = unirow.pack_texels(torch.from_numpy(planes), F, K, dtype=dtype)
     args = (table,) + unirow.candidate_rows(
         torch.from_numpy(pos), torch.from_numpy(idx), torch.from_numpy(valid),
         H, H)
@@ -48,10 +51,27 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     assert unirow.KERNEL.launches == before
 
 
+def test_float32_table_runs_plain_on_cpu_and_counts_no_launch():
+    args = _combine_args(1, 50, 4, dtype=torch.float32)
+    counts = [k.launches for k in (unirow.KERNEL, unirow.KERNEL_F32)]
+    got = unirow.unirow_combine(*args, 32, False)
+    ref = unirow.gather_combine_texels_plain(*args, 32, False)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert [k.launches for k in (unirow.KERNEL, unirow.KERNEL_F32)] == counts
+    assert unirow.kernels_for(torch.float32) == (unirow.KERNEL_F32,
+                                                 unirow.KERNEL_BWD_F32)
+    assert unirow.kernels_for(torch.bfloat16) == (unirow.KERNEL,
+                                                  unirow.KERNEL_BWD)
+    # the float32 entry points share their libraries' builds
+    assert unirow.KERNEL_F32.owner is unirow.KERNEL
+    assert unirow.KERNEL_BWD_F32.owner is unirow.KERNEL_BWD
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     table, rows, wq4, idx, valid = _combine_args(1, 50, 4)
-    with pytest.raises(ValueError, match="table"):
-        unirow.unirow_combine(table.float(), rows, wq4, idx, valid, 32, False)
+    with pytest.raises(ValueError, match="table"):     # bf16 or float32 only
+        unirow.unirow_combine(table.half(), rows, wq4, idx, valid, 32, False)
     with pytest.raises(ValueError, match="texel table"):      # quad rows
         unirow.unirow_combine(table.reshape(1, -1, 256), rows, wq4, idx,
                               valid, 32, False)
@@ -157,6 +177,61 @@ def test_unirow_backward_kernel_matches_plain_on_card(cuda_device, B, n, M,
         sum((o * c).sum() for o, c in zip(outs, cots)), [table, wq4])
     assert g_table.dtype == torch.bfloat16
     assert unirow.KERNEL_BWD.launches == before + 2
+    torch.testing.assert_close(g_wq4, dwq4, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,M,clamp", UNIROW_CASES)
+def test_unirow_f32_kernel_matches_plain_on_card(cuda_device, B, n, M,
+                                                 clamp):
+    """Kernel 1f on a float32 texel table: launched (its own count, not
+    kernel 1's) and equal to the plain twin."""
+    args = _combine_args(B, n, M, device=cuda_device, dtype=torch.float32)
+    before = (unirow.KERNEL.launches, unirow.KERNEL_F32.launches)
+    with torch.no_grad():
+        f, w = unirow.unirow_combine(*args, 32, clamp)
+        torch.cuda.synchronize()
+        f_ref, w_ref = unirow.gather_combine_texels_plain(*args, 32, clamp)
+    assert (unirow.KERNEL.launches, unirow.KERNEL_F32.launches) == \
+        (before[0], before[1] + 1)
+    torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(f, f_ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,M,clamp", UNIROW_CASES)
+def test_unirow_f32_backward_kernel_matches_plain_on_card(cuda_device, B, n,
+                                                          M, clamp):
+    """Kernel 1bf against autograd through the plain twin; through the
+    autograd Function the float32 table takes the kernel's gradient as it
+    is."""
+    table, rows, wq4, idx, valid = _combine_args(B, n, M, device=cuda_device,
+                                                 dtype=torch.float32)
+    table.requires_grad_(True)
+    wq4.requires_grad_(True)
+    outs = unirow.unirow_combine(table, rows, wq4, idx, valid, 32, clamp)
+    cots = _cotangents(outs, 5)
+    before = (unirow.KERNEL_BWD.launches, unirow.KERNEL_BWD_F32.launches)
+    dtable, dwq4 = unirow.launch_backward(table.detach(), rows, wq4.detach(),
+                                          idx, valid, *cots, 32, clamp)
+    torch.cuda.synchronize()
+    assert (unirow.KERNEL_BWD.launches, unirow.KERNEL_BWD_F32.launches) == \
+        (before[0], before[1] + 1)
+    assert dtable.dtype == torch.float32 and dtable.shape == table.shape
+    tf = table.detach().clone().requires_grad_(True)
+    wf = wq4.detach().clone().requires_grad_(True)
+    ref = unirow.gather_combine_texels_plain(tf, rows, wf, idx, valid, 32,
+                                             clamp)
+    r_table, r_wq4 = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(ref, cots)), [tf, wf])
+    assert _rel_l2(dtable, r_table) <= 1e-4
+    assert _rel_l2(dwq4, r_wq4) <= 1e-4
+    assert not dtable[..., unirow.FEAT_BLOCK + 23:].any()   # bones >= K
+    g_table, g_wq4 = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(outs, cots)), [table, wq4])
+    assert g_table.dtype == torch.float32
+    assert unirow.KERNEL_BWD_F32.launches == before[1] + 2
+    assert _rel_l2(g_table, r_table) <= 1e-4
     torch.testing.assert_close(g_wq4, dwq4, rtol=1e-4, atol=1e-5)
 
 

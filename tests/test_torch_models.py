@@ -172,3 +172,31 @@ def test_models_default_to_the_gpu():
     cpu = tgen.DSONARFGenerator(TNARFParams(**SMALL), num_bone=24,
                                 parent_id=PARENTS, device="cpu")
     assert all(p.device.type == "cpu" for p in cpu.parameters())
+
+
+def test_plane_dtype_picks_the_texel_table():
+    """bf16 planes pack a bf16 texel table, float32 planes (the default,
+    where the JAX package samples its quad tables) a float32 one; what the
+    port does not sample yet raises with its ROADMAP item."""
+    from enarf_gan_tpu_torch.models.narf import NARFParams as TNARFParams
+    from enarf_gan_tpu_torch.models.narf import TriPlaneNARF
+    from _torch_parity import SMALL
+    assert TNARFParams().plane_sample_dtype == "float32"
+    planes = torch.randn(1, (32 + 23) * 3, 32, 32)
+    for dtype, want in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        nerf = TriPlaneNARF(TNARFParams(**{**SMALL,
+                                           "plane_sample_dtype": dtype}),
+                            16, 8, 23, device="cpu")
+        (table,) = nerf.pack_planes(planes)
+        assert nerf.texel_dtype == want and table.dtype == want
+        assert table.shape == (1, 3, 34, 34, 64)
+    tiled = TriPlaneNARF(TNARFParams(**{**SMALL, "tile_patch": 4,
+                                        "plane_sample_dtype": "float32"}),
+                         16, 8, 23, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 2, item 3"):
+        tiled.pack_planes_tiled(planes)
+    wide = TriPlaneNARF(TNARFParams(**{**SMALL, "feat_dim": 40}), 16, 8, 23,
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 2, item 3"):
+        wide.pack_planes(torch.randn(1, (40 + 23) * 3, 32, 32))

@@ -10,6 +10,11 @@ ulp-level difference can move one fine sample to a neighbouring bin and
 change that ray's pixel visibly. Where no bin moves, pixels agree to ~1e-5.
 So the frame is bounded by a high quantile and the mean of |Δ|, and the
 max only loosely.
+
+The float32 cases render a float32-plane model (the default
+``plane_sample_dtype``, 25 of the 28 configs): JAX samples its quad
+tables (``ops/quadtable.py``), the port its float32 texel table (kernel
+1f's plain twin); same bounds.
 """
 import numpy as np
 import jax
@@ -26,9 +31,9 @@ SIZE = 16
 CHUNK = 64   # 4 chunks at 16²: the valid-first order and the chunk skip run
 
 
-@pytest.fixture(scope="module")
-def renders():
-    gen, variables, port, scene = build_pair(size=SIZE, ray_batchsize=CHUNK)
+def _renders(**overrides):
+    gen, variables, port, scene = build_pair(size=SIZE, ray_batchsize=CHUNK,
+                                             **overrides)
     pose_cam, _, bl, inv_K, _, _ = scene
     rng = jax.random.PRNGKey(3)
     ft = np.array([0.5], np.float32)
@@ -42,9 +47,21 @@ def renders():
     return [np.asarray(x) for x in ref], [x.numpy() for x in out]
 
 
-@pytest.mark.parametrize("i,name,q999,mean", [
-    (0, "color", 2e-2, 1e-3), (1, "mask", 2e-2, 1e-3),
-    (2, "disparity", 2e-2, 1e-3)])
+@pytest.fixture(scope="module")
+def renders():
+    return _renders()
+
+
+@pytest.fixture(scope="module")
+def renders_f32():
+    return _renders(plane_sample_dtype="float32")
+
+
+FRAME_BOUNDS = [(0, "color", 2e-2, 1e-3), (1, "mask", 2e-2, 1e-3),
+                (2, "disparity", 2e-2, 1e-3)]
+
+
+@pytest.mark.parametrize("i,name,q999,mean", FRAME_BOUNDS)
 def test_slice_matches_jax(renders, i, name, q999, mean):
     ref, got = renders[0][i], renders[1][i]
     assert got.shape == ref.shape
@@ -59,3 +76,12 @@ def test_slice_foreground_is_not_empty(renders):
     # an all-zero mask would make the parity above vacuous
     mask = renders[1][1]
     assert (mask > 0.05).sum() > 20, (mask > 0.05).sum()
+
+
+@pytest.mark.parametrize("i,name,q999,mean", FRAME_BOUNDS)
+def test_slice_float32_matches_jax(renders_f32, i, name, q999, mean):
+    test_slice_matches_jax(renders_f32, i, name, q999, mean)
+
+
+def test_slice_float32_foreground_is_not_empty(renders_f32):
+    test_slice_foreground_is_not_empty(renders_f32)

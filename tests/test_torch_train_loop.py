@@ -36,7 +36,7 @@ from enarf_gan_tpu_torch.data.loader import DataLoader
 from enarf_gan_tpu_torch.nerf import ray_sampler
 from enarf_gan_tpu_torch.training import checkpoint, dso, losses
 
-from _torch_parity import tiny_dso_config
+from _torch_parity import jax_dso_variables, tiny_dso_config
 
 
 @pytest.fixture(scope="module")
@@ -256,8 +256,7 @@ def test_checkpoints_round_trip_through_jax_and_resume(synth_root, tmp_path):
     jconfig = JAttrDict(tiny_dso_config(synth_root, str(tmp_path)))
     jgen = jdso.build_generator(jconfig, ds.num_bone, ds.parents)
     batch = jdso.prepare_batch({k: v[None] for k, v in ds[0].items()})
-    variables, _, _ = jdso.init_state(jconfig, jgen, ds.canonical_pose,
-                                      jax.random.PRNGKey(0), batch)
+    variables = jax_dso_variables(jgen, batch, ds.canonical_pose)
     out = jckpt.convert_torch_snapshot(path, {"iteration": 0,
                                               "gen": variables}, strict=True)
     assert out["iteration"] == 2
@@ -278,4 +277,4 @@ def test_checkpoints_round_trip_through_jax_and_resume(synth_root, tmp_path):
                                     generator=torch.Generator().manual_seed(1))
     assert len(hist2) == 1                 # iterations 3 of 3
     resumed = checkpoint.load_checkpoint(path)
-    assert resumed["iteration"] == 2
+    assert resumed["iteration"] == 3       # the last iteration is saved too

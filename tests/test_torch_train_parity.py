@@ -1,6 +1,9 @@
 """The port's DSO training render and train-step gradients against the JAX
 package's on the exact path (the tiled path's cases run the same tests in
-tests/test_torch_train_parity_tiled.py), at the tiny widths of tests/test_training.py.
+tests/test_torch_train_parity_tiled.py, and the float32 planes' of a
+313_denarf.yml-shaped model, pose conditioning and the "mae" loss, on the
+exact path, in tests/test_torch_train_parity_f32.py), at the tiny widths of
+tests/test_training.py.
 
 Same synthetic data (the JAX fixture's cache, read by the JAX dataset), the
 same weights (the JAX model's perturbed parameters through the weight
@@ -39,12 +42,14 @@ from enarf_gan_tpu_torch.interop import load_reference_state_dict
 from enarf_gan_tpu_torch.training import dso
 from enarf_gan_tpu_torch.training.losses import photometric_loss
 
-from _torch_parity import (float32_jax_tables, jax_train_randoms,
-                           perturbed, tiny_dso_config)
+from _torch_parity import (float32_jax_tables, jax_dso_variables,
+                           jax_train_randoms, perturbed, tiny_dso_config)
 
 FRAMES = (0, 3)   # two frames of the cache: B = 2
 PATHS = {"exact": dict(tile_patch=0, loss="mse"),
-         "tiled": dict(tile_patch=4, tile_coarse_corners=True, loss="mae")}
+         "tiled": dict(tile_patch=4, tile_coarse_corners=True, loss="mae"),
+         "float32": dict(tile_patch=0, plane_sample_dtype="float32",
+                         pose_conditional=True, loss="mae")}
 
 
 @pytest.fixture(scope="module")
@@ -75,9 +80,8 @@ def make_case(name, synth_root, tmp_path_factory):
                        "camera_rotation", "intrinsics")}
     jgen = jdso.build_generator(jconfig, ds.num_bone, ds.parents)
     jbatch = jdso.prepare_batch(batch)
-    variables, _, _ = jdso.init_state(jconfig, jgen, ds.canonical_pose,
-                                      jax.random.PRNGKey(0), jbatch)
-    variables = perturbed(variables, seed=7)
+    variables = perturbed(jax_dso_variables(jgen, jbatch, ds.canonical_pose),
+                          seed=7)
     params = variables["params"]
     rest = {k: v for k, v in variables.items() if k != "params"}
     rng = jax.random.PRNGKey(4)
