@@ -98,8 +98,21 @@ NVIDIA GPU.
    (``configs/DSO_demo/ZJU/313_denarf.yml``) on 2 samples at 512², its PNGs
    read back. Then the float32 GAN of ``configs/enarfgan_train/AIST/
    config.yml`` over its ``default.yml`` (128², bs 12 in 2 micro-batches,
-   the exact sampler): 1 warm-up and 2 timed G + D iterations through
-   ``training.gan``, a profile of a G step, and one 128² sample.
+   the exact sampler) through the port's GAN CLI,
+   ``train_ENARF_GAN.main``: 1 warm-up, 2 timed and 1 profiled G + D
+   iterations (the loader's batches included), its image grids and
+   snapshot, and one 128² sample. Then the demo CLI,
+   ``ENARF_GAN_demo.main``, on ``configs/enarfgan_demo/AIST/enarfgan.yml``
+   (only ``out_root``, ``out`` and ``sample_path`` replaced; the synthetic
+   canonical pose at its default path) loads that snapshot and writes 2
+   samples with ``--black_bg --mesh`` at the default voxel of 0.003: a 667³
+   density grid through kernel 1f, marching tetrahedra and the rasteriser
+   on the card, the PNGs read back; seconds of the grid, the iso-surface
+   and the rasteriser, ms a frame, the peak, 1f's launches a mesh, the
+   volume's range, active cubes, vertices and faces; one chunk of the grid
+   and one demo frame against the plain combine; profiles of a grid and a
+   frame; and, where the model's volume crosses mesh_th nowhere, the
+   iso-surface and rasteriser on an analytic ball on the same grid.
 9. Overfits one 64² frame for 200 iterations on both paths at full width:
    the PSNR must beat the blank frame's by more than 2 dB.
 
@@ -123,7 +136,8 @@ runs only phase 1 and phase 7 (about a minute on an H100).
     python3 chip_smoke.py --float32
 
 runs phase 1, kernels 1f and 1bf's checks (phase 2) and the float32
-configs' runs (phase 8's first half).
+configs' runs through the port's CLIs (phase 8: DSO training, validation
+and demo; GAN training and the GAN demo with its meshes).
 
     python3 chip_smoke.py --modes
 
@@ -138,6 +152,7 @@ x index order, A2 at 1, 8, 64 and 1,024 rows a warp, A3 by table height
 from 384 to 196,608 rows in float32 and bf16 on the kept design, ring
 depths, B3 at its ragged shapes), one JSON line a measurement.
 """
+import contextlib
 import json
 import re
 import subprocess
@@ -233,6 +248,12 @@ GAN_F32_CONFIG = ("configs/enarfgan_train/AIST/config.yml",
 CLI_FRAMES, CLI_CAMERAS = 4, 4   # the synthetic 512² training cache: 16
 CLI_ITERS = 1 + TIMED_STEPS + 1   # warm-up, timed, profiled
 GAN_F32_TIMED = 2
+# the published demo config of the float32 GAN, and its samples
+GAN_DEMO_CONFIG = ("configs/enarfgan_demo/AIST/enarfgan.yml",
+                   "configs/enarfgan_demo/default.yml")
+DEMO_SAMPLES = 2
+DEMO_VOXEL = 0.003        # the demo's default --mesh_voxel_size: a 667³ grid
+PROFILED_CHUNKS = 64      # chunks of a mesh grid in its profile
 GAN_POSES = 4             # full-image GAN frames a path
 GAN_GRAD_REL_L2 = 1e-2    # G-step gradients, kernels vs plain combine: the
                           # atomics' order, and near-ties (bone slots, fine
@@ -1987,21 +2008,24 @@ def phase_dso_cli(device, root):
 
 
 def phase_gan_f32(device, root):
-    """The float32 GAN of ``configs/enarfgan_train/AIST/config.yml`` read by
-    the port's YAML reader (data roots and ``out_root`` replaced): seeded
-    weights perturbed by 0.3, 1 warm-up and GAN_F32_TIMED timed G + D
-    iterations through ``training.gan`` (kernels 1f and 1bf, no other
-    unirow or tilewin kernel), a profile of a G step, and one 128² sample
-    through ``make_gan_full_renderer``."""
+    """The float32 GAN of ``configs/enarfgan_train/AIST/config.yml`` through
+    the port's CLI, ``train_ENARF_GAN.main``, its config read from the files
+    by the port's YAML reader (data roots and ``out_root`` replaced): seeded
+    weights perturbed by 0.3, 1 warm-up, GAN_F32_TIMED timed and 1 profiled
+    iteration (kernels 1f and 1bf, no other unirow or tilewin kernel; the
+    loader's batches included), the image grids and the snapshot the demo
+    loads, then one 128² sample through ``make_gan_full_renderer``."""
+    import os
     import torch
+    from enarf_gan_tpu_torch import train_ENARF_GAN
     from enarf_gan_tpu_torch.data.datasets import (HumanDataset,
                                                    HumanPoseDataset)
     from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
     from enarf_gan_tpu_torch.data.loader import collate
-    from enarf_gan_tpu_torch.models.generator import (make_gan_full_renderer,
-                                                      register_canonical_pose)
+    from enarf_gan_tpu_torch.models.generator import make_gan_full_renderer
     from enarf_gan_tpu_torch.ops import unirow
     from enarf_gan_tpu_torch.training import gan
+    from enarf_gan_tpu_torch.utils.logging import read_png
     t0 = time.perf_counter()
     config = _read_config(GAN_F32_CONFIG, {
         "out_root": root, "dataset.train.data_root": root,
@@ -2010,74 +2034,100 @@ def phase_gan_f32(device, root):
     assert "plane_sample_dtype" not in nerf and "tile_patch" not in nerf
     size, bs = config.dataset.image_size, config.dataset.bs
     make_synthetic_human_cache(root, size=size, n_frames=3, n_camera=4)
-    img_ds = HumanDataset(config.dataset.train, size=size,
-                          return_bone_params=False, num_repeat_in_epoch=1)
-    pose_ds = HumanPoseDataset(size=size,
-                               data_root=config.dataset.train.pose_prior_root,
-                               num_repeat_in_epoch=1)
-    batch = gan.prepare_gan_batch(collate([img_ds[i] for i in range(bs)]),
-                                  collate([pose_ds[i] for i in range(bs)]),
-                                  device)
     g = torch.Generator().manual_seed(SEED + 31)
-    gen, dis = gan.build_models(config, pose_ds.num_bone, pose_ds.parents,
-                                device, generator=g)
-    with torch.no_grad():
-        for p in gen.parameters():
-            p.add_(0.3 * torch.randn(p.shape, generator=g).to(device))
-    register_canonical_pose(gen, pose_ds.canonical_pose, "center_fixed",
-                            pose_ds.parents)
-    assert gen.nerf.texel_dtype == torch.float32 and \
-        not gen.nerf.supports_tiled_sampling()
-    real = batch["real_img"]
-    poses = {k: v for k, v in batch.items() if k != "real_img"}
-    rng = torch.Generator(device=device).manual_seed(SEED + 33)
-    g_step, d_step, _ = gan.make_gan_steps(
-        config, gen, dis, *gan.init_gan_state(config, gen, dis,
-                                              pose_ds.canonical_pose))
-    print(f"GAN float32 (config.yml): bs {bs} x {size}², n_accum_step "
-          f"{config.n_accum_step}, z_dim {gen.z_dim}, "
-          f"{sum(p.numel() for p in gen.parameters())} generator parameters; "
-          f"built in {time.perf_counter() - t0:.1f} s")
-    fake, _ = g_step(poses, rng)
-    d_step(fake, real)
+    built, starts, g_ms, launches_g, peak, prof = [], [], [], [], [], {}
+    real_build, real_steps = gan.build_models, gan.make_gan_steps
+
+    def perturbed_build(*a, **k):
+        """The CLI's models from a seeded generator, G's weights perturbed
+        by 0.3: a fresh generator renders an empty foreground."""
+        gen, dis = real_build(*a, generator=g, **k)
+        with torch.no_grad():
+            for p in gen.parameters():
+                p.add_(0.3 * torch.randn(p.shape, generator=g).to(p.device))
+        built.append((gen, dis))
+        return gen, dis
+
+    def timed_steps(*a, **k):
+        g_step, d_step, r1_step = real_steps(*a, **k)
+
+        def timed_g(*sa, **sk):
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            if len(starts) == 2:                     # after the warm-up
+                torch.cuda.reset_peak_memory_stats()
+                _reset_all_counts()
+            if len(starts) == 2 + GAN_F32_TIMED:     # the profiled step
+                peak.append(torch.cuda.max_memory_allocated())
+                prof["launches"] = {k.name: k.launches
+                                    for k in _all_kernels()}
+                out = {}
+                prof["profile"] = _profile(
+                    lambda: out.update(r=g_step(*sa, **sk)),
+                    "GAN float32 G step profile (CLI)",
+                    float(np.mean(g_ms[1:])), "G step")
+                return out["r"]
+            before = unirow.KERNEL_F32.launches, unirow.KERNEL_BWD_F32.launches
+            r = g_step(*sa, **sk)
+            torch.cuda.synchronize()
+            g_ms.append((time.perf_counter() - starts[-1]) * 1e3)
+            launches_g.append((unirow.KERNEL_F32.launches - before[0],
+                               unirow.KERNEL_BWD_F32.launches - before[1]))
+            return r
+
+        return timed_g, d_step, r1_step
+
+    iters = 1 + GAN_F32_TIMED + 1
+    with mock.patch.object(train_ENARF_GAN, "yaml_config",
+                           lambda *a, **k: config), \
+            mock.patch.object(gan, "build_models", perturbed_build), \
+            mock.patch.object(gan, "make_gan_steps", timed_steps):
+        _, _, history = train_ENARF_GAN.main(
+            ["--config", _repo_path(GAN_F32_CONFIG[0]), "--default_config",
+             _repo_path(GAN_F32_CONFIG[1]), "--iterations", str(iters)])
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_all_counts()
-    t0 = time.perf_counter()
-    metrics = []
-    for _ in range(GAN_F32_TIMED):
-        fake, gm = g_step(poses, rng)
-        metrics.append({**gm, **d_step(fake, real)})
-    torch.cuda.synchronize()
-    s_iter = (time.perf_counter() - t0) / GAN_F32_TIMED
-    launches = {k.name: k.launches for k in _all_kernels()}
-    peak = torch.cuda.max_memory_allocated()
-    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
-    assert all(np.isfinite(v) for m in metrics for v in m.values()), metrics
+    gen, dis = built[0]
+    s_iter = (starts[1 + GAN_F32_TIMED] - starts[1]) / GAN_F32_TIMED
+    launches = prof["launches"]
+    f_step = float(np.mean([x[0] for x in launches_g[1:]]))
+    b_step = float(np.mean([x[1] for x in launches_g[1:]]))
+    assert len(history) == iters, history
+    assert all(np.isfinite(v) for m in history for v in m.values()), history
     assert launches["unirow_combine_f32"] > 0 and \
         launches["unirow_combine_bwd_f32"] > 0, launches
     assert all(v == 0 for k, v in launches.items() if not k.endswith("_f32")), \
         launches
-    print(f"GAN float32 training: {s_iter:.3f} s/iter (G + D) over "
-          f"{GAN_F32_TIMED} iterations, peak {peak / 2**30:.2f} GiB "
-          f"allocated; losses " + "; ".join(
+    assert gen.nerf.texel_dtype == torch.float32 and \
+        not gen.nerf.supports_tiled_sampling()
+    out_dir = os.path.join(root, "result", config.out)
+    for name in ("rgb_0.png", "real.png", "bone_0.png"):
+        grid = read_png(os.path.join(out_dir, name))
+        assert grid.shape == (3 * size, 3 * size, 3), (name, grid.shape)
+    assert os.path.exists(os.path.join(out_dir, "snapshot_latest.pth"))
+    print(f"GAN float32 (config.yml) through the CLI: bs {bs} x {size}², "
+          f"n_accum_step {config.n_accum_step}, z_dim {gen.z_dim}, "
+          f"{sum(p.numel() for p in gen.parameters())} generator parameters; "
+          f"{iters} iterations in {time.perf_counter() - t0:.1f} s with the "
+          f"cache and the builds")
+    print(f"GAN float32 training: {s_iter:.3f} s/iter (G + D, the loader's "
+          f"batches included) over {GAN_F32_TIMED} iterations, G step "
+          f"{float(np.mean(g_ms[1:])):.1f} ms (host), peak "
+          f"{peak[0] / 2**30:.2f} GiB allocated; losses " + "; ".join(
               ", ".join(f"{k} {v:.4f}" for k, v in m.items())
-              for m in metrics)
-          + f"; kernel launches a G step "
-          + str({k: v / GAN_F32_TIMED for k, v in launches.items()}))
-    t0 = time.perf_counter()
-    g_step(poses, rng)
-    torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) * 1e3
-    device_ms, _, port = _profile(lambda: g_step(poses, rng),
-                                  "GAN float32 G step profile", ms_step,
-                                  "G step")
+              for m in history)
+          + f"; kernel launches a G step: 1f {f_step:g}, 1bf {b_step:g}; "
+          f"grids rgb_0.png, real.png, bone_0.png and the snapshot in "
+          f"{out_dir}")
+    device_ms, _, port = prof["profile"]
     render = make_gan_full_renderer(gen)
+    batch = gan.prepare_gan_batch(
+        collate([HumanDataset(config.dataset.train, size=size,
+                              return_bone_params=False)[0]]),
+        collate([HumanPoseDataset(size=size, data_root=root)[0]]), device)
     z = torch.randn((1, 4 * gen.z_dim), generator=g).to(device)
     _reset_all_counts()
-    color, mask, disp = render(poses["pose_to_camera"][:1],
-                               poses["bone_length"][:1], z,
-                               poses["inv_intrinsics"][:1],
+    color, mask, disp = render(batch["pose_to_camera"], batch["bone_length"],
+                               z, batch["inv_intrinsics"],
                                generator=torch.Generator(
                                    device=device).manual_seed(1))
     torch.cuda.synchronize()
@@ -2088,20 +2138,350 @@ def phase_gan_f32(device, root):
     print(f"GAN float32 sample {size}²: foreground share "
           f"{float((mask > 0.05).float().mean()):.3f}, kernel 1f launches "
           f"{unirow.KERNEL_F32.launches}")
-    return {"s_iter": s_iter, "peak_gib": peak / 2**30,
-            "step_launches": (launches["unirow_combine_f32"] / GAN_F32_TIMED,
-                              launches["unirow_combine_bwd_f32"]
-                              / GAN_F32_TIMED),
-            "step_ms": (port.get("unirow_combine_kernel", (0.0, 0))[0],
-                        port.get("unirow_combine_bwd_kernel", (0.0, 0))[0]),
-            "g_step_device_ms": device_ms,
-            "frame_launches": unirow.KERNEL_F32.launches}
+    result = {"s_iter": s_iter, "peak_gib": peak[0] / 2**30,
+              "step_launches": (f_step, b_step),
+              "step_ms": (port.get("unirow_combine_kernel", (0.0, 0))[0],
+                          port.get("unirow_combine_bwd_kernel", (0.0, 0))[0]),
+              "g_step_device_ms": device_ms,
+              "frame_launches": unirow.KERNEL_F32.launches,
+              "out": config.out}
+    del gen, dis, built
+    torch.cuda.empty_cache()
+    return result
+
+
+@contextlib.contextmanager
+def _working_dir(path):
+    import os
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def _sphere_volume(D, cube_half, voxel, device, radius=0.25, peak=30.0):
+    """A ball's density on the demo's grid: ``peak`` at the centre falling
+    linearly to 0 at twice ``radius``, so that it crosses mesh_th 15 at
+    ``radius``."""
+    import torch
+    ar = (torch.arange(D, device=device, dtype=torch.float32) - cube_half) \
+        * voxel
+    r = torch.sqrt(ar[:, None, None] ** 2 + ar[None, :, None] ** 2
+                   + ar[None, None, :] ** 2)
+    return peak * (1 - r / (2 * radius))
+
+
+def phase_gan_demo(device, root, out):
+    """The port's demo CLI, ``ENARF_GAN_demo.main``, on
+    ``configs/enarfgan_demo/AIST/enarfgan.yml`` read by the port's YAML
+    reader with only ``out_root``, ``out`` (the float32 GAN's run) and
+    ``sample_path`` replaced: 2 samples of the synthetic pose prior with
+    ``--black_bg`` and ``--mesh`` at the default voxel, DEMO_VOXEL (a 667³
+    density grid through kernel 1f, marching tetrahedra and the rasteriser
+    on the card), run in a directory holding the synthetic canonical pose
+    at the config's default ``smpl_data/neutral_canonical.npy``; the PNGs
+    read back. Then one chunk of the mesh grid through kernel 1f against
+    the plain combine (phase 2's bound, both timed), a demo frame against
+    the plain combine's, profiles of a frame and of 64 chunks of a density
+    grid, and, if the model's volume crossed mesh_th nowhere, the same
+    iso-surface and rasteriser on an analytic ball on the same grid."""
+    import os
+    import torch
+    from enarf_gan_tpu_torch import ENARF_GAN_demo
+    from enarf_gan_tpu_torch.data.datasets import HumanPoseDataset
+    from enarf_gan_tpu_torch.mesh import extract
+    from enarf_gan_tpu_torch.ops import unirow
+    from enarf_gan_tpu_torch.tools.ablate import texel_table_bytes
+    from enarf_gan_tpu_torch.training import gan
+    from enarf_gan_tpu_torch.utils.logging import read_png
+    work = os.path.join(root, "demo_cwd")
+    samples_dir = os.path.join(root, "demo_samples")
+    config = _read_config(GAN_DEMO_CONFIG, {
+        "out_root": root, "out": out, "sample_path": samples_dir})
+    size = config.dataset.image_size
+    pose_ds = HumanPoseDataset(size=size, data_root=root,
+                               num_repeat_in_epoch=1)
+    os.makedirs(samples_dir, exist_ok=True)
+    np.savez(os.path.join(samples_dir, "sample_data.npz"), **{
+        k: np.stack([pose_ds[i * 5][k] for i in range(DEMO_SAMPLES)])
+        for k in ("pose_to_camera", "pose_to_world", "bone_length",
+                  "intrinsics")})
+    os.makedirs(os.path.join(work, "smpl_data"), exist_ok=True)
+    np.save(os.path.join(work, "smpl_data", "neutral_canonical.npy"),
+            pose_ds.canonical_pose)
+    assert "canonical_pose_path" not in config
+
+    gens, forwards, frames, grids, isos, rasters = [], [], [], [], [], []
+    real_build = gan.build_generator
+    real_grid, real_iso = extract.density_grid, extract.marching_tetrahedra
+    real_raster = ENARF_GAN_demo.render_mesh_image
+
+    def build(*a, **k):
+        gen = real_build(*a, **k)
+        forward = gen.forward
+
+        def timed_forward(*fa, **fk):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            before = unirow.KERNEL_F32.launches
+            r = forward(*fa, **fk)
+            torch.cuda.synchronize()
+            frames.append({"ms": (time.perf_counter() - t) * 1e3,
+                           "launches": unirow.KERNEL_F32.launches - before,
+                           "args": fa, "kwargs": fk})
+            return r
+
+        gen.forward = timed_forward
+        gens.append(gen)
+        forwards.append(forward)
+        return gen
+
+    def timed_grid(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        before = unirow.KERNEL_F32.launches
+        vol, bins = real_grid(*a, **k)
+        torch.cuda.synchronize()
+        grids.append({"s": time.perf_counter() - t,
+                      "launches": unirow.KERNEL_F32.launches - before,
+                      "min": float(vol.min()), "max": float(vol.max()),
+                      "D": vol.shape[0], "args": a, "kwargs": k})
+        if len(grids) == 1:
+            grids[0]["volume"] = vol
+        return vol, bins
+
+    def timed_iso(vol, th, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        verts, faces = real_iso(vol, th, *a, **k)
+        torch.cuda.synchronize()
+        isos.append({"s": time.perf_counter() - t, "verts": verts.shape[0],
+                     "faces": faces.shape[0],
+                     "active": int(extract.active_cubes(vol, th).shape[0])})
+        return verts, faces
+
+    def timed_raster(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = real_raster(*a, **k)
+        rasters.append({"s": time.perf_counter() - t,
+                        "covered": int(img.any(axis=2).sum())})
+        return img
+
+    _reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(ENARF_GAN_demo, "yaml_config",
+                           lambda *a, **k: config), \
+            mock.patch.object(gan, "build_generator", build), \
+            mock.patch.object(extract, "density_grid", timed_grid), \
+            mock.patch.object(extract, "marching_tetrahedra", timed_iso), \
+            mock.patch.object(ENARF_GAN_demo, "render_mesh_image",
+                              timed_raster), _working_dir(work):
+        paths = ENARF_GAN_demo.main(
+            ["--config", _repo_path(GAN_DEMO_CONFIG[0]), "--default_config",
+             _repo_path(GAN_DEMO_CONFIG[1]), "--num_samples",
+             str(DEMO_SAMPLES), "--black_bg", "--mesh", "--mesh_voxel_size",
+             str(DEMO_VOXEL)])
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.name: k.launches for k in _all_kernels()}
+    assert launches["unirow_combine_f32"] > 0 and all(
+        v == 0 for k, v in launches.items() if k != "unirow_combine_f32"), \
+        launches
+    assert len(frames) == len(grids) == len(isos) == len(rasters) \
+        == DEMO_SAMPLES
+    want = {"img": (size, size, 3), "mask": (size, size, 3),
+            "mesh": (ENARF_GAN_demo.MESH_RENDER_SIZE,) * 2 + (3,)}
+    for p in paths:
+        img = read_png(p)
+        assert img.shape == want[os.path.basename(p).split("_")[0]], \
+            (p, img.shape)
+    assert len(paths) == 3 * DEMO_SAMPLES, paths
+    D = grids[0]["D"]
+    assert D == 2 * int(1 / DEMO_VOXEL) + 1, D
+    print(f"GAN demo CLI (enarfgan.yml, --black_bg --mesh, voxel "
+          f"{DEMO_VOXEL}): "
+          f"{DEMO_SAMPLES} samples in {demo_s:.1f} s with the snapshot load, "
+          f"peak {peak / 2**30:.2f} GiB allocated; PNGs read back: "
+          + ", ".join(os.path.basename(p) for p in paths))
+    for i, (fr, gr, iso, ra) in enumerate(zip(frames, grids, isos, rasters)):
+        print(f"  sample {i}: frame {fr['ms']:.1f} ms ({fr['launches']} 1f "
+              f"launches); density grid {D}³ ({D ** 3} points) "
+              f"{gr['s']:.2f} s, {gr['launches']} 1f launches, volume "
+              f"[{gr['min']:.4g}, {gr['max']:.4g}]; iso-surface "
+              f"{iso['s']:.2f} s: {iso['active']} active cubes, "
+              f"{iso['verts']} vertices, {iso['faces']} faces; rasteriser "
+              f"{ra['s']:.2f} s, {ra['covered']} pixels covered")
+    gen = gens[0]
+    frame = frames[0]
+
+    # one chunk of the mesh grid, kernel 1f against the plain combine: the
+    # chunk with the most points of nonzero density in sample 0's volume,
+    # or, if it has none, the middle chunk (the slab through the centre)
+    vol = grids[0].pop("volume")
+    chunk = 262144
+    nonzero = (vol.reshape(-1) > 0).float()
+    n_chunks = -(-nonzero.shape[0] // chunk)
+    per = torch.nn.functional.pad(nonzero, (0, n_chunks * chunk
+                                            - nonzero.shape[0]))
+    per = per.reshape(n_chunks, chunk).sum(1)
+    c = int(per.argmax()) if float(per.max()) > 0 else D ** 3 // 2 // chunk
+    del vol, nonzero, per
+    fa = frame["args"]
+    pose, bl, z = fa[0], fa[2], fa[3]
+    with torch.no_grad():
+        z_nerf, z_rend, _ = gen.split_z(z)
+        pose_t, bl_t = gen.transform_pose(pose, bl)
+        packed = gen.pack_planes(gen.compute_tri_plane_feature(
+            z_nerf, bl_t, 0.4))
+        pose_scaled = pose_t.clone()
+        pose_scaled[:, :, :3, 3] *= gen.nerf_params.coordinate_scale
+        pts = extract.grid_points(
+            pose[0, 0, :3, 3], DEMO_VOXEL, gen.nerf_params.coordinate_scale,
+            int(1 / DEMO_VOXEL), c * chunk, min((c + 1) * chunk, D ** 3))
+
+    def density():
+        return gen.nerf_density_color(pts, pose_scaled, bl_t, packed,
+                                      z_rend, None)[0]
+
+    # kernel 1f on the chunk's own inputs (its candidates' cells, weights
+    # and bones) against its plain twin, within phase 2's bound and timed
+    calls = []
+    real_combine = unirow.unirow_combine
+
+    def recording(*a, **k):
+        calls.append((a, k))
+        return real_combine(*a, **k)
+
+    with torch.no_grad(), mock.patch.object(unirow, "unirow_combine",
+                                            recording):
+        got = density()
+    (a, k), = calls
+    n_valid = int(a[4].sum())
+    chunk_err, chunk_ms, chunk_plain_ms = _compare_and_time(
+        lambda: unirow.unirow_combine(*a, **k),
+        lambda: unirow.gather_combine_texels_plain(*a, **k),
+        f"kernel 1f, mesh grid chunk {c} ({pts.shape[-1]} points, "
+        f"{n_valid} valid candidates)")
+    # its bound, as phase 2 counts it, from this chunk's inputs
+    F_, M, n = a[5], a[3].shape[1], a[3].shape[2]
+    table_bytes, d_tex, _ = texel_table_bytes(a[0], a[1], a[3], a[4], F_)
+    chunk_bound_ms, chunk_bound_by = _bound(
+        table_bytes + sum(x.numel() * x.element_size() for x in a[1:5])
+        + (F_ + M) * n * 4,
+        n * M * 3 * (4 * F_ * 2 + 4 * 2) + n * M * F_ * 2)
+    print(f"  bound {chunk_bound_ms:.4f} ms by {chunk_bound_by} "
+          f"({d_tex} distinct feature texels)")
+    # ... and the density through the point network: within 1e-4 of its
+    # scale (the MLP and the x10 carry the combine's rounding on)
+    with torch.no_grad(), mock.patch.object(
+            unirow, "unirow_combine", unirow.gather_combine_texels_plain):
+        ref = density()
+    dens_err = float((got - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    print(f"  the chunk's density, kernel 1f vs plain combine: max|d| "
+          f"{dens_err:.3e} of a scale {scale:.4g} (bound 1e-4 of it)")
+    assert dens_err <= 1e-4 * scale, (dens_err, scale)
+    del calls, a, k, got, ref
+
+    # a demo frame against the plain combine's (the same z and draws)
+    @torch.no_grad()
+    def demo_frame(_=None, seed=7):
+        return tuple(x[0] for x in forwards[0](*fa, **{
+            **frame["kwargs"], "generator": torch.Generator(
+                device=device).manual_seed(seed)})[:2])
+
+    phase_plain_render(demo_frame, unirow, "unirow_combine",
+                       unirow.gather_combine_texels_plain, unirow.KERNEL_F32,
+                       "demo frame (image, mask)")
+
+    # where a mesh grid's time goes: a profile of its middle
+    # PROFILED_CHUNKS chunks (a whole grid's 270k launches take minutes to
+    # trace), beside their host time
+    lo = max(0, min(n_chunks - PROFILED_CHUNKS,
+                    D ** 3 // 2 // chunk - PROFILED_CHUNKS // 2))
+    hi = min(n_chunks, lo + PROFILED_CHUNKS)
+
+    @torch.no_grad()
+    def grid_slice():
+        for i in range(lo, hi):
+            density_fn(extract.grid_points(
+                pose[0, 0, :3, 3], DEMO_VOXEL,
+                gen.nerf_params.coordinate_scale, int(1 / DEMO_VOXEL),
+                i * chunk, min((i + 1) * chunk, D ** 3)))
+
+    density_fn = grids[0]["args"][0]
+    grid_slice()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    grid_slice()
+    torch.cuda.synchronize()
+    slice_ms = (time.perf_counter() - t) * 1e3
+    grid_prof = _profile(grid_slice, f"GAN demo density grid ({D}³, sample "
+                         f"0), chunks {lo} to {hi - 1}, profile", slice_ms,
+                         f"{hi - lo} chunks")
+    frame_prof = _profile(demo_frame, "GAN demo frame profile",
+                          frame["ms"], "frame")
+
+    surface = "model"
+    if any(iso["faces"] == 0 for iso in isos):
+        # the model crossed mesh_th nowhere: the same surface path on a ball
+        surface = "analytic ball"
+        cube_half = int(1 / DEMO_VOXEL)
+        ball = _sphere_volume(D, cube_half, DEMO_VOXEL, device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        verts, faces = extract.marching_tetrahedra(ball, 15.0)
+        torch.cuda.synchronize()
+        iso_s = time.perf_counter() - t
+        del ball
+        verts = (verts - cube_half) * DEMO_VOXEL + pose[0, 0, :3, 3]
+        t = time.perf_counter()
+        img = real_raster(verts, faces, np.linalg.inv(
+            fa[4][0].cpu().numpy()), img_size=size,
+            render_size=ENARF_GAN_demo.MESH_RENDER_SIZE)
+        raster_s = time.perf_counter() - t
+        assert faces.shape[0] > 0 and img.any()
+        isos.append({"s": iso_s, "verts": verts.shape[0],
+                     "faces": faces.shape[0], "active": None})
+        rasters.append({"s": raster_s, "covered": int(img.any(axis=2).sum())})
+        print(f"  analytic ball (radius 0.25, the model's volume crossed "
+              f"mesh_th nowhere): iso-surface {iso_s:.2f} s, "
+              f"{verts.shape[0]} vertices, {faces.shape[0]} faces; "
+              f"rasteriser {raster_s:.2f} s, {rasters[-1]['covered']} pixels")
+    else:
+        assert all(r["covered"] > 0 for r in rasters), rasters
+    print(f"GAN demo mesh surface: {surface}")
+    return {"frames": [{k: v for k, v in f.items()
+                        if k not in ("args", "kwargs")} for f in frames],
+            "grids": [{k: v for k, v in g.items()
+                       if k in ("s", "launches", "min", "max")}
+                      for g in grids],
+            "isos": isos, "rasters": rasters, "surface": surface,
+            "peak_gib": peak / 2**30, "demo_s": demo_s,
+            "chunk": {"max_abs_err": chunk_err, "ms": chunk_ms,
+                      "plain_ms": chunk_plain_ms, "valid": n_valid,
+                      "bound_ms": chunk_bound_ms, "bound_by": chunk_bound_by,
+                      "points": int(pts.shape[-1]),
+                      "density_max_abs_err": dens_err},
+            "slice_ms_1f": grid_prof[2].get("unirow_combine_kernel",
+                                            (0.0, 0))[0],
+            "slice_device_ms": grid_prof[0], "slice_ms": slice_ms,
+            "frame_ms_1f": frame_prof[2].get("unirow_combine_kernel",
+                                             (0.0, 0))[0],
+            "frame_device_ms": frame_prof[0]}
 
 
 def float32_study(device, root):
     """``--float32``: kernels 1f and 1bf against their plain twins (phase
-    2's shapes), then the published float32 configs through the port's CLI
-    functions and ``training.gan`` (phase 8's first half)."""
+    2's shapes), then the published float32 configs through the port's
+    CLIs: DSO training, validation and demo, GAN training and the GAN demo
+    with its meshes (phase 8)."""
     import os
     import torch
     phase_unirow_check(device, torch.float32)
@@ -2109,7 +2489,8 @@ def float32_study(device, root):
     torch.cuda.empty_cache()
     phase_dso_cli(device, os.path.join(root, "cli"))
     torch.cuda.empty_cache()
-    phase_gan_f32(device, os.path.join(root, "gan32"))
+    gan32 = phase_gan_f32(device, os.path.join(root, "gan32"))
+    phase_gan_demo(device, os.path.join(root, "gan32"), gan32["out"])
 
 
 def _learn_setup(device, root, label, tile, seed):
@@ -2449,6 +2830,9 @@ def main():
         torch.cuda.empty_cache()
         gan32 = phase_gan_f32(device, os.path.join(root, "gan32"))
         torch.cuda.empty_cache()
+        demo = phase_gan_demo(device, os.path.join(root, "gan32"),
+                              gan32["out"])
+        torch.cuda.empty_cache()
         print(f"float32 phases done at {time.perf_counter() - t_start:.1f} s")
         phase_learn(device, os.path.join(root, "learn"))
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
@@ -2539,8 +2923,10 @@ def main():
              **k3_gan}))
     # kernels 1f and 1bf: launches in the published float32 DSO config's
     # CLI training (the counts reset before it), a step's launches and
-    # device ms (its profiled step), a 512² demo frame's, and the float32
-    # GAN's G step
+    # device ms (its profiled step), a 512² demo frame's, the float32
+    # GAN's G step (through its CLI), and 1f's in the GAN demo: a 128²
+    # frame's and a 667³ mesh grid's launches and device ms (profiles), and
+    # one chunk of the mesh grid against the plain combine
     for i, (name, k) in enumerate((("unirow_combine_f32 (kernel 1f)", k1f),
                                    ("unirow_combine_bwd_f32 (kernel 1bf, "
                                     "4 images' fine pass)", k1bf))):
@@ -2553,6 +2939,21 @@ def main():
                  gan_step_ms=gan32["step_ms"][i],
                  gan_s_iter=gan32["s_iter"], gan_peak_gib=gan32["peak_gib"],
                  gan_g_step_device_ms=gan32["g_step_device_ms"])
+        if i == 0:
+            k.update(gan_demo_frame_launches=demo["frames"][0]["launches"],
+                     gan_demo_frame_ms=demo["frame_ms_1f"],
+                     gan_demo_frame_device_ms=demo["frame_device_ms"],
+                     gan_mesh_launches=demo["grids"][0]["launches"],
+                     gan_mesh_s=demo["grids"][0]["s"],
+                     gan_mesh_profiled_chunks=PROFILED_CHUNKS,
+                     gan_mesh_profiled_chunks_ms=demo["slice_ms_1f"],
+                     gan_mesh_profiled_chunks_device_ms=demo[
+                         "slice_device_ms"],
+                     gan_mesh_chunk_max_abs_err=demo["chunk"]["max_abs_err"],
+                     gan_mesh_chunk_ms=demo["chunk"]["ms"],
+                     gan_mesh_chunk_plain_ms=demo["chunk"]["plain_ms"],
+                     gan_mesh_chunk_bound_ms=demo["chunk"]["bound_ms"],
+                     gan_demo_peak_gib=demo["peak_gib"])
         entries.insert(2 + i, entry(
             name, "unirow_combine_bwd.cu" if i else "unirow_combine.cu",
             "enarf_gan_tpu/ops/unirow.py:" + ("234" if i else "115"),

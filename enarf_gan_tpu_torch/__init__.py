@@ -11,8 +11,9 @@ full-image rendering (``models.generator.make_dso_full_renderer``), each
 with the exact (unirow) sampler, on bf16 or float32 planes, and with the
 patch-tiled (tilewin) sampler on bf16 planes, and their CLIs
 (``python -m enarf_gan_tpu_torch.train_DSO``, ``... .DSO_demo``); ENARF-GAN
-training and sampling (``training.gan``); the combines' kernels have
-backward kernels. Weights load from the
+training and sampling (``training.gan``) and their CLIs (``...
+.train_ENARF_GAN``, ``... .ENARF_GAN_demo``, with the mesh export of
+``mesh/``); the combines' kernels have backward kernels. Weights load from the
 reference-named state dict that
 ``enarf_gan_tpu.training.checkpoint.export_reference_state_dict`` writes
 (``interop.load_reference_state_dict``), and the port's ``torch.save``

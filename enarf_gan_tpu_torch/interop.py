@@ -13,6 +13,8 @@ The JAX ``stats`` collection (each mapping network's ``w_avg``, the centre
 of truncation) is not in reference checkpoints; ``load_jax_stats`` carries
 it. The discriminator has no reference names in the JAX package:
 ``load_flax_discriminator`` loads its flax parameters, flattened.
+``load_flax_pretrained_background`` loads the JAX ``PretrainedStyleGAN``'s
+subtree into the port's, whose names are rosinality's.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ _STATS_NAMES = {
     "nerf/generator/mapping/w_avg": "nerf.tri_plane_gen.mapping.w_avg",
     "nerf/flow_generator/mapping/w_avg": "nerf.flow_generator.mapping.w_avg",
     "background_generator/mapping/w_avg": "background_generator.w_avg",
+    "background_generator/gen/mapping/w_avg": "background_generator.gen.w_avg",
 }
 
 
@@ -77,3 +80,65 @@ def load_flax_discriminator(dis: nn.Module,
     ways."""
     dis.load_state_dict({k.replace("/", "."): _tensor(v)
                          for k, v in _flatten(params).items()}, strict=True)
+
+
+def _ros_module(name: str) -> str:
+    """A JAX synthesis child of the rosinality generator → the port's
+    module: const, conv1, to_rgb1, conv_up{r}, conv{r}, to_rgb{r}."""
+    fixed = {"const": "input", "conv1": "conv1", "to_rgb1": "to_rgb1"}
+    if name in fixed:
+        return fixed[name]
+    for prefix, fmt in (("conv_up", "convs.{}"), ("to_rgb", "to_rgbs.{}"),
+                        ("conv", "convs.{}")):
+        if name.startswith(prefix) and name[len(prefix):].isdigit():
+            r = int(name[len(prefix):])
+            index = {"conv_up": 2 * (r - 3), "to_rgb": r - 3,
+                     "conv": 2 * (r - 3) + 1}[prefix]
+            return fmt.format(index)
+    raise KeyError(f"unknown synthesis layer {name}")
+
+
+def _ros_leaf(module: str, up: bool, leaf: str, v: np.ndarray):
+    """(port name, array in the port's orientation) of one leaf: conv
+    weights gain rosinality's leading 1 (up-convolutions flipped in both
+    spatial axes), biases become (1, C, 1, 1), noise weights (1,)."""
+    if module == "input":
+        return "input.input", v
+    if leaf == "conv/weight":
+        w = v[..., ::-1, ::-1] if up else v
+        return f"{module}.conv.weight", np.ascontiguousarray(w)[None]
+    if leaf == "bias":
+        return f"{module}.bias", v.reshape(1, -1, 1, 1)
+    if leaf == "noise_weight":
+        return f"{module}.noise.weight", v.reshape(1)
+    if leaf in ("conv/modulation/weight", "conv/modulation/bias"):
+        return f"{module}.{leaf.replace('/', '.')}", v
+    raise KeyError(f"unknown leaf {module}/{leaf}")
+
+
+def load_flax_pretrained_background(module: nn.Module, params,
+                                    stats=None) -> None:
+    """The JAX ``PretrainedStyleGAN``'s parameters (its subtree,
+    {"gen": {"mapping": ..., "synthesis": ...}}, numpy or jax arrays) and,
+    if given, its statistics ({"gen": {"mapping": {"w_avg"}}}) into the
+    port's ``PretrainedStyleGAN``; strict both ways."""
+    state = {}
+    for path, v in _flatten(params).items():
+        v = np.asarray(v, np.float32)
+        gen, part, *rest = path.split("/")
+        if gen != "gen":
+            raise KeyError(f"unknown background parameter {path}")
+        if part == "mapping":
+            layer, leaf = rest
+            state[f"style.{int(layer[2:]) + 1}.{leaf}"] = v
+            continue
+        name = _ros_module(rest[0])
+        key, arr = _ros_leaf(name, rest[0].startswith("conv_up"),
+                             "/".join(rest[1:]), v)
+        state[key] = arr
+    module.gen.load_state_dict({k: _tensor(v) for k, v in state.items()},
+                               strict=True)
+    if stats is not None:
+        with torch.no_grad():
+            module.gen.w_avg.copy_(
+                _tensor(_flatten(stats)["gen/mapping/w_avg"]))

@@ -6,7 +6,8 @@ sampled from the foreground mask, rendered differentiably.
 ``make_dso_full_renderer`` returns a function that renders one full frame
 from a pose, the camera intrinsics and a frame time.
 ``TriNARFGenerator.forward`` is the GAN's image: the whole pixel grid of a
-pose rendered from a latent z, over a StyleGAN2 background;
+pose rendered from a latent z, over a StyleGAN2 background (learned, or
+the frozen pretrained one) or a black one;
 ``make_gan_full_renderer`` returns a function that renders one full
 foreground frame from a pose and a z (sampling, with truncation). All take
 the patch-tiled path for ``tile_patch`` models and the exact one otherwise.
@@ -39,7 +40,8 @@ from enarf_gan_tpu_torch.nerf.tiled import (render_entire_img_tiled,
                                             render_rays_tiled,
                                             tile_permutation)
 from enarf_gan_tpu_torch.nn.layers import init_parameters
-from enarf_gan_tpu_torch.nn.stylegan2 import BackgroundGenerator
+from enarf_gan_tpu_torch.nn.stylegan2 import (BackgroundGenerator,
+                                              PretrainedStyleGAN)
 
 
 def _model_num_bone(num_bone: int, origin_location: str) -> int:
@@ -219,40 +221,53 @@ def _recomputed_in_backward(fn):
 class TriNARFGenerator(_TriPlaneGenerator):
     """Pose-conditioned GAN generator: a tri-plane NARF foreground whose
     planes a StyleGAN2 generates from z and the bone lengths, over a
-    StyleGAN2 background (``BackgroundGenerator``). The tri-plane NARF
-    takes 2 z_dim of z, its heads z_dim, the background z_dim. Weights are drawn from ``generator`` (seed 0 when none is
-    given) and built on ``device``: the GPU unless the caller names
-    another. ``train_ray_chunk`` is the rays of every image rendered at a
-    time in the forward. The pretrained (stylegan2-church) background is
-    ROADMAP Queue 1, item 4."""
+    background: the learned StyleGAN2 (``BackgroundGenerator``), the
+    frozen stylegan2-church one (``pretrained_background``,
+    ``PretrainedStyleGAN`` of ``pretrained_bg_size``², its weights from
+    ``training/checkpoint.py::load_pretrained_background``) or, with
+    ``black_background``, none (black, -1). The tri-plane NARF takes 2
+    z_dim of z, its heads z_dim, the learned background z_dim (the
+    pretrained one z background and z render). Weights are drawn from
+    ``generator`` (seed 0 when none is given) and built on ``device``: the
+    GPU unless the caller names another. ``train_ray_chunk`` is the rays of
+    every image rendered at a time in the forward."""
 
     def __init__(self, nerf_params: NARFParams, size: int, num_bone: int,
                  parent_id: Sequence[int], z_dim: int = 256,
                  crop_background: bool = False,
+                 black_background: bool = False,
                  pretrained_background: bool = False,
                  background_ratio: float = 0.7, channel_max: int = 512,
+                 pretrained_bg_size: int = 256,
                  train_ray_chunk: int = 4096, device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pretrained_background:
-            raise NotImplementedError(
-                "the pretrained stylegan2-church background is ROADMAP "
-                "Queue 1, item 4")
         self.nerf_params = nerf_params
         self.size, self.num_bone, self.z_dim = size, num_bone, z_dim
         self.parent_id = tuple(int(x) for x in parent_id)
+        self.black_background = black_background
         self.background_ratio = background_ratio
         self.train_ray_chunk = train_ray_chunk
         self.nerf = TriPlaneNARF(nerf_params, z_dim=z_dim * 2, z2_dim=z_dim,
                                  num_bone=self.model_num_bone, device=device)
-        self.background_generator = BackgroundGenerator(
-            size, style_dim=z_dim, n_mlp=4, out_channels=3,
-            crop_background=crop_background, channel_max=channel_max,
-            device=device)
+        if pretrained_background and not black_background:
+            self.background_generator = PretrainedStyleGAN(
+                size, gen_size=pretrained_bg_size, style_dim=z_dim * 2,
+                channel_max=channel_max, device=device)
+        elif not black_background:
+            self.background_generator = BackgroundGenerator(
+                size, style_dim=z_dim, n_mlp=4, out_channels=3,
+                crop_background=crop_background, channel_max=channel_max,
+                device=device)
         init_parameters(self, generator or torch.Generator().manual_seed(0))
 
     def split_z(self, z: torch.Tensor):
-        """z (B, 4 z_dim) → (z nerf (2 z_dim), z render, z background)."""
+        """z (B, 4 z_dim) → (z nerf (2 z_dim), z render, z background); a
+        black-background model splits z in three and has no z background
+        (None), as the JAX one."""
+        if self.black_background:
+            zd = z.shape[1] // 3
+            return z[:, :zd * 2], z[:, zd * 2:], None
         zd = z.shape[1] // 4
         return z[:, :zd * 2], z[:, zd * 2: zd * 3], z[:, zd * 3:]
 
@@ -260,7 +275,8 @@ class TriNARFGenerator(_TriPlaneGenerator):
                    train: bool = False,
                    generator: Optional[torch.Generator] = None):
         """The background image, its styles mixed at n_latent - 4
-        (``BackgroundGenerator`` for ``noise``, ``crop``, ``generator``)."""
+        (``BackgroundGenerator`` or ``PretrainedStyleGAN`` for ``noise``,
+        ``crop``, ``generator``)."""
         bg = self.background_generator
         return bg([z_bg, z_rend], inject_index=bg.n_latent - 4, noise=noise,
                   crop=crop, train=train, generator=generator)
@@ -274,7 +290,9 @@ class TriNARFGenerator(_TriPlaneGenerator):
         return B * n
 
     def forward(self, pose_to_camera, pose_to_world, bone_length, z,
-                inv_intrinsics, truncation_psi=1.0, train: bool = False,
+                inv_intrinsics, truncation_psi=1.0,
+                black_bg_if_possible: bool = False,
+                return_disparity: bool = False, train: bool = False,
                 draws: Optional[Draws] = None, noise=None, crop=None,
                 generator: Optional[torch.Generator] = None):
         """Generate images of the poses from z (the JAX ``__call__``).
@@ -287,12 +305,13 @@ class TriNARFGenerator(_TriPlaneGenerator):
         the fine sampler's ``draws`` ((u, jitter), each
         ``fine_draw_rows(B)`` x Nf, batch-major; by chunk on the tiled path
         as ``render_rays_tiled`` splits them), the background's ``noise``
-        and ``crop``, or what of them is missing from ``generator``.
+        and ``crop``, or what of them is missing from ``generator``. With
+        ``black_bg_if_possible`` (or a ``black_background`` model) the
+        background is black, -1, and draws nothing.
         Returns (image (B,3,H,W), fg_mask (B,H,W), aux) with aux holding
         fine_weights / fine_depth (raster ray order), tri_plane_feature,
-        fg_color, bg_color. (The JAX forward's black background and
-        disparity output serve the evaluation scripts, ROADMAP Queue 1,
-        item 5.)
+        fg_color, bg_color, and with ``return_disparity`` disparity
+        (B,H,W), the renderer's times ``coordinate_scale``.
         """
         B = pose_to_camera.shape[0]
         device = pose_to_camera.device
@@ -321,11 +340,12 @@ class TriNARFGenerator(_TriPlaneGenerator):
 
             if train:
                 fn_t = _recomputed_in_backward(fn_t)
-            fg_color, fg_mask, _, raux = render_rays_tiled(
+            fg_color, fg_mask, disparity, raux = render_rays_tiled(
                 fn_t, img_coord[..., perm], pose_t, inv_intrinsics, cfg, P,
                 draws, ray_chunk=chunk)
             inv = torch.argsort(perm)
             fg_color, fg_mask = fg_color[:, :, inv], fg_mask[:, inv]
+            disparity = disparity[:, inv]
             raux = {k: v[:, :, inv] for k, v in raux.items()}
         else:
             packed = self.pack_planes(planes)
@@ -336,20 +356,27 @@ class TriNARFGenerator(_TriPlaneGenerator):
 
             if train:
                 fn = _recomputed_in_backward(fn)
-            fg_color, fg_mask, _, raux = render_rays(
+            fg_color, fg_mask, disparity, raux = render_rays(
                 fn, img_coord, pose_t, inv_intrinsics, cfg, draws,
                 ray_chunk=chunk)
         fg_color = fg_color.reshape(B, 3, self.size, self.size)
         fg_mask = fg_mask.reshape(B, self.size, self.size)
-        if noise is None and generator is None:
-            raise ValueError("the background needs noise or a generator")
-        bg_color = self.background(z_bg, z_rend, noise=noise, crop=crop,
-                                   train=train, generator=generator)
+        if self.black_background or black_bg_if_possible:
+            bg_color = fg_color.new_tensor(-1.0)
+        else:
+            if noise is None and generator is None:
+                raise ValueError("the background needs noise or a generator")
+            bg_color = self.background(z_bg, z_rend, noise=noise, crop=crop,
+                                       train=train, generator=generator)
         rendered = fg_color + (1 - fg_mask[:, None]) * bg_color
-        return rendered, fg_mask, {"fine_weights": raux["fine_weights"],
-                                   "fine_depth": raux["fine_depth"],
-                                   "tri_plane_feature": planes,
-                                   "fg_color": fg_color, "bg_color": bg_color}
+        aux = {"fine_weights": raux["fine_weights"],
+               "fine_depth": raux["fine_depth"],
+               "tri_plane_feature": planes,
+               "fg_color": fg_color, "bg_color": bg_color}
+        if return_disparity:
+            aux["disparity"] = (disparity.reshape(B, self.size, self.size)
+                                * self.nerf_params.coordinate_scale)
+        return rendered, fg_mask, aux
 
 
 def register_canonical_pose(gen: _TriPlaneGenerator, canonical_pose: np.ndarray,

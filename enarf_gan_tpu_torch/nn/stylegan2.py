@@ -30,8 +30,10 @@ Random draws are arguments: the background's noise (one (B, 1, H, W) tensor
 a styled conv, in the JAX package's order) and its crop offsets, or a
 ``torch.Generator`` that draws them.
 
-Not ported yet (ROADMAP Queue 1, item 4): ``PretrainedStyleGAN``, the frozen
-stylegan2-church background, which waits for its weights.
+``PretrainedStyleGAN`` is the frozen stylegan2-church background: a
+``BackgroundGenerator`` under ``gen`` (rosinality's names, so a converted
+``g_ema`` loads by name, ``training/checkpoint.py::
+load_pretrained_background``), cropped to the image.
 """
 from __future__ import annotations
 
@@ -483,6 +485,47 @@ class BackgroundGenerator(nn.Module):
             y0, x0 = crop
             return skip[:, :, y0:y0 + size, x0:x0 + size]
         return skip[:, :, :, size // 2: size * 3 // 2]
+
+
+class PretrainedStyleGAN(nn.Module):
+    """The frozen stylegan2-church background (the JAX
+    ``PretrainedStyleGAN``): a rosinality generator ``gen`` of
+    ``gen_size``² (``n_mlp`` 8, noise inputs) whose one style is the
+    concatenation of the styles it is given. Its full canvas is cropped to
+    ``size``²: at random in training (``crop`` = (y0, x0), or drawn from
+    ``generator``), else the top ``size`` rows and the centre ``size``
+    columns. Its parameters take no gradient."""
+
+    def __init__(self, size: int, gen_size: int = 256, style_dim: int = 512,
+                 n_mlp: int = 8, channel_max: int = 512,
+                 device=DEFAULT_DEVICE):
+        super().__init__()
+        self.size = size
+        self.gen = BackgroundGenerator(gen_size, style_dim, n_mlp, 3,
+                                       channel_max=channel_max, device=device)
+        self.requires_grad_(False)
+
+    @property
+    def n_latent(self) -> int:
+        return self.gen.n_latent
+
+    def forward(self, styles: Sequence[torch.Tensor], inject_index: int,
+                noise: Optional[Sequence[torch.Tensor]] = None,
+                crop: Optional[Tuple[int, int]] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        img = self.gen([torch.cat(list(styles), dim=1)],
+                       inject_index=inject_index, noise=noise,
+                       generator=generator)
+        size = self.size
+        if crop is None and train and generator is not None:
+            crop = tuple(int(torch.randint(0, m + 1, (), generator=generator,
+                                           device=generator.device))
+                         for m in (img.shape[2] - size, img.shape[3] - size))
+        if train and crop is not None:
+            y0, x0 = crop
+            return img[:, :, y0:y0 + size, x0:x0 + size]
+        c = img.shape[3] // 2
+        return img[:, :, :size, c - size // 2: c + size // 2]
 
 
 # --------------------------------------------------------------------- #

@@ -9,12 +9,16 @@ beside the parameters (``gen_state_dict``). Both are written as
 ``snapshot_{(iteration // 50000 + 1) * 50000}.pth``, the JAX package's
 cadence. The port's parameter names are the reference's, so the JAX
 package's ``convert_torch_snapshot`` reads these files.
+
+``load_pretrained_background`` loads converted stylegan2-church weights
+into a GAN generator's ``PretrainedStyleGAN``.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -68,3 +72,43 @@ def load_gen_state_dict(gen: nn.Module, state: Dict[str, torch.Tensor]) -> None:
     with torch.no_grad():
         for n, b in stats.items():
             b.copy_(state[n])
+
+
+def load_pretrained_background(gen: nn.Module,
+                               arrays: Mapping[str, np.ndarray]
+                               ) -> Dict[str, List[str]]:
+    """Converted stylegan2-church weights into ``gen.background_generator``
+    (a ``PretrainedStyleGAN``), as the JAX function of this name.
+
+    ``arrays`` maps raw rosinality ``g_ema`` names to numpy arrays (the npz
+    that ``data_preprocess/convert_stylegan2_church.py`` writes; an
+    ``np.load`` result works). The port's background carries rosinality's
+    names and orientations, so each parameter loads by name; a styled
+    conv's bias also loads from the legacy flat ``.activate.bias``. Every
+    parameter of the background must be given and of its shape, or this
+    raises before anything is loaded; names the background does not take
+    (rosinality's noise buffers) are reported. The background stays frozen.
+    Returns {"mapped": [...], "missing": [], "unused": [...]}."""
+    params = dict(gen.background_generator.gen.named_parameters())
+    legacy = {k.replace(".activate.bias", ".bias"): k
+              for k in arrays if k.endswith(".activate.bias")}
+    source = {name: name if name in arrays else legacy.get(name)
+              for name in params}
+    missing = [name for name, src in source.items() if src is None]
+    if missing:
+        raise ValueError(f"unmapped background parameters: {missing[:10]}")
+    loaded = {}
+    for name, src in source.items():
+        arr = np.asarray(arrays[src], np.float32)
+        want = tuple(params[name].shape)
+        if src != name and arr.size == params[name].numel():
+            arr = arr.reshape(want)
+        if arr.shape != want:
+            raise ValueError(f"shape mismatch loading {src} -> {name}: "
+                             f"{arr.shape} vs {want}")
+        loaded[name] = torch.from_numpy(arr)
+    with torch.no_grad():
+        for name, value in loaded.items():
+            params[name].copy_(value)
+    return {"mapped": sorted(params), "missing": [],
+            "unused": sorted(set(arrays) - set(source.values()))}

@@ -14,10 +14,12 @@
 
 Adam (b1 0, b2 0.99, eps 1e-8) at lr 1e-3 * bs / 32 for G and
 2e-3 * bs / 32 for D, with the JAX package's skip of a non-finite step
-(``dso.Optimizer``). Metrics stay on the device and are fetched every 10
-iterations. Snapshots hold {iteration, gen, dis, gen_opt, dis_opt}. The
-real, fake and bone-mask image grids come with the GAN CLIs (ROADMAP Queue
-1, item 4; the PNG writer is ``utils/logging.py::save_img_grid``). On the
+(``dso.Optimizer``; a frozen pretrained background takes no step).
+Metrics stay on the device and are fetched every 10 iterations. Snapshots
+hold {iteration, gen, dis, gen_opt, dis_opt}. At iteration 1 and every
+50th after it ``train_loop`` writes the fake, real and bone-mask image
+grids (``utils/logging.py::save_img_grid``) beside the snapshots, and it
+appends the command line to ``command.txt`` there. On the
 card the renders run the hand-written
 kernels forward and backward (tilewin 2 and 2b on the tiled path, unirow 1
 and 1b on the exact one).
@@ -41,29 +43,39 @@ from enarf_gan_tpu_torch.training.dso import Optimizer
 from enarf_gan_tpu_torch.training.losses import (adv_loss_dis, adv_loss_gen,
                                                  nerf_patch_loss, r1_penalty,
                                                  triplane_l2_reg)
-from enarf_gan_tpu_torch.utils.logging import MetricsWriter
+from enarf_gan_tpu_torch.utils.logging import (MetricsWriter, record_command,
+                                               save_img_grid)
 
 R1_INTERVAL = 16
 ADAM_BETAS = (0.0, 0.99)
 POSE_KEYS = ("bone_mask", "pose_to_camera", "bone_length", "pose_to_world")
 
 
-def build_models(config, num_bone: int, parent_id, device=DEFAULT_DEVICE,
-                 generator: Optional[torch.Generator] = None
-                 ) -> Tuple[TriNARFGenerator, Discriminator]:
-    """The config's generator and discriminator, on ``device``. The GAN's
-    tri-plane NARF is view-independent, as the reference's."""
+def build_generator(config, num_bone: int, parent_id, device=DEFAULT_DEVICE,
+                    generator: Optional[torch.Generator] = None
+                    ) -> TriNARFGenerator:
+    """The config's generator, on ``device``. The GAN's tri-plane NARF is
+    view-independent, as the reference's."""
     gp = config.generator_params
     params = NARFParams.from_config(gp.nerf_params, view_dependent=False)
-    gen = TriNARFGenerator(
+    return TriNARFGenerator(
         params, size=config.dataset.image_size, num_bone=num_bone,
         parent_id=tuple(int(x) for x in parent_id), z_dim=int(gp.z_dim),
         crop_background=bool(gp.crop_background),
         pretrained_background=bool(gp.get("pretrained_background", False)),
+        pretrained_bg_size=int(gp.get("pretrained_bg_size", 256)),
         background_ratio=float(gp.background_ratio),
         channel_max=int(gp.get("channel_max", 512)),
         train_ray_chunk=int(gp.get("train_ray_chunk", 4096)),
         device=device, generator=generator)
+
+
+def build_models(config, num_bone: int, parent_id, device=DEFAULT_DEVICE,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[TriNARFGenerator, Discriminator]:
+    """The config's generator (``build_generator``) and discriminator, on
+    ``device``, drawn from ``generator`` in that order."""
+    gen = build_generator(config, num_bone, parent_id, device, generator)
     dp = config.discriminator_params
     dis = Discriminator(size=config.dataset.image_size,
                         minibatch_std=bool(dp.minibatch_std),
@@ -196,11 +208,15 @@ def train_loop(config, gen: TriNARFGenerator, dis: Discriminator, datasets,
     directory's latest snapshot: iteration, both models and both
     optimisers, as the JAX package. Random numbers come from ``generator``
     (default: seeded with ``config.seed``, or 0, on the model's device).
+    Writes ``rgb_<k>.png`` (the fakes; k the iteration rounded down to
+    5,000), ``real.png`` and ``bone_<k>.png`` (the bone masks) at iteration
+    1 and every 50th after it.
     Returns (gen_opt, dis_opt, history: one dict of floats an iteration).
     """
     device = next(gen.parameters()).device
     out_dir = os.path.join(config.out_root, "result", config.out)
     os.makedirs(out_dir, exist_ok=True)
+    record_command(out_dir)
     writer = MetricsWriter(os.path.join(config.out_root, "runs", config.out))
     loader_img, loader_pose = loaders
     if generator is None:
@@ -254,6 +270,14 @@ def train_loop(config, gen: TriNARFGenerator, dis: Discriminator, datasets,
         if iteration == 10:
             with open(os.path.join(out_dir, "iter_10_succeeded.txt"), "w") as f:
                 f.write("ok")
+        if (iteration - 1) % 50 == 0:
+            k = iteration // 5000 * 5000
+            save_img_grid(fake_img.cpu().numpy(),
+                          os.path.join(out_dir, f"rgb_{k}.png"))
+            save_img_grid(real_img.cpu().numpy(),
+                          os.path.join(out_dir, "real.png"))
+            save_img_grid(batch["bone_mask"].cpu().numpy() * 2 - 1,
+                          os.path.join(out_dir, f"bone_{k}.png"))
         if (iteration % config.get("save_interval", 200) == 0
                 or iteration >= num_iter):
             ckpt.save_checkpoint(out_dir, {

@@ -285,3 +285,49 @@ def jax_gan_randoms(rng, port, B):
     return {"draws": jax_render_draws(rng_fine, port, B,
                                       port.train_ray_chunk),
             **jax_background_randoms(rng_bg, port, B)}
+
+
+def gan_pair_from_port(size=16, B=1, seed=7, **overrides):
+    """(jax gen, jax variables, port gen, scene, z) for one GAN generator,
+    the other way round from ``build_gan_pair``: the port's seeded weights
+    perturbed by 0.3 and its w_avg statistics random, carried into JAX
+    variables shaped by ``jax.eval_shape`` of the init (seconds, where
+    JAX's jitted init takes about 20)."""
+    from enarf_gan_tpu.training.checkpoint import (import_reference_state_dict,
+                                                   jax_tree_to_dict)
+    kw = {**GAN_SMALL, "render_bs": 128, **overrides}
+    gen = TriNARFGenerator(nerf_params=NARFParams(**kw), size=size,
+                           num_bone=24, parent_id=PARENTS,
+                           train_ray_chunk=128, **GAN_KW)
+    scene = tiny_scene(B, size)
+    pose_cam, world, bl, inv_K, canonical, _ = scene
+    z = np.random.RandomState(seed).randn(
+        B, GAN_KW["z_dim"] * 4).astype(np.float32)
+    port = tgen.TriNARFGenerator(
+        TNARFParams(**kw), size=size, num_bone=24, parent_id=PARENTS,
+        train_ray_chunk=128, device="cpu",
+        generator=torch.Generator().manual_seed(seed), **GAN_KW)
+    tgen.register_canonical_pose(port, canonical, "center_fixed", PARENTS)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in port.parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=g))
+        for name, b in port.named_buffers():
+            if name.endswith("w_avg"):
+                b.copy_(0.5 * torch.randn(b.shape, generator=g))
+    rng = jax.random.PRNGKey(0)
+    template = jax.eval_shape(gen.init, rng, rng, *map(
+        jnp.asarray, (pose_cam, world, bl, z, inv_K)))
+    zeros = jax.tree_util.tree_map(lambda x: np.zeros(x.shape, x.dtype),
+                                   jax_tree_to_dict(template))
+    variables, _ = import_reference_state_dict(
+        {k: v.numpy() for k, v in port.state_dict().items()}, zeros,
+        strict=True)
+    w_avg = {n: b.numpy() for n, b in port.named_buffers()
+             if n.endswith("w_avg")}
+    variables["stats"] = {
+        "nerf": {"generator": {"mapping": {
+            "w_avg": w_avg["nerf.tri_plane_gen.mapping.w_avg"]}}},
+        "background_generator": {"mapping": {
+            "w_avg": w_avg["background_generator.w_avg"]}}}
+    return gen, variables, port, scene, z

@@ -299,9 +299,15 @@ def test_chunked_forward_equals_one_pass():
 
 def test_unported_variants_raise():
     from _torch_parity import GAN_SMALL, PARENTS
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        tgen.TriNARFGenerator(NARFParams(**GAN_SMALL), SIZE, 24, PARENTS,
-                              pretrained_background=True, device="cpu")
+    from enarf_gan_tpu_torch.nn.stylegan2 import PretrainedStyleGAN
+    # the pretrained background is ported: a frozen PretrainedStyleGAN
+    gen = tgen.TriNARFGenerator(NARFParams(**GAN_SMALL), SIZE, 24, PARENTS,
+                                z_dim=8, pretrained_background=True,
+                                pretrained_bg_size=32, channel_max=16,
+                                device="cpu")
+    assert isinstance(gen.background_generator, PretrainedStyleGAN)
+    assert not any(p.requires_grad
+                   for p in gen.background_generator.parameters())
     for variant in ("constant_trimask", "selector_mlp"):
         with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
             TriPlaneNARF(NARFParams(**{**GAN_SMALL, variant: True}), 16, 8,

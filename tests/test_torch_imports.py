@@ -55,5 +55,6 @@ def test_port_imports_without_jax_flax_yaml_pil():
                    "data.datasets", "data.loader", "data.fixtures",
                    "tools", "tools.timing", "tools.gather", "tools.mma",
                    "tools.ablate", "tools.constructs", "ops.quadtable",
-                   "train_DSO", "DSO_demo"):
+                   "train_DSO", "DSO_demo", "train_ENARF_GAN",
+                   "ENARF_GAN_demo", "mesh.extract", "mesh.raster"):
         assert f"enarf_gan_tpu_torch.{module}" in names, module
