@@ -113,7 +113,18 @@ NVIDIA GPU.
    and one demo frame against the plain combine; profiles of a grid and a
    frame; and, where the model's volume crosses mesh_th nowhere, the
    iso-surface and rasteriser on an analytic ball on the same grid.
-9. Overfits one 64² frame for 200 iterations on both paths at full width:
+9. The evaluation CLIs of ``enarf_gan_tpu_torch.evaluation`` score that
+   float32 GAN snapshot at full width (kernel 1f on every generated
+   batch): ``compute_fid`` on ``config.yml`` (INCEPTION_WEIGHTS_NPZ=
+   random:0, a synthetic AIST-layout cache of 64 frames at 128², 256
+   samples in batches of 16, ``--black_bg``), ``compute_PCK`` with the
+   ``projected`` and ``stub`` estimators (64 samples), and
+   ``compute_depth`` on ``configs/enarfgan_train/SURREAL/config.yml`` (the
+   same generator) over a synthetic depth cache of 16 items; each CLI's
+   seconds, images a second, 1f launches, peak and metric; Inception's ms
+   a batch of 16, a profile of an FID batch, and one evaluation frame
+   through 1f against the plain combine (phase 4's bounds).
+10. Overfits one 64² frame for 200 iterations on both paths at full width:
    the PSNR must beat the blank frame's by more than 2 dB.
 
 The second-to-last line is a JSON record of the kernels, the last line
@@ -122,7 +133,7 @@ exits non-zero without that line; so does a machine without a CUDA device.
 
     python3 chip_smoke.py --learn-spread | --learn-collapse | --learn-gradcheck
 
-run only phase 1 and one study of phase 8's spread from run to run (3-8
+run only phase 1 and one study of phase 10's spread from run to run (3-8
 minutes each on an H100): each path learning twice from each of three seeds
 (PSNR through its own and the exact renderer, the loss trajectories'
 divergence); repeated runs from one seed with the kernels and with the plain
@@ -137,7 +148,8 @@ runs only phase 1 and phase 7 (about a minute on an H100).
 
 runs phase 1, kernels 1f and 1bf's checks (phase 2) and the float32
 configs' runs through the port's CLIs (phase 8: DSO training, validation
-and demo; GAN training and the GAN demo with its meshes).
+and demo; GAN training and the GAN demo with its meshes; phase 9: the
+evaluation CLIs on that GAN).
 
     python3 chip_smoke.py --modes
 
@@ -254,6 +266,16 @@ GAN_DEMO_CONFIG = ("configs/enarfgan_demo/AIST/enarfgan.yml",
 DEMO_SAMPLES = 2
 DEMO_VOXEL = 0.003        # the demo's default --mesh_voxel_size: a 667³ grid
 PROFILED_CHUNKS = 64      # chunks of a mesh grid in its profile
+# phase 9: the evaluation CLIs on phase 8's float32 GAN snapshot; the
+# SURREAL config's generator is AIST config.yml's (the files differ only in
+# out and data_root)
+SURREAL_F32_CONFIG = ("configs/enarfgan_train/SURREAL/config.yml",
+                      "configs/enarfgan_train/default.yml")
+EVAL_FRAMES, EVAL_CAMERAS = 16, 4   # the synthetic AIST-layout cache: 64
+FID_SAMPLES, FID_BATCH = 256, 16
+PCK_SAMPLES = 64
+DEPTH_ITEMS = 16                    # the synthetic SURREAL depth cache
+INCEPTION_WEIGHTS = "random:0"      # no Inception weights in the repository
 GAN_POSES = 4             # full-image GAN frames a path
 GAN_GRAD_REL_L2 = 1e-2    # G-step gradients, kernels vs plain combine: the
                           # atomics' order, and near-ties (bone slots, fine
@@ -2477,6 +2499,198 @@ def phase_gan_demo(device, root, out):
             "frame_device_ms": frame_prof[0]}
 
 
+def phase_eval(device, root, out):
+    """The evaluation CLIs of the port on phase 8's float32 GAN snapshot
+    (``root``/result/``out``), each through its ``main(argv)``, the
+    published configs read by the port's YAML reader with only the data
+    roots, ``out_root`` and ``out`` replaced: ``compute_fid`` on
+    ``configs/enarfgan_train/AIST/config.yml`` with
+    INCEPTION_WEIGHTS_NPZ=random:0 (the repository holds no Inception
+    weights) over a synthetic AIST-layout cache of 64 frames at 128²,
+    ``--num_sample 256 --batch_size 16 --black_bg``; ``compute_PCK``
+    (``--estimator projected`` and ``stub``, ``--num_sample 64``) on the
+    same; ``compute_depth`` on ``configs/enarfgan_train/SURREAL/config.yml``
+    over a synthetic depth cache of 16 items at 128², ``--num_sample 16``.
+    For each: wall seconds, generated images a second (of the CLI and of
+    its renders alone), kernel 1f's launches (> 0, and no other kernel's),
+    the peak and the metric (finite). Then Inception's ms a batch of 16 on
+    the card, a profile of one FID batch (render, resize, Inception), and
+    one evaluation frame (image, mask, disparity) through 1f against the
+    plain combine, with phase 4's bounds."""
+    import os
+    import torch
+    from enarf_gan_tpu_torch.data.fixtures import (make_synthetic_depth_cache,
+                                                   make_synthetic_human_cache)
+    from enarf_gan_tpu_torch.eval_lib import fid as fid_lib
+    from enarf_gan_tpu_torch.evaluation import (compute_depth, compute_fid,
+                                                compute_PCK)
+    from enarf_gan_tpu_torch.ops import unirow
+    data = os.path.join(root, "eval_aist")
+    surreal = os.path.join(root, "eval_surreal")
+    t0 = time.perf_counter()
+    make_synthetic_human_cache(data, size=RENDER_SIZE, n_frames=EVAL_FRAMES,
+                               n_camera=EVAL_CAMERAS)
+    make_synthetic_depth_cache(os.path.join(surreal, "NARF_GAN_depth_cache"),
+                               size=RENDER_SIZE, n_items=DEPTH_ITEMS)
+    print(f"evaluation caches: {EVAL_FRAMES * EVAL_CAMERAS} AIST-layout "
+          f"frames and {DEPTH_ITEMS} depth items at {RENDER_SIZE}² in "
+          f"{time.perf_counter() - t0:.1f} s")
+    aist = _read_config(GAN_F32_CONFIG, {
+        "out_root": root, "out": out, "dataset.train.data_root": data})
+    surreal_config = _read_config(SURREAL_F32_CONFIG, {
+        "out_root": root, "out": out})
+    assert aist.generator_params == surreal_config.generator_params
+    renders, frechet = [], []
+    real_render = compute_fid.render_batch
+    real_frechet = compute_fid.frechet_distance
+
+    def timed_render(gen, batch, rng, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = real_render(gen, batch, rng, *a, **k)
+        torch.cuda.synchronize()
+        renders.append({"s": time.perf_counter() - t,
+                        "images": len(batch["bone_length"]), "gen": gen,
+                        "batch": batch, "args": a, "kwargs": k})
+        return r
+
+    def timed_frechet(*a):
+        t = time.perf_counter()
+        r = real_frechet(*a)
+        frechet.append(time.perf_counter() - t)
+        return r
+
+    def run(name, module, config, argv, images):
+        renders.clear()
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with mock.patch.object(module, "yaml_config",
+                               lambda *a, **k: config), \
+                mock.patch.object(module, "render_batch", timed_render), \
+                mock.patch.object(compute_fid, "frechet_distance",
+                                  timed_frechet), \
+                mock.patch.dict(os.environ, {"INCEPTION_WEIGHTS_NPZ":
+                                             INCEPTION_WEIGHTS}):
+            metric = module.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {k.name: k.launches for k in _all_kernels()}
+        generated = sum(r["images"] for r in renders)
+        render_s = sum(r["s"] for r in renders)
+        assert np.isfinite(metric), (name, metric)
+        assert launches["unirow_combine_f32"] > 0 and all(
+            v == 0 for k, v in launches.items() if k != "unirow_combine_f32"), \
+            (name, launches)
+        assert generated >= images, (name, generated)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{name}: {metric!r} in {wall:.2f} s; {generated} images "
+              f"generated ({generated / wall:.2f} a second of the CLI, "
+              f"{generated / render_s:.2f} of its {len(renders)} renders, "
+              f"{render_s:.2f} s); kernel 1f launches "
+              f"{launches['unirow_combine_f32']}, no other kernel's; peak "
+              f"{peak:.2f} GiB allocated")
+        first = {k: renders[0][k] for k in ("gen", "batch", "args", "kwargs")}
+        renders.clear()
+        return {"metric": metric, "s": wall, "images": generated,
+                "render_s": render_s, "peak_gib": peak,
+                "launches": launches["unirow_combine_f32"], "first": first}
+
+    aist_argv = ["--config", _repo_path(GAN_F32_CONFIG[0]),
+                 "--default_config", _repo_path(GAN_F32_CONFIG[1])]
+    results = {}
+    results["fid"] = run(
+        "compute_fid (FID, random:0 Inception)", compute_fid, aist,
+        aist_argv + ["--num_sample", str(FID_SAMPLES), "--batch_size",
+                     str(FID_BATCH), "--black_bg"], FID_SAMPLES)
+    size = aist.dataset.image_size
+    cache = os.path.join(data, f"fid_stats_{size}_{INCEPTION_WEIGHTS}.npz")
+    assert os.path.exists(cache), cache
+    print(f"  FID's real statistics cached at {os.path.basename(cache)}; "
+          f"the Fréchet distance (scipy sqrtm of 2048²) took "
+          f"{frechet[0]:.2f} s on the host")
+    results["fid"]["frechet_s"] = frechet[0]
+    for est in ("projected", "stub"):
+        results[f"pck_{est}"] = run(
+            f"compute_PCK ({est})", compute_PCK, aist,
+            aist_argv + ["--num_sample", str(PCK_SAMPLES), "--estimator",
+                         est], PCK_SAMPLES)
+    results["depth"] = run(
+        "compute_depth (disparity MSE)", compute_depth, surreal_config,
+        ["--config", _repo_path(SURREAL_F32_CONFIG[0]), "--default_config",
+         _repo_path(SURREAL_F32_CONFIG[1]), "--surreal_path", surreal,
+         "--num_sample", str(DEPTH_ITEMS)], DEPTH_ITEMS)
+    for key, name in (("fid", "fid.txt"), ("pck_projected",
+                                           "pck_projected.txt"),
+                      ("pck_stub", "pck_stub.txt"),
+                      ("depth", "disparity_mse.txt")):
+        with open(os.path.join(root, "result", out, name)) as f:
+            assert float(f.read()) == results[key]["metric"], key
+
+    # Inception on the card: ms a batch of 16 (resize 128² → 299², then
+    # the features), CUDA events
+    extractor = fid_lib.make_inception_extractor(
+        INCEPTION_WEIGHTS, batch_size=FID_BATCH, device=device)
+    x = torch.rand((FID_BATCH, 3, size, size), device=device,
+                   generator=torch.Generator(device=device).manual_seed(3))
+    x = x * 255
+    resize_ms = _cuda_time_ms(lambda: fid_lib.resize_bilinear_299(x), 20)
+    big = fid_lib.resize_bilinear_299(x)
+    inception_ms = _cuda_time_ms(lambda: extractor(big), 10)
+    print(f"Inception (random:0) on the card: {inception_ms:.3f} ms a batch "
+          f"of {FID_BATCH} at 299² (features to the host included), the "
+          f"resize {resize_ms:.4f} ms")
+    results["inception_ms"], results["resize_ms"] = inception_ms, resize_ms
+
+    # where an FID batch's time goes: render, resize, Inception
+    first = results["fid"]["first"]
+    gen = first["gen"]
+
+    def fid_batch():
+        rng = torch.Generator(device=device).manual_seed(5)
+        img, _, _ = real_render(gen, first["batch"], rng, *first["args"],
+                                **first["kwargs"])
+        extractor(fid_lib.resize_bilinear_299(img.clamp(-1, 1) * 127.5
+                                              + 127.5))
+
+    fid_batch()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fid_batch()
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t) * 1e3
+    prof = _profile(fid_batch, f"FID batch of {FID_BATCH} (render, resize, "
+                    "Inception) profile", batch_ms, "batch")
+    results["fid_batch"] = {"ms": batch_ms, "device_ms": prof[0],
+                            "launches": prof[1],
+                            "ms_1f": prof[2].get("unirow_combine_kernel",
+                                                 (0.0, 0))[0]}
+
+    # one evaluation frame through kernel 1f against the plain combine:
+    # the depth CLI's first batch, image, mask and disparity of its first
+    # pose
+    first = results["depth"]["first"]
+
+    @torch.no_grad()
+    def eval_frame(_=None, seed=7):
+        img, mask, aux = real_render(
+            first["gen"], first["batch"],
+            torch.Generator(device=device).manual_seed(seed), *first["args"],
+            **first["kwargs"])
+        return img[0], mask[0], aux["disparity"][0]
+
+    phase_plain_render(eval_frame, unirow, "unirow_combine",
+                       unirow.gather_combine_texels_plain, unirow.KERNEL_F32,
+                       "evaluation frame (image, mask, disparity)")
+    for r in results.values():
+        if isinstance(r, dict):
+            r.pop("first", None)
+    del gen, first, extractor
+    torch.cuda.empty_cache()
+    return results
+
+
 def float32_study(device, root):
     """``--float32``: kernels 1f and 1bf against their plain twins (phase
     2's shapes), then the published float32 configs through the port's
@@ -2491,6 +2705,7 @@ def float32_study(device, root):
     torch.cuda.empty_cache()
     gan32 = phase_gan_f32(device, os.path.join(root, "gan32"))
     phase_gan_demo(device, os.path.join(root, "gan32"), gan32["out"])
+    phase_eval(device, os.path.join(root, "gan32"), gan32["out"])
 
 
 def _learn_setup(device, root, label, tile, seed):
@@ -2833,6 +3048,8 @@ def main():
         demo = phase_gan_demo(device, os.path.join(root, "gan32"),
                               gan32["out"])
         torch.cuda.empty_cache()
+        evals = phase_eval(device, os.path.join(root, "gan32"), gan32["out"])
+        torch.cuda.empty_cache()
         print(f"float32 phases done at {time.perf_counter() - t_start:.1f} s")
         phase_learn(device, os.path.join(root, "learn"))
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
@@ -2953,7 +3170,15 @@ def main():
                      gan_mesh_chunk_ms=demo["chunk"]["ms"],
                      gan_mesh_chunk_plain_ms=demo["chunk"]["plain_ms"],
                      gan_mesh_chunk_bound_ms=demo["chunk"]["bound_ms"],
-                     gan_demo_peak_gib=demo["peak_gib"])
+                     gan_demo_peak_gib=demo["peak_gib"],
+                     eval_fid_launches=evals["fid"]["launches"],
+                     eval_pck_projected_launches=evals["pck_projected"][
+                         "launches"],
+                     eval_pck_stub_launches=evals["pck_stub"]["launches"],
+                     eval_depth_launches=evals["depth"]["launches"],
+                     eval_fid_batch_ms_1f=evals["fid_batch"]["ms_1f"],
+                     eval_fid_batch_device_ms=evals["fid_batch"][
+                         "device_ms"])
         entries.insert(2 + i, entry(
             name, "unirow_combine_bwd.cu" if i else "unirow_combine.cu",
             "enarf_gan_tpu/ops/unirow.py:" + ("234" if i else "115"),

@@ -13,7 +13,9 @@ patch-tiled (tilewin) sampler on bf16 planes, and their CLIs
 (``python -m enarf_gan_tpu_torch.train_DSO``, ``... .DSO_demo``); ENARF-GAN
 training and sampling (``training.gan``) and their CLIs (``...
 .train_ENARF_GAN``, ``... .ENARF_GAN_demo``, with the mesh export of
-``mesh/``); the combines' kernels have backward kernels. Weights load from the
+``mesh/``); the GAN's evaluation scripts (``... .evaluation.compute_fid``,
+``compute_PCK``, ``compute_depth``, over ``eval_lib/``'s Inception, FID
+and LPIPS); the combines' kernels have backward kernels. Weights load from the
 reference-named state dict that
 ``enarf_gan_tpu.training.checkpoint.export_reference_state_dict`` writes
 (``interop.load_reference_state_dict``), and the port's ``torch.save``

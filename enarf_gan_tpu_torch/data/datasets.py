@@ -6,8 +6,8 @@ pose_to_camera = extrinsic @ pose_to_world, bone lengths from the parent
 joints, the mask from the alpha channel (or the not-white pixels), virtual
 epochs of ``num_repeat_in_epoch`` passes. Images without bone parameters
 (the GAN's real images) are flipped left-right at random; the pose-prior
-dataset rasterises each pose's bone mask for the GAN's bone-guided loss.
-The depth dataset of evaluation is ROADMAP Queue 1, item 5.
+dataset rasterises each pose's bone mask for the GAN's bone-guided loss;
+the depth dataset gives the disparity evaluation its ground truth.
 """
 from __future__ import annotations
 
@@ -223,3 +223,31 @@ class HumanPoseDataset:
             "intrinsics": intrinsics.astype("float32"),
             "pose_2d": jpi[0].transpose()[:, :2].astype("float32"),
         }
+
+
+class SurrealPoseDepthDataset(HumanDataset):
+    """The disparity evaluation's data (the NARF_GAN_depth_cache of
+    SURREAL): ``img`` is the ground-truth disparity map, float32 and not
+    normalised; the poses are in the camera frame, so pose_to_camera is
+    pose_to_world; the canonical pose is read from the cache's
+    canonical.npy where there is one."""
+
+    def __init__(self, config, size=128, return_bone_params=True,
+                 num_repeat_in_epoch=1, **kwargs):
+        super().__init__(config, size, return_bone_params,
+                         num_repeat_in_epoch, True, False)
+
+    def load_cache_data(self):
+        data = load_cache(self.data_root)
+        self.imgs = data["disparity"]
+        if self.return_bone_params:
+            self.intrinsics = data["camera_intrinsic"]
+            self.inv_intrinsics = np.linalg.inv(self.intrinsics)
+            self.pose_to_world = data["smpl_pose"]
+            self.pose_to_camera = self.pose_to_world
+            canon = os.path.join(self.data_root, "canonical.npy")
+            if os.path.exists(canon):
+                self.canonical_pose = np.load(canon)
+
+    def preprocess_img(self, img):
+        return img.astype("float32")

@@ -3,7 +3,8 @@
 
 A deterministic 24-joint SMPL-topology skeleton, smooth per-joint motion and
 a camera ring: enough to drive the renderer without a dataset, and, with
-bone-mask images, to train on (``make_synthetic_human_cache``).
+bone-mask images, to train on (``make_synthetic_human_cache``); with
+disparity maps, to score the depth evaluation (``make_synthetic_depth_cache``).
 """
 from __future__ import annotations
 
@@ -134,3 +135,34 @@ def make_synthetic_human_cache(data_root: str, size: int = 64,
     np.save(os.path.join(data_root, "canonical.npy"), canonical)
     return {"canonical_pose": canonical, "n_frames": n_frames,
             "n_camera": n_camera, "rest_joints": rest}
+
+
+def make_synthetic_depth_cache(data_root: str, size: int = 64,
+                               n_items: int = 4, seed: int = 0) -> Dict:
+    """Write a SURREAL-style depth cache (the NARF_GAN_depth_cache layout of
+    ``data_preprocess/surreal/preprocess_depth.py``) and its canonical.npy:
+    each item's disparity map, intrinsics and SMPL pose in the camera frame
+    (SURREAL's poses are camera-space), from a camera ring around the
+    synthetic skeleton."""
+    rest = synthetic_rest_joints(seed)
+    world_poses = synthetic_pose_sequence(rest, n_items, seed + 1)
+    extrinsics = camera_ring(n_items)
+    focal = size * 1.2
+    K = np.array([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]],
+                 np.float32)
+    hpp = SMPLProperty()
+    disps, poses = [], []
+    for i in range(n_items):
+        pose_cam = extrinsics[i][None] @ world_poses[i]
+        jpi = pose_to_image_coord(pose_cam, K)
+        jm, jp = add_blank_part(pose_cam[None], jpi)
+        disparity, _, _, _ = create_mask(hpp, jm, jp, size,
+                                         thickness=max(size / 64, 1.0))
+        disps.append(disparity.astype(np.float32))
+        poses.append(pose_cam.astype(np.float32))
+    save_cache_npz(data_root, disparity=np.stack(disps),
+                   camera_intrinsic=np.stack([K] * n_items),
+                   smpl_pose=np.stack(poses))
+    canonical = canonical_pose_from_rest_joints(rest)
+    np.save(os.path.join(data_root, "canonical.npy"), canonical)
+    return {"canonical_pose": canonical, "n_items": n_items}

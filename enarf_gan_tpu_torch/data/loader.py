@@ -62,3 +62,9 @@ class DataLoader:
             if item is sentinel:
                 break
             yield item
+
+
+def infinite_batches(loader: DataLoader):
+    """The loader's batches, epoch after epoch, without end."""
+    while True:
+        yield from loader

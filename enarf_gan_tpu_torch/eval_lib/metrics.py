@@ -1,6 +1,6 @@
-"""Image metrics in numpy: MSE, PSNR, SSIM (the port's own copy of
-``enarf_gan_tpu/eval_lib/metrics.py``; LPIPS needs weights the repository
-does not hold and waits).
+"""Image metrics: MSE, PSNR and SSIM in numpy, and LPIPS from weights
+supplied in ``LPIPS_WEIGHTS_NPZ`` (the port's own copy of
+``enarf_gan_tpu/eval_lib/metrics.py``).
 
 PSNR takes images in [-1, 1]: 20 log10(2) - 10 log10(mse). SSIM follows
 skimage's structural_similarity defaults as the reference calls it: [0, 1]
@@ -8,7 +8,13 @@ images, data_range 1, a uniform 7x7 window, channels averaged.
 """
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import numpy as np
+
+from enarf_gan_tpu_torch import DEFAULT_DEVICE
+from enarf_gan_tpu_torch.eval_lib.lpips import lpips_distance
 
 
 def mse(img1: np.ndarray, img2: np.ndarray) -> float:
@@ -58,3 +64,28 @@ def ssim(img1: np.ndarray, img2: np.ndarray, data_range: float = 1.0) -> float:
         return _ssim_single(img1, img2, data_range)
     return float(np.mean([_ssim_single(img1[c], img2[c], data_range)
                           for c in range(img1.shape[0])]))
+
+
+def _lpips_weights(weights_path: Optional[str]) -> str:
+    return weights_path or os.environ.get("LPIPS_WEIGHTS_NPZ", "")
+
+
+def lpips_available(weights_path: Optional[str] = None) -> bool:
+    """Whether LPIPS weights exist: ``weights_path``, else the file that
+    ``LPIPS_WEIGHTS_NPZ`` names."""
+    path = _lpips_weights(weights_path)
+    return bool(path) and os.path.exists(path)
+
+
+def lpips(img1: np.ndarray, img2: np.ndarray,
+          weights_path: Optional[str] = None, device=DEFAULT_DEVICE) -> float:
+    """LPIPS between (B, 3, H, W) images in [-1, 1], computed on ``device``
+    with the VGG or AlexNet weights of ``weights_path`` (else
+    ``LPIPS_WEIGHTS_NPZ``), as data_preprocess/export_lpips_weights.py
+    writes them."""
+    if not lpips_available(weights_path):
+        raise FileNotFoundError(
+            "LPIPS weights not available; export them with "
+            "data_preprocess/export_lpips_weights.py and set LPIPS_WEIGHTS_NPZ")
+    return lpips_distance(np.asarray(img1), np.asarray(img2),
+                          _lpips_weights(weights_path), device)

@@ -11,11 +11,13 @@ last one), ``log.json`` and the validation images under
 ``<out_root>/result/<out>``. ``--validation`` instead loads the latest
 snapshot (or ``resume``) and writes ``val_metrics.json``: PSNR and SSIM of
 every frame of the validation sets, each cropped to its mask's bounding
-box (LPIPS waits for its weights).
+box, and LPIPS (on the same device) where ``LPIPS_WEIGHTS_NPZ`` names
+its weights.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 from typing import Optional, Sequence
@@ -26,6 +28,7 @@ from enarf_gan_tpu_torch import DEFAULT_DEVICE, use_full_float32
 from enarf_gan_tpu_torch.config import yaml_config
 from enarf_gan_tpu_torch.data.datasets import SSODataset
 from enarf_gan_tpu_torch.data.loader import DataLoader
+from enarf_gan_tpu_torch.eval_lib import metrics as eval_metrics
 from enarf_gan_tpu_torch.training import checkpoint as ckpt
 from enarf_gan_tpu_torch.training import dso
 from enarf_gan_tpu_torch.utils.logging import record_command
@@ -73,7 +76,8 @@ def train(config, device=DEFAULT_DEVICE, iterations: Optional[int] = None):
 
 def validation(config, device=DEFAULT_DEVICE):
     """PSNR and SSIM of the latest snapshot (or ``resume``) on every frame
-    of the validation sets, cropped; written to ``val_metrics.json``."""
+    of the validation sets, cropped, and LPIPS where its weights are
+    available; written to ``val_metrics.json``."""
     datasets, loaders = create_dataloader(config.dataset)
     ds = datasets[0]
     gen = dso.build_generator(config, ds.num_bone, ds.parents, device)
@@ -83,8 +87,12 @@ def validation(config, device=DEFAULT_DEVICE):
         raise FileNotFoundError(f"no snapshot in {out_dir} and no resume: "
                                 f"train a model first")
     gen.load_state_dict(ckpt.load_checkpoint(path, map_location=device)["gen"])
-    val = dso.validate(gen, config, loaders[1], crop=True,
-                       metrics=VAL_METRICS)
+    metrics, lpips_fn = VAL_METRICS, None
+    if eval_metrics.lpips_available():
+        metrics = VAL_METRICS + ("LPIPS",)
+        lpips_fn = functools.partial(eval_metrics.lpips, device=device)
+    val = dso.validate(gen, config, loaders[1], crop=True, metrics=metrics,
+                       lpips_fn=lpips_fn)
     with open(os.path.join(out_dir, "val_metrics.json"), "w") as f:
         json.dump(val, f)
     print(json.dumps(val, indent=2))

@@ -168,14 +168,15 @@ def validate(gen: DSONARFGenerator, config, val_loaders,
              generator: Optional[torch.Generator] = None,
              num_data: Optional[int] = None, crop: bool = False,
              metrics=("SSIM", "PSNR"), save_dir: Optional[str] = None,
-             iteration: int = 0) -> Dict:
+             iteration: int = 0, lpips_fn=None) -> Dict:
     """Full-image validation through ``make_dso_full_renderer``: over each
     loader's frames (only the "train" loader when ``num_data`` is 1, and
     its first ``num_data`` frames), the mean mask and color MSE and the
-    color ``metrics`` ("PSNR", "SSIM"; "LPIPS" waits for its weights and is
-    left out). With ``crop`` each frame is cropped to the bounding box of
-    its ground-truth mask after the full-image render (a frame with an
-    empty mask is skipped), as the JAX package does. With ``save_dir`` the
+    color ``metrics`` ("PSNR", "SSIM", and "LPIPS" through ``lpips_fn``,
+    e.g. ``eval_lib.metrics.lpips``; without it LPIPS is left out). With
+    ``crop`` each frame is cropped to the bounding box of its ground-truth
+    mask after the full-image render (a frame with an empty mask is
+    skipped), as the JAX package does. With ``save_dir`` the
     last frame of each loader, rendered beside the ground truth, is saved
     as ``<loader>_<iteration rounded down to 5000>.png``."""
     device = next(gen.parameters()).device
@@ -192,7 +193,8 @@ def validate(gen: DSONARFGenerator, config, val_loaders,
         n_total = len(loader.dataset.imgs)
         n_eval = n_total if num_data is None else min(num_data, n_total)
         acc = {"color": 0.0, "mask": 0.0}
-        acc.update({f"color_{m}": 0.0 for m in metrics if m != "LPIPS"})
+        acc.update({f"color_{m}": 0.0 for m in metrics
+                    if m != "LPIPS" or lpips_fn is not None})
         done = 0
         for i in range(n_eval):
             item = loader.dataset[i]
@@ -223,6 +225,8 @@ def validate(gen: DSONARFGenerator, config, val_loaders,
                     acc["color_PSNR"] += psnr_fn(img, color)
                 elif m == "SSIM":
                     acc["color_SSIM"] += ssim_fn(img[0], color[0])
+                elif m == "LPIPS" and lpips_fn is not None:
+                    acc["color_LPIPS"] += float(lpips_fn(img, color))
             done += 1
             if save_dir and i == n_eval - 1:
                 save_img_grid(np.concatenate([color, img], axis=-1),

@@ -331,3 +331,44 @@ def gan_pair_from_port(size=16, B=1, seed=7, **overrides):
         "background_generator": {"mapping": {
             "w_avg": w_avg["background_generator.w_avg"]}}}
     return gen, variables, port, scene, z
+
+
+# LPIPS backbones at test widths: (slice, conv index, out channels, kernel)
+# with the lpips package's indices, VGG16's and AlexNet's
+LPIPS_CONVS = {
+    "vgg": [(1, 0, 8, 3), (1, 2, 8, 3), (2, 5, 16, 3), (2, 7, 16, 3),
+            (3, 10, 24, 3), (3, 12, 24, 3), (3, 14, 24, 3),
+            (4, 17, 32, 3), (4, 19, 32, 3), (4, 21, 32, 3),
+            (5, 24, 32, 3), (5, 26, 32, 3), (5, 28, 32, 3)],
+    "alex": [(1, 0, 16, 11), (2, 3, 24, 5), (3, 6, 32, 3), (4, 8, 24, 3),
+             (5, 10, 24, 3)]}
+
+
+def seeded_lpips_npz(path, net_type="vgg", seed=0):
+    """An LPIPS weight file in the layout of
+    data_preprocess/export_lpips_weights.py (``net_type``, the backbone's
+    ``net/slice{i}/{j}/weight|bias``, the heads ``lins/{i}/model/1/weight``
+    and the scaling layer), narrow, He-initialised from ``seed``, with
+    non-negative heads as the trained ones have."""
+    rs = np.random.RandomState(seed)
+    arrays = {"net_type": np.array(net_type)}
+    cin, outs = 3, []
+    for s, j, cout, k in LPIPS_CONVS[net_type]:
+        arrays[f"net/slice{s}/{j}/weight"] = rs.normal(
+            0, np.sqrt(2.0 / (cin * k * k)), (cout, cin, k, k)).astype(
+                np.float32)
+        arrays[f"net/slice{s}/{j}/bias"] = rs.normal(
+            0, 0.05, cout).astype(np.float32)
+        cin = cout
+        if len(outs) < s:
+            outs.append(cout)
+        outs[s - 1] = cout
+    for i, c in enumerate(outs):
+        arrays[f"lins/{i}/model/1/weight"] = rs.uniform(
+            0, 0.2, (1, c, 1, 1)).astype(np.float32)
+    arrays["scaling_layer/shift"] = np.array(
+        [-.030, -.088, -.188], np.float32).reshape(1, 3, 1, 1)
+    arrays["scaling_layer/scale"] = np.array(
+        [.458, .448, .450], np.float32).reshape(1, 3, 1, 1)
+    np.savez(path, **arrays)
+    return str(path)

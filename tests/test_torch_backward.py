@@ -31,6 +31,17 @@ REL_L2 = 2e-2
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def rel_l2(got, ref):
     got = np.asarray(got, np.float64)
     ref = np.asarray(ref, np.float64)

@@ -9,8 +9,11 @@ Training writes its snapshot, log and validation image and resumes;
 same weights (the port's snapshot through ``convert_torch_snapshot``), the
 same frames and the JAX renderer's own fine-sampler draws: PSNR and SSIM
 within 1e-4 (both render in float32; the crop and the metrics are the same
-numpy code); the demo writes one PNG a sample, read back with the port's
-decoder.
+numpy code), and with ``LPIPS_WEIGHTS_NPZ`` naming seeded VGG weights
+LPIPS as JAX's ``validate(..., lpips_fn=metrics.lpips)`` computes it:
+NaN on these crops (under VGG's 16 pixels) in both, and uncropped within
+1e-3 relative (no ``color_LPIPS`` without the weights); the demo writes
+one PNG a sample, read back with the port's decoder.
 """
 import json
 import os
@@ -25,6 +28,7 @@ from enarf_gan_tpu.config import yaml_config as jyaml_config
 from enarf_gan_tpu.data.datasets import SSODataset as JSSODataset
 from enarf_gan_tpu.data.fixtures import make_synthetic_human_cache
 from enarf_gan_tpu.data.loader import DataLoader as JDataLoader
+from enarf_gan_tpu.eval_lib import metrics as jmetrics
 from enarf_gan_tpu.training import checkpoint as jckpt
 from enarf_gan_tpu.training import dso as jdso
 
@@ -34,7 +38,7 @@ from enarf_gan_tpu_torch.data.datasets import SSODataset
 from enarf_gan_tpu_torch.training import dso
 from enarf_gan_tpu_torch.utils.logging import read_png
 
-from _torch_parity import jax_fine_draws
+from _torch_parity import jax_fine_draws, seeded_lpips_npz
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 32
@@ -48,6 +52,17 @@ NERF = """\
     time_conditional: True
     pose_conditional: True
 """
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 @pytest.fixture(scope="module")
@@ -177,9 +192,20 @@ def test_validation_cli_matches_jax(run, monkeypatch):
         return draw
 
     monkeypatch.setattr(dso, "make_dso_full_renderer", with_jax_draws)
+    monkeypatch.delenv("LPIPS_WEIGHTS_NPZ", raising=False)
     got = train_DSO.main(argv + ["--validation"])
     with open(os.path.join(run["out_dir"], "val_metrics.json")) as f:
         assert json.load(f) == got
+    # LPIPS weights named: the same validation with LPIPS as well, and
+    # again without the crop (the crops here, 8 and 10 pixels wide, are
+    # too small for VGG's four pools: LPIPS is NaN there in both packages)
+    monkeypatch.setenv("LPIPS_WEIGHTS_NPZ", seeded_lpips_npz(
+        run["root"] / "lpips_vgg.npz", "vgg", seed=3))
+    got_lpips = train_DSO.main(argv + ["--validation"])
+    cropped = dso.validate
+    monkeypatch.setattr(dso, "validate",
+                        lambda *a, **k: cropped(*a, **{**k, "crop": False}))
+    got_full = train_DSO.main(argv + ["--validation"])
     snap = jckpt.convert_torch_snapshot(
         os.path.join(run["out_dir"], "snapshot_latest.pth"),
         {"iteration": 0, "gen": variables}, strict=True)
@@ -187,15 +213,31 @@ def test_validation_cli_matches_jax(run, monkeypatch):
                                          drop_last=False)}
     want = jdso.validate(jgen, snap["gen"], jconfig, loaders, rng, crop=True,
                          metrics=("PSNR", "SSIM"))
+    # JAX's validate given the LPIPS its train_DSO.py leaves out (it lists
+    # the metric but passes no lpips_fn, and writes 0.0)
+    want_full = jdso.validate(jgen, snap["gen"], jconfig, loaders, rng,
+                              metrics=("LPIPS",), lpips_fn=jmetrics.lpips)
     # two frames, each with a foreground, so that the parity says something
-    assert len(masks) == 2 and all(float((m > 0.05).sum()) > 20
+    # (rendered without LPIPS, with it, and with it uncropped)
+    assert len(masks) == 6 and all(float((m > 0.05).sum()) > 20
                                    for m in masks)
-    assert set(got) == set(want) == {"novel_pose"}
+    assert set(got) == set(got_lpips) == set(want) == {"novel_pose"}
     assert set(got["novel_pose"]) == set(want["novel_pose"])
+    assert set(got_lpips["novel_pose"]) == set(got["novel_pose"]) | {
+        "color_LPIPS"}
+    assert "color_LPIPS" not in got["novel_pose"]
     for key in ("color_PSNR", "color_SSIM"):
         np.testing.assert_allclose(got["novel_pose"][key],
                                    want["novel_pose"][key], rtol=0, atol=1e-4)
+        assert got_lpips["novel_pose"][key] == got["novel_pose"][key]
     assert np.isfinite(got["novel_pose"]["color_PSNR"])
+    # NaN, as JAX's LPIPS is on images under VGG's 16 pixels
+    # (tests/test_torch_eval.py::test_lpips_matches_jax)
+    assert np.isnan(got_lpips["novel_pose"]["color_LPIPS"])
+    lp = got_full["novel_pose"]["color_LPIPS"]
+    assert np.isfinite(lp) and lp > 0
+    np.testing.assert_allclose(lp, want_full["novel_pose"]["color_LPIPS"],
+                               rtol=1e-3)
 
 
 def test_demo_cli_writes_the_samples(run):

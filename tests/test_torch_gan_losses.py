@@ -11,6 +11,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from enarf_gan_tpu.nn.stylegan2 import Discriminator as JDiscriminator
 from enarf_gan_tpu.training import losses as jl
@@ -26,6 +27,17 @@ REAL = RS.randn(8, 1).astype(np.float32) * 2
 FAKE = RS.randn(8, 1).astype(np.float32) * 2
 FAKE_MASK = RS.uniform(0, 1, (4, 16, 16)).astype(np.float32)
 BONE_MASK = (RS.uniform(0, 1, (4, 32, 32)) > 0.7).astype(np.float32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 @pytest.mark.parametrize("kind", ["ce", "hinge"])

@@ -52,6 +52,17 @@ UNSTABLE_SHARE = {"exact": 0.05, "tiled": 0.15}
 B, SIZE = 2, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _t(x):
     return torch.from_numpy(np.array(x, np.float32))
 

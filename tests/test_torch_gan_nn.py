@@ -23,6 +23,17 @@ from _torch_parity import jax_crop, jax_noise, perturbed, t
 KEY = jax.random.PRNGKey(0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _close(got, ref, rel):
     ref = np.asarray(ref)
     scale = max(1.0, float(np.abs(ref).max()))

@@ -90,6 +90,16 @@ def tiny_gan_config(root, out_root, tile_patch=0):
         "resume": None, "resume_latest": False}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def synth_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("gan_train")
@@ -147,6 +157,17 @@ def _batches(synth_root):
     return stack(imgs, [0, 2, 4, 5]), stack(poses, [1, 2, 3, 4]), poses
 
 
+def _jitted(init):
+    """A flax module's ``init`` compiled with ``jax.jit`` over its
+    positional arguments."""
+    import jax
+
+    def run(module, *args):
+        return jax.jit(lambda *a: init(module, *a))(*args)
+
+    return run
+
+
 @pytest.fixture(scope="module")
 def iteration(synth_root, tmp_path_factory):
     """One JAX iteration (G, D, R1) and the port's from the same state."""
@@ -164,9 +185,14 @@ def iteration(synth_root, tmp_path_factory):
     jgen, jdis = jgan.build_models(jconfig, 24, poses.parents)
     jbatch = jgan.prepare_gan_batch(img_b, pose_b)
     real = jbatch.pop("real_img")
-    state, gen_tx, dis_tx = jgan.init_gan_state(
-        jconfig, jgen, jdis, poses.canonical_pose, jax.random.PRNGKey(0),
-        {k: np.asarray(v) for k, v in pose_b.items()})
+    # the inits jitted: JAX's eager init of G walks its forward op by op
+    # (about a minute); compiled, the same variables come in a third of it
+    with mock.patch.object(type(jgen), "init", _jitted(type(jgen).init)), \
+            mock.patch.object(type(jdis), "init", _jitted(type(jdis).init)):
+        state, gen_tx, dis_tx = jgan.init_gan_state(
+            jconfig, jgen, jdis, poses.canonical_pose,
+            jax.random.PRNGKey(0),
+            {k: np.asarray(v) for k, v in pose_b.items()})
     state["gen"] = perturbed(state["gen"], seed=7)
     state["dis"] = perturbed(state["dis"], seed=8)
     g_step, d_step, r1_step = jgan.make_gan_steps(jconfig, jgen, jdis,

@@ -1,5 +1,6 @@
-"""The port imports none of jax, flax, yaml or PIL, directly or through the
-JAX package or the JAX probes of ``tools/``: a fresh interpreter that
+"""The port imports none of jax, flax, yaml, PIL or torchvision, directly
+or through the JAX package, the JAX probes of ``tools/`` or the JAX
+evaluation scripts of ``evaluation/``: a fresh interpreter that
 refuses those imports must import every module of ``enarf_gan_tpu_torch``
 (its ``tools`` subpackage and the CLIs included) and ``chip_smoke.py``, read
 a config pair with ``config.yaml_config`` and write and read a PNG."""
@@ -12,7 +13,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GUARD = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "PIL", "enarf_gan_tpu", "tools")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "PIL", "enarf_gan_tpu", "tools",
+           "evaluation", "torchvision")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -56,5 +58,10 @@ def test_port_imports_without_jax_flax_yaml_pil():
                    "tools", "tools.timing", "tools.gather", "tools.mma",
                    "tools.ablate", "tools.constructs", "ops.quadtable",
                    "train_DSO", "DSO_demo", "train_ENARF_GAN",
-                   "ENARF_GAN_demo", "mesh.extract", "mesh.raster"):
+                   "ENARF_GAN_demo", "mesh.extract", "mesh.raster",
+                   "eval_lib", "eval_lib.fid", "eval_lib.inception",
+                   "eval_lib.lpips", "evaluation", "evaluation.common",
+                   "evaluation.compute_fid", "evaluation.compute_PCK",
+                   "evaluation.compute_depth",
+                   "evaluation.pck_estimators"):
         assert f"enarf_gan_tpu_torch.{module}" in names, module

@@ -35,6 +35,17 @@ CONFIGS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def pair(request):
     return build_pair(size=16, ray_batchsize=64, **CONFIGS[request.param])

@@ -28,6 +28,17 @@ from enarf_gan_tpu_torch.ops.upfirdn import upfirdn2d
 RTOL, ATOL = 1e-5, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def close(got, ref, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
                                rtol=rtol, atol=atol)

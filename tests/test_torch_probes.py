@@ -37,6 +37,17 @@ from enarf_gan_tpu_torch.tools import ablate, constructs, gather, mma
 T = torch.from_numpy
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _bf16(a):
     return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
 

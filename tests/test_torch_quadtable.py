@@ -24,6 +24,17 @@ CASES = [(16, 16, 32, 23, 64, 4, False), (16, 16, 8, 5, 64, 3, True),
          (8, 12, 4, 23, 33, 4, False), (32, 32, 32, 24, 50, 4, True)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _inputs(H, W, F, K, n, M, seed=0):
     rng = np.random.default_rng(seed)
     B = 2

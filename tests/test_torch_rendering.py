@@ -25,6 +25,17 @@ from _torch_parity import t
 SIZE, NC, NF = 16, 8, 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _rays():
     pose_cam, _, _, inv_K, _, _ = tiny_scene(1, SIZE)
     # re-rooted bone frames, as the model hands them to the renderer

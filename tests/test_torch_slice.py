@@ -31,6 +31,17 @@ SIZE = 16
 CHUNK = 64   # 4 chunks at 16²: the valid-first order and the chunk skip run
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _renders(**overrides):
     gen, variables, port, scene = build_pair(size=SIZE, ray_batchsize=CHUNK,
                                              **overrides)

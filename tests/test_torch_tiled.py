@@ -39,6 +39,17 @@ CHUNK = 64   # 4 chunks of 4 patches at 16²: the valid-first order and the
              # chunk skip run
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def test_tile_permutation_and_grid_match_jax():
     from enarf_gan_tpu.nerf.ray_sampler import image_grid_coords as jgrid
     from enarf_gan_tpu.nerf.tiled import tile_permutation as jperm

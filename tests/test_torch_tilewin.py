@@ -38,6 +38,17 @@ TS, F, K = 16, 32, 6
 B, MP = 2, 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def planes_np(ts=TS, seed=0, b=B):
     rng = np.random.default_rng(seed)
     return rng.normal(size=(b, (F + K) * 3, ts, ts)).astype(np.float32)

@@ -33,6 +33,17 @@ MP = 4
 F, K = 32, 23
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.fixture(scope="module")
 def scene():
     params = NARFParams(Nc=NC, Nf=32, hidden_size=16, tri_plane_size=TS,

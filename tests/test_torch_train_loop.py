@@ -39,6 +39,17 @@ from enarf_gan_tpu_torch.training import checkpoint, dso, losses
 from _torch_parity import jax_dso_variables, tiny_dso_config
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.fixture(scope="module")
 def synth_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("train_loop")

@@ -52,6 +52,17 @@ PATHS = {"exact": dict(tile_patch=0, loss="mse"),
                          pose_conditional=True, loss="mae")}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.fixture(scope="module")
 def synth_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("train_parity")

@@ -5,7 +5,8 @@ field, pose and time conditioning, the "mae" loss, the exact sampler), in a
 file of its own so that its JAX compile runs beside the others."""
 import pytest
 
-from test_torch_train_parity import (make_case, synth_root,  # noqa: F401
+from test_torch_train_parity import (make_case, one_thread,  # noqa: F401
+                                     synth_root,
                                      test_train_step_gradients_match_jax,
                                      test_training_render_matches_jax)
 

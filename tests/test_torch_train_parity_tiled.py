@@ -3,7 +3,8 @@
 that the two paths' JAX compiles run in parallel."""
 import pytest
 
-from test_torch_train_parity import (make_case, synth_root,  # noqa: F401
+from test_torch_train_parity import (make_case, one_thread,  # noqa: F401
+                                     synth_root,
                                      test_train_step_gradients_match_jax,
                                      test_training_render_matches_jax)
 

@@ -30,6 +30,17 @@ from enarf_gan_tpu.ops import unirow as junirow
 from enarf_gan_tpu_torch.ops import unirow
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the models are tiny, and threads on cores that
+    other test workers hold only slow them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _inputs(H, W, F, K, n, M, B=2, seed=0):
     rng = np.random.default_rng(seed)
     planes = rng.normal(size=(B, (F + K) * 3, H, W)).astype(np.float32)
