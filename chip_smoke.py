@@ -124,6 +124,28 @@ NVIDIA GPU.
    seconds, images a second, 1f launches, peak and metric; Inception's ms
    a batch of 16, a profile of an FID batch, and one evaluation frame
    through 1f against the plain combine (phase 4's bounds).
+Phase "variants" (between 9 and 10): the model variants through the
+   port's CLI functions, the published configs read as in phase 8 with the
+   one variant key replaced. (a) ``configs/DSO_train/default.yml`` over
+   itself, the MLP NARF (narf, hidden 32, 128², bs 6, 4096 rays an image,
+   Nc 48 + Nf 48) trained on a synthetic cache of 8 images (1 warm-up, 3
+   timed and 1 profiled iteration: s/iter, peak, the step's device ms by
+   class), tnarf and dnarf (1 + 2 iterations each), a 128² frame of each,
+   ``--validation`` on 2 frames and ``DSO_demo.demo`` on
+   ``configs/DSO_demo/default.yml`` (2 samples of that config's own
+   view-independent model, PNGs read back): no port kernel may launch.
+   (b) The float32 ``config.yml`` GAN with ``constant_trimask``,
+   ``selector_mlp`` and ``no_selector`` each, through
+   ``train_ENARF_GAN.main`` (1 warm-up, 2 timed and 1 profiled iteration)
+   and one 128² sample: ``constant_trimask`` launches kernels 1f and 1bf,
+   its frame is held to the plain combine's (phase 4's bounds) and its
+   G-step gradients to the plain combine's; the selector variants launch
+   no kernel and print the dense sampler's (``F.grid_sample``) share of a
+   G step. (c) ``constant_trimask`` on the bf16 tiled ``config_tpu.yml``:
+   one G step (kernels 2 and 2b) and its gradients against the plain
+   combine's. (d) On (b)'s ``constant_trimask`` weights, a 128² frame
+   sampled densely (max_bones_per_point 23, plain) against the candidate
+   path's (kernel 1f): reported, not gated.
 10. Overfits one 64² frame for 200 iterations on both paths at full width:
    the PSNR must beat the blank frame's by more than 2 dB.
 
@@ -150,6 +172,10 @@ runs phase 1, kernels 1f and 1bf's checks (phase 2) and the float32
 configs' runs through the port's CLIs (phase 8: DSO training, validation
 and demo; GAN training and the GAN demo with its meshes; phase 9: the
 evaluation CLIs on that GAN).
+
+    python3 chip_smoke.py --variants
+
+runs phase 1 and phase "variants" (about two minutes on an H100).
 
     python3 chip_smoke.py --modes
 
@@ -276,6 +302,18 @@ FID_SAMPLES, FID_BATCH = 256, 16
 PCK_SAMPLES = 64
 DEPTH_ITEMS = 16                    # the synthetic SURREAL depth cache
 INCEPTION_WEIGHTS = "random:0"      # no Inception weights in the repository
+# phase "variants": configs/DSO_train/default.yml's MLP NARF over itself
+# (use_triplane False, narf, hidden 32, Nc 48 + Nf 48, 128², bs 6, 4096 rays
+# an image) and its model types, the demo's default.yml; the tri-plane
+# variants on the float32 config.yml GAN and constant_trimask on the bf16
+# tiled config_tpu.yml GAN
+MLP_CONFIG = ("configs/DSO_train/default.yml", "configs/DSO_train/default.yml")
+MLP_DEMO_CONFIG = ("configs/DSO_demo/default.yml",
+                   "configs/DSO_demo/default.yml")
+MLP_FRAMES, MLP_CAMERAS = 2, 4    # the synthetic 128² training cache: 8
+MLP_TYPES_TIMED = 2               # tnarf, dnarf: 1 warm-up + 2 timed
+GAN_VARIANTS = ("constant_trimask", "selector_mlp", "no_selector")
+DENSE_BONES = 23                  # max_bones_per_point >= K: dense sampling
 GAN_POSES = 4             # full-image GAN frames a path
 GAN_GRAD_REL_L2 = 1e-2    # G-step gradients, kernels vs plain combine: the
                           # atomics' order, and near-ties (bone slots, fine
@@ -1135,13 +1173,19 @@ def phase_profile(gen, scene, frame, ms_frame, device, label, pack):
                     "frame")
 
 
+class _Profile(tuple):
+    """(device ms, kernel launches, port kernels) of ``_profile``, with
+    the device ms by kernel class as ``groups``."""
+    groups = {}
+
+
 def _profile(fn, label, ms_host, what):
     """Device time of one call of ``fn`` by kernel class (torch.profiler),
     and its share of ``ms_host``, the call's time on the host clock.
     Returns (device ms, kernel launches, {port kernel: (device ms,
     launches)}) for the port's kernels (unirow, tilewin), each under its
     name and, for a template, also its name with its first argument
-    (``tilewin_combine_kernel<16>``)."""
+    (``tilewin_combine_kernel<16>``); the ms by class as ``.groups``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1156,11 +1200,16 @@ def _profile(fn, label, ms_host, what):
     for e in kernels:
         if e.self_device_time_total > 0:
             name = e.key.lower()
+            # cuDNN's convolutions (their implicit GEMMs: fprop, dgrad,
+            # wgrad) before cuBLAS's GEMMs, whose xmma kernels share the
+            # prefix (sm80_xmma_gemm_*)
             key = ("unirow kernels" if "unirow" in name else
                    "tilewin kernels" if "tilewin" in name else
-                   "convolution" if "conv" in name or "cudnn" in name
-                   or "xmma" in name or "sm90" in name else
-                   "gemm" if "gemm" in name or "cutlass" in name else
+                   "grid sample" if "grid_sampler" in name else
+                   "convolution" if any(w in name for w in (
+                       "conv", "cudnn", "fprop", "dgrad", "wgrad")) else
+                   "gemm" if any(w in name for w in (
+                       "gemm", "gemv", "cutlass", "xmma", "sm90")) else
                    "sort" if "sort" in name or "radix" in name else
                    "index/gather" if "index" in name or "gather" in name
                    or "scatter" in name else
@@ -1187,7 +1236,9 @@ def _profile(fn, label, ms_host, what):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
-    return device_us / 1e3, n_launches, port
+    out = _Profile((device_us / 1e3, n_launches, port))
+    out.groups = {k: us / 1e3 for k, us in groups.items()}
+    return out
 
 
 def phase_launch_cost(probes, frames, ms_host):
@@ -1473,12 +1524,12 @@ def modes_study(device, root):
     phase_train_modes(tiled, config, ds, batch, device, tt["n_accum"])
 
 
-def build_gan(device, root):
-    """The config_tpu.yml GAN (tiled, kernels 2 and 2b) with seeded weights
-    perturbed by 0.3, its exact twin (tile_patch 0, kernels 1 and 1b) with
-    the same weights, and a batch of 12 from a synthetic 128² cache of 12
-    frames (3 poses x 4 cameras): real images and the pose prior's poses
-    and bone masks."""
+def build_gan(device, root, **nerf):
+    """The config_tpu.yml GAN (tiled, kernels 2 and 2b; ``nerf`` overrides
+    its nerf_params) with seeded weights perturbed by 0.3, its exact twin
+    (tile_patch 0, kernels 1 and 1b) with the same weights, and a batch of
+    12 from a synthetic 128² cache of 12 frames (3 poses x 4 cameras):
+    real images and the pose prior's poses and bone masks."""
     import torch
     from enarf_gan_tpu_torch.data.datasets import (HumanDataset,
                                                    HumanPoseDataset)
@@ -1491,7 +1542,9 @@ def build_gan(device, root):
     bs = GAN_CONFIG["dataset"]["bs"]
     t0 = time.perf_counter()
     make_synthetic_human_cache(root, size=size, n_frames=3, n_camera=4)
-    config = _train_config(GAN_CONFIG, **{"dataset.train.data_root": root})
+    config = _train_config(GAN_CONFIG, **{
+        "dataset.train.data_root": root,
+        **{f"generator_params.nerf_params.{k}": v for k, v in nerf.items()}})
     img_ds = HumanDataset(config.dataset.train, size=size,
                           return_bone_params=False, num_repeat_in_epoch=1)
     pose_ds = HumanPoseDataset(size=size, data_root=root,
@@ -1700,14 +1753,16 @@ def phase_gan_exact_step(exact, dis, config, batch, canonical, device,
 
 
 def phase_gan_grad_check(gen, dis, config, batch, device, label, module,
-                         name, plain, kernels, n_accum, fault=None):
+                         name, plain, kernels, n_accum, fault=None,
+                         tri_plane=(TRI_PLANE,)):
     """The generator's parameter gradients of one micro-batch's G loss with
     the path's kernels (``kernels``: forward and backward) against the same
     loss with the plain combine in ``module.name``'s place under autograd,
     from the same draws and w_avg: relative L2 within GAN_GRAD_REL_L2 over
-    all gradients together and over the tri-plane generator's (TRI_PLANE,
-    the only ones the combine's backward produces); the worst parameters
-    printed. ``fault`` = (module, name, faulty function) plants a fault in
+    all gradients together and over those the combine's backward reaches
+    (the parameters named with a prefix of ``tri_plane``: the tri-plane
+    generator's, TRI_PLANE, and a constant mask plane's); the worst
+    parameters printed. ``fault`` = (module, name, faulty function) plants a fault in
     the kernels' path, which the tri-plane bound must reject. Returns the
     two relative L2s."""
     import torch
@@ -1723,7 +1778,7 @@ def phase_gan_grad_check(gen, dis, config, batch, device, label, module,
         "noise": [torch.randn(s, generator=g, device=device)
                   for s in bg.noise_shapes(mb)],
         "crop": (0, gen.size // 3)}
-    w_avg = gen.nerf.tri_plane_gen.mapping.w_avg
+    w_avg = gen.nerf.plane_generator.mapping.w_avg
     w_avg0 = w_avg.clone()
 
     def grads():
@@ -1759,13 +1814,14 @@ def phase_gan_grad_check(gen, dis, config, batch, device, label, module,
         den = sum(float(gp[k].double().pow(2).sum()) for k in keys)
         return (num / den) ** 0.5
 
-    tri = [k for k in gp if k.startswith(TRI_PLANE)]
+    tri = [k for k in gp if k.startswith(tri_plane)]
     rel, rel_tri = rel_l2(gk, gp), rel_l2(gk, tri)
     worst = sorted(((float((gk[k] - gp[k]).norm() / gp[k].norm()), k)
                     for k in gp if float(gp[k].norm()) > 0), reverse=True)
     print(f"GAN {label} G-step gradients ({mb}-image micro-batch), kernels "
           f"vs plain combine: relative L2 {rel:.3e} over {len(gp)} "
-          f"parameters, {rel_tri:.3e} over the {len(tri)} of {TRI_PLANE}* "
+          f"parameters, {rel_tri:.3e} over the {len(tri)} of "
+          f"{', '.join(p + '*' for p in tri_plane)} "
           f"(bound {GAN_GRAD_REL_L2:g} each); loss {loss_k:.6f} vs "
           f"{loss_p:.6f}; worst "
           + ", ".join(f"{k} {e:.2e}" for e, k in worst[:3])
@@ -1880,6 +1936,65 @@ def _sample_data(path, items):
                 for k in ("pose_3d", "bone_length", "intrinsics")})
 
 
+def _cli_train(config, device, timed, label, profile=True, seed=SEED + 29):
+    """``config`` trained through ``train_DSO.train`` (the CLI's loop, its
+    loader included): 1 warm-up, ``timed`` timed and, with ``profile``, 1
+    profiled iteration, the model's seeded weights perturbed by 0.3 (a
+    fresh DSO model renders an all-zero mask, and a few steps do not
+    change that). Returns the model, the loss history, s/iter and the peak
+    memory of the timed iterations, every kernel's launches in all and a
+    step, and the profile (``_profile``'s)."""
+    import torch
+    from enarf_gan_tpu_torch import train_DSO
+    from enarf_gan_tpu_torch.training import dso
+    real, build = dso.make_train_step, dso.build_generator
+    iters = 1 + timed + bool(profile)
+    ends, counts, peak, prof = [], [], [], {}
+
+    def perturbed_build(*a, **k):
+        gen = build(*a, **k)
+        g = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for p in gen.parameters():
+                p.add_(0.3 * torch.randn(p.shape, generator=g).to(p.device))
+        return gen
+
+    def timed_step_factory(*a, **k):
+        step = real(*a, **k)
+
+        def timed_step(*sa, **sk):
+            if profile and len(ends) == iters - 1:   # the profiled step
+                ms = (ends[timed] - ends[0]) / timed * 1e3
+                out = {}
+                prof["profile"] = _profile(
+                    lambda: out.update(m=step(*sa, **sk)), label, ms, "step")
+                m = out["m"]
+            else:
+                m = step(*sa, **sk)
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            if len(ends) == 1:                       # after the warm-up
+                torch.cuda.reset_peak_memory_stats()
+            if len(ends) == 1 + timed:
+                peak.append(torch.cuda.max_memory_allocated())
+            counts.append({k.name: k.launches for k in _all_kernels()})
+            return m
+
+        return timed_step
+
+    _reset_all_counts()
+    with mock.patch.object(dso, "make_train_step", timed_step_factory), \
+            mock.patch.object(dso, "build_generator", perturbed_build):
+        gen, _, history = train_DSO.train(config, device, iters)
+    assert len(history) == iters and np.isfinite(history).all(), history
+    return {"gen": gen, "history": history,
+            "s_iter": (ends[timed] - ends[0]) / timed, "peak": peak[0],
+            "launches": {k.name: k.launches for k in _all_kernels()},
+            "step_launches": {k: (counts[timed][k] - counts[0][k]) / timed
+                              for k in counts[0]},
+            "profile": prof.get("profile")}
+
+
 def phase_dso_cli(device, root):
     """The published float32 DSO config through the port's CLI functions:
     ``configs/DSO_train/ZJU/313_denarf.yml`` trained on a synthetic 512²
@@ -1896,7 +2011,6 @@ def phase_dso_cli(device, root):
     from enarf_gan_tpu_torch.data.datasets import SSODataset
     from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
     from enarf_gan_tpu_torch.ops import unirow
-    from enarf_gan_tpu_torch.training import dso
     from enarf_gan_tpu_torch.utils.logging import read_png
     train_root, val_root = (os.path.join(root, d) for d in ("train", "val"))
     config = _read_config(DSO_F32_CONFIG, {
@@ -1921,54 +2035,12 @@ def phase_dso_cli(device, root):
           f"{config.dataset.image_size}², {config.generator_params.ray_batchsize}"
           f" rays an image, Nc {nerf.Nc} + Nf {nerf.Nf}, float32 planes")
 
-    real, build = dso.make_train_step, dso.build_generator
-    ends, counts, peak, prof = [], [], [], {}
-
-    def perturbed_build(*a, **k):
-        """The CLI's model with its seeded weights perturbed by 0.3: a fresh
-        DSO model renders an all-zero mask, and a few steps do not change
-        that, so the demo's PNGs would be constant."""
-        gen = build(*a, **k)
-        g = torch.Generator().manual_seed(SEED + 29)
-        with torch.no_grad():
-            for p in gen.parameters():
-                p.add_(0.3 * torch.randn(p.shape, generator=g).to(p.device))
-        return gen
-
-    def timed_step_factory(*a, **k):
-        step = real(*a, **k)
-
-        def timed(*sa, **sk):
-            if len(ends) == CLI_ITERS - 1:           # the profiled step
-                ms = (ends[TIMED_STEPS] - ends[0]) / TIMED_STEPS * 1e3
-                out = {}
-                prof["profile"] = _profile(
-                    lambda: out.update(m=step(*sa, **sk)),
-                    "CLI float32 training profile", ms, "step")
-                m = out["m"]
-            else:
-                m = step(*sa, **sk)
-            torch.cuda.synchronize()
-            ends.append(time.perf_counter())
-            if len(ends) == 1:                       # after the warm-up
-                torch.cuda.reset_peak_memory_stats()
-            if len(ends) == 1 + TIMED_STEPS:
-                peak.append(torch.cuda.max_memory_allocated())
-            counts.append((unirow.KERNEL_F32.launches,
-                           unirow.KERNEL_BWD_F32.launches))
-            return m
-
-        return timed
-
-    _reset_all_counts()
-    with mock.patch.object(dso, "make_train_step", timed_step_factory), \
-            mock.patch.object(dso, "build_generator", perturbed_build):
-        gen, _, history = train_DSO.train(config, device, CLI_ITERS)
-    launches = {k.name: k.launches for k in _all_kernels()}
-    s_iter = (ends[TIMED_STEPS] - ends[0]) / TIMED_STEPS
-    f_step = (counts[TIMED_STEPS][0] - counts[0][0]) / TIMED_STEPS
-    b_step = (counts[TIMED_STEPS][1] - counts[0][1]) / TIMED_STEPS
-    assert len(history) == CLI_ITERS and np.isfinite(history).all(), history
+    run = _cli_train(config, device, TIMED_STEPS,
+                     "CLI float32 training profile")
+    gen, history, launches = run["gen"], run["history"], run["launches"]
+    s_iter, peak = run["s_iter"], run["peak"]
+    f_step = run["step_launches"]["unirow_combine_f32"]
+    b_step = run["step_launches"]["unirow_combine_bwd_f32"]
     assert launches["unirow_combine_f32"] > 0 and \
         launches["unirow_combine_bwd_f32"] > 0, launches
     assert all(v == 0 for k, v in launches.items() if not k.endswith("_f32")), \
@@ -1979,7 +2051,7 @@ def phase_dso_cli(device, root):
     assert os.path.exists(snap), snap
     print(f"CLI float32 training (313_denarf.yml): {s_iter:.3f} s/iter over "
           f"{TIMED_STEPS} iterations (the loader's batches included), peak "
-          f"{peak[0] / 2**30:.2f} GiB allocated, losses "
+          f"{peak / 2**30:.2f} GiB allocated, losses "
           + ", ".join(f"{x:.5f}" for x in history)
           + f"; kernel launches {launches}; a step: 1f {f_step:g}, 1bf "
           f"{b_step:g}; snapshot {snap}")
@@ -2020,8 +2092,8 @@ def phase_dso_cli(device, root):
           f"({[os.path.basename(p) for p in paths]}), {ms_frame:.1f} ms a "
           f"sample with its snapshot load spread over them, kernel 1f "
           f"launches a frame {frame_launches:g}")
-    device_ms, _, port = prof["profile"]
-    return {"s_iter": s_iter, "peak_gib": peak[0] / 2**30,
+    device_ms, _, port = run["profile"]
+    return {"s_iter": s_iter, "peak_gib": peak / 2**30,
             "launches": launches, "step_launches": (f_step, b_step),
             "step_ms": (port.get("unirow_combine_kernel", (0.0, 0))[0],
                         port.get("unirow_combine_bwd_kernel", (0.0, 0))[0]),
@@ -2029,34 +2101,26 @@ def phase_dso_cli(device, root):
             "val": val}
 
 
-def phase_gan_f32(device, root):
-    """The float32 GAN of ``configs/enarfgan_train/AIST/config.yml`` through
-    the port's CLI, ``train_ENARF_GAN.main``, its config read from the files
-    by the port's YAML reader (data roots and ``out_root`` replaced): seeded
-    weights perturbed by 0.3, 1 warm-up, GAN_F32_TIMED timed and 1 profiled
-    iteration (kernels 1f and 1bf, no other unirow or tilewin kernel; the
-    loader's batches included), the image grids and the snapshot the demo
-    loads, then one 128² sample through ``make_gan_full_renderer``."""
-    import os
+def _gan_cli_train(device, root, replace, label, seed=SEED + 31):
+    """A float32 GAN config (GAN_F32_CONFIG with ``replace`` over the data
+    roots and ``out_root``) through the port's CLI,
+    ``train_ENARF_GAN.main``: seeded weights perturbed by 0.3, 1 warm-up,
+    GAN_F32_TIMED timed and 1 profiled iteration (the loader's batches
+    included); the synthetic 128² cache written at ``root``. Returns the
+    config, the models, the history, s/iter, the peak, each kernel's
+    launches over the timed G steps, 1f's and 1bf's a G step, the G step's
+    ms (host) and its profile (``_profile``'s)."""
     import torch
     from enarf_gan_tpu_torch import train_ENARF_GAN
-    from enarf_gan_tpu_torch.data.datasets import (HumanDataset,
-                                                   HumanPoseDataset)
     from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
-    from enarf_gan_tpu_torch.data.loader import collate
-    from enarf_gan_tpu_torch.models.generator import make_gan_full_renderer
     from enarf_gan_tpu_torch.ops import unirow
     from enarf_gan_tpu_torch.training import gan
-    from enarf_gan_tpu_torch.utils.logging import read_png
-    t0 = time.perf_counter()
     config = _read_config(GAN_F32_CONFIG, {
         "out_root": root, "dataset.train.data_root": root,
-        "dataset.train.pose_prior_root": root})
-    nerf = config.generator_params.nerf_params
-    assert "plane_sample_dtype" not in nerf and "tile_patch" not in nerf
-    size, bs = config.dataset.image_size, config.dataset.bs
+        "dataset.train.pose_prior_root": root, **replace})
+    size = config.dataset.image_size
     make_synthetic_human_cache(root, size=size, n_frames=3, n_camera=4)
-    g = torch.Generator().manual_seed(SEED + 31)
+    g = torch.Generator().manual_seed(seed)
     built, starts, g_ms, launches_g, peak, prof = [], [], [], [], [], {}
     real_build, real_steps = gan.build_models, gan.make_gan_steps
 
@@ -2086,7 +2150,7 @@ def phase_gan_f32(device, root):
                 out = {}
                 prof["profile"] = _profile(
                     lambda: out.update(r=g_step(*sa, **sk)),
-                    "GAN float32 G step profile (CLI)",
+                    f"{label} G step profile (CLI)",
                     float(np.mean(g_ms[1:])), "G step")
                 return out["r"]
             before = unirow.KERNEL_F32.launches, unirow.KERNEL_BWD_F32.launches
@@ -2108,13 +2172,37 @@ def phase_gan_f32(device, root):
             ["--config", _repo_path(GAN_F32_CONFIG[0]), "--default_config",
              _repo_path(GAN_F32_CONFIG[1]), "--iterations", str(iters)])
     torch.cuda.synchronize()
-    gen, dis = built[0]
-    s_iter = (starts[1 + GAN_F32_TIMED] - starts[1]) / GAN_F32_TIMED
-    launches = prof["launches"]
-    f_step = float(np.mean([x[0] for x in launches_g[1:]]))
-    b_step = float(np.mean([x[1] for x in launches_g[1:]]))
     assert len(history) == iters, history
     assert all(np.isfinite(v) for m in history for v in m.values()), history
+    gen, dis = built[0]
+    return {"config": config, "gen": gen, "dis": dis, "history": history,
+            "s_iter": (starts[1 + GAN_F32_TIMED] - starts[1]) / GAN_F32_TIMED,
+            "peak": peak[0], "launches": prof["launches"],
+            "step_launches": tuple(float(np.mean([x[i] for x in
+                                                  launches_g[1:]]))
+                                   for i in (0, 1)),
+            "g_ms": float(np.mean(g_ms[1:])), "profile": prof["profile"]}
+
+
+def phase_gan_f32(device, root):
+    """The float32 GAN of ``configs/enarfgan_train/AIST/config.yml`` through
+    the port's CLI, ``train_ENARF_GAN.main``, its config read from the files
+    by the port's YAML reader (data roots and ``out_root`` replaced): seeded
+    weights perturbed by 0.3, 1 warm-up, GAN_F32_TIMED timed and 1 profiled
+    iteration (kernels 1f and 1bf, no other unirow or tilewin kernel; the
+    loader's batches included), the image grids and the snapshot the demo
+    loads, then one 128² sample through ``make_gan_full_renderer``."""
+    import os
+    import torch
+    from enarf_gan_tpu_torch.utils.logging import read_png
+    t0 = time.perf_counter()
+    run = _gan_cli_train(device, root, {}, "GAN float32")
+    config, gen, dis = run["config"], run["gen"], run["dis"]
+    nerf = config.generator_params.nerf_params
+    assert "plane_sample_dtype" not in nerf and "tile_patch" not in nerf
+    size, bs = config.dataset.image_size, config.dataset.bs
+    s_iter, history, launches = run["s_iter"], run["history"], run["launches"]
+    f_step, b_step = run["step_launches"]
     assert launches["unirow_combine_f32"] > 0 and \
         launches["unirow_combine_bwd_f32"] > 0, launches
     assert all(v == 0 for k, v in launches.items() if not k.endswith("_f32")), \
@@ -2129,45 +2217,38 @@ def phase_gan_f32(device, root):
     print(f"GAN float32 (config.yml) through the CLI: bs {bs} x {size}², "
           f"n_accum_step {config.n_accum_step}, z_dim {gen.z_dim}, "
           f"{sum(p.numel() for p in gen.parameters())} generator parameters; "
-          f"{iters} iterations in {time.perf_counter() - t0:.1f} s with the "
-          f"cache and the builds")
+          f"{len(history)} iterations in {time.perf_counter() - t0:.1f} s "
+          f"with the cache and the builds")
     print(f"GAN float32 training: {s_iter:.3f} s/iter (G + D, the loader's "
           f"batches included) over {GAN_F32_TIMED} iterations, G step "
-          f"{float(np.mean(g_ms[1:])):.1f} ms (host), peak "
-          f"{peak[0] / 2**30:.2f} GiB allocated; losses " + "; ".join(
+          f"{run['g_ms']:.1f} ms (host), peak "
+          f"{run['peak'] / 2**30:.2f} GiB allocated; losses " + "; ".join(
               ", ".join(f"{k} {v:.4f}" for k, v in m.items())
               for m in history)
           + f"; kernel launches a G step: 1f {f_step:g}, 1bf {b_step:g}; "
           f"grids rgb_0.png, real.png, bone_0.png and the snapshot in "
           f"{out_dir}")
-    device_ms, _, port = prof["profile"]
-    render = make_gan_full_renderer(gen)
-    batch = gan.prepare_gan_batch(
-        collate([HumanDataset(config.dataset.train, size=size,
-                              return_bone_params=False)[0]]),
-        collate([HumanPoseDataset(size=size, data_root=root)[0]]), device)
-    z = torch.randn((1, 4 * gen.z_dim), generator=g).to(device)
+    device_ms, _, port = run["profile"]
+    frame = _gan_frame(gen, config, root, device)
     _reset_all_counts()
-    color, mask, disp = render(batch["pose_to_camera"], batch["bone_length"],
-                               z, batch["inv_intrinsics"],
-                               generator=torch.Generator(
-                                   device=device).manual_seed(1))
+    color, mask, disp = frame(0, 1)
     torch.cuda.synchronize()
     assert color.shape == (3, size, size) and mask.shape == (size, size)
     assert all(bool(torch.isfinite(x).all()) for x in (color, mask, disp))
     assert float(mask.sum()) > 0, "empty GAN foreground mask"
-    assert unirow.KERNEL_F32.launches > 0
+    sample_launches = {k.name: k.launches for k in _all_kernels()}
+    assert sample_launches["unirow_combine_f32"] > 0
     print(f"GAN float32 sample {size}²: foreground share "
           f"{float((mask > 0.05).float().mean()):.3f}, kernel 1f launches "
-          f"{unirow.KERNEL_F32.launches}")
-    result = {"s_iter": s_iter, "peak_gib": peak[0] / 2**30,
+          f"{sample_launches['unirow_combine_f32']}")
+    result = {"s_iter": s_iter, "peak_gib": run["peak"] / 2**30,
               "step_launches": (f_step, b_step),
               "step_ms": (port.get("unirow_combine_kernel", (0.0, 0))[0],
                           port.get("unirow_combine_bwd_kernel", (0.0, 0))[0]),
               "g_step_device_ms": device_ms,
-              "frame_launches": unirow.KERNEL_F32.launches,
+              "frame_launches": sample_launches["unirow_combine_f32"],
               "out": config.out}
-    del gen, dis, built
+    del gen, dis, run
     torch.cuda.empty_cache()
     return result
 
@@ -2691,6 +2772,400 @@ def phase_eval(device, root, out):
     return results
 
 
+def _mlp_frame(gen, item, device, seed=1):
+    """One full frame of a DSO model through ``make_dso_full_renderer`` at
+    the dataset item's pose, camera and frame time (the camera's rotation
+    for view-dependent heads). Returns (color, mask, disparity), ms."""
+    import torch
+    from enarf_gan_tpu_torch.models.generator import make_dso_full_renderer
+    size = item["img"].shape[-1]
+    render = make_dso_full_renderer(gen, size, ray_batchsize=RAY_CHUNK)
+    to = lambda x: torch.from_numpy(  # noqa: E731
+        np.asarray(x, np.float32)[None]).to(device)
+    args = (to(item["pose_3d"]), to(np.linalg.inv(item["intrinsics"])),
+            to(item["frame_time"]), to(item["bone_length"]))
+    camera = to(item["camera_rotation"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = render(*args, camera_pose=camera,
+                 generator=torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    assert out[0].shape == (3, size, size)
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    return out, ms
+
+
+def _no_launches(launches, what):
+    assert all(v == 0 for v in launches.values()), (what, launches)
+
+
+def phase_variants_mlp(device, root):
+    """(a) ``configs/DSO_train/default.yml`` over itself (the MLP NARF,
+    narf, hidden 32, Nc 48 + Nf 48, 128², bs 6, 4096 rays an image) through
+    the port's CLI functions on a synthetic 128² cache of 8 images: 1
+    warm-up, 3 timed and 1 profiled iteration (``_cli_train``), one 128²
+    frame, ``train_DSO.validation`` on 2 frames; then tnarf and dnarf with
+    only ``model_type`` replaced, 1 + 2 iterations and one frame each; then
+    ``DSO_demo.demo`` on ``configs/DSO_demo/default.yml`` (2 samples, PNGs
+    read back). No port kernel may launch."""
+    import os
+    import torch
+    from enarf_gan_tpu_torch import DSO_demo, train_DSO
+    from enarf_gan_tpu_torch.data.datasets import SSODataset
+    from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
+    from enarf_gan_tpu_torch.geometry.smpl import SMPL_PARENTS
+    from enarf_gan_tpu_torch.models.narf import MLPNARF
+    from enarf_gan_tpu_torch.training import checkpoint as ckpt
+    from enarf_gan_tpu_torch.training import dso
+    from enarf_gan_tpu_torch.utils.logging import read_png
+    train_root, val_root = (os.path.join(root, d) for d in ("train", "val"))
+    replace = {"out_root": root, "out": "DSO/default_narf",
+               "dataset.train.data_root": train_root,
+               "dataset.train.n_frames": MLP_FRAMES,
+               "dataset.val.novel_view.data_root": val_root,
+               "dataset.val.novel_view.n_frames": 1,
+               "dataset.val.novel_pose.data_root": val_root + "_pose",
+               "dataset.val.novel_pose.n_frames": 1}
+    config = _read_config(MLP_CONFIG, replace)
+    gp, nerf = config.generator_params, config.generator_params.nerf_params
+    assert not gp.use_triplane and nerf.model_type == "narf"
+    size, bs = config.dataset.image_size, config.dataset.bs
+    make_synthetic_human_cache(train_root, size=size, n_frames=MLP_FRAMES,
+                               n_camera=MLP_CAMERAS)
+    for seed, key in ((1, "novel_view"), (2, "novel_pose")):
+        make_synthetic_human_cache(config.dataset.val[key].data_root,
+                                   size=size, n_frames=1, n_camera=1,
+                                   seed=seed)
+    K = 23                         # "center" origins: 24 joints, 23 bones
+    pe = bs * K * 3 * 2 * 10 * gp.ray_batchsize * nerf.Nf * 4
+    print(f"MLP NARF ({MLP_CONFIG[0]}): bs {bs} x {size}², "
+          f"{gp.ray_batchsize} rays an image, Nc {nerf.Nc} + Nf {nerf.Nf}, "
+          f"hidden {nerf.hidden_size}; the fine pass's multi-part PE "
+          f"(B, K*3*2L, n) = ({bs}, {K * 60}, {gp.ray_batchsize * nerf.Nf}) "
+          f"float32 is {pe / 1e9:.2f} GB a copy")
+    item = SSODataset(config.dataset.val["novel_view"], size=size)[0]
+    out = {}
+    for mt in ("narf", "tnarf", "dnarf"):
+        cfg = config if mt == "narf" else _read_config(MLP_CONFIG, {
+            **replace, "out": f"DSO/default_{mt}",
+            "generator_params.nerf_params.model_type": mt})
+        timed = TIMED_STEPS if mt == "narf" else MLP_TYPES_TIMED
+        run = _cli_train(cfg, device, timed,
+                         f"MLP {mt} training profile (default.yml)",
+                         profile=mt == "narf")
+        gen = run["gen"]
+        assert isinstance(gen.nerf, MLPNARF) and \
+            gen.nerf_params.model_type == mt
+        _no_launches(run["launches"], f"MLP {mt} training")
+        _reset_all_counts()
+        (_, mask, _), ms = _mlp_frame(gen, item, device)
+        _no_launches({k.name: k.launches for k in _all_kernels()},
+                     f"MLP {mt} frame")
+        print(f"MLP {mt} (default.yml through train_DSO.train): "
+              f"{run['s_iter']:.3f} s/iter over {timed} iterations (the "
+              f"loader's batches included), peak {run['peak'] / 2**30:.2f} "
+              f"GiB allocated, losses "
+              + ", ".join(f"{x:.5f}" for x in run["history"])
+              + f"; a {size}² frame {ms:.1f} ms, mask in "
+              f"[{float(mask.min()):.3f}"
+              f", {float(mask.max()):.3f}]; port kernel launches 0")
+        out[mt] = {"s_iter": run["s_iter"], "peak_gib": run["peak"] / 2**30,
+                   "frame_ms": ms}
+        if mt == "narf":
+            out[mt]["step_device_ms"] = run["profile"][0]
+            out[mt]["step_by_class"] = run["profile"].groups
+        del gen, run
+        torch.cuda.empty_cache()
+
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    val = train_DSO.validation(config, device)
+    val_s = time.perf_counter() - t0
+    _no_launches({k.name: k.launches for k in _all_kernels()},
+                 "MLP validation")
+    assert set(val) == {"novel_view", "novel_pose"}, val
+    assert all(np.isfinite(m["color_PSNR"]) and np.isfinite(m["color_SSIM"])
+               for m in val.values()), val
+    print(f"MLP narf --validation on 2 frames (crop on): {val_s:.2f} s; "
+          + "; ".join(f"{k} PSNR {m['color_PSNR']:.3f} dB, SSIM "
+                      f"{m['color_SSIM']:.4f}" for k, m in val.items()))
+
+    # the demo's default.yml describes another model than the training
+    # default (view-independent heads, "center_fixed" origins): the demo
+    # renders that model, its seeded weights perturbed by 0.3 and saved as
+    # the snapshot it loads (the demo renders without a camera pose, which
+    # a view-dependent model needs, in JAX as here); its density bias is
+    # raised by 2, since the MLP NARF's raw density logit comes out
+    # negative everywhere from these weights and the PNGs would be black
+    demo_cfg = _read_config(MLP_DEMO_CONFIG, {
+        "out_root": root, "out": "DSO/default_demo",
+        "sample_path": os.path.join(root, "samples"),
+        "canonical_pose_path": os.path.join(train_root, "canonical.npy")})
+    demo_gen = dso.build_generator(
+        demo_cfg, 24, SMPL_PARENTS, device,
+        generator=torch.Generator().manual_seed(SEED + 35))
+    g = torch.Generator().manual_seed(SEED + 36)
+    with torch.no_grad():
+        for p in demo_gen.parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=g).to(device))
+        assert not demo_gen.nerf_params.view_dependent
+        demo_gen.nerf.mlp.layers[-1].bias[0, 3] += 2.0   # density: 4th
+    ckpt.save_checkpoint(train_DSO.out_dir_of(demo_cfg),
+                         {"iteration": 0, "gen": ckpt.gen_state_dict(demo_gen)},
+                         0)
+    del demo_gen
+    _sample_data(demo_cfg.sample_path,
+                 [SSODataset(config.dataset.val[k], size=size)[0]
+                  for k in ("novel_view", "novel_pose")])
+    _reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = DSO_demo.demo(demo_cfg, device)
+    torch.cuda.synchronize()
+    demo_ms = (time.perf_counter() - t0) / len(paths) * 1e3
+    _no_launches({k.name: k.launches for k in _all_kernels()}, "MLP demo")
+    for p in paths:
+        img = read_png(p)
+        assert img.shape == (size, size, 3) and img.min() < img.max(), \
+            (p, img.shape, img.min(), img.max())
+    print(f"MLP demo ({MLP_DEMO_CONFIG[0]}): {len(paths)} samples at {size}² "
+          f"read back from their PNGs, {demo_ms:.1f} ms a sample with the "
+          f"snapshot load spread over them; port kernel launches 0")
+    out["validation_s"], out["demo_ms"] = val_s, demo_ms
+    return out
+
+
+def _gan_frame(gen, config, root, device, seed=SEED + 33):
+    """``frame(_t, draw_seed)``: one 128² foreground through
+    ``make_gan_full_renderer`` of the first image and pose of the cache at
+    ``root``, from one z drawn from ``seed`` (phase 4's frame signature)."""
+    import torch
+    from enarf_gan_tpu_torch.data.datasets import (HumanDataset,
+                                                   HumanPoseDataset)
+    from enarf_gan_tpu_torch.data.loader import collate
+    from enarf_gan_tpu_torch.models.generator import make_gan_full_renderer
+    from enarf_gan_tpu_torch.training import gan
+    size = config.dataset.image_size
+    render = make_gan_full_renderer(gen)
+    batch = gan.prepare_gan_batch(
+        collate([HumanDataset(config.dataset.train, size=size,
+                              return_bone_params=False)[0]]),
+        collate([HumanPoseDataset(size=size, data_root=root)[0]]), device)
+    z = torch.randn((1, 4 * gen.z_dim),
+                    generator=torch.Generator().manual_seed(seed)).to(device)
+
+    def frame(_t, draw_seed):
+        return render(batch["pose_to_camera"], batch["bone_length"], z,
+                      batch["inv_intrinsics"], generator=torch.Generator(
+                          device=device).manual_seed(draw_seed))
+
+    return frame
+
+
+def _gan_batch(config, root, device):
+    """The config's batch (bs images and poses) of the cache at ``root``."""
+    from enarf_gan_tpu_torch.data.datasets import (HumanDataset,
+                                                   HumanPoseDataset)
+    from enarf_gan_tpu_torch.data.loader import collate
+    from enarf_gan_tpu_torch.training import gan
+    size, bs = config.dataset.image_size, config.dataset.bs
+    img_ds = HumanDataset(config.dataset.train, size=size,
+                          return_bone_params=False, num_repeat_in_epoch=1)
+    pose_ds = HumanPoseDataset(size=size, data_root=root,
+                               num_repeat_in_epoch=1)
+    return gan.prepare_gan_batch(collate([img_ds[i] for i in range(bs)]),
+                                 collate([pose_ds[i] for i in range(bs)]),
+                                 device)
+
+
+def _frame_diff(a, b):
+    """max, q99.9 and mean |a - b| and the share of pixels above 1e-2."""
+    import torch
+    d = (a - b).abs()
+    if d.ndim == 3:
+        d = d.amax(dim=0)
+    d = d.flatten()
+    return (float(d.max()), float(torch.quantile(d, 0.999)), float(d.mean()),
+            float((d > 1e-2).float().mean()))
+
+
+def phase_variants_gan(device, root):
+    """(b) The tri-plane variants on the float32 GAN of
+    ``configs/enarfgan_train/AIST/config.yml`` (read by the port's reader;
+    data roots, ``out_root``, ``out`` and the one variant key replaced),
+    each alone through ``train_ENARF_GAN.main`` (``_gan_cli_train``: 1
+    warm-up, 2 timed and 1 profiled G + D iterations) and one 128² sample:
+    ``constant_trimask`` on the candidate path (kernels 1f and 1bf; its
+    frame against the plain combine's within phase 4's bounds, its G-step
+    gradients against the plain combine's), ``selector_mlp`` and
+    ``no_selector`` on the dense sampler (no port kernel; the share of the
+    G step's device time in ``F.grid_sample``). (d) On constant_trimask's
+    weights: a 128² frame through the dense path (max_bones_per_point 23)
+    against the candidate path's (4, kernel 1f), reported, not gated."""
+    import os
+    import torch
+    from enarf_gan_tpu_torch.ops import unirow
+    from enarf_gan_tpu_torch.training import checkpoint as ckpt
+    from enarf_gan_tpu_torch.training import gan
+    out = {}
+    for variant in GAN_VARIANTS:
+        vroot = os.path.join(root, variant)
+        t0 = time.perf_counter()
+        run = _gan_cli_train(device, vroot, {
+            "out": f"GAN/AIST/{variant}",
+            f"generator_params.nerf_params.{variant}": True},
+            f"GAN {variant}")
+        config, gen, dis = run["config"], run["gen"], run["dis"]
+        candidates = variant == "constant_trimask"
+        assert gen.nerf.uses_candidate_sampling() == candidates
+        launches, (f_step, b_step) = run["launches"], run["step_launches"]
+        device_ms, _, _ = run["profile"]
+        groups = run["profile"].groups
+        dense_ms = groups.get("grid sample", 0.0)
+        frame = _gan_frame(gen, config, vroot, device)
+        _reset_all_counts()
+        color, mask, _ = frame(0, 1)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(x).all()) for x in (color, mask))
+        assert float(mask.sum()) > 0, f"empty {variant} GAN foreground"
+        frame_launches = {k.name: k.launches for k in _all_kernels()}
+        if candidates:
+            assert f_step > 0 and b_step > 0, launches
+            assert all(v == 0 for k, v in launches.items()
+                       if not k.endswith("_f32")), launches
+            assert frame_launches["unirow_combine_f32"] > 0, frame_launches
+        else:
+            _no_launches(launches, f"GAN {variant} G steps")
+            _no_launches(frame_launches, f"GAN {variant} frame")
+        print(f"GAN {variant} (config.yml, float32): {run['s_iter']:.3f} "
+              f"s/iter (G + D, the loader's batches included) over "
+              f"{GAN_F32_TIMED} iterations, G step {run['g_ms']:.1f} ms "
+              f"(host), {device_ms:.2f} ms device, peak "
+              f"{run['peak'] / 2**30:.2f} GiB allocated; launches a G step: "
+              f"1f {f_step:g}, 1bf {b_step:g}; dense sampler (grid sample) "
+              f"{dense_ms:.2f} ms, {dense_ms / device_ms:.3f} of the G "
+              f"step's device time; a {config.dataset.image_size}² sample's "
+              f"foreground share "
+              f"{float((mask > 0.05).float().mean()):.3f}, its launches "
+              f"{frame_launches}; {time.perf_counter() - t0:.1f} s in all")
+        out[variant] = {"s_iter": run["s_iter"],
+                        "peak_gib": run["peak"] / 2**30,
+                        "g_step_device_ms": device_ms,
+                        "dense_ms": dense_ms, "by_class": groups,
+                        "step_launches": (f_step, b_step),
+                        "frame_launches": frame_launches}
+        if candidates:
+            phase_plain_render(frame, unirow, "unirow_combine",
+                               unirow.gather_combine_texels_plain,
+                               unirow.KERNEL_F32, "GAN constant_trimask")
+            torch.cuda.empty_cache()
+            out[variant]["grad_rel"] = phase_gan_grad_check(
+                gen, dis, config, _gan_batch(config, vroot, device), device,
+                "constant_trimask", unirow, "unirow_combine",
+                unirow.gather_combine_texels_plain,
+                (unirow.KERNEL_F32, unirow.KERNEL_BWD_F32),
+                int(config.n_accum_step),
+                tri_plane=("nerf.generator.", "nerf.tri_plane"))
+            torch.cuda.empty_cache()
+            # (d) the same weights sampled densely: every bone of every point
+            dense_cfg = _train_config(config, **{
+                "generator_params.nerf_params.max_bones_per_point":
+                DENSE_BONES})
+            dense = gan.build_generator(dense_cfg, 24, gen.parent_id, device)
+            ckpt.load_gen_state_dict(dense, ckpt.gen_state_dict(gen))
+            assert not dense.nerf.uses_candidate_sampling()
+            dense_frame = _gan_frame(dense, config, vroot, device)
+            ref = frame(0, 1)
+            _reset_all_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = dense_frame(0, 1)
+            torch.cuda.synchronize()
+            dense_frame_ms = (time.perf_counter() - t1) * 1e3
+            _no_launches({k.name: k.launches for k in _all_kernels()},
+                         "dense frame")
+            diffs = {what: _frame_diff(a, b) for what, a, b in
+                     zip(("color", "mask"), got, ref)}
+            print(f"GAN constant_trimask, dense (max_bones_per_point "
+                  f"{DENSE_BONES}, plain) against candidates (4, kernel 1f), "
+                  f"one {config.dataset.image_size}² frame "
+                  f"({dense_frame_ms:.1f} ms dense): "
+                  + "; ".join(f"{w} max|d| {d[0]:.3e}, q99.9 {d[1]:.3e}, "
+                              f"mean {d[2]:.3e}, share > 1e-2 {d[3]:.4f}"
+                              for w, d in diffs.items()))
+            out["dense_vs_candidates"] = diffs
+            del dense, dense_frame
+        del gen, dis, run, frame
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_variants_tiled(device, root):
+    """(c) constant_trimask on the bf16 tiled GAN of config_tpu.yml
+    (``build_gan``, tile_patch 4): one G step (kernels 2 and 2b launch, 1
+    and 1b do not) and its gradients against the plain combine's."""
+    import torch
+    from enarf_gan_tpu_torch.ops import tilewin, tilewin_kernel
+    from enarf_gan_tpu_torch.training import gan
+    config, gen, _, dis, batch, canonical = build_gan(
+        device, root, constant_trimask=True)
+    assert gen.nerf.supports_tiled_sampling()
+    poses = {k: v for k, v in batch.items() if k != "real_img"}
+    g_step = gan.make_gan_steps(config, gen, dis, *gan.init_gan_state(
+        config, gen, dis, canonical))[0]
+    state = {k: v.clone() for k, v in gen.state_dict().items()}
+    _reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, gm = g_step(poses, torch.Generator(device=device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.name: k.launches for k in _all_kernels()}
+    by_m = dict(tilewin_kernel.KERNEL.launches_by)
+    gen.load_state_dict(state)
+    assert launches["tilewin_combine"] > 0 and \
+        launches["tilewin_combine_bwd"] > 0, launches
+    assert launches["unirow_combine"] == 0 and \
+        launches["unirow_combine_bwd"] == 0, launches
+    assert all(np.isfinite(float(v)) for v in gm.values()), gm
+    print(f"GAN constant_trimask on config_tpu.yml (bf16, tile_patch 4): one "
+          f"G step {ms:.1f} ms (host, the first: cuDNN's choices included), "
+          f"loss_gen {float(gm['loss_gen']):.4f}; kernel launches {launches}, "
+          f"tilewin by member count {by_m}")
+    rel = phase_gan_grad_check(
+        gen, dis, config, batch, device, "constant_trimask tiled", tilewin,
+        "tilewin_combine",
+        lambda *a, mode=None: tilewin_kernel.tilewin_combine_texels_plain(*a),
+        (tilewin_kernel.KERNEL, tilewin_kernel.KERNEL_BWD),
+        int(config.n_accum_step),
+        tri_plane=("nerf.generator.", "nerf.tri_plane"))
+    del gen, dis, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "by_m": by_m, "grad_rel": rel,
+            "step_ms": ms}
+
+
+def phase_variants(device, root):
+    """Phase "variants": (a) the MLP NARF baselines through the DSO CLIs,
+    (b) and (d) the tri-plane variants on the float32 GAN, (c)
+    constant_trimask on the bf16 tiled GAN."""
+    import os
+    import torch
+    t0 = time.perf_counter()
+    out = {"mlp": phase_variants_mlp(device, os.path.join(root, "mlp"))}
+    torch.cuda.empty_cache()
+    print(f"variants (a) done in {time.perf_counter() - t0:.1f} s")
+    out["gan"] = phase_variants_gan(device, os.path.join(root, "gan"))
+    torch.cuda.empty_cache()
+    print(f"variants (b), (d) done in {time.perf_counter() - t0:.1f} s")
+    out["tiled"] = phase_variants_tiled(device, os.path.join(root, "tiled"))
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"phase variants done in {out['s']:.1f} s")
+    return out
+
+
 def float32_study(device, root):
     """``--float32``: kernels 1f and 1bf against their plain twins (phase
     2's shapes), then the published float32 configs through the port's
@@ -2965,7 +3440,8 @@ def main():
                "--probes": lambda device, root: probe_sweeps(device),
                "--modes": modes_study,
                "--gan": phase_gan,
-               "--float32": float32_study}
+               "--float32": float32_study,
+               "--variants": phase_variants}
     if sys.argv[1:2] and sys.argv[1] in studies:
         with tempfile.TemporaryDirectory() as root:
             studies[sys.argv[1]](device, root)
@@ -3051,6 +3527,8 @@ def main():
         evals = phase_eval(device, os.path.join(root, "gan32"), gan32["out"])
         torch.cuda.empty_cache()
         print(f"float32 phases done at {time.perf_counter() - t_start:.1f} s")
+        variants = phase_variants(device, os.path.join(root, "variants"))
+        print(f"variants phase done at {time.perf_counter() - t_start:.1f} s")
         phase_learn(device, os.path.join(root, "learn"))
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
@@ -3088,6 +3566,15 @@ def main():
                gan_frame_ms=ms_of(fe, "unirow_combine_bwd_kernel"),
                gan_grad_rel_l2=gan["grad_rel"]["exact"][0],
                gan_tri_plane_grad_rel_l2=gan["grad_rel"]["exact"][1])
+    # phase variants: constant_trimask's G step on the bf16 tiled
+    # config_tpu.yml (kernels 2 and 2b) and on the float32 config.yml (1f,
+    # 1bf; and 1f in its 128² sample)
+    vt, vc = variants["tiled"], variants["gan"]["constant_trimask"]
+    k2b.update(variants_trimask_step_launches=vt["launches"][
+        "tilewin_combine_bwd"],
+        variants_trimask_grad_rel_l2=vt["grad_rel"][0])
+    for m in (16, 4):
+        k2[m] = dict(k2[m], variants_trimask_step_launches=vt["by_m"].get(m, 0))
     for m in (16, 4):
         k2[m] = dict(k2[m],
                      gan_step_launches=gs["by_m"].get(m, 0) / TIMED_STEPS,
@@ -3156,7 +3643,13 @@ def main():
                  gan_step_ms=gan32["step_ms"][i],
                  gan_s_iter=gan32["s_iter"], gan_peak_gib=gan32["peak_gib"],
                  gan_g_step_device_ms=gan32["g_step_device_ms"])
+        k.update(variants_trimask_step_launches=vc["step_launches"][i],
+                 variants_trimask_grad_rel_l2=vc["grad_rel"][0],
+                 variants_trimask_s_iter=vc["s_iter"],
+                 variants_trimask_peak_gib=vc["peak_gib"])
         if i == 0:
+            k.update(variants_trimask_frame_launches=vc["frame_launches"][
+                "unirow_combine_f32"])
             k.update(gan_demo_frame_launches=demo["frames"][0]["launches"],
                      gan_demo_frame_ms=demo["frame_ms_1f"],
                      gan_demo_frame_device_ms=demo["frame_device_ms"],

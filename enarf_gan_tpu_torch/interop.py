@@ -9,9 +9,13 @@ writes for a JAX model (``nerf.tri_plane``, ``nerf.canonical_pose``,
 strict ``load_state_dict`` of that dict of numpy arrays; the reverse is the
 port's own ``state_dict()``.
 
-The JAX ``stats`` collection (each mapping network's ``w_avg``, the centre
-of truncation) is not in reference checkpoints; ``load_jax_stats`` carries
-it. The discriminator has no reference names in the JAX package:
+The JAX reference key map leaves out ``MLPNARF``'s ``density_mlp`` and
+``deformation_field``: ``load_reference_state_dict`` loads those from the
+JAX model's flax parameters (``nerf_flax_params``, through
+``flax_mlp_narf_state``) with the rest, and ``export_flax_mlp_narf``
+writes them back. The JAX ``stats`` collection (each mapping network's ``w_avg``, the
+centre of truncation) is not in reference checkpoints; ``load_jax_stats``
+carries it. The discriminator has no reference names in the JAX package:
 ``load_flax_discriminator`` loads its flax parameters, flattened.
 ``load_flax_pretrained_background`` loads the JAX ``PretrainedStyleGAN``'s
 subtree into the port's, whose names are rosinality's.
@@ -24,14 +28,20 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# JAX stats path → the port's buffer (the tri-plane generator is
-# ``generator`` in the JAX model, ``tri_plane_gen`` in the reference's)
+# JAX stats path → the port's buffers it may be (the tri-plane generator is
+# ``generator`` in the JAX model; the reference names the default variant's
+# ``tri_plane_gen`` and constant_trimask's and selector_mlp's ``generator``)
 _STATS_NAMES = {
-    "nerf/generator/mapping/w_avg": "nerf.tri_plane_gen.mapping.w_avg",
-    "nerf/flow_generator/mapping/w_avg": "nerf.flow_generator.mapping.w_avg",
-    "background_generator/mapping/w_avg": "background_generator.w_avg",
-    "background_generator/gen/mapping/w_avg": "background_generator.gen.w_avg",
+    "nerf/generator/mapping/w_avg": ("nerf.tri_plane_gen.mapping.w_avg",
+                                     "nerf.generator.mapping.w_avg"),
+    "nerf/flow_generator/mapping/w_avg": (
+        "nerf.flow_generator.mapping.w_avg",),
+    "background_generator/mapping/w_avg": ("background_generator.w_avg",),
+    "background_generator/gen/mapping/w_avg": (
+        "background_generator.gen.w_avg",),
 }
+# MLPNARF's submodules that the reference key map leaves out
+FLAX_ONLY = ("density_mlp", "deformation_field")
 
 
 def _tensor(v) -> torch.Tensor:
@@ -48,11 +58,18 @@ def _flatten(tree, prefix=()):
 
 
 def load_reference_state_dict(module: nn.Module,
-                              state_dict: Mapping[str, np.ndarray]) -> None:
+                              state_dict: Mapping[str, np.ndarray],
+                              nerf_flax_params=None) -> None:
     """Copy reference-named numpy arrays into ``module`` (on its device);
-    every key must match, both ways."""
-    module.load_state_dict(
-        {k: _tensor(v) for k, v in state_dict.items()}, strict=True)
+    every key must match, both ways. An MLP NARF generator's
+    ``density_mlp`` and ``deformation_field``, which reference names leave
+    out, come from ``nerf_flax_params``: the JAX model's ``nerf``
+    parameters (``flax_mlp_narf_state``)."""
+    state = {k: _tensor(v) for k, v in state_dict.items()}
+    if nerf_flax_params is not None:
+        state.update({f"nerf.{k}": v for k, v in
+                      flax_mlp_narf_state(nerf_flax_params).items()})
+    module.load_state_dict(state, strict=True)
 
 
 def load_jax_stats(module: nn.Module, stats) -> None:
@@ -61,15 +78,72 @@ def load_jax_stats(module: nn.Module, stats) -> None:
     every statistic and every buffer must match."""
     buffers = dict(module.named_buffers())
     flat = _flatten(stats)
-    targets = {_STATS_NAMES.get(k): v for k, v in flat.items()}
-    if None in targets:
-        raise KeyError(f"unknown JAX statistics: {sorted(set(flat) - set(_STATS_NAMES))}")
+    unknown = sorted(set(flat) - set(_STATS_NAMES))
+    if unknown:
+        raise KeyError(f"unknown JAX statistics: {unknown}")
+    targets = {next((n for n in _STATS_NAMES[k] if n in buffers),
+                    _STATS_NAMES[k][0]): v for k, v in flat.items()}
     wanted = {n for n in buffers if n.endswith("w_avg")}
     if set(targets) != wanted:
         raise KeyError(f"statistics {sorted(targets)} != buffers {sorted(wanted)}")
     with torch.no_grad():
         for name, v in targets.items():
             buffers[name].copy_(_tensor(v))
+
+
+def _styled_leaf(rest: str, v: np.ndarray):
+    """A flax ``StyledConv1d`` leaf → (the port's name, array): conv
+    weights (1, out, in) gain a trailing 1, biases become (1, out, 1)."""
+    if rest == "conv/weight":
+        return "conv.weight", v[..., None]
+    if rest == "bias":
+        return "bias", v.reshape(1, -1, 1)
+    return rest.replace("/", "."), v
+
+
+def flax_mlp_narf_state(params) -> dict:
+    """The JAX ``MLPNARF``'s ``density_mlp`` and ``deformation_field``
+    leaves of its flax parameters (nested, or flattened to "/"-joined
+    paths; other leaves are skipped) under the port's names relative to
+    ``MLPNARF``: an ``MLP``'s ``EqualConv1d_{i}/weight`` keeps its path
+    and shape, a ``StyledMLP``'s ``StyledConv1d_{i}/...`` (tnarf) becomes
+    ``layers.{i}.*`` with the reference's shapes."""
+    out = {}
+    for path, v in _flatten(params).items():
+        module, layer, rest = (path.split("/", 2) + ["", ""])[:3]
+        if module not in FLAX_ONLY:
+            continue
+        v = np.asarray(v, np.float32)
+        if layer.startswith("StyledConv1d_"):
+            leaf, v = _styled_leaf(rest, v)
+            key = f"{module}.layers.{layer.split('_')[-1]}.{leaf}"
+        else:
+            key = f"{module}.{layer}.{rest.replace('/', '.')}"
+        out[key] = _tensor(v)
+    return out
+
+
+def export_flax_mlp_narf(nerf: nn.Module) -> dict:
+    """The inverse of ``flax_mlp_narf_state``: the port's ``density_mlp``
+    and ``deformation_field`` as the JAX model's flattened flax paths
+    ({"density_mlp/EqualConv1d_0/weight": array, ...})."""
+    out = {}
+    for name in FLAX_ONLY:
+        if not hasattr(nerf, name):
+            continue
+        for key, v in getattr(nerf, name).state_dict().items():
+            v = v.detach().cpu().numpy()
+            if key.startswith("layers."):
+                _, i, leaf = key.split(".", 2)
+                layer = f"StyledConv1d_{i}"
+                if leaf == "conv.weight":
+                    v = v[..., 0]
+                elif leaf == "bias":
+                    v = v.reshape(-1)
+                out[f"{name}/{layer}/{leaf.replace('.', '/')}"] = v
+            else:
+                out[f"{name}/{key.replace('.', '/')}"] = v
+    return out
 
 
 def load_flax_discriminator(dis: nn.Module,

@@ -241,10 +241,11 @@ def dso_create_mesh(gen, pose_to_camera, bone_length, frame_time,
                     voxel_size: float = 0.003, mesh_th: float = 15.0,
                     cube_half: Optional[int] = None, chunk: int = 262144):
     """Mesh of batch item 0 of a ``DSONARFGenerator`` at ``frame_time``:
-    its planes packed once, then ``extract_mesh``."""
+    its planes packed once (the MLP baselines take z), then
+    ``extract_mesh``."""
     z = gen.get_latents(frame_time, pose_to_camera)
     pose_t, bl_t = gen.transform_pose(pose_to_camera, bone_length)
-    cond = gen.pack_planes(gen.compute_tri_plane_feature(z, bl_t))
+    cond = gen.condition(z, bl_t)
     scale = gen.nerf_params.coordinate_scale
     pose_scaled = _scaled(pose_t, scale)
 

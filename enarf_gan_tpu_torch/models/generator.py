@@ -29,7 +29,7 @@ from enarf_gan_tpu_torch import DEFAULT_DEVICE
 from enarf_gan_tpu_torch.geometry.encoding import scalar_positional_encoding
 from enarf_gan_tpu_torch.geometry.pose import (transform_canonical_pose,
                                                transform_pose)
-from enarf_gan_tpu_torch.models.narf import NARFParams, TriPlaneNARF
+from enarf_gan_tpu_torch.models.narf import MLPNARF, NARFParams, TriPlaneNARF
 from enarf_gan_tpu_torch.nerf.ray_sampler import (image_grid_coords,
                                                   mask_based_sampler,
                                                   patch_based_sampler)
@@ -58,7 +58,7 @@ def pose_encoding(pose: torch.Tensor) -> torch.Tensor:
 
 class _TriPlaneGenerator(nn.Module):
     """What the DSO and GAN generators share: the pose transform, the
-    render config and the calls into their tri-plane NARF ``self.nerf``."""
+    render config and the calls into their NARF ``self.nerf``."""
 
     @property
     def model_num_bone(self) -> int:
@@ -100,9 +100,10 @@ class _TriPlaneGenerator(nn.Module):
 
 
 class DSONARFGenerator(_TriPlaneGenerator):
-    """Dynamic-scene-overfitting generator: time (and/or pose) conditioned
-    tri-plane NARF (the JAX ``use_triplane=True`` model; the MLP baselines
-    are ROADMAP Queue 1, item 5). Weights are drawn from ``generator``
+    """Dynamic-scene-overfitting generator: a time (and/or pose)
+    conditioned tri-plane NARF (``use_triplane``) or MLP NARF baseline
+    (``MLPNARF``: narf, tnarf or dnarf by ``model_type``), as the JAX
+    ``use_triplane`` flag chooses. Weights are drawn from ``generator``
     (seed 0 when none is given) as the JAX initializers draw them, and
     built on ``device``: the GPU unless the caller names another.
     ``ray_batchsize`` is the rays an image of a training batch renders."""
@@ -110,15 +111,16 @@ class DSONARFGenerator(_TriPlaneGenerator):
     def __init__(self, nerf_params: NARFParams, num_bone: int,
                  parent_id: Sequence[int], device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None,
-                 ray_batchsize: int = 4096):
+                 ray_batchsize: int = 4096, use_triplane: bool = True):
         super().__init__()
         self.nerf_params = nerf_params
         self.num_bone = num_bone
         self.ray_batchsize = ray_batchsize
+        self.use_triplane = use_triplane
         self.parent_id = tuple(int(x) for x in parent_id)
-        self.nerf = TriPlaneNARF(nerf_params, z_dim=self.z_dim,
-                                 z2_dim=self.z_dim,
-                                 num_bone=self.model_num_bone, device=device)
+        cls = TriPlaneNARF if use_triplane else MLPNARF
+        self.nerf = cls(nerf_params, z_dim=self.z_dim, z2_dim=self.z_dim,
+                        num_bone=self.model_num_bone, device=device)
         init_parameters(self, generator or torch.Generator().manual_seed(0))
 
     @property
@@ -141,6 +143,15 @@ class DSONARFGenerator(_TriPlaneGenerator):
         if not zs:
             raise ValueError("DSO model needs time and/or pose conditioning")
         return torch.cat(zs, dim=1)
+
+    def condition(self, z: torch.Tensor, bone_length_t: torch.Tensor):
+        """What the exact renderer's point network takes a frame: the
+        tri-plane model's planes, packed once (``pack_planes``), or z
+        itself for the MLP baselines."""
+        if not self.use_triplane:
+            return z
+        return self.pack_planes(self.compute_tri_plane_feature(z,
+                                                               bone_length_t))
 
     def forward(self, pose_to_camera, camera_pose, mask, frame_time,
                 bone_length, inv_intrinsics, background: Optional[float] = None,
@@ -188,7 +199,7 @@ class DSONARFGenerator(_TriPlaneGenerator):
         else:
             ray_idx, img_coord = mask_based_sampler(
                 mask, self.ray_batchsize, noise=ray_noise, generator=generator)
-            cond = self.pack_planes(self.compute_tri_plane_feature(z, bl_t))
+            cond = self.condition(z, bl_t)
 
             def fn(points, ray_dir, pose_scaled):
                 return self.nerf_density_color(points, pose_scaled, bl_t,
@@ -381,11 +392,15 @@ class TriNARFGenerator(_TriPlaneGenerator):
 
 def register_canonical_pose(gen: _TriPlaneGenerator, canonical_pose: np.ndarray,
                             origin_location: str, parent_id) -> _TriPlaneGenerator:
-    """Fill the canonical-pose buffers from a (24, 4, 4) canonical pose."""
+    """Fill the canonical-pose buffers from a (24, 4, 4) canonical pose;
+    the MLP baselines have none and are returned as they are (the JAX
+    function asserts that the variables hold buffers)."""
+    nerf = gen.nerf
+    if not hasattr(nerf, "canonical_pose"):
+        return gen
     canon, length = transform_canonical_pose(np.asarray(canonical_pose),
                                              np.asarray(parent_id),
                                              origin_location)
-    nerf = gen.nerf
     with torch.no_grad():
         nerf.canonical_pose.copy_(torch.from_numpy(canon))
         nerf.canonical_bone_length.copy_(torch.from_numpy(length))
@@ -399,12 +414,12 @@ def dso_render_entire_img(gen: DSONARFGenerator, pose_to_camera, inv_intrinsics,
                           ray_batchsize: Optional[int] = None,
                           draws: Optional[Sequence[Draws]] = None,
                           generator: Optional[torch.Generator] = None):
-    """Full-image DSO inference: planes computed and packed once per frame,
-    then the chunked ray render. Returns (color (3,H,W), mask (H,W),
-    disparity (H,W))."""
+    """Full-image DSO inference: planes computed and packed once per frame
+    (the MLP baselines take z), then the chunked ray render. Returns
+    (color (3,H,W), mask (H,W), disparity (H,W))."""
     z = gen.get_latents(frame_time, pose_to_camera)
     pose_t, bl_t = gen.transform_pose(pose_to_camera, bone_length)
-    cond = gen.pack_planes(gen.compute_tri_plane_feature(z, bl_t))
+    cond = gen.condition(z, bl_t)
 
     def fn(points, ray_dir, pose_scaled):
         return gen.nerf_density_color(points, pose_scaled, bl_t, cond, z,
@@ -450,9 +465,10 @@ def make_dso_full_renderer(gen: DSONARFGenerator, render_size: int,
     """Full-image DSO renderer:
     ``render(pose_to_camera, inv_intrinsics, frame_time, bone_length,
     camera_pose=None, draws=None, generator=None)`` → (color, mask,
-    disparity). Models with ``tile_patch`` on the candidate-sparse path
-    render through the patch-tiled renderer, all others through the exact
-    one, as the JAX factory routes them. Fine-sampler uniforms come from
+    disparity). Tri-plane models with ``tile_patch`` on the
+    candidate-sparse path render through the patch-tiled renderer, all
+    others (the MLP baselines too) through the exact one, as the JAX
+    factory routes them. Fine-sampler uniforms come from
     ``draws`` (one (u, jitter) pair per chunk: (rays, Nf) on the exact
     path, (patches, Nf) on the tiled one) or from ``generator``.
     Pixel-unit intrinsics and the whole image only, as the demo and

@@ -1,30 +1,37 @@
-"""Tri-plane articulated NeRF (port of ``TriPlaneNARF`` from
-``enarf_gan_tpu/models/narf.py``).
+"""Articulated NeRF models (port of ``enarf_gan_tpu/models/narf.py``):
+``TriPlaneNARF`` and the MLP baselines ``MLPNARF``.
 
-Ported: the default variant, whose planes a StyleGAN2 generates
-(``tri_plane_gen``, the GAN's), the ``deformation_field`` variant
-(constant planes warped by a generated flow) and the ``constant_triplane``
-variant, sampled through the
-candidate-sparse unirow path (``ops/unirow.py``) or, for ``tile_patch``
-models on the patch-tiled renderer, the patch-window path
-(``ops/tilewin.py``); both read the texel table of
-``ops/unirow.py::pack_texels``, in the planes' ``plane_sample_dtype``: bf16
-for both paths, float32 (the default, where the JAX package samples its
-quad tables, ``ops/quadtable.py``) for the unirow path. Other variants and
-samplers raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+``TriPlaneNARF`` ports every variant of the JAX model: planes a StyleGAN2
+generates (``tri_plane_gen``, the GAN's and the default), constant planes
+(``constant_triplane``), constant planes warped by a generated flow
+(``deformation_field``), generated features over constant mask planes
+(``constant_trimask``) and generated features weighted by a selector MLP
+(``selector_mlp``). On the candidate-sparse path (the default, and
+``constant_trimask``) the planes are sampled through the unirow kernels
+(``ops/unirow.py``) or, for ``tile_patch`` models on the patch-tiled
+renderer, the patch-window kernels (``ops/tilewin.py``); both read the
+texel table of ``ops/unirow.py::pack_texels`` in the planes'
+``plane_sample_dtype``: bf16 for both paths, float32 (the default, where
+the JAX package samples its quad tables, ``ops/quadtable.py``) for the
+unirow path. Off it (``no_selector``, ``selector_mlp``,
+``max_bones_per_point >= num_bone``) every bone is sampled densely
+through ``F.grid_sample`` (``ops/triplane.py``), as JAX samples it through
+XLA.
 
 Parameter and buffer names are the reference's (``tri_plane``,
-``tri_plane_gen.*``, ``flow_generator.*``, ``mlp.layers.*``, ``density_fc.*``,
-``canonical_pose``, ``canonical_bone_length``), so the state dict that
-``export_reference_state_dict`` writes for the JAX model loads strictly.
-The JAX ``_DensityColorHeads`` submodule is ``TriPlaneNARF.heads`` here:
-its layers sit on the model itself, where the reference names them.
+``tri_plane_gen.*``, ``generator.*``, ``flow_generator.*``,
+``selector.*``, ``mlp.layers.*``, ``density_fc.*``, ``canonical_pose``,
+``canonical_bone_length``), so the state dict that
+``export_reference_state_dict`` writes for the JAX model loads strictly;
+``MLPNARF``'s ``density_mlp`` and ``deformation_field``, which that map
+leaves out, keep the JAX model's flax paths
+(``interop.flax_mlp_narf_state``). The JAX ``_DensityColorHeads``
+submodule's layers sit on the model itself, where the reference names
+them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
 
 import torch
 import torch.nn as nn
@@ -32,14 +39,17 @@ import torch.nn as nn
 from enarf_gan_tpu_torch import DEFAULT_DEVICE, resolve_device
 from enarf_gan_tpu_torch.geometry.encoding import (
     in_cube, multi_part_positional_encoding, positional_encoding, to_local)
-from enarf_gan_tpu_torch.nn.layers import StyledConv1d, StyledMLP
+from enarf_gan_tpu_torch.nn.layers import (MLP, GroupedConv1dReLUSelector,
+                                           StyledConv1d, StyledMLP)
 from enarf_gan_tpu_torch.nn.stylegan2 import StyleGAN2Generator
 from enarf_gan_tpu_torch.ops.activation import density_relu
 from enarf_gan_tpu_torch.ops.grid_sample import grid_sample_2d
 from enarf_gan_tpu_torch.ops.tilewin import (pack_tilewin_texels,
                                              sample_tilewin_fused,
                                              select_patch_slots)
-from enarf_gan_tpu_torch.ops.triplane import select_candidate_bones
+from enarf_gan_tpu_torch.ops.triplane import (sample_triplane_part_prob,
+                                              sample_weighted_feature,
+                                              select_candidate_bones)
 from enarf_gan_tpu_torch.ops.unirow import (MASK_BLOCK, pack_texels,
                                             sample_candidates_unirow)
 
@@ -122,6 +132,9 @@ class NARFParams:
 
 
 def params_use_candidate_sampling(params: NARFParams, model_num_bone: int) -> bool:
+    """Whether the candidate-sparse tri-plane-mask path weights the parts
+    (the default); the selector variants and max_bones_per_point >= K
+    sample every bone densely."""
     return (params.max_bones_per_point < model_num_bone
             and not params.no_selector and not params.selector_mlp)
 
@@ -133,7 +146,40 @@ def _repeat_ray_dir_encoding(feature, ray_direction, num_frequency: int):
     return torch.repeat_interleave(enc, factor, dim=2)
 
 
-class TriPlaneNARF(nn.Module):
+class _DensityColorHeads(nn.Module):
+    """The density and color heads every NARF and NeRF model ends in (the
+    JAX ``_DensityColorHeads``): ``density_fc`` and the color ``mlp`` sit
+    on the model itself, where the reference names them."""
+
+    def _init_heads(self, in_dim: int, hidden: int, z2_dim: int,
+                    device) -> None:
+        p = self.params
+        if p.view_dependent:
+            self.density_fc = StyledConv1d(in_dim, 1, z2_dim, device=device)
+            self.mlp = StyledMLP(in_dim + 3 * p.num_frequency_for_other * 2,
+                                 hidden, 3, style_dim=z2_dim, device=device)
+        else:
+            self.mlp = StyledMLP(in_dim, hidden, 4, style_dim=z2_dim,
+                                 device=device)
+
+    def heads(self, feature, z_rend, ray_direction):
+        """The raw density logit and tanh color (None without a ray
+        direction on a view-dependent model)."""
+        p = self.params
+        if p.view_dependent:
+            density = self.density_fc(feature, z_rend)
+            if ray_direction is None:
+                return density, None
+            enc = _repeat_ray_dir_encoding(feature, ray_direction,
+                                           p.num_frequency_for_other)
+            color = torch.tanh(self.mlp(torch.cat([feature, enc], dim=1),
+                                        z_rend))
+            return density, color
+        cd = self.mlp(feature, z_rend)
+        return cd[:, 3:], torch.tanh(cd[:, :3])
+
+
+class TriPlaneNARF(_DensityColorHeads):
     """Tri-plane articulated NeRF with per-bone mask planes."""
 
     def __init__(self, params: NARFParams, z_dim: int, z2_dim: int,
@@ -145,15 +191,13 @@ class TriPlaneNARF(nn.Module):
         ts = p.tri_plane_size
         fch = p.feat_dim * 3
         mch = num_bone * 3
-        if not p.constant_triplane and (
-                p.constant_trimask
-                or (p.selector_mlp and not p.deformation_field)):
-            raise NotImplementedError(
-                "the constant_trimask and selector_mlp tri-plane variants "
-                "are ROADMAP Queue 1, item 5")
-        if p.constant_triplane or p.deformation_field:
-            self.tri_plane = nn.Parameter(torch.empty(1, fch + mch, ts, ts,
-                                                      device=device))
+        if p.selector_mlp and not p.no_selector and (
+                p.constant_triplane or p.constant_trimask
+                or p.deformation_field):
+            raise ValueError(
+                "selector_mlp with constant_triplane, constant_trimask or "
+                "deformation_field: the JAX model builds no selector there "
+                "and cannot run it")
         c_dim = p.num_frequency_for_other * 2 * num_bone
 
         def sg(out_channels):
@@ -162,18 +206,26 @@ class TriPlaneNARF(nn.Module):
                 out_channels=out_channels, c_dim=c_dim,
                 channel_max=max(p.w_dim, 64), device=device)
 
-        if p.deformation_field and not p.constant_triplane:
+        # the JAX branch order; the generators keep the reference's names
+        if p.constant_triplane:
+            self.tri_plane = nn.Parameter(torch.empty(1, fch + mch, ts, ts,
+                                                      device=device))
+        elif p.constant_trimask:
+            self.generator = sg(fch)
+            self.tri_plane = nn.Parameter(torch.empty(1, mch, ts, ts,
+                                                      device=device))
+        elif p.deformation_field:
+            self.tri_plane = nn.Parameter(torch.empty(1, fch + mch, ts, ts,
+                                                      device=device))
             self.flow_generator = sg(2 * 3)
-        elif not p.constant_triplane and not p.deformation_field:
-            self.tri_plane_gen = sg(fch + mch)
-        hidden = 64
-        if p.view_dependent:
-            self.density_fc = StyledConv1d(p.feat_dim, 1, z2_dim, device=device)
-            self.mlp = StyledMLP(p.feat_dim + 3 * p.num_frequency_for_other * 2,
-                                 hidden, 3, style_dim=z2_dim, device=device)
+        elif p.selector_mlp:
+            self.generator = sg(fch)
+            self.selector = GroupedConv1dReLUSelector(
+                num_bone * 3 * p.num_frequency_for_position * 2, num_bone,
+                device=device)
         else:
-            self.mlp = StyledMLP(p.feat_dim, hidden, 4, style_dim=z2_dim,
-                                 device=device)
+            self.tri_plane_gen = sg(fch + mch)
+        self._init_heads(p.feat_dim, 64, z2_dim, device)
         self.register_buffer("canonical_pose",
                              torch.zeros(num_bone, 4, 4, device=device))
         self.register_buffer("canonical_bone_length",
@@ -183,6 +235,16 @@ class TriPlaneNARF(nn.Module):
         if hasattr(self, "tri_plane"):
             with torch.no_grad():
                 self.tri_plane.zero_()
+
+    @property
+    def plane_generator(self):
+        """The StyleGAN2 whose output the planes are made of (the flow
+        generator for ``deformation_field``), or None for constant
+        planes."""
+        for name in ("tri_plane_gen", "generator", "flow_generator"):
+            if hasattr(self, name):
+                return getattr(self, name)
+        return None
 
     # ------------------------------------------------------------------ #
     def encode_bone_length(self, bone_length: torch.Tensor) -> torch.Tensor:
@@ -204,10 +266,27 @@ class TriPlaneNARF(nn.Module):
         if p.constant_triplane:
             return self.tri_plane.expand(B, -1, -1, -1)
         c = self.encode_bone_length(bone_length)
-        if not p.deformation_field:
-            return self.tri_plane_gen(z, c=c, truncation_psi=truncation_psi,
-                                      update_w_avg=update_w_avg)
-        # warp the constant feature planes by a generated flow field
+        if p.constant_trimask:
+            feat = self.generator(z, c=c, truncation_psi=truncation_psi,
+                                  update_w_avg=update_w_avg)
+            mask = (self.tri_plane * p.constant_trimask_lr_mul).expand(
+                B, -1, -1, -1)
+            return torch.cat([feat, mask], dim=1)
+        if p.deformation_field:
+            return self._warped_planes(z, c, truncation_psi, update_w_avg)
+        if p.selector_mlp:
+            feat = self.generator(z, c=c, truncation_psi=truncation_psi,
+                                  update_w_avg=update_w_avg)
+            zeros = feat.new_zeros(B, self.num_bone * 3, ts, ts)
+            return torch.cat([feat, zeros], dim=1)
+        return self.tri_plane_gen(z, c=c, truncation_psi=truncation_psi,
+                                  update_w_avg=update_w_avg)
+
+    def _warped_planes(self, z, c, truncation_psi, update_w_avg):
+        """The constant feature planes warped by a generated flow field."""
+        p = self.params
+        B = c.shape[0]
+        ts = p.tri_plane_size
         planes = self.tri_plane.expand(B, -1, -1, -1)
         flow = self.flow_generator(z, c=c, truncation_psi=truncation_psi,
                                    update_w_avg=update_w_avg)
@@ -254,40 +333,44 @@ class TriPlaneNARF(nn.Module):
 
     def _check_unirow(self) -> None:
         p = self.params
-        if not self.uses_candidate_sampling():
-            raise NotImplementedError(
-                "only the candidate-sparse tri-plane-mask path is ported; the "
-                "dense and selector paths are ROADMAP Queue 1, item 5")
         if p.feat_dim > 32 or self.num_bone > MASK_BLOCK:
             raise NotImplementedError(
                 "the texel samplers take feat_dim <= 32 and <= 32 bones (the "
                 "JAX package's quad tables beyond that are ROADMAP Queue 2, "
                 "item 3)")
 
-    def pack_planes(self, tri_plane_feature: torch.Tensor) -> Tuple[torch.Tensor]:
+    def pack_planes(self, tri_plane_feature: torch.Tensor):
         """Pack planes once per frame into the unirow sampler's texel
         table (``ops/unirow.py::pack_texels``, bf16 or float32 by
         ``plane_sample_dtype``; the JAX package packs quad rows, or for
         float32 planes quad tables), as a 1-tuple (the JAX package's
-        packed-table convention)."""
+        packed-table convention). Off the candidate path the dense
+        samplers read the planes themselves, which come back unchanged."""
+        if not self.uses_candidate_sampling():
+            return tri_plane_feature
         self._check_unirow()
         return (pack_texels(tri_plane_feature, self.params.feat_dim,
                             self.num_bone, dtype=self.texel_dtype),)
 
-    def heads(self, feature, z_rend, ray_direction):
-        """density_fc + color MLP (the JAX ``_DensityColorHeads``); returns
-        the raw density logit and tanh color."""
+    def calc_weight(self, tri_plane_weights, position, position_validity):
+        """Part probabilities (B, K, n) off the candidate path: 1/K with
+        ``no_selector``, the selector's softmax over the multi-part PE of
+        the positions with ``selector_mlp``, else the product of the mask
+        planes' sigmoids. ``tri_plane_weights``: (B*K, 3, H, W);
+        ``position``: (B, K, 3, n), invalid at 2."""
         p = self.params
-        if p.view_dependent:
-            density = self.density_fc(feature, z_rend)
-            if ray_direction is None:
-                return density, None
-            enc = _repeat_ray_dir_encoding(feature, ray_direction,
-                                           p.num_frequency_for_other)
-            color = torch.tanh(self.mlp(torch.cat([feature, enc], dim=1), z_rend))
-            return density, color
-        cd = self.mlp(feature, z_rend)
-        return cd[:, 3:], torch.tanh(cd[:, :3])
+        bs, K, _, n = position.shape
+        if p.no_selector:
+            return torch.full((bs, K, n), 1.0 / K, dtype=position.dtype,
+                              device=position.device)
+        if p.selector_mlp:
+            enc = multi_part_positional_encoding(
+                position.reshape(bs, K * 3, n), p.num_frequency_for_position,
+                K)
+            return torch.softmax(self.selector(enc), dim=1)
+        return sample_triplane_part_prob(tri_plane_weights, position,
+                                         position_validity, mode="prod",
+                                         clamp_mask=p.clamp_mask)
 
     def _canonical_validity(self, position, pose_to_camera, bone_length):
         """Canonical coordinates (B, K, 3, n) and whether each point lies
@@ -314,18 +397,40 @@ class TriPlaneNARF(nn.Module):
             position: (B, 3, n); pose_to_camera: (B, K, 4, 4) re-rooted bone
                 frames with translations scaled by coordinate_scale;
             bone_length: (B, K, 1); tri_plane_feature: planes
-                (B, (F+K)*3, ts, ts) or the 1-tuple from ``pack_planes``;
+                (B, (F+K)*3, ts, ts) or what ``pack_planes`` made of them;
             z_rend: (B, z2_dim); ray_direction: (B, 3, n_rays) or None.
         Returns:
             (density (B, 1, n), color (B, 3, n) | None). (The JAX function's
             per-candidate weights feed only the GAN's losses and come with
             the GAN slice.)
+
+        On the candidate path the M most central valid bones of each point
+        are sampled by the unirow kernels; off it (``no_selector``,
+        ``selector_mlp``, max_bones_per_point >= K) every bone is sampled
+        densely from the raw planes (``ops/triplane.py``).
         """
         p = self.params
         K = self.num_bone
         ts = p.tri_plane_size
         canonical, validity = self._canonical_validity(
             position, pose_to_camera, bone_length)
+        if not self.uses_candidate_sampling():
+            if isinstance(tri_plane_feature, tuple):
+                raise ValueError("packed sampling tables need the candidate "
+                                 "path")
+            bs, n = position.shape[0], position.shape[2]
+            fch = p.feat_dim * 3
+            masked_pos = torch.where(validity[:, :, None], canonical,
+                                     torch.full_like(canonical, 2.0))
+            weight = self.calc_weight(
+                tri_plane_feature[:, fch:].reshape(bs * K, 3, ts, ts),
+                masked_pos, validity)
+            feature = sample_weighted_feature(
+                p.feat_dim, tri_plane_feature[:, :fch], masked_pos, weight,
+                validity, clamp_mask=p.clamp_mask)
+            weight_max = weight.amax(dim=1, keepdim=True)     # (B, 1, n)
+            return self._density_color(feature, weight_max, validity, z_rend,
+                                       ray_direction)
         if isinstance(tri_plane_feature, tuple):
             (table,) = tri_plane_feature
         else:
@@ -390,3 +495,73 @@ class TriPlaneNARF(nn.Module):
         if with_stats:
             return density, color, out[2]
         return density, color
+
+
+class MLPNARF(_DensityColorHeads):
+    """The MLP NARF baselines of the DSO default config: ``model_type``
+    "narf" (an 8-layer ``MLP`` on the selector-weighted multi-part PE of
+    the bone-local positions), "tnarf" (a ``StyledMLP`` on it, styled by
+    z) and "dnarf" (a deformation ``MLP`` on the PE and z moves the local
+    positions first, then the ``MLP`` on their plain PE). The density stays
+    the raw logit, as the JAX model keeps it (the reference's import
+    shadowing selects the head that does not activate it). No kernel: the
+    work is plain PyTorch."""
+
+    def __init__(self, params: NARFParams, z_dim: int, z2_dim: int,
+                 num_bone: int, device=DEFAULT_DEVICE):
+        super().__init__()
+        device = resolve_device(device)
+        p = self.params = params
+        self.num_bone = num_bone
+        hidden = p.hidden_size
+        in_dim = num_bone * 3 * p.num_frequency_for_position * 2
+        self.selector = GroupedConv1dReLUSelector(in_dim, num_bone,
+                                                  device=device)
+        if p.model_type == "dnarf":
+            self.deformation_field = MLP(in_dim + z_dim, hidden, num_bone * 3,
+                                         num_layers=8, skips=(4,),
+                                         device=device)
+            self.density_mlp = MLP(in_dim, hidden, hidden, num_layers=8,
+                                   skips=(4,), device=device)
+        elif p.model_type == "tnarf":
+            self.density_mlp = StyledMLP(in_dim, hidden, hidden,
+                                         style_dim=z_dim, num_layers=8,
+                                         device=device)
+        elif p.model_type == "narf":
+            self.density_mlp = MLP(in_dim, hidden, hidden, num_layers=8,
+                                   skips=(4,), device=device)
+        else:
+            raise ValueError(f"unknown model_type {p.model_type!r}")
+        self._init_heads(hidden, hidden // 2, z2_dim, device)
+
+    def supports_tiled_sampling(self) -> bool:
+        return False
+
+    def density_color(self, position, pose_to_camera, bone_length, z, z_rend,
+                      ray_direction=None):
+        """Density (the raw logit, zero outside every bone's cube) and color
+        at camera-frame positions (B, 3, n) from z (B, z_dim), for the
+        re-rooted bone frames ``pose_to_camera`` (B, K, 4, 4);
+        ``bone_length`` is unused, as in the JAX model. Returns (density
+        (B, 1, n), color (B, 3, n) | None)."""
+        p = self.params
+        K, L = self.num_bone, p.num_frequency_for_position
+        local = to_local(position, pose_to_camera)            # (B, K*3, n)
+        validity = in_cube(local)                             # (B, K, n)
+        enc = multi_part_positional_encoding(local, L, K)     # (B, K*3*2L, n)
+        prob = torch.softmax(self.selector(enc), dim=1)       # (B, K, n)
+        B, C, n = enc.shape
+        # the PE scaled by its bone's probability: the JAX model repeats
+        # prob to the PE's channels, a broadcast multiplies the same numbers
+        # without that copy
+        enc = (enc.reshape(B, K, C // K, n) * prob[:, :, None]).reshape(B, C, n)
+        if p.model_type == "dnarf":
+            zz = z[:, :, None].expand(-1, -1, n)
+            local = local + self.deformation_field(torch.cat([enc, zz], dim=1))
+            enc = multi_part_positional_encoding(local, L, K)
+        if p.model_type == "tnarf":
+            feature = self.density_mlp(enc, z)
+        else:
+            feature = self.density_mlp(enc)
+        density, color = self.heads(feature, z_rend, ray_direction)
+        return density * validity.any(dim=1, keepdim=True), color

@@ -6,7 +6,9 @@ loads with ``load_state_dict(strict=True)``:
 
 * ``StyledConv1d``: ``conv.weight`` (1, out, in, 1), ``conv.modulation.*``,
   ``bias`` (1, out, 1);
-* ``EqualLinear``: ``weight`` (out, in), ``bias`` (out,).
+* ``EqualLinear``: ``weight`` (out, in), ``bias`` (out,);
+* ``MLP`` and ``GroupedConv1dReLUSelector``: ``EqualConv1d_{i}.weight``
+  (groups, out/g, in/g), ``.bias`` (out,), the JAX modules' flax paths.
 
 Equalized learning rate: weights are drawn from N(0, 1)/lr_mul and scaled at
 run time by ``lr_mul / sqrt(fan_in)``. ``reset_parameters(generator)``
@@ -16,6 +18,7 @@ draws a module's own parameters as the JAX initializers do, from an explicit
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 import torch.nn as nn
@@ -182,3 +185,49 @@ class StyledMLP(nn.Module):
         for layer in self.layers:
             x = layer(x, z)
         return x
+
+
+class MLP(nn.Module):
+    """EqualConv1d stack with skip concatenations of the input before the
+    layers named in ``skips`` (not the first). No nonlinearity between layers: the
+    reference's MLP has none, and the JAX package keeps that for parity.
+    Its layers are ``EqualConv1d_{i}``, the JAX module's flax names."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int = 3, skips: Tuple[int, ...] = (),
+                 device=DEFAULT_DEVICE):
+        super().__init__()
+        self.skips = tuple(skips)
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            cin = in_dim if i == 0 else hidden_dim + in_dim * (i in self.skips)
+            cout = out_dim if i == num_layers - 1 else hidden_dim
+            self.add_module(f"EqualConv1d_{i}",
+                            EqualConv1d(cin, cout, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(self.num_layers):
+            if i and i in self.skips:
+                h = torch.cat([h, x], dim=1)
+            h = getattr(self, f"EqualConv1d_{i}")(h)
+        return h
+
+
+class GroupedConv1dReLUSelector(nn.Module):
+    """Per-bone selector: grouped EqualConv1d (``hidden_per_bone``
+    channels a bone) → ReLU → grouped EqualConv1d to one logit a bone.
+    Its layers keep the JAX module's names, ``EqualConv1d_0`` and
+    ``EqualConv1d_1``, which the reference key map uses
+    (``nerf.selector.EqualConv1d_0.weight``)."""
+
+    def __init__(self, in_dim: int, num_bone: int, hidden_per_bone: int = 10,
+                 device=DEFAULT_DEVICE):
+        super().__init__()
+        self.EqualConv1d_0 = EqualConv1d(in_dim, hidden_per_bone * num_bone,
+                                         groups=num_bone, device=device)
+        self.EqualConv1d_1 = EqualConv1d(hidden_per_bone * num_bone, num_bone,
+                                         groups=num_bone, device=device)
+
+    def forward(self, encoded_p: torch.Tensor) -> torch.Tensor:
+        return self.EqualConv1d_1(torch.relu(self.EqualConv1d_0(encoded_p)))

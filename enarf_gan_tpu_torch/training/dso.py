@@ -10,7 +10,8 @@ the JAX package's skip of a step whose gradient is not finite. It writes
 validation and scalars for tensorboard. On the card the renders run the
 hand-written kernels forward and backward (unirow 1 and 1b on the exact
 path, tilewin 2 and 2b, or 3 on the fine pass under
-``ENARF_TILEWIN_KERNEL``, on the tiled path).
+``ENARF_TILEWIN_KERNEL``, on the tiled path); the MLP baselines and the
+dense tri-plane variants run plain PyTorch.
 """
 from __future__ import annotations
 
@@ -41,16 +42,15 @@ BATCH_KEYS = ("img", "mask", "pose_3d", "frame_time", "bone_length",
 def build_generator(config, num_bone: int, parent_id, device=DEFAULT_DEVICE,
                     generator: Optional[torch.Generator] = None
                     ) -> DSONARFGenerator:
-    """The config's tri-plane DSO generator, on ``device``."""
+    """The config's DSO generator, on ``device``: the tri-plane NARF, or
+    with ``use_triplane: False`` the MLP NARF baseline of ``model_type``."""
     gp = config.generator_params
-    if not gp.use_triplane:
-        raise NotImplementedError("the MLP NARF baselines are ROADMAP Queue 1, "
-                                  "item 5")
     return DSONARFGenerator(NARFParams.from_config(gp.nerf_params),
                             num_bone=num_bone,
                             parent_id=tuple(int(x) for x in parent_id),
                             device=device, generator=generator,
-                            ray_batchsize=int(gp.ray_batchsize))
+                            ray_batchsize=int(gp.ray_batchsize),
+                            use_triplane=bool(gp.use_triplane))
 
 
 class Optimizer:

@@ -47,11 +47,35 @@ def perturbed(variables, seed=7):
     return out
 
 
-def build_pair(size=16, ray_batchsize=64, seed=7, **overrides):
-    """(jax gen, jax variables, port gen, scene) for one DSO model."""
+def lifted_mlp_density(variables, shift=2.0):
+    """The MLP NARF's variables with its density head's bias raised by
+    ``shift``: its raw density logit (no ReLU, as the JAX model keeps it)
+    comes out negative at every point from the perturbed init, which
+    renders an empty (negative) mask; raised, the renders have a
+    foreground."""
+    from enarf_gan_tpu.training.checkpoint import jax_tree_to_dict
+    out = jax_tree_to_dict(variables)
+    heads = out["params"]["nerf"]["heads"]
+    if "density_fc" in heads:
+        heads["density_fc"]["bias"] = heads["density_fc"]["bias"] + shift
+    else:      # the view-independent head: density is the 4th output
+        last = sorted(heads["color_mlp"])[-1]
+        bias = heads["color_mlp"][last]["bias"]
+        heads["color_mlp"][last]["bias"] = bias.at[3].add(shift)
+    return out
+
+
+def build_pair(size=16, ray_batchsize=64, seed=7, use_triplane=True,
+               **overrides):
+    """(jax gen, jax variables, port gen, scene) for one DSO model: the
+    tri-plane NARF, or with ``use_triplane=False`` the MLP NARF of
+    ``model_type`` (no canonical-pose buffers; its ``density_mlp`` and
+    ``deformation_field`` carried by their flax paths; its density lifted,
+    ``lifted_mlp_density``)."""
     kw = {**SMALL, "render_bs": ray_batchsize, **overrides}
     gen = DSONARFGenerator(nerf_params=NARFParams(**kw), size=size,
-                           num_bone=24, parent_id=PARENTS, use_triplane=True,
+                           num_bone=24, parent_id=PARENTS,
+                           use_triplane=use_triplane,
                            ray_batchsize=ray_batchsize)
     scene = tiny_scene(1, size)
     pose_cam, world, bl, inv_K, canonical, _ = scene
@@ -60,25 +84,114 @@ def build_pair(size=16, ray_batchsize=64, seed=7, **overrides):
                          jnp.asarray(world[:, 0, :3, :3]),
                          jnp.ones((1, size, size)), jnp.array([0.5]),
                          jnp.asarray(bl), jnp.asarray(inv_K))
-    variables = register_canonical_pose(variables, canonical, "center_fixed",
-                                        np.asarray(SMPL_PARENTS))
+    if use_triplane:
+        variables = register_canonical_pose(
+            variables, canonical, kw["origin_location"],
+            np.asarray(SMPL_PARENTS))
     variables = perturbed(variables, seed)
+    if not use_triplane:
+        variables = lifted_mlp_density(variables)
     port = tgen.DSONARFGenerator(TNARFParams(**kw), num_bone=24,
-                                 parent_id=PARENTS, device="cpu")
-    load_reference_state_dict(port, export_reference_state_dict(variables))
+                                 parent_id=PARENTS, device="cpu",
+                                 use_triplane=use_triplane)
+    load_reference_state_dict(
+        port, export_reference_state_dict(variables),
+        nerf_flax_params=None if use_triplane else variables["params"]["nerf"])
     return gen, variables, port, scene
 
 
 def jax_dso_variables(jgen, jbatch, canonical_pose, seed=0):
     """``jdso.init_state``'s variables with the init jitted: seconds, where
-    the op-by-op init takes about half a minute on the CPU."""
+    the op-by-op init takes about half a minute on the CPU. The MLP
+    baselines have no canonical-pose buffers (``init_state`` would assert
+    that they do)."""
     key = jax.random.PRNGKey(seed)
     variables = jax.jit(jgen.init)(key, key, *(
         jbatch[k] for k in ("pose_3d", "camera_rotation", "mask",
                             "frame_time", "bone_length", "inv_intrinsics")))
+    if not jgen.use_triplane:
+        return variables
     return register_canonical_pose(variables, canonical_pose,
                                    jgen.nerf_params.origin_location,
                                    np.asarray(jgen.parent_id))
+
+
+def port_named(variables):
+    """A JAX DSO model's variables (or a gradient of them) under the port's
+    names: the reference-named bridge, and for the MLP baselines the flax
+    paths of ``density_mlp`` and ``deformation_field``."""
+    from enarf_gan_tpu_torch.interop import flax_mlp_narf_state
+    out = export_reference_state_dict(variables)
+    out.update({f"nerf.{k}": v.numpy() for k, v in
+                flax_mlp_narf_state(variables["params"]["nerf"]).items()})
+    return out
+
+
+def dso_train_case(raw, frames, rng_seed=4):
+    """Both DSO models of the config dict ``raw`` (either package's
+    AttrDict takes it) with the JAX model's perturbed weights, a batch of
+    ``frames`` of its training cache, JAX's draws, and JAX's training
+    render of the batch with the loss's gradients (its packed tables held
+    in float32, ``float32_jax_tables``). Returns dict(port, batch, randoms,
+    loss_type, ref={loss, color, mask, ray_idx, grads}), the gradients
+    under the port's names."""
+    from enarf_gan_tpu.config import AttrDict as JAttrDict
+    from enarf_gan_tpu.data.datasets import SSODataset
+    from enarf_gan_tpu.training import dso as jdso
+    from enarf_gan_tpu.training.losses import photometric_loss as jloss_fn
+    from enarf_gan_tpu_torch.config import AttrDict
+    from enarf_gan_tpu_torch.training import dso
+    jconfig = JAttrDict(raw)
+    loss_type = raw["loss"]["nerf_loss_type"]
+    size = raw["dataset"]["image_size"]
+    ds = SSODataset(jconfig.dataset.train, size=size, return_bone_params=True,
+                    return_mask=True, num_repeat_in_epoch=1)
+    batch = {k: np.stack([ds[i][k] for i in frames])
+             for k in ("img", "mask", "pose_3d", "frame_time", "bone_length",
+                       "camera_rotation", "intrinsics")}
+    jgen = jdso.build_generator(jconfig, ds.num_bone, ds.parents)
+    jbatch = jdso.prepare_batch(batch)
+    variables = perturbed(jax_dso_variables(jgen, jbatch, ds.canonical_pose),
+                          seed=7)
+    if not jgen.use_triplane:
+        variables = lifted_mlp_density(variables)
+    params = variables["params"]
+    rest = {k: v for k, v in variables.items() if k != "params"}
+    rng = jax.random.PRNGKey(rng_seed)
+
+    def micro_loss(params):
+        color, nerf_mask, ray_idx, _ = jgen.apply(
+            {"params": params, **rest}, rng, jbatch["pose_3d"],
+            jbatch["camera_rotation"], jbatch["mask"], jbatch["frame_time"],
+            jbatch["bone_length"], jbatch["inv_intrinsics"], background=-1.0)
+        lc, lm = jloss_fn(ray_idx, color, nerf_mask, jbatch["img"],
+                          jbatch["mask"], loss_type, 1.0, 1.0)
+        return lc + lm, (color, nerf_mask, ray_idx)
+
+    with float32_jax_tables():
+        (loss, (color, nerf_mask, ray_idx)), grads = jax.jit(
+            jax.value_and_grad(micro_loss, has_aux=True))(params)
+    port = dso.build_generator(AttrDict(raw), ds.num_bone, ds.parents,
+                               device="cpu")
+    load_reference_state_dict(
+        port, export_reference_state_dict(variables),
+        nerf_flax_params=None if jgen.use_triplane
+        else variables["params"]["nerf"])
+    B, h, w = batch["mask"].shape
+    n = int(ray_idx.shape[1])
+    P = jgen.nerf_params.tile_patch if jgen.use_triplane else 0
+    if P and port.nerf.supports_tiled_sampling():
+        randoms = jax_train_randoms(rng, (B, (h // P) * (w // P)),
+                                    B * n // (P * P), jgen.nerf_params.Nf)
+    else:
+        randoms = jax_train_randoms(rng, (B, h * w), B * n,
+                                    jgen.nerf_params.Nf)
+    return dict(port=port, batch=dso.prepare_batch(batch, "cpu"),
+                randoms=randoms, loss_type=loss_type,
+                ref=dict(loss=float(loss), color=np.asarray(color),
+                         mask=np.asarray(nerf_mask),
+                         ray_idx=np.asarray(ray_idx),
+                         grads=port_named({**variables, "params": grads})))
 
 
 def jax_fine_draws(rng, n_chunks, chunk, Nf):
@@ -325,9 +438,11 @@ def gan_pair_from_port(size=16, B=1, seed=7, **overrides):
         strict=True)
     w_avg = {n: b.numpy() for n, b in port.named_buffers()
              if n.endswith("w_avg")}
+    # the default variant's planes come from tri_plane_gen, constant_trimask's
+    # and selector_mlp's from generator: JAX's nerf/generator either way
+    plane_w_avg = next(v for n, v in w_avg.items() if n.startswith("nerf."))
     variables["stats"] = {
-        "nerf": {"generator": {"mapping": {
-            "w_avg": w_avg["nerf.tri_plane_gen.mapping.w_avg"]}}},
+        "nerf": {"generator": {"mapping": {"w_avg": plane_w_avg}}},
         "background_generator": {"mapping": {
             "w_avg": w_avg["background_generator.w_avg"]}}}
     return gen, variables, port, scene, z

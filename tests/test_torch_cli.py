@@ -264,3 +264,128 @@ def test_demo_cli_writes_the_samples(run):
     for p in paths:
         img = read_png(p)
         assert img.shape == (SIZE, SIZE, 3) and img.min() < img.max()
+
+
+# ------------------------------------------------------------------ #
+# configs/DSO_train/default.yml's MLP NARF through both CLIs
+# ------------------------------------------------------------------ #
+
+MLP_DEFAULT = os.path.join(REPO, "configs/DSO_train/default.yml")
+
+
+@pytest.fixture(scope="module")
+def mlp_run(run):
+    """``configs/DSO_train/default.yml`` itself as the default config (the
+    narf MLP, hidden 32, view-dependent, "center" origins), with a 32²
+    override: the caches of ``run``, bs 2, 64 rays an image, Nc 8 + Nf 8;
+    3 iterations, validating at 2."""
+    root = run["root"]
+    config = root / "default_mlp.yml"
+    config.write_text(textwrap.dedent(f"""\
+        out_root: {root}/mlp_out
+        out: DSO/default_mlp
+        dataset:
+          bs: 2
+          image_size: {SIZE}
+          train:
+            data_root: {root}/train
+            n_frames: 2
+          val:
+            novel_pose:
+              data_root: {run['val_root']}
+              n_frames: 1
+        generator_params:
+          ray_batchsize: 64
+          nerf_params:
+            Nc: 8
+            Nf: 8
+            render_bs: 256
+        val_interval: 2
+        """))
+    argv = ["--config", str(config), "--default_config", MLP_DEFAULT,
+            "--device", "cpu"]
+    gen, _, history = train_DSO.main(argv + ["--iterations", "3"])
+    return dict(root=root, argv=argv, gen=gen, history=history,
+                out_dir=os.path.join(root, "mlp_out", "result", "DSO",
+                                     "default_mlp"))
+
+
+def test_train_cli_trains_default_yml_mlp(mlp_run):
+    from enarf_gan_tpu_torch.models.narf import MLPNARF
+    gen = mlp_run["gen"]
+    assert isinstance(gen.nerf, MLPNARF) and not gen.use_triplane
+    p = gen.nerf_params
+    assert (p.model_type, p.hidden_size, p.origin_location,
+            p.view_dependent) == ("narf", 32, "center", True)
+    assert len(mlp_run["history"]) == 3
+    assert np.isfinite(mlp_run["history"]).all()
+    snap = torch.load(os.path.join(mlp_run["out_dir"], "snapshot_latest.pth"),
+                      weights_only=True)
+    assert "nerf.density_mlp.EqualConv1d_0.weight" in snap["gen"]
+    assert not any("tri_plane" in k for k in snap["gen"])
+    with open(os.path.join(mlp_run["out_dir"], "log.json")) as f:
+        assert "val_loss_novel_pose_color_PSNR" in json.load(f)["2"]
+
+
+@pytest.mark.parametrize("model_type", ["tnarf", "dnarf"])
+def test_train_cli_trains_default_yml_model_types(mlp_run, model_type):
+    """tnarf and dnarf through ``model_type`` alone: one iteration."""
+    gen, history = _train_variant(mlp_run, model_type,
+                                  f"model_type: {model_type}")
+    assert gen.nerf_params.model_type == model_type
+    assert len(history) == 1 and np.isfinite(history).all()
+
+
+def _train_variant(mlp_run, out, *nerf_lines):
+    """One iteration of ``mlp_run``'s config with ``nerf_lines`` added to
+    its nerf_params, into ``DSO/<out>``."""
+    config = mlp_run["root"] / f"{out}.yml"
+    config.write_text(
+        (mlp_run["root"] / "default_mlp.yml").read_text()
+        .replace("out: DSO/default_mlp", f"out: DSO/{out}")
+        .replace("    render_bs: 256\n", "    render_bs: 256\n" + "".join(
+            f"    {line}\n" for line in nerf_lines)))
+    argv = ["--config", str(config), "--default_config", MLP_DEFAULT,
+            "--device", "cpu", "--iterations", "1"]
+    gen, _, history = train_DSO.main(argv)
+    return gen, history
+
+
+def test_demo_cli_renders_default_yml_mlp(mlp_run):
+    """The demo on ``configs/DSO_demo/default.yml`` with only its paths
+    set. Its model is the training default's narf MLP but
+    view-independent with "center_fixed" origins (the demo renders
+    without a camera pose, which a view-dependent model needs, in JAX as
+    here), so ``train_DSO`` trains that model for one iteration first; the
+    snapshot's density bias is raised, since a step from the init leaves
+    the raw density logit negative everywhere."""
+    root = mlp_run["root"]
+    gen, _ = _train_variant(mlp_run, "demo_mlp", "no_ray_direction: True",
+                            "origin_location: center_fixed")
+    assert not gen.nerf_params.view_dependent
+    out_dir = os.path.join(root, "mlp_out", "result", "DSO", "demo_mlp")
+    path = os.path.join(out_dir, "snapshot_latest.pth")
+    snap = torch.load(path, weights_only=True)
+    bias = snap["gen"]["nerf.mlp.layers.2.bias"]      # (1, 4, 1): density 4th
+    bias[0, 3] += 2.0
+    torch.save(snap, path)
+    ds = SSODataset(AttrDict(data_root=str(root / "train"), n_frames=2),
+                    size=SIZE, num_repeat_in_epoch=1)
+    samples = root / "mlp_samples"
+    samples.mkdir()
+    np.savez(samples / "sample_data.npz",
+             **{k: np.stack([ds[i][k] for i in range(2)])
+                for k in ("pose_3d", "bone_length", "intrinsics")})
+    config = root / "demo_default_mlp.yml"
+    config.write_text(
+        f"out_root: {root}/mlp_out\nout: DSO/demo_mlp\n"
+        f"sample_path: {samples}\n"
+        f"canonical_pose_path: {root}/train/canonical.npy\n"
+        f"dataset:\n  image_size: {SIZE}\n")
+    paths = DSO_demo.main(["--config", str(config), "--default_config",
+                           os.path.join(REPO, "configs/DSO_demo/default.yml"),
+                           "--render_bs", "256", "--device", "cpu"])
+    assert [os.path.basename(p) for p in paths] == ["0000.png", "0001.png"]
+    for p in paths:
+        img = read_png(p)
+        assert img.shape == (SIZE, SIZE, 3) and img.min() < img.max()

@@ -308,7 +308,7 @@ def test_chunked_forward_equals_one_pass():
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
-def test_unported_variants_raise():
+def test_pretrained_background_and_variants_build():
     from _torch_parity import GAN_SMALL, PARENTS
     from enarf_gan_tpu_torch.nn.stylegan2 import PretrainedStyleGAN
     # the pretrained background is ported: a frozen PretrainedStyleGAN
@@ -319,10 +319,23 @@ def test_unported_variants_raise():
     assert isinstance(gen.background_generator, PretrainedStyleGAN)
     assert not any(p.requires_grad
                    for p in gen.background_generator.parameters())
-    for variant in ("constant_trimask", "selector_mlp"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-            TriPlaneNARF(NARFParams(**{**GAN_SMALL, variant: True}), 16, 8,
-                         23, device="cpu")
+    # every variant builds, its planes generated under the reference's names
+    for variant, module in (("constant_trimask", "generator"),
+                            ("selector_mlp", "generator"),
+                            ("no_selector", "tri_plane_gen"),
+                            ("constant_triplane", None),
+                            ("deformation_field", "flow_generator")):
+        nerf = TriPlaneNARF(NARFParams(**{**GAN_SMALL, variant: True}), 16, 8,
+                            23, device="cpu")
+        assert nerf.plane_generator is (getattr(nerf, module) if module
+                                        else None), variant
+    # the selector under variants where the JAX model builds none
+    for other in ("constant_triplane", "constant_trimask",
+                  "deformation_field"):
+        with pytest.raises(ValueError, match="selector_mlp"):
+            TriPlaneNARF(NARFParams(**{**GAN_SMALL, "selector_mlp": True,
+                                       other: True}), 16, 8, 23,
+                         device="cpu")
 
 
 # ------------------------------------------------------------------ #

@@ -63,5 +63,7 @@ def test_port_imports_without_jax_flax_yaml_pil():
                    "eval_lib.lpips", "evaluation", "evaluation.common",
                    "evaluation.compute_fid", "evaluation.compute_PCK",
                    "evaluation.compute_depth",
-                   "evaluation.pck_estimators"):
+                   "evaluation.pck_estimators", "models.narf",
+                   "models.nerf", "ops.triplane", "ops.grid_sample",
+                   "nn.layers"):
         assert f"enarf_gan_tpu_torch.{module}" in names, module

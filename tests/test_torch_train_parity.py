@@ -26,24 +26,14 @@ Tolerances:
   name): relative L2 error <= 2e-2 (as tests/test_torch_backward.py).
 """
 import numpy as np
-import jax
 import pytest
 import torch
 
-from enarf_gan_tpu.config import AttrDict as JAttrDict
-from enarf_gan_tpu.data.datasets import SSODataset
 from enarf_gan_tpu.data.fixtures import make_synthetic_human_cache
-from enarf_gan_tpu.training import dso as jdso
-from enarf_gan_tpu.training.checkpoint import export_reference_state_dict
-from enarf_gan_tpu.training.losses import photometric_loss as jloss_fn
 
-from enarf_gan_tpu_torch.config import AttrDict
-from enarf_gan_tpu_torch.interop import load_reference_state_dict
-from enarf_gan_tpu_torch.training import dso
 from enarf_gan_tpu_torch.training.losses import photometric_loss
 
-from _torch_parity import (float32_jax_tables, jax_dso_variables,
-                           jax_train_randoms, perturbed, tiny_dso_config)
+from _torch_parity import dso_train_case, tiny_dso_config
 
 FRAMES = (0, 3)   # two frames of the cache: B = 2
 PATHS = {"exact": dict(tile_patch=0, loss="mse"),
@@ -83,51 +73,7 @@ def make_case(name, synth_root, tmp_path_factory):
     raw = tiny_dso_config(synth_root, str(tmp_path_factory.mktemp("out")),
                           **path)
     raw["loss"]["nerf_loss_type"] = loss_type
-    jconfig = JAttrDict(raw)
-    ds = SSODataset(jconfig.dataset.train, size=32, return_bone_params=True,
-                    return_mask=True, num_repeat_in_epoch=1)
-    batch = {k: np.stack([ds[i][k] for i in FRAMES])
-             for k in ("img", "mask", "pose_3d", "frame_time", "bone_length",
-                       "camera_rotation", "intrinsics")}
-    jgen = jdso.build_generator(jconfig, ds.num_bone, ds.parents)
-    jbatch = jdso.prepare_batch(batch)
-    variables = perturbed(jax_dso_variables(jgen, jbatch, ds.canonical_pose),
-                          seed=7)
-    params = variables["params"]
-    rest = {k: v for k, v in variables.items() if k != "params"}
-    rng = jax.random.PRNGKey(4)
-
-    def micro_loss(params):
-        color, nerf_mask, ray_idx, _ = jgen.apply(
-            {"params": params, **rest}, rng, jbatch["pose_3d"],
-            jbatch["camera_rotation"], jbatch["mask"], jbatch["frame_time"],
-            jbatch["bone_length"], jbatch["inv_intrinsics"], background=-1.0)
-        lc, lm = jloss_fn(ray_idx, color, nerf_mask, jbatch["img"],
-                          jbatch["mask"], loss_type, 1.0, 1.0)
-        return lc + lm, (color, nerf_mask, ray_idx)
-
-    with float32_jax_tables():
-        (loss, (color, nerf_mask, ray_idx)), grads = jax.jit(
-            jax.value_and_grad(micro_loss, has_aux=True))(params)
-    ref_grads = export_reference_state_dict({**variables, "params": grads})
-
-    port = dso.build_generator(AttrDict(raw), ds.num_bone, ds.parents,
-                               device="cpu")
-    load_reference_state_dict(port, export_reference_state_dict(variables))
-    B, h, w = batch["mask"].shape
-    n = int(ray_idx.shape[1])
-    if path["tile_patch"]:
-        P = path["tile_patch"]
-        randoms = jax_train_randoms(rng, (B, (h // P) * (w // P)),
-                                    B * n // (P * P), jgen.nerf_params.Nf)
-    else:
-        randoms = jax_train_randoms(rng, (B, h * w), B * n,
-                                    jgen.nerf_params.Nf)
-    return dict(port=port, batch=dso.prepare_batch(batch, "cpu"),
-                randoms=randoms, loss_type=loss_type,
-                ref=dict(loss=float(loss), color=np.asarray(color),
-                         mask=np.asarray(nerf_mask),
-                         ray_idx=np.asarray(ray_idx), grads=ref_grads))
+    return dso_train_case(raw, FRAMES)
 
 
 def _render_and_loss(case):
@@ -153,7 +99,9 @@ def test_training_render_matches_jax(case):
     np.testing.assert_allclose(float(loss), ref["loss"], rtol=2e-2)
 
 
-def test_train_step_gradients_match_jax(case):
+def check_gradients(case, reached):
+    """The port's parameter gradients of the loss against JAX's, name by
+    name (relative L2 2e-2); those of ``reached`` must exist."""
     port = case["port"]
     port.zero_grad(set_to_none=True)
     _render_and_loss(case)[3].backward()
@@ -170,4 +118,9 @@ def test_train_step_gradients_match_jax(case):
         assert err <= 2e-2, (name, err)
         checked += 1
     assert checked >= 0.8 * len(grads)
-    assert grads["nerf.tri_plane"] is not None
+    for name in reached:
+        assert grads[name] is not None, name
+
+
+def test_train_step_gradients_match_jax(case):
+    check_gradients(case, ["nerf.tri_plane"])
