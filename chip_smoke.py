@@ -113,6 +113,24 @@ NVIDIA GPU.
    and one demo frame against the plain combine; profiles of a grid and a
    frame; and, where the model's volume crosses mesh_th nowhere, the
    iso-surface and rasteriser on an analytic ball on the same grid.
+Phase "preprocess" (between 8 and 9): the port's data preparation. It
+   says first that the pipelines' image stages (cv2) do not run on a
+   machine without cv2, and that the CPU tests hold them to the JAX
+   scripts. (a) A full-size synthetic SMPL model for each gender (6,890
+   vertices, 10 betas, a non-negative, row-normalised J_regressor) and
+   the port's ``prepare_canonical_pose`` CLI on the card, held to the
+   float64 numpy forward kinematics within 1e-5. (b) AIST++'s pose stage
+   as ``read_frames`` calls it (``AIST.preprocess.view_pose_stage``: the
+   forward kinematics of a sequence's whole 60 fps motion, the model sent
+   anew, and the crop geometry, once a camera view) over one dancer's
+   share of the release, 47 sequences of 798 motion frames in 9 views;
+   and ZJU 313's pose stage (1,176 train frames and the two test caches'
+   40 and 10, each frame with its own betas and root transform); each
+   held to the plain version within 1e-5, with ms, poses a second and the
+   peak. (c)
+   The port's ``prepare_sample_data`` CLI on phase 8's 512² cache, then
+   the demo (``DSO_demo.demo``) on that ``sample_data.npz`` with phase 8's
+   snapshot: finite frames, a non-empty mask, kernel 1f's launches.
 9. The evaluation CLIs of ``enarf_gan_tpu_torch.evaluation`` score that
    float32 GAN snapshot at full width (kernel 1f on every generated
    batch): ``compute_fid`` on ``config.yml`` (INCEPTION_WEIGHTS_NPZ=
@@ -176,6 +194,11 @@ evaluation CLIs on that GAN).
     python3 chip_smoke.py --variants
 
 runs phase 1 and phase "variants" (about two minutes on an H100).
+
+    python3 chip_smoke.py --preprocess
+
+runs phase 1, phase 8's DSO CLI run and phase "preprocess" (about 75 s
+on an H100).
 
     python3 chip_smoke.py --modes
 
@@ -314,6 +337,19 @@ MLP_FRAMES, MLP_CAMERAS = 2, 4    # the synthetic 128² training cache: 8
 MLP_TYPES_TIMED = 2               # tnarf, dnarf: 1 warm-up + 2 timed
 GAN_VARIANTS = ("constant_trimask", "selector_mlp", "no_selector")
 DENSE_BONES = 23                  # max_bones_per_point >= K: dense sampling
+# phase "preprocess": synthetic SMPL models at full size; AIST++'s pose
+# stage as read_frames calls it, once a video: a dancer's share of the
+# release (1,408 sequences of 30 dancers, 5.2 hours at 60 fps, 9 views:
+# Li et al., "AI Choreographer", ICCV 2021), each sequence at the mean
+# length, 5.2 h x 3600 s x 60 / 1,408 = 798 motion frames, its videos at
+# 1920x1080 decoded at 3 fps; ZJU subject 313's frames (1,176 train, 294
+# test); the demo's samples from phase 8's cache
+SMPL_VERTICES, SMPL_BETAS = 6890, 10
+AIST_SEQUENCES, AIST_VIEWS, AIST_SEQ_FRAMES = 47, 9, 798
+AIST_HW, AIST_FOCAL, AIST_DISTANCE = (1080, 1920), 1500.0, 500.0  # px, cm
+ZJU_313_FRAMES = (1176, 294)
+PREP_SAMPLES = 2
+PREP_FK_TOL = 1e-5        # float32 transforms against the float64 plain
 GAN_POSES = 4             # full-image GAN frames a path
 GAN_GRAD_REL_L2 = 1e-2    # G-step gradients, kernels vs plain combine: the
                           # atomics' order, and near-ties (bone slots, fine
@@ -424,10 +460,7 @@ def phase_setup():
     from enarf_gan_tpu_torch import use_full_float32
     from enarf_gan_tpu_torch.ops import tilewin_kernel, unirow
     from enarf_gan_tpu_torch.tools import ablate
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(f"card: {smi.stdout.strip().splitlines()[0]}")
+    print(f"card: {_card()}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     use_full_float32()     # as the CLIs do: no TF32 (cuDNN's default)
@@ -2772,6 +2805,248 @@ def phase_eval(device, root, out):
     return results
 
 
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _timed_fk(label, fn, n_poses, card):
+    """``fn()`` on the card after a warm-up call: ms, poses a second and
+    the peak memory allocated, printed with the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()                                   # returns host arrays
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: {n_poses:,} poses in {ms:.2f} ms ({n_poses / ms * 1e3:,.0f}"
+          f" poses/s, host arrays in and out), peak {peak:.3f} GiB allocated "
+          f"[{card}]")
+    return out, {"ms": ms, "poses_per_s": n_poses / ms * 1e3,
+                 "peak_gib": peak}
+
+
+def phase_preprocess(device, root, cli_root):
+    """Phase "preprocess": the port's data preparation on the card.
+    (a) A full-size synthetic SMPL model for each gender, then the port's
+    ``prepare_canonical_pose`` CLI on the card, its canonical poses held to
+    the float64 plain forward kinematics. (b) AIST++'s pose stage
+    (``AIST.preprocess.view_pose_stage``, the male model) as
+    ``read_frames`` calls it, once a camera view of each of a dancer's
+    AIST_SEQUENCES sequences, the first sequence's views held to the plain
+    forward kinematics and to the crop geometry on the host; and ZJU
+    313's pose stage (``ZJU.preprocess.pose_stage``: the train cache's
+    frames and the two test caches', each frame with its own betas and
+    Rh/Th), timed and held to the plain version. (c) The port's
+    ``prepare_sample_data`` CLI on phase 8's ``313_denarf.yml`` cache
+    (``cli_root``), then the demo CLI function (``DSO_demo.demo``) on
+    that ``sample_data.npz`` with the cache's pixel intrinsics and phase
+    8's snapshot: kernel 1f's launches, finite frames, a non-empty mask."""
+    import os
+    import torch
+    from enarf_gan_tpu_torch import DSO_demo
+    from enarf_gan_tpu_torch.data.cache import load_cache
+    from enarf_gan_tpu_torch.data.fixtures import make_synthetic_smpl_npz
+    from enarf_gan_tpu_torch.data_preprocess import (prepare_canonical_pose,
+                                                     prepare_sample_data)
+    from enarf_gan_tpu_torch.data_preprocess.AIST import preprocess as aist
+    from enarf_gan_tpu_torch.data_preprocess.ZJU import preprocess as zju
+    from enarf_gan_tpu_torch.geometry.smpl import (rvec_to_matrix_plain,
+                                                   smpl_pose_transforms_plain)
+    card = _card()
+    print("phase preprocess: the pipelines' image stages (cv2's imread, "
+          "undistort, resize and video decoding) do not run here: this "
+          "machine has no cv2; tests/test_torch_preprocess.py holds them to "
+          "the JAX scripts on the CPU. What runs here is what needs no cv2: "
+          "the forward kinematics, the root rotation, the sample data and "
+          "the demo on it.")
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) canonical poses of three full-size models
+    smpl_dir = os.path.join(root, "smpl_data")
+    models = {}
+    for i, g in enumerate(("MALE", "FEMALE", "NEUTRAL")):
+        path = os.path.join(smpl_dir, f"SMPL_{g}.npz")
+        make_synthetic_smpl_npz(path, SEED + 37 + i, n_betas=SMPL_BETAS,
+                                n_vertices=SMPL_VERTICES)
+        models[g] = dict(np.load(path))
+    t0 = time.perf_counter()
+    written = prepare_canonical_pose.main(
+        ["--smpl_dir", smpl_dir, "--out_dir", smpl_dir, "--device",
+         str(device)])
+    canon_s = time.perf_counter() - t0
+    assert len(written) == 3, written
+    errs = {}
+    for gender, m in models.items():
+        want = smpl_pose_transforms_plain(
+            np.zeros((1, SMPL_BETAS)), np.zeros((1, 72)), m["v_template"],
+            m["shapedirs"], m["J_regressor"], m["parents"])[0]
+        want[:, :3, 3] -= want[[1, 2], :3, 3].mean(axis=0, keepdims=True)
+        got = np.load(os.path.join(smpl_dir, f"{gender.lower()}_canonical.npy"))
+        assert got.shape == (24, 4, 4) and got.dtype == np.float32
+        errs[gender] = float(np.abs(got - want).max())
+        assert errs[gender] <= PREP_FK_TOL, (gender, errs[gender])
+    print(f"(a) prepare_canonical_pose on {SMPL_VERTICES}-vertex, "
+          f"{SMPL_BETAS}-beta models: 3 genders in {canon_s:.3f} s (the CLI, "
+          f"its first device calls included); max|Δ| against the float64 "
+          f"plain version " + ", ".join(f"{g} {e:.3g}" for g, e in
+                                        errs.items())
+          + f" (bound {PREP_FK_TOL:g}) [{card}]")
+    out["canonical_max_abs_err"] = max(errs.values())
+
+    # (b) AIST++'s pose stage as read_frames calls it, and ZJU 313's
+    male = models["MALE"]
+    rs = np.random.RandomState(SEED + 41)
+    video_len = AIST_SEQ_FRAMES // 20             # frames decoded at 3 fps
+    H, W = AIST_HW
+    K = np.array([[AIST_FOCAL, 0, W / 2], [0, AIST_FOCAL, H / 2], [0, 0, 1]])
+    views = [(rvec_to_matrix_plain(np.array([[0, 2 * np.pi * v / AIST_VIEWS,
+                                              0.0]]))[0],
+              np.array([[0.0], [0.0], [AIST_DISTANCE]]))
+             for v in range(AIST_VIEWS)]     # a ring around the dance floor
+    motions = [(rs.normal(0, 0.3, (AIST_SEQ_FRAMES, 72)),
+                np.array([rs.uniform(85, 100)]),                  # scaling
+                rs.normal(0, 0.5, (AIST_SEQ_FRAMES, 3)).cumsum(0))  # cm
+               for _ in range(AIST_SEQUENCES)]
+
+    def stage(motion, view, on=device):
+        return aist.view_pose_stage(male, *motion, *view, K, video_len, H, W,
+                                    on)
+
+    stage(motions[0], views[0])                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = [stage(m, v) for m in motions for v in views][:AIST_VIEWS]
+    s_all = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    calls = AIST_SEQUENCES * AIST_VIEWS
+    n_poses = calls * AIST_SEQ_FRAMES
+    out["aist"] = {"s": s_all, "ms_call": s_all / calls * 1e3,
+                   "poses_per_s": n_poses / s_all, "peak_gib": peak}
+    print(f"(b) AIST++ pose stage as read_frames calls it (view_pose_stage: "
+          f"the male model sent anew, zero betas): one dancer, "
+          f"{AIST_SEQUENCES} sequences x {AIST_VIEWS} views = {calls} calls "
+          f"of {AIST_SEQ_FRAMES} 60 fps poses, {video_len} frames kept: "
+          f"{s_all:.3f} s, {out['aist']['ms_call']:.3f} ms a call, "
+          f"{out['aist']['poses_per_s']:,.0f} poses/s (host arrays in and "
+          f"out), peak {peak:.3f} GiB allocated [{card}]")
+    poses, scaling, trans = motions[0]
+    want = smpl_pose_transforms_plain(
+        np.zeros((AIST_SEQ_FRAMES, SMPL_BETAS)), poses, male["v_template"],
+        male["shapedirs"], male["J_regressor"], male["parents"])
+    want[:, :, :3, 3] = want[:, :, :3, 3] * scaling + trans[:, None]
+    want = want[19:20 * video_len:20]
+    err, n_valid = 0.0, 0
+    for view, (A, valid, top_left, intr) in zip(views, first):
+        assert A.shape == (video_len, 24, 4, 4) and A.dtype == np.float32
+        # in the cache's units (metres: the pipeline divides by 100)
+        err = max(err, float(np.abs(A - want).max()) / 100)
+        host = aist.crop_geometry(A, *view, K, H, W, "cpu")
+        assert np.array_equal(valid, host[0]), (valid, host[0])
+        assert np.array_equal(top_left, host[1])
+        assert np.abs(intr - host[2]).max() <= 1e-9 * np.abs(host[2]).max()
+        n_valid += int(valid.sum())
+    assert err <= PREP_FK_TOL and n_valid > 0, (err, n_valid)
+    out["aist"]["max_abs_err"] = err
+    print(f"    first sequence's {AIST_VIEWS} views: max|Δ| against the "
+          f"float64 plain version {err:.3g} m (bound {PREP_FK_TOL:g}); "
+          f"validity, crop corners and intrinsics as on the host "
+          f"({n_valid} of {AIST_VIEWS * video_len} frames in view); its "
+          f"(B, {SMPL_VERTICES}, 3) vertices would be "
+          f"{AIST_SEQ_FRAMES * SMPL_VERTICES * 3 * 8 / 2**20:.0f} MiB a call "
+          f"in float64 [{card}]")
+    del first, want
+
+    neutral = models["NEUTRAL"]
+    n_train, n_test = ZJU_313_FRAMES
+    params = [{"poses": rs.normal(0, 0.3, (1, 72)).astype(np.float32),
+               "shapes": rs.normal(0, 1.0, (1, SMPL_BETAS)).astype(np.float32),
+               "Rh": rs.normal(0, 0.8, 3), "Th": rs.normal(0, 1.0, 3)}
+              for _ in range(n_train + n_test + 1)]
+    caches = {"train": range(0, n_train),
+              "test_novel_view": range(0, n_train, 30),
+              "test_novel_pose": range(n_train, n_train + n_test, 30)}
+    out["zju"] = {}
+    for name, frames in caches.items():
+        frame_params = [params[f + 1] for f in frames]   # 313: frame + 1
+        got, out["zju"][name] = _timed_fk(
+            f"(b) ZJU 313 pose stage, {name} cache (its own betas, Rh, Th a "
+            f"frame)", lambda: zju.pose_stage(neutral, frame_params, device),
+            len(frames), card)
+        stack = lambda k: np.stack([np.asarray(p[k]).reshape(-1)  # noqa: E731
+                                    for p in frame_params])
+        smpl = smpl_pose_transforms_plain(
+            stack("shapes"), stack("poses"), neutral["v_template"],
+            neutral["shapedirs"], neutral["J_regressor"], neutral["parents"])
+        root_tf = np.tile(np.eye(4), (len(frames), 1, 1))
+        root_tf[:, :3, :3] = rvec_to_matrix_plain(stack("Rh"))
+        root_tf[:, :3, 3] = stack("Th")
+        err = float(np.abs(got - root_tf[:, None] @ smpl).max())
+        assert got.shape == (len(frames), 24, 4, 4) and err <= PREP_FK_TOL, \
+            (name, err)
+        out["zju"][name]["max_abs_err"] = err
+        print(f"    max|Δ| against the float64 plain version {err:.3g} "
+              f"[{card}]")
+
+    # (c) the demo's sample data from phase 8's cache, and the demo on it
+    train_root = os.path.join(cli_root, "train")
+    samples = os.path.join(root, "samples")
+    path = prepare_sample_data.main(["--data_root", train_root, "--out",
+                                     samples, "--num", str(PREP_SAMPLES),
+                                     "--stride", "5"])
+    data, cache = np.load(path), load_cache(train_root)
+    idx = np.arange(0, len(cache["smpl_pose"]), 5)[:PREP_SAMPLES]
+    assert np.array_equal(data["intrinsics"], cache["camera_intrinsic"][idx])
+    demo_cfg = _read_config(DEMO_F32_CONFIG, {
+        "out_root": cli_root, "sample_path": samples,
+        "canonical_pose_path": os.path.join(train_root, "canonical.npy")})
+    renders, real = [], DSO_demo.make_dso_full_renderer
+
+    def recording(*a, **k):
+        render = real(*a, **k)
+
+        def run(*ra, **rk):
+            renders.append(render(*ra, **rk))
+            return renders[-1]
+        return run
+
+    _reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(DSO_demo, "make_dso_full_renderer", recording):
+        paths = DSO_demo.demo(demo_cfg, device)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(paths) * 1e3
+    launches = {k.name: k.launches for k in _all_kernels()}
+    size = demo_cfg.dataset.image_size
+    assert len(paths) == len(renders) == PREP_SAMPLES
+    assert launches["unirow_combine_f32"] > 0 and all(
+        v == 0 for k, v in launches.items() if k != "unirow_combine_f32"), \
+        launches
+    for color, mask, _ in renders:
+        assert color.shape == (3, size, size) and mask.shape == (size, size)
+        assert torch.isfinite(color).all() and torch.isfinite(mask).all()
+        assert mask.sum() > 0, float(mask.sum())
+    out["frame_launches"] = launches["unirow_combine_f32"] / len(paths)
+    out["ms_frame"] = ms
+    print(f"(c) prepare_sample_data on phase 8's {size}² cache ({PREP_SAMPLES}"
+          f" samples, the cache's pixel intrinsics), then the demo on them: "
+          f"{ms:.1f} ms a sample (the snapshot's load spread over them), "
+          f"kernel 1f launches a frame {out['frame_launches']:g}, mask sums "
+          + ", ".join(f"{float(m.sum()):.1f}" for _, m, _ in renders)
+          + f" [{card}]")
+    out["s"] = time.perf_counter() - t_phase
+    print(f"phase preprocess done in {out['s']:.1f} s [{card}]")
+    return out
+
+
 def _mlp_frame(gen, item, device, seed=1):
     """One full frame of a DSO model through ``make_dso_full_renderer`` at
     the dataset item's pose, camera and frame time (the camera's rotation
@@ -3183,6 +3458,17 @@ def float32_study(device, root):
     phase_eval(device, os.path.join(root, "gan32"), gan32["out"])
 
 
+def preprocess_study(device, root):
+    """``--preprocess``: phase 8's DSO CLI run (the cache and snapshot the
+    phase reuses), then phase "preprocess"."""
+    import os
+    import torch
+    phase_dso_cli(device, os.path.join(root, "cli"))
+    torch.cuda.empty_cache()
+    phase_preprocess(device, os.path.join(root, "prep"),
+                     os.path.join(root, "cli"))
+
+
 def _learn_setup(device, root, label, tile, seed):
     """The learning config, dataset, loader and fresh model from ``seed``
     on the one LEARN_SIZE² frame of the cache at ``root``."""
@@ -3441,7 +3727,8 @@ def main():
                "--modes": modes_study,
                "--gan": phase_gan,
                "--float32": float32_study,
-               "--variants": phase_variants}
+               "--variants": phase_variants,
+               "--preprocess": preprocess_study}
     if sys.argv[1:2] and sys.argv[1] in studies:
         with tempfile.TemporaryDirectory() as root:
             studies[sys.argv[1]](device, root)
@@ -3523,6 +3810,9 @@ def main():
         torch.cuda.empty_cache()
         demo = phase_gan_demo(device, os.path.join(root, "gan32"),
                               gan32["out"])
+        torch.cuda.empty_cache()
+        prep = phase_preprocess(device, os.path.join(root, "prep"),
+                                os.path.join(root, "cli"))
         torch.cuda.empty_cache()
         evals = phase_eval(device, os.path.join(root, "gan32"), gan32["out"])
         torch.cuda.empty_cache()
@@ -3649,7 +3939,8 @@ def main():
                  variants_trimask_peak_gib=vc["peak_gib"])
         if i == 0:
             k.update(variants_trimask_frame_launches=vc["frame_launches"][
-                "unirow_combine_f32"])
+                "unirow_combine_f32"],
+                preprocess_demo_frame_launches=prep["frame_launches"])
             k.update(gan_demo_frame_launches=demo["frames"][0]["launches"],
                      gan_demo_frame_ms=demo["frame_ms_1f"],
                      gan_demo_frame_device_ms=demo["frame_device_ms"],

@@ -4,7 +4,8 @@
 A deterministic 24-joint SMPL-topology skeleton, smooth per-joint motion and
 a camera ring: enough to drive the renderer without a dataset, and, with
 bone-mask images, to train on (``make_synthetic_human_cache``); with
-disparity maps, to score the depth evaluation (``make_synthetic_depth_cache``).
+disparity maps, to score the depth evaluation (``make_synthetic_depth_cache``);
+and a tiny SMPL model to run the preprocessing on (``make_synthetic_smpl_npz``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from enarf_gan_tpu_torch.data.mask2d import (SMPLProperty, add_blank_part,
                                              create_mask, pose_to_image_coord)
 from enarf_gan_tpu_torch.geometry.smpl import (SMPL_PARENTS,
                                                canonical_pose_from_rest_joints,
-                                               rigid_transform, rodrigues)
+                                               rigid_transform_plain,
+                                               rodrigues_plain)
 
 
 def synthetic_rest_joints(seed: int = 0) -> np.ndarray:
@@ -44,9 +46,9 @@ def synthetic_pose_sequence(rest_joints: np.ndarray, n_frames: int,
         angle = amp * np.sin(2 * np.pi * f / max(n_frames, 1) + phase)
         aa = np.zeros((24, 3), np.float32)
         aa[:, 1] = angle
-        rots = rodrigues(aa)
-        poses.append(rigid_transform(rots[None], rest_joints[None],
-                                     SMPL_PARENTS)[0])
+        rots = rodrigues_plain(aa)
+        poses.append(rigid_transform_plain(rots[None], rest_joints[None],
+                                           SMPL_PARENTS)[0])
     return np.stack(poses).astype(np.float32)
 
 
@@ -92,6 +94,31 @@ def tiny_scene(B: int, size: int, focal_scale: float = 1.2):
     canonical = canonical_pose_from_rest_joints(rest)
     return (pose_cam, world.astype(np.float32), bl, np.linalg.inv(K),
             canonical, K)
+
+
+def make_synthetic_smpl_npz(path: str, seed: int = 0, n_betas: int = 2,
+                            n_vertices: int = 96) -> Dict:
+    """Write a synthetic SMPL-like model npz (the keys of
+    ``data_preprocess/convert_smpl_pkl.py``): ``n_vertices`` vertices in 24
+    contiguous blocks, one around each rest joint, and a non-negative,
+    row-normalised regressor that averages each joint's block, corrected so
+    that it returns the synthetic rest skeleton at zero betas. The default
+    96 (4 a joint) is the JAX package's fixture, value for value; SMPL's
+    6,890 gives a model at full size."""
+    rs = np.random.RandomState(seed + 7)
+    rest = synthetic_rest_joints(seed)
+    V = n_vertices
+    owner = np.arange(V) * 24 // V                    # the block's joint
+    v_template = (rest[owner]
+                  + rs.uniform(-0.02, 0.02, (V, 3))).astype(np.float32)
+    J_regressor = np.zeros((24, V), np.float32)
+    J_regressor[owner, np.arange(V)] = 1 / np.bincount(owner)[owner]
+    v_template += (rest - J_regressor @ v_template)[owner]
+    shapedirs = rs.uniform(-0.01, 0.01, (V, 3, n_betas)).astype(np.float32)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, v_template=v_template, shapedirs=shapedirs,
+             J_regressor=J_regressor, parents=np.asarray(SMPL_PARENTS))
+    return {"rest_joints": rest, "n_vertices": V}
 
 
 def make_synthetic_human_cache(data_root: str, size: int = 64,

@@ -1,0 +1,3 @@
+"""NeuralActor → caches:
+``python -m enarf_gan_tpu_torch.data_preprocess.NeuralActor.preprocess``.
+"""

@@ -1,7 +1,9 @@
-"""Skeleton re-rooting (port of ``enarf_gan_tpu/geometry/pose.py``).
+"""Skeleton re-rooting, rotation and interpolation (port of
+``enarf_gan_tpu/geometry/pose.py``).
 
-``transform_pose`` runs on tensors; ``transform_canonical_pose`` is the
-host-side numpy registration step, as in the JAX package.
+``transform_pose`` and the rotations run on tensors; the canonical-pose
+registration (``transform_canonical_pose``) and ``interpolate_pose`` are
+host-side numpy (and scipy), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -62,3 +64,91 @@ def transform_canonical_pose(pose: np.ndarray, parent_id: np.ndarray,
     else:
         raise ValueError(f"unknown origin_location {origin_location!r}")
     return out.astype(np.float32), length.astype(np.float32)
+
+
+def rotation_matrix(theta: torch.Tensor) -> torch.Tensor:
+    """Rotations about y as (B, 4, 4)."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    R = torch.stack([c, z, -s, z,
+                     z, o, z, z,
+                     s, z, c, z,
+                     z, z, z, o], dim=-1)
+    return R.reshape(theta.shape[0], 4, 4)
+
+
+def rotate_pose(pose_3d: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """Rotate (B, J, 4, 4) poses by (B, 4, 4) about their mean joint. The
+    products are sums of elementwise products, exact in the tensors' dtype
+    whatever the TF32 switch (JAX's are at ``Precision.HIGHEST``)."""
+    center = torch.zeros_like(pose_3d[:, :1])
+    center[:, 0, :3, 3:] = pose_3d[:, :, :3, 3:].mean(dim=1)
+    centred = pose_3d - center
+    rotated = (R[:, None, :, :, None] * centred[:, :, None, :, :]).sum(dim=3)
+    return rotated + center
+
+
+def rotate_pose_by_angle(pose_3d: torch.Tensor, angle: torch.Tensor
+                         ) -> torch.Tensor:
+    return rotate_pose(pose_3d, rotation_matrix(angle))
+
+
+def rotate_pose_randomly(generator: torch.Generator, pose_3d: torch.Tensor
+                         ) -> torch.Tensor:
+    """Each pose about y by an angle drawn uniformly from [0, 2π) with
+    ``generator`` (on the poses' device)."""
+    angle = torch.rand(pose_3d.shape[0], generator=generator,
+                       dtype=pose_3d.dtype, device=pose_3d.device) * (2 * np.pi)
+    return rotate_pose_by_angle(pose_3d, angle)
+
+
+def interpolate_pose(pose_3d: np.ndarray, parents: np.ndarray, num: int = 100,
+                     loop: bool = True) -> np.ndarray:
+    """Slerp of each joint's rotation relative to its parent, and linear
+    translations, among key poses (num_pose, J, 4, 4) → (num, J, 4, 4);
+    ``loop`` returns from the last key pose to the first."""
+    from scipy.spatial.transform import Rotation as R
+    from scipy.spatial.transform import Slerp
+
+    num_pose, num_parts, _, _ = pose_3d.shape
+    parent_mat = pose_3d[:, parents[1:]]
+    parent_mat = np.concatenate(
+        [np.tile(np.eye(4)[None, None], (num_pose, 1, 1, 1)), parent_mat],
+        axis=1)
+    child = np.einsum("pjik,pjkl->pjil", np.linalg.inv(parent_mat), pose_3d)
+
+    interp_rel = []
+    for i in range(num_parts):
+        if loop:
+            key_rots = np.concatenate(
+                [child[:, i, :3, :3], child[:1, i, :3, :3]], axis=0)
+            key_times = np.arange(num_pose + 1)
+            times = np.arange(num) * num_pose / num
+            trans = np.concatenate([
+                np.linspace(child[j, i, :3, 3],
+                            child[(j + 1) % num_pose, i, :3, 3],
+                            num // num_pose, endpoint=False)
+                for j in range(num_pose)], axis=0)
+        else:
+            key_rots = child[:, i, :3, :3]
+            key_times = np.arange(num_pose)
+            times = np.arange(num) * (num_pose - 1) / (num - 1)
+            trans = np.concatenate([
+                np.linspace(child[j, i, :3, 3], child[j + 1, i, :3, 3],
+                            num // (num_pose - 1), endpoint=True)
+                for j in range(num_pose - 1)], axis=0)
+        rots = Slerp(key_times, R.from_matrix(key_rots))(times).as_matrix()
+        mat = np.concatenate([rots, trans[:, :, None]], axis=2)
+        mat = np.concatenate([mat, np.tile([[[0, 0, 0, 1]]], (num, 1, 1))],
+                             axis=1)
+        interp_rel.append(mat)
+    interp_rel = np.array(interp_rel)  # (J, num, 4, 4)
+
+    out = []
+    for i in range(num):
+        pose = []
+        for j in range(num_parts):
+            mat = np.eye(4) if parents[j] == -1 else pose[parents[j]]
+            pose.append(mat @ interp_rel[j, i])
+        out.append(np.stack(pose))
+    return np.stack(out)

@@ -1,9 +1,11 @@
 """The port imports none of jax, flax, yaml, PIL or torchvision, directly
 or through the JAX package, the JAX probes of ``tools/`` or the JAX
-evaluation scripts of ``evaluation/``: a fresh interpreter that
-refuses those imports must import every module of ``enarf_gan_tpu_torch``
-(its ``tools`` subpackage and the CLIs included) and ``chip_smoke.py``, read
-a config pair with ``config.yaml_config`` and write and read a PNG."""
+evaluation scripts of ``evaluation/``, and no module of it imports cv2 or
+the AIST++ SDK when it is imported (the GPU machine has neither): a fresh
+interpreter that refuses those imports must import every module of
+``enarf_gan_tpu_torch`` (its ``tools`` subpackage, the CLIs and the data
+preparation included) and ``chip_smoke.py``, read a config pair with
+``config.yaml_config`` and write and read a PNG."""
 import os
 import subprocess
 import sys
@@ -14,7 +16,7 @@ GUARD = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "PIL", "enarf_gan_tpu", "tools",
-           "evaluation", "torchvision")
+           "evaluation", "torchvision", "cv2", "aist_plusplus")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -65,5 +67,12 @@ def test_port_imports_without_jax_flax_yaml_pil():
                    "evaluation.compute_depth",
                    "evaluation.pck_estimators", "models.narf",
                    "models.nerf", "ops.triplane", "ops.grid_sample",
-                   "nn.layers"):
+                   "nn.layers", "geometry.smpl", "geometry.pose",
+                   "data_preprocess", "data_preprocess.prepare_canonical_pose",
+                   "data_preprocess.prepare_sample_data",
+                   "data_preprocess.ZJU.preprocess",
+                   "data_preprocess.NeuralActor.preprocess",
+                   "data_preprocess.surreal.preprocess",
+                   "data_preprocess.surreal.preprocess_depth",
+                   "data_preprocess.AIST.preprocess"):
         assert f"enarf_gan_tpu_torch.{module}" in names, module
