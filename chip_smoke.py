@@ -166,6 +166,20 @@ Phase "variants" (between 9 and 10): the model variants through the
    path's (kernel 1f): reported, not gated.
 10. Overfits one 64² frame for 200 iterations on both paths at full width:
    the PSNR must beat the blank frame's by more than 2 dB.
+Phase "tools" (last): the port's measurement tools
+   (``enarf_gan_tpu_torch.tools``) at full width through their ``main``:
+   ``frame_ablate`` (phase 3's 128² frame on both paths in full, under
+   ENARF_ABLATE=sampler, where it must launch no kernel 1 or 2, and under
+   ENARF_ABLATE=heads, where it must launch the full frame's kernels; host
+   and device ms and the split), ``frame_parts`` (the frame's pieces and
+   the sampler's stages alone), ``production`` (the bench model's DSO step
+   at 512², batch 16, and a 1024² demo frame in 8,192-ray chunks, each
+   path launching its own kernel), ``gan_step`` (the G, D and R1 steps at
+   the JAX tool's bs 4 in 4 micro-batches, tiled, which must launch
+   kernels 2 and 2b) and ``diag_learning`` (phase 10's tiled run from seed
+   2 with its three stages; the forced-density render must cover the
+   fixture's mask); the 128² frame's tools at 3 frames a variant or
+   piece, the others at cut counts of steps and frames.
 
 The second-to-last line is a JSON record of the kernels, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -206,6 +220,11 @@ runs phase 1, kernel 2's and kernel 3's checks at the fine chunk (phase
 2), and the tiled training steps of phase 6 in the hat mode and in each of
 kernel 3's modes (s/iter and peak memory a mode; a few minutes on an H100).
 
+    python3 chip_smoke.py --tools
+
+runs phase 1 and phase "tools" at the JAX tools' repetitions (REPS 3,
+BENCH_ITERS 30, BENCH_REPS 3, GAN_ITERS 3; a few minutes on an H100).
+
     python3 chip_smoke.py --probes
 
 runs phase 1 and every probe module's full sweep (row widths x table sizes
@@ -215,14 +234,18 @@ depths, B3 at its ragged shapes), one JSON line a measurement.
 """
 import contextlib
 import json
-import re
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
+
+from enarf_gan_tpu_torch.tools.benchkit import (port_kernels as _all_kernels,
+                                               reset_launches as
+                                               _reset_all_counts)
+from enarf_gan_tpu_torch.utils.introspect import (card as _card,
+                                                  profile_by_class)
 
 SEED = 0
 TRI_PLANE_SIZE = 256
@@ -1202,76 +1225,8 @@ def phase_profile(gen, scene, frame, ms_frame, device, label, pack):
         ms_pack, _ = timed(lambda: getattr(gen, pack)(planes))
     print(f"{label} profile: of a {ms_frame:.2f} ms frame, flow StyleGAN2 + "
           f"warp {ms_planes:.2f} ms and {pack} {ms_pack:.2f} ms (host clock)")
-    return _profile(lambda: frame(0.5, 1), f"{label} profile", ms_frame,
-                    "frame")
-
-
-class _Profile(tuple):
-    """(device ms, kernel launches, port kernels) of ``_profile``, with
-    the device ms by kernel class as ``groups``."""
-    groups = {}
-
-
-def _profile(fn, label, ms_host, what):
-    """Device time of one call of ``fn`` by kernel class (torch.profiler),
-    and its share of ``ms_host``, the call's time on the host clock.
-    Returns (device ms, kernel launches, {port kernel: (device ms,
-    launches)}) for the port's kernels (unirow, tilewin), each under its
-    name and, for a template, also its name with its first argument
-    (``tilewin_combine_kernel<16>``); the ms by class as ``.groups``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    groups = {}
-    port = {}
-    for e in kernels:
-        if e.self_device_time_total > 0:
-            name = e.key.lower()
-            # cuDNN's convolutions (their implicit GEMMs: fprop, dgrad,
-            # wgrad) before cuBLAS's GEMMs, whose xmma kernels share the
-            # prefix (sm80_xmma_gemm_*)
-            key = ("unirow kernels" if "unirow" in name else
-                   "tilewin kernels" if "tilewin" in name else
-                   "grid sample" if "grid_sampler" in name else
-                   "convolution" if any(w in name for w in (
-                       "conv", "cudnn", "fprop", "dgrad", "wgrad")) else
-                   "gemm" if any(w in name for w in (
-                       "gemm", "gemv", "cutlass", "xmma", "sm90")) else
-                   "sort" if "sort" in name or "radix" in name else
-                   "index/gather" if "index" in name or "gather" in name
-                   or "scatter" in name else
-                   "reduce" if "reduce" in name else "elementwise/other")
-            groups[key] = groups.get(key, 0.0) + e.self_device_time_total
-            if key in ("unirow kernels", "tilewin kernels"):
-                found = re.search(r"(\w*(?:unirow|tilewin)\w*)(<\d+)?",
-                                  e.key)
-                # by name, and by name and first template argument (the
-                # member count of tilewin_combine_kernel<m, stage>)
-                for short in {found.group(0) + ">" * bool(found.group(2)),
-                              found.group(1)}:
-                    ms, count = port.get(short, (0.0, 0))
-                    port[short] = (ms + e.self_device_time_total / 1e3,
-                                   count + e.count)
-    n_launches = sum(e.count for e in kernels)
-    print(f"{label}: device time {device_us / 1e3:.2f} ms in a "
-          f"{ms_host:.2f} ms {what} (busy share {device_us / 1e3 / ms_host:.3f}),"
-          f" {n_launches} kernel launches")
-    for key, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {key}: {us / 1e3:.2f} ms")
-    for short, (ms, count) in sorted(port.items()):
-        print(f"  port kernel {short}: {ms:.3f} ms, {count} launches a {what}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d} x  "
-              f"{e.key[:90]}")
-    out = _Profile((device_us / 1e3, n_launches, port))
-    out.groups = {k: us / 1e3 for k, us in groups.items()}
-    return out
+    return profile_by_class(lambda: frame(0.5, 1), f"{label} profile",
+                            ms_frame, "frame")
 
 
 def phase_launch_cost(probes, frames, ms_host):
@@ -1287,18 +1242,6 @@ def phase_launch_cost(probes, frames, ms_host):
               f"us a launch (host) = {cost:.2f} ms, beside an idle "
               f"{idle:.2f} ms of a {ms_host[label]:.2f} ms frame "
               f"({cost / max(idle, 1e-9):.2f} of it)")
-
-
-def _all_kernels():
-    from enarf_gan_tpu_torch.ops import tilewin_kernel, unirow
-    return (unirow.KERNEL, unirow.KERNEL_BWD, tilewin_kernel.KERNEL,
-            tilewin_kernel.KERNEL_BWD, tilewin_kernel.KERNEL_MODES,
-            unirow.KERNEL_F32, unirow.KERNEL_BWD_F32)
-
-
-def _reset_all_counts():
-    for k in _all_kernels():
-        k.reset_counts()
 
 
 def _train_config(base=None, **overrides):
@@ -1421,9 +1364,9 @@ def phase_train(gen, config, ds, batch, device, label, own, census_of=None):
     step(batch, rng)
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3
-    device_ms, _, port = _profile(lambda: step(batch, rng),
-                                  f"{label} training profile", ms_step,
-                                  "step")
+    device_ms, _, port = profile_by_class(lambda: step(batch, rng),
+                                          f"{label} training profile",
+                                          ms_step, "step")
     census = None
     if census_of is not None:
         census = _census_step(step, batch, rng, *census_of)
@@ -1738,10 +1681,10 @@ def phase_gan_train(gen, dis, config, batch, canonical, device):
     g_step(poses, rng)
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3
-    device_ms, n_launch, port = _profile(lambda: g_step(poses, rng),
-                                         "GAN G step profile", ms_step,
-                                         "G step")
-    _profile(lambda: r1_step(real), "GAN R1 step profile", r1_ms, "R1 step")
+    device_ms, n_launch, port = profile_by_class(
+        lambda: g_step(poses, rng), "GAN G step profile", ms_step, "G step")
+    profile_by_class(lambda: r1_step(real), "GAN R1 step profile", r1_ms,
+                     "R1 step")
     gen.load_state_dict(state)
     return {"s_iter": s_iter, "peak": peak, "n_accum": n_accum,
             "r1_ms": r1_ms, "launches": launches, "by_m": by_m,
@@ -1779,8 +1722,9 @@ def phase_gan_exact_step(exact, dis, config, batch, canonical, device,
     print(f"GAN exact G step: {ms_step:.1f} ms, peak {peak / 2**30:.2f} GiB, "
           f"loss_gen {float(gm['loss_gen']):.4f}; kernel launches "
           f"{launches}")
-    _, _, port = _profile(lambda: g_step(poses, rng), "GAN exact G step "
-                          "profile", ms_step, "G step")
+    _, _, port = profile_by_class(lambda: g_step(poses, rng),
+                                  "GAN exact G step profile", ms_step,
+                                  "G step")
     exact.load_state_dict(state)
     return {"launches": launches, "kernels": port, "ms_step": ms_step}
 
@@ -1898,8 +1842,9 @@ def phase_gan(device, root):
         lambda *a, mode=None: tilewin_kernel.tilewin_combine_texels_plain(*a),
         tilewin_kernel.KERNEL, "GAN tiled")
     phase_tiled_vs_exact(ref_t, ref_e)
-    frames = {label: _profile(lambda f=f: f(0, 1), f"GAN {label} frame "
-                              "profile", ms, "frame")
+    frames = {label: profile_by_class(lambda f=f: f(0, 1),
+                                      f"GAN {label} frame profile", ms,
+                                      "frame")
               for label, f, ms in (("tiled", frame_t, ms_t),
                                    ("exact", frame_e, ms_e))}
     del ref_e, ref_t
@@ -1976,7 +1921,7 @@ def _cli_train(config, device, timed, label, profile=True, seed=SEED + 29):
     fresh DSO model renders an all-zero mask, and a few steps do not
     change that). Returns the model, the loss history, s/iter and the peak
     memory of the timed iterations, every kernel's launches in all and a
-    step, and the profile (``_profile``'s)."""
+    step, and the profile (``profile_by_class``'s)."""
     import torch
     from enarf_gan_tpu_torch import train_DSO
     from enarf_gan_tpu_torch.training import dso
@@ -1999,7 +1944,7 @@ def _cli_train(config, device, timed, label, profile=True, seed=SEED + 29):
             if profile and len(ends) == iters - 1:   # the profiled step
                 ms = (ends[timed] - ends[0]) / timed * 1e3
                 out = {}
-                prof["profile"] = _profile(
+                prof["profile"] = profile_by_class(
                     lambda: out.update(m=step(*sa, **sk)), label, ms, "step")
                 m = out["m"]
             else:
@@ -2142,7 +2087,7 @@ def _gan_cli_train(device, root, replace, label, seed=SEED + 31):
     included); the synthetic 128² cache written at ``root``. Returns the
     config, the models, the history, s/iter, the peak, each kernel's
     launches over the timed G steps, 1f's and 1bf's a G step, the G step's
-    ms (host) and its profile (``_profile``'s)."""
+    ms (host) and its profile (``profile_by_class``'s)."""
     import torch
     from enarf_gan_tpu_torch import train_ENARF_GAN
     from enarf_gan_tpu_torch.data.fixtures import make_synthetic_human_cache
@@ -2181,7 +2126,7 @@ def _gan_cli_train(device, root, replace, label, seed=SEED + 31):
                 prof["launches"] = {k.name: k.launches
                                     for k in _all_kernels()}
                 out = {}
-                prof["profile"] = _profile(
+                prof["profile"] = profile_by_class(
                     lambda: out.update(r=g_step(*sa, **sk)),
                     f"{label} G step profile (CLI)",
                     float(np.mean(g_ms[1:])), "G step")
@@ -2558,11 +2503,11 @@ def phase_gan_demo(device, root, out):
     grid_slice()
     torch.cuda.synchronize()
     slice_ms = (time.perf_counter() - t) * 1e3
-    grid_prof = _profile(grid_slice, f"GAN demo density grid ({D}³, sample "
-                         f"0), chunks {lo} to {hi - 1}, profile", slice_ms,
-                         f"{hi - lo} chunks")
-    frame_prof = _profile(demo_frame, "GAN demo frame profile",
-                          frame["ms"], "frame")
+    grid_prof = profile_by_class(
+        grid_slice, f"GAN demo density grid ({D}³, sample 0), chunks {lo} "
+        f"to {hi - 1}, profile", slice_ms, f"{hi - lo} chunks")
+    frame_prof = profile_by_class(demo_frame, "GAN demo frame profile",
+                                  frame["ms"], "frame")
 
     surface = "model"
     if any(iso["faces"] == 0 for iso in isos):
@@ -2774,8 +2719,8 @@ def phase_eval(device, root, out):
     fid_batch()
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t) * 1e3
-    prof = _profile(fid_batch, f"FID batch of {FID_BATCH} (render, resize, "
-                    "Inception) profile", batch_ms, "batch")
+    prof = profile_by_class(fid_batch, f"FID batch of {FID_BATCH} (render, "
+                            "resize, Inception) profile", batch_ms, "batch")
     results["fid_batch"] = {"ms": batch_ms, "device_ms": prof[0],
                             "launches": prof[1],
                             "ms_1f": prof[2].get("unirow_combine_kernel",
@@ -2803,14 +2748,6 @@ def phase_eval(device, root, out):
     del gen, first, extractor
     torch.cuda.empty_cache()
     return results
-
-
-def _card():
-    """The card's name and power limit, as nvidia-smi gives them."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return smi.stdout.strip().splitlines()[0]
 
 
 def _timed_fk(label, fn, n_poses, card):
@@ -3469,6 +3406,90 @@ def preprocess_study(device, root):
                      os.path.join(root, "cli"))
 
 
+def _tool(main, env, argv=()):
+    """``main(argv)`` of a tool of ``enarf_gan_tpu_torch.tools`` with the
+    variables ``env`` set while it runs; prints its seconds."""
+    import os
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {k: str(v) for k, v in env.items()}):
+        out = main(["--device", "cuda", *argv])
+    print(f"tools: {main.__module__.rsplit('.', 1)[-1]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_tools(device, study=False):
+    """Phase "tools": the port's measurement tools at full width, at cut
+    counts (REPS 3, BENCH_ITERS 2, BENCH_REPS 1, GAN_ITERS 1; ``study``:
+    the JAX tools' defaults, REPS 3, BENCH_ITERS 30, BENCH_REPS 3,
+    GAN_ITERS 3). Their host clocks run
+    here after the earlier phases' (and tools') profiles, which leave the
+    host's launches dearer; a tool run alone, ``python -m
+    enarf_gan_tpu_torch.tools.<name>``, times before its first profile. ``frame_ablate`` on both paths: the nosampler frames
+    must launch no kernel 1 or 2, the noheads frames as many as the full
+    ones, which launch their own; ``frame_parts``; ``production`` (dso512,
+    demo1024; exact and tiled), whose frames must launch their own kernel;
+    ``gan_step`` (G, D, R1) on the tiled path, which must launch kernels 2
+    and 2b; ``diag_learning`` on phase 10's tiled run from seed 2, whose
+    forced-density render must cover the fixture's mask. Returns each
+    tool's records."""
+    import torch
+    from enarf_gan_tpu_torch.tools import (diag_learning, frame_ablate,
+                                           frame_parts, gan_step, production)
+    t_phase = time.perf_counter()
+    reps = {} if study else {"REPS": 3, "BENCH_ITERS": 2, "BENCH_REPS": 1,
+                             "GAN_ITERS": 1}
+    out = {"frame_ablate": _tool(frame_ablate.main, reps)}
+    for path, rec in out["frame_ablate"].items():
+        by = {r["variant"]: r for r in rec["variants"]}
+        own = "kernel2_launches" if path.startswith("tilewin") \
+            else "kernel1_launches"
+        assert by["full"][own] > 0, (path, by["full"])
+        assert by["nosampler"]["kernel1_launches"] == 0 and \
+            by["nosampler"]["kernel2_launches"] == 0, (path, by["nosampler"])
+        assert by["noheads"]["launches_a_frame"] == \
+            by["full"]["launches_a_frame"], (path, by["noheads"])
+        split = rec["split"]
+        print(f"tools: {path} 128² frame split (host ms / device ms): "
+              + "; ".join(f"{k} {split['split_ms_host'][k]:.2f} / "
+                          f"{split['split_device_ms'][k]:.2f}"
+                          for k in ("full", "sampler", "heads", "rest"))
+              + f" [{_card()}]")
+    torch.cuda.empty_cache()
+    out["frame_parts"] = _tool(frame_parts.main, reps)
+    torch.cuda.empty_cache()
+    out["production"] = _tool(production.main, reps)
+    for r in out["production"]:
+        counts = r.get("launches_a_frame", r.get("launches_a_step"))
+        own = "tilewin_combine" if r["tile_patch"] else "unirow_combine"
+        assert counts[own] > 0, r
+        print(f"tools: {r['metric']} (tile_patch {r['tile_patch']}): "
+              f"{r['value']:.4f} {r['unit']}, device {r['device_ms']:.2f} ms "
+              f"(busy {r['busy']:.3f}), peak {r['peak_gib']:.2f} GiB, "
+              f"{own} {counts[own]:g} a "
+              f"{'frame' if 'launches_a_frame' in r else 'step'}")
+    torch.cuda.empty_cache()
+    out["gan_step"] = _tool(gan_step.main, reps)
+    g = out["gan_step"]["G"]["launches_a_step"]
+    assert g["tilewin_combine"] > 0 and g["tilewin_combine_bwd"] > 0, g
+    torch.cuda.empty_cache()
+    diag = _tool(diag_learning.main, {}, [
+        "--size", str(LEARN_SIZE), "--iters", str(LEARN_ITERS),
+        "--tile", str(TILE_PATCH), "--seed", "2", "--log-every", "50"])
+    assert diag["A"]["coverage"] >= 0.9 and np.isfinite(diag["C"]["psnr"]), \
+        diag
+    out["diag_learning"] = diag
+    torch.cuda.empty_cache()
+    print(f"phase tools done in {time.perf_counter() - t_phase:.1f} s "
+          f"[{_card()}]")
+    return out
+
+
+def tools_study(device, root):
+    """``--tools``: phase "tools" at the JAX tools' repetitions."""
+    phase_tools(device, study=True)
+
+
 def _learn_setup(device, root, label, tile, seed):
     """The learning config, dataset, loader and fresh model from ``seed``
     on the one LEARN_SIZE² frame of the cache at ``root``."""
@@ -3728,7 +3749,8 @@ def main():
                "--gan": phase_gan,
                "--float32": float32_study,
                "--variants": phase_variants,
-               "--preprocess": preprocess_study}
+               "--preprocess": preprocess_study,
+               "--tools": tools_study}
     if sys.argv[1:2] and sys.argv[1] in studies:
         with tempfile.TemporaryDirectory() as root:
             studies[sys.argv[1]](device, root)
@@ -3820,6 +3842,8 @@ def main():
         variants = phase_variants(device, os.path.join(root, "variants"))
         print(f"variants phase done at {time.perf_counter() - t_start:.1f} s")
         phase_learn(device, os.path.join(root, "learn"))
+    torch.cuda.empty_cache()
+    tools = phase_tools(device)
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, numbers):
@@ -3886,6 +3910,33 @@ def main():
                                    "tilewin_combine_modes_kernel"),
               "gan_frame_launches": ct["tilewin_combine_modes"],
               "gan_frame_ms": ms_of(ft, "tilewin_combine_modes_kernel")}
+
+    # phase tools: each kernel's launches a frame or step on the tools'
+    # paths (frame_ablate's variants, production's dso512 step and
+    # demo1024 frame, gan_step's tiled G step), and the frame's split
+    def tool_launches(key, path):
+        prod = {r["metric"].split("_")[0]:
+                r.get("launches_a_frame", r.get("launches_a_step"))[key]
+                for r in tools["production"]
+                if (r["tile_patch"] > 0) == (path != "exact")}
+        return {**{f"tools_{r['variant']}_frame_launches":
+                   r["launches_a_frame"][key]
+                   for r in tools["frame_ablate"][path]["variants"]},
+                "tools_dso512_step_launches": prod["dso512"],
+                "tools_demo1024_frame_launches": prod["demo1024"],
+                "tools_gan_step_launches":
+                    tools["gan_step"]["G"]["launches_a_step"][key]}
+
+    k1.update(tool_launches("unirow_combine", "exact"),
+              tools_frame_split_device_ms=tools["frame_ablate"]["exact"][
+                  "split"]["split_device_ms"])
+    k1b.update(tool_launches("unirow_combine_bwd", "exact"))
+    for m in (16, 4):
+        k2[m] = dict(k2[m], **tool_launches(f"tilewin_combine<{m}>",
+                                            "tilewin4"))
+    k2[16]["tools_frame_split_device_ms"] = tools["frame_ablate"][
+        "tilewin4"]["split"]["split_device_ms"]
+    k2b.update(tool_launches("tilewin_combine_bwd", "tilewin4"))
 
     entries = [
         entry("unirow_combine", "unirow_combine.cu",

@@ -32,6 +32,9 @@ them.
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
+from typing import NamedTuple
 
 import torch
 import torch.nn as nn
@@ -52,6 +55,46 @@ from enarf_gan_tpu_torch.ops.triplane import (sample_triplane_part_prob,
                                               select_candidate_bones)
 from enarf_gan_tpu_torch.ops.unirow import (MASK_BLOCK, pack_texels,
                                             sample_candidates_unirow)
+
+
+def _ablate_stage() -> str:
+    """Measurement-only stand-ins for a frame's split into stages (the JAX
+    ``_ablate_stage``; ``tools/frame_ablate.py``):
+
+    ENARF_ABLATE=sampler  on the candidate path the planes are not packed
+                          (``pack_planes`` and ``pack_planes_tiled`` return
+                          an ``AblatedTable``) and the sampler's outputs are
+                          cheap functions of the candidate positions, so
+                          neither the candidate rows or plan nor kernel 1
+                          or 2 run (JAX's XLA drops them as dead code);
+    ENARF_ABLATE=heads    the heads' outputs are a slice of the feature.
+
+    Never set in training or evaluation: warns once a process."""
+    stage = os.environ.get("ENARF_ABLATE", "")
+    if stage and not _ablate_stage._warned:
+        _ablate_stage._warned = True
+        warnings.warn(
+            f"ENARF_ABLATE={stage!r} is set: sampler/head outputs are "
+            "REPLACED with cheap stand-ins in every entry point. This is a "
+            "bench-decomposition mode — unset it for any real run.",
+            stacklevel=2)
+    return stage
+
+
+_ablate_stage._warned = False
+
+
+class AblatedTable(NamedTuple):
+    """What ``pack_planes`` (in a 1-tuple) and ``pack_planes_tiled`` return
+    under ENARF_ABLATE=sampler: nothing packed, only what the sampler's
+    stand-in reads."""
+    feat_dim: int
+
+
+def _ablated_feature(f0: torch.Tensor, feat_dim: int) -> torch.Tensor:
+    """The stand-in feature (B, F, n): the candidates' mean position
+    (B, 3, n) tiled over the channels, as JAX's ``jnp.tile``."""
+    return f0.repeat(1, (feat_dim + 2) // 3, 1)[:, :feat_dim]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +220,12 @@ class _DensityColorHeads(nn.Module):
             return density, color
         cd = self.mlp(feature, z_rend)
         return cd[:, 3:], torch.tanh(cd[:, :3])
+
+
+def _check_packed(table) -> None:
+    if isinstance(table, AblatedTable):
+        raise ValueError("these planes were packed under ENARF_ABLATE="
+                         "sampler, which no longer holds: pack them again")
 
 
 class TriPlaneNARF(_DensityColorHeads):
@@ -349,6 +398,8 @@ class TriPlaneNARF(_DensityColorHeads):
         if not self.uses_candidate_sampling():
             return tri_plane_feature
         self._check_unirow()
+        if _ablate_stage() == "sampler":
+            return (AblatedTable(self.params.feat_dim),)
         return (pack_texels(tri_plane_feature, self.params.feat_dim,
                             self.num_bone, dtype=self.texel_dtype),)
 
@@ -381,8 +432,12 @@ class TriPlaneNARF(_DensityColorHeads):
 
     def _density_color(self, feature, weight_max, validity, z_rend,
                        ray_direction):
-        """Heads on the sampled feature; density zero outside every cube."""
-        density, color = self.heads(feature, z_rend, ray_direction)
+        """Heads on the sampled feature (under ENARF_ABLATE=heads a slice
+        of it); density zero outside every cube."""
+        if _ablate_stage() == "heads":
+            density, color = feature[:, :1], feature[:, 1:4]
+        else:
+            density, color = self.heads(feature, z_rend, ray_direction)
         if self.params.multiply_density_with_triplane_weight:
             density = density_relu(density) * (10 * weight_max)
         else:
@@ -437,9 +492,15 @@ class TriPlaneNARF(_DensityColorHeads):
             (table,) = self.pack_planes(tri_plane_feature)
         cand_idx, cand_valid, cand_pos = select_candidate_bones(
             canonical, validity, p.max_bones_per_point)
-        feature, cand_w = sample_candidates_unirow(
-            table, cand_pos, cand_idx, cand_valid, p.feat_dim, K, ts, ts,
-            clamp_mask=p.clamp_mask)
+        if _ablate_stage() == "sampler":
+            feature = _ablated_feature(cand_pos.mean(dim=2).permute(0, 2, 1),
+                                       p.feat_dim)
+            cand_w = torch.sigmoid(cand_pos.sum(dim=3))        # (B, n, M)
+        else:
+            _check_packed(table)
+            feature, cand_w = sample_candidates_unirow(
+                table, cand_pos, cand_idx, cand_valid, p.feat_dim, K, ts, ts,
+                clamp_mask=p.clamp_mask)
         weight_max = (cand_w * cand_valid).amax(dim=2)[:, None]   # (B, 1, n)
         return self._density_color(feature, weight_max, validity, z_rend,
                                    ray_direction)
@@ -454,6 +515,8 @@ class TriPlaneNARF(_DensityColorHeads):
                 "tile_patch needs the candidate-sparse tri-plane-mask path "
                 "(not no_selector / selector_mlp / max_bones_per_point >= "
                 "num_bone)")
+        if _ablate_stage() == "sampler":
+            return AblatedTable(self.params.feat_dim)
         if self.texel_dtype != torch.bfloat16:
             raise NotImplementedError(
                 "the patch-tiled sampler takes bf16 planes (the JAX package "
@@ -481,13 +544,21 @@ class TriPlaneNARF(_DensityColorHeads):
             position, pose_to_camera, bone_length)
         slot_idx, cand_pos, cand_valid = select_patch_slots(
             canonical, validity, n_patch, m, S, p.max_bones_per_point)
-        # the fine pass (m = 16) takes ENARF_TILEWIN_KERNEL's formulation;
-        # the coarse-corner pass (m = 4) stays on the hat kernel, as the JAX
-        # one never reached the matrix modes
-        out = sample_tilewin_fused(tables, cand_pos, slot_idx, cand_valid,
-                                   clamp_mask=p.clamp_mask,
-                                   with_stats=with_stats,
-                                   mode=None if m == 16 else "hat")
+        if _ablate_stage() == "sampler":
+            feature = _ablated_feature(cand_pos.mean(dim=2).reshape(B, 3, n),
+                                       tables.feat_dim)
+            cand_w = torch.sigmoid(cand_pos.sum(dim=1))   # (B, Mp, np, m, S)
+            out = (feature, cand_w,
+                   {"clamped": torch.zeros((), device=position.device)})
+        else:
+            _check_packed(tables)
+            # the fine pass (m = 16) takes ENARF_TILEWIN_KERNEL's
+            # formulation; the coarse-corner pass (m = 4) stays on the hat
+            # kernel, as the JAX one never reached the matrix modes
+            out = sample_tilewin_fused(tables, cand_pos, slot_idx,
+                                       cand_valid, clamp_mask=p.clamp_mask,
+                                       with_stats=with_stats,
+                                       mode=None if m == 16 else "hat")
         feature, cand_w = out[0], out[1]
         weight_max = (cand_w * cand_valid).amax(dim=1).reshape(B, 1, n)
         density, color = self._density_color(feature, weight_max, validity,

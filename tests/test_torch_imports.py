@@ -59,6 +59,9 @@ def test_port_imports_without_jax_flax_yaml_pil():
                    "data.datasets", "data.loader", "data.fixtures",
                    "tools", "tools.timing", "tools.gather", "tools.mma",
                    "tools.ablate", "tools.constructs", "ops.quadtable",
+                   "utils.introspect", "tools.benchkit", "tools.frame_ablate",
+                   "tools.frame_parts", "tools.production", "tools.gan_step",
+                   "tools.diag_learning",
                    "train_DSO", "DSO_demo", "train_ENARF_GAN",
                    "ENARF_GAN_demo", "mesh.extract", "mesh.raster",
                    "eval_lib", "eval_lib.fid", "eval_lib.inception",
