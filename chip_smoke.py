@@ -13,19 +13,30 @@ NVIDIA GPU.
    window-row formulation on window rows built from the texel table and
    held to ``pack_tilewin``'s; the backward kernels 1b and 2b at one
    training fine pass of 4 images, against autograd through the plain
-   versions; kernels 1f and 1bf, kernels 1 and 1b on a float32 texel
-   table, at the same shapes), times both with CUDA events in turns, and
+   versions; kernels 1f and 1bf, the float32 sampler from the candidates'
+   positions on the feature table and bone-major mask planes of
+   ``pack_texels_f32``, at the same shapes, 1bf's gradients of both tables
+   and of the positions), times both with CUDA events in turns, and
    computes each
    kernel's bound from this run's inputs: the distinct table bytes the
    function needs (64-byte feature halves of texels and 32-byte mask
-   sectors that valid members touch; all of them read the texel table, and
-   the TPU layouts' bounds, quad rows for unirow and window rows for
-   tilewin, are printed beside; kernel 3 computes kernel 2's function and is
-   held to its bound, with the whole 4 KB rows it reads printed beside),
-   each coordinate and output once (the backward kernels' dense float32
-   texel gradients counted as written). Kernel 1b's stage build (scalar
-   feature adds, no feature adds, no mask adds) is held to its twins and
-   timed beside it.
+   sectors that valid members touch; 1f's 128-byte feature lines and mask
+   sectors of the corners of nonzero weight; the TPU layouts' bounds, quad
+   rows for unirow and window rows for tilewin, are printed beside, and for
+   1f and 1bf the parent's, on its 64-lane float32 texel table fed
+   ``candidate_rows``; kernel 3 computes kernel 2's function and is held to
+   its bound, with the whole 4 KB rows it reads printed beside), each
+   coordinate and output once (the backward kernels' dense float32 table
+   gradients counted as written). The stage builds of kernels 1b (scalar
+   feature adds, no feature adds, no mask adds) and 1bf (no feature adds,
+   no mask adds, the full kernel at 4 blocks an SM in place of 3) are held
+   to their twins and timed beside them. Where an
+   earlier commit's tree lies at ``_parent/`` (``git archive <commit> | tar
+   -x -C _parent``), 1f and 1bf are also timed in turns with its float32
+   path on the same candidates (``candidate_rows`` and its 1f; its 1bf and
+   ``candidate_rows``' autograd backward), on CUDA events and the
+   profiler's device clock; without it those times print as not
+   measured.
    Then the probes of ``enarf_gan_tpu_torch/tools`` (the TPU probe kernels
    of ``tools/`` as Hopper microbenchmarks: row and lane gathers, the
    one-hot gathers read as direct row gathers, products on the tensor
@@ -96,7 +107,10 @@ NVIDIA GPU.
    profiled iteration: s/iter, peak memory, launches a step); then
    ``--validation`` on 2 frames (PSNR and SSIM, cropped) and the demo
    (``configs/DSO_demo/ZJU/313_denarf.yml``) on 2 samples at 512², its PNGs
-   read back. Then the float32 GAN of ``configs/enarfgan_train/AIST/
+   read back. Every float32 phase (8, "preprocess", 9 and "variants"
+   (b)) counts the calls of ``candidate_rows`` and fails unless there were
+   none: kernels 1f and 1bf compute the cells themselves. Then the float32
+   GAN of ``configs/enarfgan_train/AIST/
    config.yml`` over its ``default.yml`` (128², bs 12 in 2 micro-batches,
    the exact sampler) through the port's GAN CLI,
    ``train_ENARF_GAN.main``: 1 warm-up, 2 timed and 1 profiled G + D
@@ -233,6 +247,7 @@ from 384 to 196,608 rows in float32 and bf16 on the kept design, ring
 depths, B3 at its ragged shapes), one JSON line a measurement.
 """
 import contextlib
+import functools
 import json
 import sys
 import time
@@ -382,6 +397,28 @@ TRI_PLANE = "nerf.tri_plane_gen."   # the parameters 2b's (1b's) gradient
                                     # reaches
 
 
+def float32_path(phase):
+    """A phase of the float32 path: kernels 1f and 1bf compute the cells
+    and corner weights from the positions, so the phase runs with
+    ``ops/unirow.py::candidate_rows`` counted and fails if it was called."""
+    @functools.wraps(phase)
+    def run(*args, **kwargs):
+        from enarf_gan_tpu_torch.ops import unirow
+        real, calls = unirow.candidate_rows, []
+
+        def counting(*a, **k):
+            calls.append(a[0].shape)
+            return real(*a, **k)
+
+        with mock.patch.object(unirow, "candidate_rows", counting):
+            out = phase(*args, **kwargs)
+        print(f"{phase.__name__}: {len(calls)} candidate_rows calls on the "
+              f"float32 path")
+        assert not calls, (phase.__name__, calls[:3])
+        return out
+    return run
+
+
 def _cuda_time_ms(fn, reps):
     import torch
     start = torch.cuda.Event(enable_timing=True)
@@ -491,6 +528,8 @@ def phase_setup():
           f"cudnn {torch.backends.cudnn.allow_tf32}")
     kernels = {"unirow_combine": unirow.KERNEL,
                "unirow_combine_bwd": unirow.KERNEL_BWD,
+               "unirow_combine_f32": unirow.KERNEL_F32,
+               "unirow_combine_bwd_f32": unirow.KERNEL_BWD_F32,
                "tilewin_combine": tilewin_kernel.KERNEL,
                "tilewin_combine_bwd": tilewin_kernel.KERNEL_BWD,
                "tilewin_combine_modes": tilewin_kernel.KERNEL_MODES,
@@ -519,58 +558,31 @@ def phase_setup():
           + "; ".join(f"{k} {v} B" for k, v in smem.items()))
 
 
-def _quadtable_bytes(rows, cand_idx, valid, feat_dim, H, W, K):
-    """The float32 quad-table yardstick (the JAX package's float32 layout,
-    ``ops/quadtable.py``: a 4F-lane feature quad row a cell, a 4-lane mask
-    quad row a bone and cell): the feature rows of valid candidates and the
-    32-byte sectors holding every candidate's mask quad row. Returns
-    (bytes, distinct feature rows, distinct mask sectors)."""
-    import torch
-    B = rows.shape[0]
-    cells = 3 * (H + 1) * (W + 1)
-    base = torch.arange(B, device=rows.device).view(B, 1, 1, 1)
-    grow = rows.long() + base * cells
-    keep = (valid != 0)[:, None].expand_as(grow)
-    d_rows = int(torch.unique(grow[keep]).numel())
-    # mask row (k*3 + p)*(H+1)*(W+1) + cell = k*cells + row, 16 bytes each
-    mrow = cand_idx.long()[:, None] * cells + rows.long() + base * K * cells
-    d_sec = int(torch.unique(mrow // 2).numel())
-    return d_rows * 4 * feat_dim * 4 + d_sec * 32, d_rows, d_sec
-
-
-def phase_unirow_check(device, dtype=None):
-    """Kernel 1 (bf16 texels) or 1f (``dtype`` float32) vs its plain twin at
-    one full fine chunk of the exact path. The bound counts the texel
-    table's bytes the function needs; the TPU layout's (bf16 quad rows; for
-    float32 the JAX package's quad tables) is printed beside it."""
+def phase_unirow_check(device):
+    """Kernel 1 vs its plain twin at one full fine chunk of the exact path.
+    The bound counts the texel table's bytes the function needs; the TPU
+    layout's (bf16 quad rows) is printed beside it."""
     import torch
     from enarf_gan_tpu_torch.ops import unirow
     from enarf_gan_tpu_torch.tools.ablate import (texel_table_bytes,
                                                   unirow_inputs)
-    dtype = dtype or torch.bfloat16
     F_, M, H = 32, 4, 256
     n = FINE_CHUNK_POINTS
-    args = unirow_inputs(device, 1, n, H, M, seed=SEED, dtype=dtype)[:5]
+    args = unirow_inputs(device, 1, n, H, M, seed=SEED)[:5]
     texels = args[0]
-    name = "unirow_combine" + ("_f32" if dtype == torch.float32 else "")
     err, kern_ms, plain_ms = _compare_and_time(
         lambda: unirow.unirow_combine(*args, F_, False),
         lambda: unirow.gather_combine_texels_plain(*args, F_, False),
-        f"{name} at n={n} M={M} texels {tuple(texels.shape)} {dtype}")
+        f"unirow_combine at n={n} M={M} texels {tuple(texels.shape)} "
+        f"{texels.dtype}")
     inputs = sum(a.numel() * a.element_size() for a in args[1:])
     outputs = (F_ + M) * n * 4
     flops = n * M * 3 * (4 * F_ * 2 + 4 * 2) + n * M * F_ * 2
     table_bytes, d_tex, d_sec = texel_table_bytes(texels, args[1], args[3],
                                                   args[4], F_)
     bound_ms, bound_by = _bound(table_bytes + inputs + outputs, flops)
-    if dtype == torch.float32:
-        quad_bytes, d_rows, d_qsec = _quadtable_bytes(args[1], args[3],
-                                                      args[4], F_, H, H, 23)
-        layout = "float32 quad tables"
-    else:
-        quad_bytes, d_rows, d_qsec = _unirow_table_bytes(args[1], args[3],
-                                                         args[4], F_, H, H)
-        layout = "quad rows"
+    quad_bytes, d_rows, d_qsec = _unirow_table_bytes(args[1], args[3],
+                                                     args[4], F_, H, H)
     quad_ms, _ = _bound(quad_bytes + inputs + outputs, flops)
     print(f"  kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms; "
           f"{args[1].numel()} (plane, candidate, point) reads on {d_tex} "
@@ -578,13 +590,147 @@ def phase_unirow_check(device, dtype=None):
           f"mask sectors: texel table {table_bytes / 1e6:.1f} MB, inputs "
           f"{inputs / 1e6:.1f} MB, outputs {outputs / 1e6:.1f} MB; bound "
           f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP); "
-          f"{layout} yardstick: {d_rows} distinct rows and {d_qsec} mask "
+          f"quad rows yardstick: {d_rows} distinct rows and {d_qsec} mask "
           f"sectors, {quad_bytes / 1e6:.1f} MB, bound {quad_ms:.4f} ms")
     return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            ("quad_table_bound_ms" if dtype == torch.float32
-             else "quad_row_bound_ms"): quad_ms,
+            "quad_row_bound_ms": quad_ms,
             "valid": int((args[4] != 0).sum()), "points": n}
+
+
+PARENT_TREE = "_parent"   # an earlier commit's tree (git archive), if there
+
+
+def parent_unirow():
+    """The parent commit's ``ops/unirow.py`` (its kernels built from its
+    sources, ``tools/timing.py::other_tree``) when a tree of it lies at
+    PARENT_TREE beside this script, else None: kernels 1f and 1bf are then
+    timed in turns with the parent's float32 path (``candidate_rows`` and
+    the earlier 1f on the 64-lane float32 texel table; the earlier 1bf and
+    ``candidate_rows``' autograd backward)."""
+    import os
+    from enarf_gan_tpu_torch.ops import unirow
+    from enarf_gan_tpu_torch.tools.timing import other_tree
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        PARENT_TREE)
+    if not os.path.exists(os.path.join(root, "enarf_gan_tpu_torch", "ops",
+                                       "unirow.py")):
+        print(f"the parent's float32 path: not measured (no tree at "
+              f"{PARENT_TREE}/)")
+        return None
+    mod = other_tree(unirow, root)
+    for name in ("KERNEL_F32", "KERNEL_BWD_F32"):
+        getattr(mod, name).load()
+    print(f"the parent's float32 path: {PARENT_TREE}/ ({mod.__file__}), "
+          f"its kernels 1f and 1bf built from its sources")
+    return mod
+
+
+def _old_f32_table(tables):
+    """The parent's 64-lane float32 texel table (``pack_texels(...,
+    float32)``) holding the same floats as ``tables``."""
+    import torch
+    ft, mt = tables
+    B, _, Hp, Wp, _ = ft.shape
+    K = mt.shape[2]
+    return torch.cat([ft, mt.permute(0, 1, 3, 4, 2),
+                      ft.new_zeros((B, 3, Hp, Wp, 32 - K))], dim=-1)
+
+
+def _device_ms(fn, label):
+    """Device ms and kernel launches of one call (``profile_by_class``)
+    after a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    prof = profile_by_class(fn, label, 1.0, "call", verbose=False)
+    return prof[0], prof[1]
+
+
+def _f32_flops(n, M, F_):
+    """Float operations of the float32 sampler: each (point, candidate,
+    plane)'s cell and 4 corner weights (about 24), its 4 corners' feature
+    and mask sums, the weighted feature sum."""
+    return n * M * 3 * (24 + 4 * F_ * 2 + 4 * 2) + n * M * F_ * 2
+
+
+def phase_unirow_f32_check(device, parent=None):
+    """Kernel 1f vs its plain twin (``sample_f32_plain``) at one full fine
+    chunk of the exact path, from the candidates' positions; timed in turns
+    with its twin and, where ``parent`` (``parent_unirow``) is given, with
+    the parent's float32 path on the same candidates (``candidate_rows`` +
+    the earlier 1f on the 64-lane table) on CUDA events and on the
+    profiler's device clock. The bound counts the bytes the function needs
+    (the feature lines and bone-major mask sectors of nonzero corners, the
+    positions, bones and valid bytes, the outputs); the parent's bound
+    (its texel bytes, rows, wq4, cand_idx and valid) is printed beside."""
+    import torch
+    from enarf_gan_tpu_torch.ops import unirow
+    from enarf_gan_tpu_torch.tools.ablate import (f32_table_bytes,
+                                                  parent_f32_table_bytes,
+                                                  unirow_inputs)
+    F_, M, H, K = 32, 4, 256, 23
+    n = FINE_CHUNK_POINTS
+    args = unirow_inputs(device, 1, n, H, M, K=K, seed=SEED,
+                         dtype=torch.float32)[:4]
+    tables = args[0]
+
+    def kern():
+        return unirow.sample_candidates_unirow(*args, F_, K, H, H)
+
+    err, kern_ms, plain_ms = _compare_and_time(
+        kern, lambda: unirow.sample_f32_plain(*args, F_, False),
+        f"kernel 1f (sample_f32) at n={n} M={M}, tables "
+        f"{tuple(tables.feature.shape)} + {tuple(tables.mask.shape)} float32")
+    dev_ms, dev_launches = _device_ms(kern, "kernel 1f")
+    inputs = sum(a.numel() * a.element_size() for a in args[1:])
+    outputs = (F_ + M) * n * 4
+    flops = _f32_flops(n, M, F_)
+    table_bytes, d_tex, d_sec = f32_table_bytes(*args)
+    bound_ms, bound_by = _bound(table_bytes + inputs + outputs, flops)
+    old_bytes, old_inputs = parent_f32_table_bytes(*args)
+    parent_bound_ms, _ = _bound(old_bytes + old_inputs + outputs, flops)
+    tables_mb = sum(t.numel() * 4 for t in tables) / 1e6
+    print(f"  kernel {kern_ms:.4f} ms (device {dev_ms:.4f} ms, "
+          f"{dev_launches} launch), plain {plain_ms:.4f} ms; tables "
+          f"{tables_mb:.1f} MB; {d_tex} distinct feature lines (nonzero "
+          f"corners of valid candidates), {d_sec} distinct mask sectors: "
+          f"{table_bytes / 1e6:.1f} MB, inputs {inputs / 1e6:.1f} MB, "
+          f"outputs {outputs / 1e6:.1f} MB; bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({flops / 1e9:.2f} GFLOP); the parent's bound "
+          f"(64-lane table {old_bytes / 1e6:.1f} MB, rows, wq4, cand_idx, "
+          f"valid {old_inputs / 1e6:.1f} MB) {parent_bound_ms:.4f} ms")
+    out = {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+           "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "parent_bound_ms": parent_bound_ms,
+           "valid": int(args[3].sum()), "points": n,
+           "parent_ms": None, "parent_device_ms": None}
+    if parent is None:
+        return out
+    old = (_old_f32_table(tables),) + args[1:]
+
+    def parent_path():
+        return parent.sample_candidates_unirow(*old, F_, K, H, H)
+
+    with torch.no_grad():
+        ref = parent_path()
+        got = kern()
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        parent_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        del got, ref
+        times = [_cuda_time_ms(parent_path, 10), _cuda_time_ms(kern, 20),
+                 _cuda_time_ms(kern, 20), _cuda_time_ms(parent_path, 10)]
+    p_dev_ms, p_launches = _device_ms(parent_path, "the parent's float32 path")
+    out.update(parent_ms=(times[0] + times[3]) / 2,
+               parent_device_ms=p_dev_ms, parent_launches=p_launches,
+               turns_ms=(times[1] + times[2]) / 2, parent_max_abs_err=parent_err)
+    print(f"  against the parent's path (candidate_rows + its 1f, "
+          f"{p_launches} launches): max|d| {parent_err:.3e}; times (parent, "
+          f"kernel, kernel, parent) ms: " + ", ".join(f"{x:.4f}" for x in times)
+          + f"; device ms: kernel {dev_ms:.4f}, parent {p_dev_ms:.4f}")
+    return out
 
 
 def _tilewin_inputs(device, m, S, B=1, seed_offset=0, layout="texels"):
@@ -780,80 +926,176 @@ def _grad_check(label, kern, plain, names):
         (times[0] + times[3]) / 2
 
 
-def phase_unirow_bwd_check(device, dtype=None):
-    """Kernel 1b (bf16 texels) or 1bf (``dtype`` float32) at one training
-    fine pass: 4 images x 4096 rays x Nf 64, 4 candidates, against autograd
-    through the plain twin (image by image: images share no texels). The
-    kernel's time includes zeroing the dense float32 texel gradient, which
-    the bound counts as written. Then, for kernel 1b, its stage ablations
-    (``tools/ablate.py``: scalar feature adds, no feature adds, no mask
-    adds), each held to its doctored twin and timed in turns with the full
-    kernel."""
+def phase_unirow_bwd_check(device):
+    """Kernel 1b at one training fine pass: 4 images x 4096 rays x Nf 64, 4
+    candidates, against autograd through the plain twin (image by image:
+    images share no texels). The kernel's time includes zeroing the dense
+    float32 texel gradient, which the bound counts as written. Then its
+    stage ablations (``tools/ablate.py``: scalar feature adds, no feature
+    adds, no mask adds), each held to its doctored twin and timed in turns
+    with the full kernel."""
     import torch
     from enarf_gan_tpu_torch.ops import unirow
     from enarf_gan_tpu_torch.tools import ablate
-    dtype = dtype or torch.bfloat16
     F_, H, B, n = 32, 256, TRAIN_IMAGES, FINE_CHUNK_POINTS
-    args = ablate.unirow_inputs(device, B, n, H, seed=SEED + 5, dtype=dtype)
+    args = ablate.unirow_inputs(device, B, n, H, seed=SEED + 5)
     texels, rows, wq4, ci, cv, dfeature, dcand_w = args
     M = rows.shape[2]
 
     def kern():
         return unirow.launch_backward(*args, F_, False)
 
-    name = "unirow_combine_bwd" + ("_f32" if dtype == torch.float32 else "")
     err, kern_ms, plain_ms = _grad_check(
-        f"{name} at B={B} n={n} M={M} {dtype} texels", kern,
-        lambda: ablate.unirow_bwd_plain(*args), ("texels", "wq4"))
+        f"unirow_combine_bwd at B={B} n={n} M={M} {texels.dtype} texels",
+        kern, lambda: ablate.unirow_bwd_plain(*args), ("texels", "wq4"))
     table_bytes, d_tex, d_sec = ablate.texel_table_bytes(texels, rows, ci, cv,
                                                          F_)
     inputs = sum(t.numel() * t.element_size() for t in args[1:])
     outputs = texels.numel() * 4 + wq4.numel() * 4
     flops = 3 * (n * M * 3 * (4 * F_ * 2 + 4 * 2) + n * M * F_ * 2) * B
     bound_ms, bound_by = _bound(table_bytes + inputs + outputs, flops)
-    if dtype == torch.float32:     # the gradients of both quad tables
-        quad_bytes, _, _ = _quadtable_bytes(rows, ci, cv, F_, H, H, 23)
-        quad_out = B * 3 * (H + 1) * (H + 1) * (4 * F_ + 4 * 23) * 4 \
-            + wq4.numel() * 4
-    else:
-        quad_bytes, _, _ = _unirow_table_bytes(rows, ci, cv, F_, H, H)
-        quad_out = B * 3 * (H + 1) * (H + 1) * unirow.row_width(F_) * 4 \
-            + wq4.numel() * 4
+    quad_bytes, _, _ = _unirow_table_bytes(rows, ci, cv, F_, H, H)
+    quad_out = B * 3 * (H + 1) * (H + 1) * unirow.row_width(F_) * 4 \
+        + wq4.numel() * 4
     quad_ms, _ = _bound(quad_bytes + inputs + quad_out, flops)
     print(f"  kernel {kern_ms:.4f} ms (with the zeroed float32 texel "
           f"gradient), plain {plain_ms:.4f} ms; texel reads "
           f"{table_bytes / 1e6:.1f} MB ({d_tex} texels, {d_sec} mask "
           f"sectors), other inputs {inputs / 1e6:.1f} MB, outputs "
           f"{outputs / 1e6:.1f} MB; bound {bound_ms:.4f} ms by {bound_by}; "
-          f"{'quad-table' if dtype == torch.float32 else 'quad-row'} "
-          f"yardstick: table reads {quad_bytes / 1e6:.1f} MB, "
+          f"quad-row yardstick: table reads {quad_bytes / 1e6:.1f} MB, "
           f"outputs {quad_out / 1e6:.1f} MB, bound {quad_ms:.4f} ms")
+    stage_ms = _stage_times(
+        kern, ablate.UNIROW_BWD_STAGES[1:],
+        lambda stage: ablate.unirow_bwd_stage(*args, stage),
+        lambda stage: ablate.unirow_bwd_stage_plain(*args, stage))
+    return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "quad_row_bound_ms": quad_ms, "stage_ms": stage_ms,
+            "valid": int((cv != 0).sum()), "points": B * n}
+
+
+def _stage_times(kern, stages, stage_kern, stage_plain):
+    """Each stage build's variant held to its doctored twin (relative L2
+    within GRAD_REL_L2 for every gradient the twin does not zero, zeros
+    where it does), then timed in turns with the full kernel (full, stage,
+    stage, full). Returns {stage: ms}."""
+    import torch
     stage_ms = {}
-    stages = ablate.UNIROW_BWD_STAGES[1:] if dtype == torch.bfloat16 else ()
     for stage in stages:
-        got = ablate.unirow_bwd_stage(*args, stage)
+        got = stage_kern(stage)
         torch.cuda.synchronize()
-        ref = ablate.unirow_bwd_stage_plain(*args, stage)
-        errs = [float((a - b).norm() / b.norm().clamp_min(1e-30))
-                for a, b in zip(got, ref)]
+        ref = stage_plain(stage)
+        errs = []
+        for a, b in zip(got, ref):
+            if b.any():
+                errs.append(float((a - b).norm() / b.norm()))
+            else:
+                assert not a.any(), (stage, "a zeroed gradient was written")
+                errs.append(0.0)
         del got, ref
         assert max(errs) <= GRAD_REL_L2, (stage, errs)
         times = [_cuda_time_ms(kern, 5),
-                 _cuda_time_ms(lambda: ablate.unirow_bwd_stage(*args, stage),
-                               5),
-                 _cuda_time_ms(lambda: ablate.unirow_bwd_stage(*args, stage),
-                               5),
+                 _cuda_time_ms(lambda: stage_kern(stage), 5),
+                 _cuda_time_ms(lambda: stage_kern(stage), 5),
                  _cuda_time_ms(kern, 5)]
         stage_ms[stage] = (times[1] + times[2]) / 2
         print(f"  stage {stage}: relative L2 to its twin "
               + ", ".join(f"{e:.2e}" for e in errs) + "; times (full, "
               f"{stage}, {stage}, full) ms: "
               + ", ".join(f"{x:.4f}" for x in times))
-    return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            ("quad_table_bound_ms" if dtype == torch.float32
-             else "quad_row_bound_ms"): quad_ms, "stage_ms": stage_ms,
-            "valid": int((cv != 0).sum()), "points": B * n}
+    return stage_ms
+
+
+def phase_unirow_f32_bwd_check(device, parent=None):
+    """Kernel 1bf at one training fine pass: 4 images x 4096 rays x Nf 64,
+    4 candidates, against autograd through the plain twin (image by image):
+    the feature table's, the mask table's and the positions' gradients.
+    The kernel's time includes zeroing both dense float32 table gradients,
+    which the bound counts as written. Then its stage ablations (no feature
+    adds, no mask adds, 4 blocks an SM), each held to its twin and timed
+    in turns with the full kernel; and, where ``parent`` is given, the
+    parent's backward on the same candidates (the earlier 1bf on the
+    64-lane table, then ``candidate_rows``' autograd backward from its dwq4
+    to the positions), timed in turns with this kernel. The parent's bound
+    is printed beside."""
+    import torch
+    from enarf_gan_tpu_torch.ops import unirow
+    from enarf_gan_tpu_torch.tools import ablate
+    F_, H, B, n, K = 32, 256, TRAIN_IMAGES, FINE_CHUNK_POINTS, 23
+    args = ablate.unirow_inputs(device, B, n, H, K=K, seed=SEED + 5,
+                                dtype=torch.float32)
+    tables, pos, idx, valid, dfeature, dcand_w = args
+    M = pos.shape[2]
+
+    def kern():
+        return unirow.launch_backward_f32(*args, F_, False)
+
+    err, kern_ms, plain_ms = _grad_check(
+        f"kernel 1bf (launch_backward_f32) at B={B} n={n} M={M}", kern,
+        lambda: ablate.unirow_bwd_f32_plain(*args),
+        ("feature table", "mask table", "positions"))
+    dev_ms, _ = _device_ms(kern, "kernel 1bf")
+    table_bytes, d_tex, d_sec = ablate.f32_table_bytes(*args[:4],
+                                                       grad=True)
+    inputs = sum(t.numel() * t.element_size() for t in args[1:])
+    outputs = sum(t.numel() * 4 for t in tables) + pos.numel() * 4
+    flops = 3 * _f32_flops(n, M, F_) * B
+    bound_ms, bound_by = _bound(table_bytes + inputs + outputs, flops)
+    old_bytes, old_inputs = ablate.parent_f32_table_bytes(*args[:4])
+    old_out = B * 3 * (H + 2) * (H + 2) * unirow.TEXEL_WIDTH * 4 \
+        + B * 12 * M * n * 4
+    parent_bound_ms, _ = _bound(old_bytes + old_inputs + dfeature.numel() * 4
+                                + dcand_w.numel() * 4 + old_out, flops)
+    print(f"  kernel {kern_ms:.4f} ms (device {dev_ms:.4f} ms; with both "
+          f"zeroed float32 table gradients), plain {plain_ms:.4f} ms; table "
+          f"reads {table_bytes / 1e6:.1f} MB ({d_tex} feature lines, {d_sec} "
+          f"mask sectors), other inputs {inputs / 1e6:.1f} MB, outputs "
+          f"{outputs / 1e6:.1f} MB; bound {bound_ms:.4f} ms by {bound_by}; "
+          f"the parent's bound (64-lane texel gradient and dwq4 written) "
+          f"{parent_bound_ms:.4f} ms")
+    stage_ms = _stage_times(
+        kern, ablate.UNIROW_BWD_F32_STAGES[1:],
+        lambda stage: ablate.unirow_bwd_f32_stage(*args, stage),
+        lambda stage: ablate.unirow_bwd_f32_stage_plain(*args, stage))
+    out = {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+           "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "parent_bound_ms": parent_bound_ms, "stage_ms": stage_ms,
+           "valid": int(valid.sum()), "points": B * n,
+           "parent_ms": None, "parent_device_ms": None}
+    if parent is None:
+        return out
+    old = _old_f32_table(tables)
+    pos_r = pos.clone().requires_grad_(True)
+    with torch.enable_grad():
+        rows, wq4, ci, cv = parent.candidate_rows(pos_r, idx, valid, H, H)
+    dcw_old = dcand_w.transpose(1, 2).contiguous()
+
+    def parent_path():
+        _, dwq4 = parent.launch_backward(old, rows, wq4.detach(), ci, cv,
+                                         dfeature, dcw_old, F_, False)
+        return torch.autograd.grad(wq4, pos_r, dwq4, retain_graph=True)
+
+    (dpos_old,) = parent_path()
+    dpos = kern()[2]
+    torch.cuda.synchronize()
+    parent_rel = float((dpos - dpos_old).norm() / dpos_old.norm())
+    assert parent_rel <= GRAD_REL_L2, parent_rel
+    del dpos, dpos_old
+    times = [_cuda_time_ms(parent_path, 3), _cuda_time_ms(kern, 5),
+             _cuda_time_ms(kern, 5), _cuda_time_ms(parent_path, 3)]
+    p_dev_ms, p_launches = _device_ms(parent_path, "the parent's backward")
+    out.update(parent_ms=(times[0] + times[3]) / 2,
+               parent_device_ms=p_dev_ms, parent_launches=p_launches,
+               turns_ms=(times[1] + times[2]) / 2,
+               parent_dpos_rel_l2=parent_rel)
+    print(f"  against the parent's backward (its 1bf + candidate_rows' "
+          f"autograd backward, {p_launches} launches): positions' gradient "
+          f"relative L2 {parent_rel:.2e}; times (parent, kernel, kernel, "
+          f"parent) ms: " + ", ".join(f"{x:.4f}" for x in times)
+          + f"; device ms: kernel {dev_ms:.4f}, parent {p_dev_ms:.4f}")
+    del rows, wq4, old, pos_r
+    return out
 
 
 def phase_tilewin_bwd_check(device):
@@ -925,10 +1167,11 @@ def _probe_modules():
 
 def _probe_kernels():
     """The probes' libraries: the three probe sources and the stage builds
-    of kernels 2, 3 and 1b."""
+    of kernels 2, 3, 1b and 1bf."""
     from enarf_gan_tpu_torch.tools import ablate, constructs, gather, mma
     return (gather.KERNEL, mma.KERNEL, constructs.KERNEL, ablate.KERNEL_STAGES,
-            ablate.KERNEL_MODES_STAGES, ablate.KERNEL_UNIROW_BWD_STAGES)
+            ablate.KERNEL_MODES_STAGES, ablate.KERNEL_UNIROW_BWD_STAGES,
+            ablate.KERNEL_UNIROW_BWD_F32_STAGES)
 
 
 def phase_probes(device):
@@ -1973,6 +2216,7 @@ def _cli_train(config, device, timed, label, profile=True, seed=SEED + 29):
             "profile": prof.get("profile")}
 
 
+@float32_path
 def phase_dso_cli(device, root):
     """The published float32 DSO config through the port's CLI functions:
     ``configs/DSO_train/ZJU/313_denarf.yml`` trained on a synthetic 512²
@@ -2073,8 +2317,8 @@ def phase_dso_cli(device, root):
     device_ms, _, port = run["profile"]
     return {"s_iter": s_iter, "peak_gib": peak / 2**30,
             "launches": launches, "step_launches": (f_step, b_step),
-            "step_ms": (port.get("unirow_combine_kernel", (0.0, 0))[0],
-                        port.get("unirow_combine_bwd_kernel", (0.0, 0))[0]),
+            "step_ms": (port.get("unirow_f32_kernel", (0.0, 0))[0],
+                        port.get("unirow_f32_bwd_kernel", (0.0, 0))[0]),
             "frame_launches": frame_launches, "ms_frame": ms_frame,
             "val": val}
 
@@ -2162,6 +2406,7 @@ def _gan_cli_train(device, root, replace, label, seed=SEED + 31):
             "g_ms": float(np.mean(g_ms[1:])), "profile": prof["profile"]}
 
 
+@float32_path
 def phase_gan_f32(device, root):
     """The float32 GAN of ``configs/enarfgan_train/AIST/config.yml`` through
     the port's CLI, ``train_ENARF_GAN.main``, its config read from the files
@@ -2221,8 +2466,8 @@ def phase_gan_f32(device, root):
           f"{sample_launches['unirow_combine_f32']}")
     result = {"s_iter": s_iter, "peak_gib": run["peak"] / 2**30,
               "step_launches": (f_step, b_step),
-              "step_ms": (port.get("unirow_combine_kernel", (0.0, 0))[0],
-                          port.get("unirow_combine_bwd_kernel", (0.0, 0))[0]),
+              "step_ms": (port.get("unirow_f32_kernel", (0.0, 0))[0],
+                          port.get("unirow_f32_bwd_kernel", (0.0, 0))[0]),
               "g_step_device_ms": device_ms,
               "frame_launches": sample_launches["unirow_combine_f32"],
               "out": config.out}
@@ -2254,6 +2499,7 @@ def _sphere_volume(D, cube_half, voxel, device, radius=0.25, peak=30.0):
     return peak * (1 - r / (2 * radius))
 
 
+@float32_path
 def phase_gan_demo(device, root, out):
     """The port's demo CLI, ``ENARF_GAN_demo.main``, on
     ``configs/enarfgan_demo/AIST/enarfgan.yml`` read by the port's YAML
@@ -2274,7 +2520,7 @@ def phase_gan_demo(device, root, out):
     from enarf_gan_tpu_torch.data.datasets import HumanPoseDataset
     from enarf_gan_tpu_torch.mesh import extract
     from enarf_gan_tpu_torch.ops import unirow
-    from enarf_gan_tpu_torch.tools.ablate import texel_table_bytes
+    from enarf_gan_tpu_torch.tools.ablate import f32_table_bytes
     from enarf_gan_tpu_torch.training import gan
     from enarf_gan_tpu_torch.utils.logging import read_png
     work = os.path.join(root, "demo_cwd")
@@ -2430,38 +2676,36 @@ def phase_gan_demo(device, root, out):
         return gen.nerf_density_color(pts, pose_scaled, bl_t, packed,
                                       z_rend, None)[0]
 
-    # kernel 1f on the chunk's own inputs (its candidates' cells, weights
-    # and bones) against its plain twin, within phase 2's bound and timed
+    # kernel 1f on the chunk's own inputs (its candidates' positions and
+    # bones) against its plain twin, within phase 2's bound and timed
     calls = []
-    real_combine = unirow.unirow_combine
+    real_sample = unirow.sample_f32
 
     def recording(*a, **k):
         calls.append((a, k))
-        return real_combine(*a, **k)
+        return real_sample(*a, **k)
 
-    with torch.no_grad(), mock.patch.object(unirow, "unirow_combine",
-                                            recording):
+    with torch.no_grad(), mock.patch.object(unirow, "sample_f32", recording):
         got = density()
     (a, k), = calls
-    n_valid = int(a[4].sum())
+    n_valid = int(a[3].sum())
     chunk_err, chunk_ms, chunk_plain_ms = _compare_and_time(
-        lambda: unirow.unirow_combine(*a, **k),
-        lambda: unirow.gather_combine_texels_plain(*a, **k),
+        lambda: unirow.sample_f32(*a, **k),
+        lambda: unirow.sample_f32_plain(*a, **k),
         f"kernel 1f, mesh grid chunk {c} ({pts.shape[-1]} points, "
         f"{n_valid} valid candidates)")
     # its bound, as phase 2 counts it, from this chunk's inputs
-    F_, M, n = a[5], a[3].shape[1], a[3].shape[2]
-    table_bytes, d_tex, _ = texel_table_bytes(a[0], a[1], a[3], a[4], F_)
+    F_, n, M = a[4], a[1].shape[1], a[1].shape[2]
+    table_bytes, d_tex, _ = f32_table_bytes(*a[:4])
     chunk_bound_ms, chunk_bound_by = _bound(
-        table_bytes + sum(x.numel() * x.element_size() for x in a[1:5])
-        + (F_ + M) * n * 4,
-        n * M * 3 * (4 * F_ * 2 + 4 * 2) + n * M * F_ * 2)
+        table_bytes + sum(x.numel() * x.element_size() for x in a[1:4])
+        + (F_ + M) * n * 4, _f32_flops(n, M, F_))
     print(f"  bound {chunk_bound_ms:.4f} ms by {chunk_bound_by} "
-          f"({d_tex} distinct feature texels)")
+          f"({d_tex} distinct feature lines)")
     # ... and the density through the point network: within 1e-4 of its
     # scale (the MLP and the x10 carry the combine's rounding on)
-    with torch.no_grad(), mock.patch.object(
-            unirow, "unirow_combine", unirow.gather_combine_texels_plain):
+    with torch.no_grad(), mock.patch.object(unirow, "sample_f32",
+                                            unirow.sample_f32_plain):
         ref = density()
     dens_err = float((got - ref).abs().max())
     scale = max(1.0, float(ref.abs().max()))
@@ -2477,8 +2721,8 @@ def phase_gan_demo(device, root, out):
             **frame["kwargs"], "generator": torch.Generator(
                 device=device).manual_seed(seed)})[:2])
 
-    phase_plain_render(demo_frame, unirow, "unirow_combine",
-                       unirow.gather_combine_texels_plain, unirow.KERNEL_F32,
+    phase_plain_render(demo_frame, unirow, "sample_f32",
+                       unirow.sample_f32_plain, unirow.KERNEL_F32,
                        "demo frame (image, mask)")
 
     # where a mesh grid's time goes: a profile of its middle
@@ -2550,14 +2794,15 @@ def phase_gan_demo(device, root, out):
                       "bound_ms": chunk_bound_ms, "bound_by": chunk_bound_by,
                       "points": int(pts.shape[-1]),
                       "density_max_abs_err": dens_err},
-            "slice_ms_1f": grid_prof[2].get("unirow_combine_kernel",
+            "slice_ms_1f": grid_prof[2].get("unirow_f32_kernel",
                                             (0.0, 0))[0],
             "slice_device_ms": grid_prof[0], "slice_ms": slice_ms,
-            "frame_ms_1f": frame_prof[2].get("unirow_combine_kernel",
+            "frame_ms_1f": frame_prof[2].get("unirow_f32_kernel",
                                              (0.0, 0))[0],
             "frame_device_ms": frame_prof[0]}
 
 
+@float32_path
 def phase_eval(device, root, out):
     """The evaluation CLIs of the port on phase 8's float32 GAN snapshot
     (``root``/result/``out``), each through its ``main(argv)``, the
@@ -2723,7 +2968,7 @@ def phase_eval(device, root, out):
                             "resize, Inception) profile", batch_ms, "batch")
     results["fid_batch"] = {"ms": batch_ms, "device_ms": prof[0],
                             "launches": prof[1],
-                            "ms_1f": prof[2].get("unirow_combine_kernel",
+                            "ms_1f": prof[2].get("unirow_f32_kernel",
                                                  (0.0, 0))[0]}
 
     # one evaluation frame through kernel 1f against the plain combine:
@@ -2739,8 +2984,8 @@ def phase_eval(device, root, out):
             **first["kwargs"])
         return img[0], mask[0], aux["disparity"][0]
 
-    phase_plain_render(eval_frame, unirow, "unirow_combine",
-                       unirow.gather_combine_texels_plain, unirow.KERNEL_F32,
+    phase_plain_render(eval_frame, unirow, "sample_f32",
+                       unirow.sample_f32_plain, unirow.KERNEL_F32,
                        "evaluation frame (image, mask, disparity)")
     for r in results.values():
         if isinstance(r, dict):
@@ -2768,6 +3013,7 @@ def _timed_fk(label, fn, n_poses, card):
                  "peak_gib": peak}
 
 
+@float32_path
 def phase_preprocess(device, root, cli_root):
     """Phase "preprocess": the port's data preparation on the card.
     (a) A full-size synthetic SMPL model for each gender, then the port's
@@ -3202,6 +3448,7 @@ def _frame_diff(a, b):
             float((d > 1e-2).float().mean()))
 
 
+@float32_path
 def phase_variants_gan(device, root):
     """(b) The tri-plane variants on the float32 GAN of
     ``configs/enarfgan_train/AIST/config.yml`` (read by the port's reader;
@@ -3268,14 +3515,14 @@ def phase_variants_gan(device, root):
                         "step_launches": (f_step, b_step),
                         "frame_launches": frame_launches}
         if candidates:
-            phase_plain_render(frame, unirow, "unirow_combine",
-                               unirow.gather_combine_texels_plain,
+            phase_plain_render(frame, unirow, "sample_f32",
+                               unirow.sample_f32_plain,
                                unirow.KERNEL_F32, "GAN constant_trimask")
             torch.cuda.empty_cache()
             out[variant]["grad_rel"] = phase_gan_grad_check(
                 gen, dis, config, _gan_batch(config, vroot, device), device,
-                "constant_trimask", unirow, "unirow_combine",
-                unirow.gather_combine_texels_plain,
+                "constant_trimask", unirow, "sample_f32",
+                unirow.sample_f32_plain,
                 (unirow.KERNEL_F32, unirow.KERNEL_BWD_F32),
                 int(config.n_accum_step),
                 tri_plane=("nerf.generator.", "nerf.tri_plane"))
@@ -3385,8 +3632,10 @@ def float32_study(device, root):
     with its meshes (phase 8)."""
     import os
     import torch
-    phase_unirow_check(device, torch.float32)
-    phase_unirow_bwd_check(device, torch.float32)
+    parent = parent_unirow()
+    phase_unirow_f32_check(device, parent)
+    phase_unirow_f32_bwd_check(device, parent)
+    del parent
     torch.cuda.empty_cache()
     phase_dso_cli(device, os.path.join(root, "cli"))
     torch.cuda.empty_cache()
@@ -3761,8 +4010,10 @@ def main():
           for m, S, label in ((16, NF, "fine"), (4, NC, "coarse-corner"))}
     k3 = phase_modes_check(device)
     k1b = phase_unirow_bwd_check(device)
-    k1f = phase_unirow_check(device, torch.float32)
-    k1bf = phase_unirow_bwd_check(device, torch.float32)
+    parent = parent_unirow()
+    k1f = phase_unirow_f32_check(device, parent)
+    k1bf = phase_unirow_f32_bwd_check(device, parent)
+    del parent
     k2b = phase_tilewin_bwd_check(device)
     torch.cuda.empty_cache()
     probes = phase_probes(device)
@@ -4015,7 +4266,8 @@ def main():
                      eval_fid_batch_device_ms=evals["fid_batch"][
                          "device_ms"])
         entries.insert(2 + i, entry(
-            name, "unirow_combine_bwd.cu" if i else "unirow_combine.cu",
+            name, "unirow_combine_bwd_f32.cu" if i
+            else "unirow_combine_f32.cu",
             "enarf_gan_tpu/ops/unirow.py:" + ("234" if i else "115"),
             cli["launches"]["unirow_combine_bwd_f32" if i
                             else "unirow_combine_f32"],

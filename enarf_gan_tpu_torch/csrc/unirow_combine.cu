@@ -1,20 +1,16 @@
 // Unirow gather + combine for Hopper (sm_90a), forward (the backward is
-// unirow_combine_bwd.cu; both share unirow_texels.cuh). Kernels 1 (bf16
-// texel table) and 1f (float32 texel table): one template, two entry points.
+// unirow_combine_bwd.cu; both share unirow_texels.cuh). Kernel 1, on the bf16
+// texel table (float32 planes are sampled by kernel 1f,
+// unirow_combine_f32.cu).
 //
 // Replaces the TPU Pallas kernel enarf_gan_tpu/ops/unirow.py::_combine_kernel
 // (launched by _combine_pallas) and also does the row gather that the JAX
 // package runs outside that kernel (jnp.take in sample_candidates_unirow).
-// In float32 (kernel 1f) it replaces what the JAX package runs for float32
-// planes, XLA's row gathers and combine in
-// enarf_gan_tpu/ops/quadtable.py::sample_candidates_quadtable (no Pallas
-// kernel): the same function on a feature-quad and a bone-folded mask-quad
-// table.
 //
 // The table is the texel table of ops/unirow.py::pack_texels, not the TPU's
 // quad rows: the one-texel zero-padded planes channels-last, (B, 3, H+2, W+2,
-// 64) bf16 (one 128-byte line a texel) or float32 (256 bytes), lanes [32
-// feature | 32 mask, bone k at lane 32+k]. Corner q of the cell of row r =
+// 64) bf16 (one 128-byte line a texel), lanes [32 feature | 32 mask, bone k
+// at lane 32+k]. Corner q of the cell of row r =
 // p*(H+1)*(W+1) + t*(W+1) + s is texel (p, t + q/2, s + q%2). For every
 // (batch b, point i, candidate m, plane p) the kernel computes
 //     feat_m   = sum_p sum_q wq[q,p,m] * texel_pq[f]
@@ -26,27 +22,21 @@
 //
 // What bounds it: bytes, read at data-dependent addresses. Per (point,
 // candidate, plane) the function needs the feature half of 4 texels (64
-// bytes bf16, 128 float32) and the one 32-byte sector of each that holds
-// the candidate's mask logit: 384 bytes of sectors in bf16, 640 in float32.
+// bytes) and the one 32-byte sector of each that holds the candidate's mask
+// logit: 384 bytes of sectors.
 // The TPU's quad-row table (101 MB an image at 256^2 planes, every texel
 // stored 4 times, half of each row the all-bone mask quads) was twice the
 // H100's 50 MB L2, so most of its 512-byte row reads came from HBM. The bf16
 // texel table is 25.6 MB an image and stays in L2 while the blocks of one
 // image run (the grid walks the points image by image), so the texel reads
-// are mostly L2 hits. The float32 table is 51.1 MB an image, just over the
-// L2, so part of an image's texels leave it before its last warps read
-// them; XLA's float32 quad tables (a 4F-lane feature quad and a 4-lane mask
-// quad row per bone a cell) take 3 x 257^2 x (128 + 4 x 23) x 4 = 174 MB an
-// image.
+// are mostly L2 hits.
 //
 // Design: one warp per (b, point); the 16 lanes of each half-warp serve one
 // candidate at a time (half h takes candidates h, h+2, ...), lane (q, c)
-// 8 channels of corner q's feature half (unirow_texels.cuh: bf16, the 16-byte
-// chunk c; float32, two 16-byte chunks, c and 4 + c). A candidate's 12
-// texels (4 corners x 3 planes) are 3 (bf16) or 6 (float32) 16-byte loads a
-// lane plus 3 mask loads (one sector a texel), all in flight before any is
-// used; 5 blocks an SM (bf16) or 4 (float32, 12 more registers of texels a
-// lane) keep 40 or 32 warps of them. The per-candidate inputs (rows, wq4,
+// 8 channels of corner q's feature half (unirow_texels.cuh: the 16-byte
+// chunk c). A candidate's 12 texels (4 corners x 3 planes) are 3 16-byte
+// loads a lane plus 3 mask loads (one sector a texel), all in flight before
+// any is used; 5 blocks an SM keep 40 warps of them. The per-candidate inputs (rows, wq4,
 // cand_idx, valid: 70 MB at a fine chunk, read once) are loaded with the
 // streaming hint (ld.global.cs: evict-first in L1 and L2), so they do not
 // push the texels out of L2. Each lane keeps 8 channels' sums over its
@@ -63,12 +53,9 @@ using namespace unirow;
 // Blocks of 8 warps an SM (bf16: at most 65536 / (256 * 5) = 51 registers a
 // thread): on the H100 more warps in flight hide the texel gathers' L2
 // latency better than more loads a warp (two candidates a half-warp at 71
-// registers, 3 blocks an SM, was slower). A float32 lane holds 12 more
-// registers of texels: 4 blocks, at most 64 registers.
+// registers, 3 blocks an SM, was slower).
 template <typename T>
 constexpr int kFwdBlocksPerSM = 5;
-template <>
-constexpr int kFwdBlocksPerSM<float> = 4;
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32, kFwdBlocksPerSM<T>)
@@ -135,12 +122,12 @@ int launch(const void* texels, const void* rows, const void* wq4,
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes), kernel 1 (bf16 texels) and
-// kernel 1f (float32 texels). Shapes, all contiguous:
-//   texels (B, 3, H+2, W+2, 64) bf16 / float32; rows (B, 3, M, n) int32
-//   cell rows p*(H+1)*(W+1) + t*(W+1) + s; wq4 (B, 4, 3, M, n) f32; cand_idx
-//   (B, M, n) int32 in [0, 32); valid (B, M, n) f32 -> feature (B, 32, n)
-//   f32, cand_w (B, M, n) f32.
+// Plain C entry point (loaded with ctypes), kernel 1. Shapes, all
+// contiguous:
+//   texels (B, 3, H+2, W+2, 64) bf16; rows (B, 3, M, n) int32 cell rows
+//   p*(H+1)*(W+1) + t*(W+1) + s; wq4 (B, 4, 3, M, n) f32; cand_idx (B, M, n)
+//   int32 in [0, 32); valid (B, M, n) f32 -> feature (B, 32, n) f32, cand_w
+//   (B, M, n) f32.
 // Launch on `stream` and return cudaGetLastError() (0 on success).
 extern "C" int unirow_combine_bf16(const void* texels, const void* rows,
                                    const void* wq4, const void* cand_idx,
@@ -149,13 +136,4 @@ extern "C" int unirow_combine_bf16(const void* texels, const void* rows,
                                    int n, int clamp, void* stream) {
   return launch<__nv_bfloat16>(texels, rows, wq4, cand_idx, valid, feature,
                                cand_w, B, H, W, M, n, clamp, stream);
-}
-
-extern "C" int unirow_combine_f32(const void* texels, const void* rows,
-                                  const void* wq4, const void* cand_idx,
-                                  const void* valid, void* feature,
-                                  void* cand_w, int B, int H, int W, int M,
-                                  int n, int clamp, void* stream) {
-  return launch<float>(texels, rows, wq4, cand_idx, valid, feature, cand_w,
-                       B, H, W, M, n, clamp, stream);
 }

@@ -1,13 +1,11 @@
-// Unirow gather + combine, backward, for Hopper (sm_90a). Kernels 1b (bf16
-// texel table) and 1bf (float32 texel table): one template, two entry
-// points.
+// Unirow gather + combine, backward, for Hopper (sm_90a). Kernel 1b, on the
+// bf16 texel table (float32 planes' backward is kernel 1bf,
+// unirow_combine_bwd_f32.cu).
 //
 // Replaces the JAX package's hand VJP of the unirow combine,
 // enarf_gan_tpu/ops/unirow.py::_combine_bwd (XLA, no Pallas), and the
 // transpose of its row gather (the scatter-add of the row cotangents into
-// the table that jnp.take's VJP does); in float32 (kernel 1bf), XLA's
-// autodiff of enarf_gan_tpu/ops/quadtable.py::sample_candidates_quadtable
-// (the transposes of its two row gathers and of its combine).
+// the table that jnp.take's VJP does).
 //
 // The forward (csrc/unirow_combine.cu) computes, per (batch b, point i,
 // candidate m, plane p), from the 4 corner texels of the texel table
@@ -29,22 +27,18 @@
 // in float32. valid takes no gradient (it comes from a bool).
 //
 // What bounds it: the atomic adds into the gradient, then bytes. It
-// re-reads the forward's texels (mostly L2 hits in bf16, as the forward's;
-// the float32 table is 51.1 MB an image, just over the L2), reads the inputs
-// and dfeature once, and adds into a float32 texel gradient of (B, 3, H+2,
-// W+2, 64) for either table type: 51 MB an image at 256^2 planes (the TPU
-// layout's (B, R, 256) float32 table gradient was 203 MB), so in bf16 one
-// image's gradient lines stay in L2 while its blocks run; in float32 the
-// table and its gradient share it. The adds of the 4 cells that share
+// re-reads the forward's texels (mostly L2 hits, as the forward's), reads
+// the inputs and dfeature once, and adds into a float32 texel gradient of
+// (B, 3, H+2, W+2, 64): 51 MB an image at 256^2 planes (the TPU layout's
+// (B, R, 256) float32 table gradient was 203 MB), so one image's gradient
+// lines stay in L2 while its blocks run. The adds of the 4 cells that share
 // a texel meet there in float32. Lanes 32+K..63 are never written. A valid
 // candidate makes 48 sectors of feature adds (12 texels x 128 bytes) and
 // 12 scattered 4-byte mask adds; the stage build (tools/ablate.py) measures
 // each kind's share.
 //
 // Design: the forward's (one warp per point, half a warp a candidate, lane
-// (h, q, c), see unirow_texels.cuh; 4 blocks an SM in either type: the
-// float32 lane's 12 more registers of texels are offset by its dot-product
-// channels being its add channels); the block stages its 8 points'
+// (h, q, c), see unirow_texels.cuh; 4 blocks an SM); the block stages its 8 points'
 // dfeature through shared memory (32-byte coalesced reads). A
 // candidate's 13 dot products (12 dwq4 and <dfeature, feat_m>) take one
 // transposed butterfly over the 4 chunk lanes (3 shuffles: lane c ends with
@@ -197,10 +191,9 @@ int launch(const void* texels, const void* rows, const void* wq4,
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes), kernel 1b (bf16 texels) and
-// kernel 1bf (float32 texels). Shapes, all contiguous:
-//   texels (B, 3, H+2, W+2, 64) bf16 / float32; rows (B, 3, M, n) int32
-//   cell rows;
+// Plain C entry point (loaded with ctypes), kernel 1b. Shapes, all
+// contiguous:
+//   texels (B, 3, H+2, W+2, 64) bf16; rows (B, 3, M, n) int32 cell rows;
 //   wq4 (B, 4, 3, M, n) f32; cand_idx (B, M, n) int32 in [0, 32);
 //   valid (B, M, n) f32; dfeature (B, 32, n) f32; dcand_w (B, M, n) f32
 //   -> dtexels (B, 3, H+2, W+2, 64) f32, which the caller zeroes (the kernel
@@ -215,17 +208,6 @@ extern "C" int unirow_combine_bwd_bf16(const void* texels, const void* rows,
   return launch<__nv_bfloat16, kFull>(texels, rows, wq4, cand_idx, valid,
                                       dfeature, dcand_w, dtexels, dwq4, B, H,
                                       W, M, n, clamp, stream);
-}
-
-extern "C" int unirow_combine_bwd_f32(const void* texels, const void* rows,
-                                      const void* wq4, const void* cand_idx,
-                                      const void* valid, const void* dfeature,
-                                      const void* dcand_w, void* dtexels,
-                                      void* dwq4, int B, int H, int W, int M,
-                                      int n, int clamp, void* stream) {
-  return launch<float, kFull>(texels, rows, wq4, cand_idx, valid, dfeature,
-                              dcand_w, dtexels, dwq4, B, H, W, M, n, clamp,
-                              stream);
 }
 
 #ifdef UNIROW_STAGE_ENTRY

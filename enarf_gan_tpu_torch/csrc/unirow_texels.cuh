@@ -1,19 +1,18 @@
-// What the unirow kernels (unirow_combine.cu, unirow_combine_bwd.cu) share:
-// the texel table's layout, the lane mapping, the loads of one candidate's
-// texels and inputs, its sigmoids, and the transposed warp sums.
+// What the bf16 unirow kernels (unirow_combine.cu, unirow_combine_bwd.cu:
+// kernels 1 and 1b) share: the texel table's layout, the lane mapping, the
+// loads of one candidate's texels and inputs, its sigmoids, and the
+// transposed warp sums. The float32 kernels 1f and 1bf (unirow_f32.cuh) use
+// its lane mapping and warp sums.
 //
 // Texel table (ops/unirow.py::pack_texels): (B, 3, H+2, W+2, 64) of bf16 (a
-// 128-byte line a texel) or float32 (256 bytes), lanes [32 feature | 32
-// mask, bone k at lane 32+k]. Row r = p*(H+1)*(W+1) + t*(W+1) + s names cell
-// (t, s) of plane p; its corner q is texel (p, t + q/2, s + q%2).
+// 128-byte line a texel), lanes [32 feature | 32 mask, bone k at lane
+// 32+k]. Row r = p*(H+1)*(W+1) + t*(W+1) + s names cell (t, s) of plane p;
+// its corner q is texel (p, t + q/2, s + q%2).
 //
 // Lane mapping: one warp per point; lane = 16h + 4q + c, where half h takes
 // candidates h, h+2, ..., q is the corner and c one of the 4 lanes that
 // share the corner's feature half, 8 channels a lane (Texel<T>::channel):
-// bf16, one 16-byte load of channels 8c..8c+7 (the half is 64 bytes);
-// float32, two 16-byte loads, channels 4c..4c+3 and 16+4c..16+4c+3, so each
-// load instruction of the 4 lanes reads 64 contiguous bytes of the 128-byte
-// half (two whole sectors).
+// one 16-byte load of channels 8c..8c+7 (the half is 64 bytes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,31 +58,6 @@ struct Texel<__nv_bfloat16> {
     const unsigned short x =
         __ldg(reinterpret_cast<const unsigned short*>(t) + kF + k);
     return __uint_as_float((uint32_t)x << 16);
-  }
-};
-
-template <>
-struct Texel<float> {
-  struct Chunk {
-    float4 lo, hi;                           // channels 4c.., 16+4c..
-  };
-  __device__ static __forceinline__ Chunk zero() {
-    return {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
-  }
-  __device__ static __forceinline__ Chunk load(const float* t, int c) {
-    const float4* v = reinterpret_cast<const float4*>(t);
-    return {__ldg(v + c), __ldg(v + 4 + c)};
-  }
-  __device__ static __forceinline__ void unpack(const Chunk& v,
-                                                float (&f)[8]) {
-    f[0] = v.lo.x; f[1] = v.lo.y; f[2] = v.lo.z; f[3] = v.lo.w;
-    f[4] = v.hi.x; f[5] = v.hi.y; f[6] = v.hi.z; f[7] = v.hi.w;
-  }
-  __device__ static __forceinline__ int channel(int c, int j) {
-    return j < 4 ? 4 * c + j : 16 + 4 * c + (j - 4);
-  }
-  __device__ static __forceinline__ float mask(const float* t, int k) {
-    return __ldg(t + kF + k);
   }
 };
 
@@ -145,9 +119,9 @@ struct Cand {
 };
 
 // All of a candidate's loads are issued here, before any is used: the
-// streaming inputs (evict-first, read once), then 3 feature chunks (bf16:
-// one 16-byte load; float32: two) and 3 mask loads a lane (one 32-byte
-// sector a texel), i.e. the 12 texels of the candidate across the half-warp.
+// streaming inputs (evict-first, read once), then 3 feature chunks (one
+// 16-byte load each) and 3 mask loads a lane (one 32-byte sector a texel),
+// i.e. the 12 texels of the candidate across the half-warp.
 template <typename T>
 __device__ __forceinline__ void load_cand(Cand<T>& k, const Inputs<T>& in,
                                           const Lane& L, int m) {

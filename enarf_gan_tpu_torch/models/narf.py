@@ -9,11 +9,12 @@ generates (``tri_plane_gen``, the GAN's and the default), constant planes
 (``selector_mlp``). On the candidate-sparse path (the default, and
 ``constant_trimask``) the planes are sampled through the unirow kernels
 (``ops/unirow.py``) or, for ``tile_patch`` models on the patch-tiled
-renderer, the patch-window kernels (``ops/tilewin.py``); both read the
-texel table of ``ops/unirow.py::pack_texels`` in the planes'
-``plane_sample_dtype``: bf16 for both paths, float32 (the default, where
-the JAX package samples its quad tables, ``ops/quadtable.py``) for the
-unirow path. Off it (``no_selector``, ``selector_mlp``,
+renderer, the patch-window kernels (``ops/tilewin.py``): for bf16
+``plane_sample_dtype`` both read the texel table of
+``ops/unirow.py::pack_texels``; for float32 planes (the default, where the
+JAX package samples its quad tables, ``ops/quadtable.py``) the unirow path
+reads the tables of ``pack_texels_f32`` (kernels 1f and 1bf, from the
+candidates' positions). Off it (``no_selector``, ``selector_mlp``,
 ``max_bones_per_point >= num_bone``) every bone is sampled densely
 through ``F.grid_sample`` (``ops/triplane.py``), as JAX samples it through
 XLA.
@@ -54,6 +55,7 @@ from enarf_gan_tpu_torch.ops.triplane import (sample_triplane_part_prob,
                                               sample_weighted_feature,
                                               select_candidate_bones)
 from enarf_gan_tpu_torch.ops.unirow import (MASK_BLOCK, pack_texels,
+                                            pack_texels_f32,
                                             sample_candidates_unirow)
 
 
@@ -375,8 +377,9 @@ class TriPlaneNARF(_DensityColorHeads):
 
     @property
     def texel_dtype(self) -> torch.dtype:
-        """The texel table's type: bf16 for ``plane_sample_dtype``
-        "bfloat16", float32 otherwise (the JAX package's rule)."""
+        """The sampled tables' type: bf16 for ``plane_sample_dtype``
+        "bfloat16" (``pack_texels``), float32 otherwise (the JAX package's
+        rule; ``pack_texels_f32``)."""
         return torch.bfloat16 if self.params.plane_sample_dtype == "bfloat16" \
             else torch.float32
 
@@ -389,17 +392,21 @@ class TriPlaneNARF(_DensityColorHeads):
                 "item 3)")
 
     def pack_planes(self, tri_plane_feature: torch.Tensor):
-        """Pack planes once per frame into the unirow sampler's texel
-        table (``ops/unirow.py::pack_texels``, bf16 or float32 by
-        ``plane_sample_dtype``; the JAX package packs quad rows, or for
-        float32 planes quad tables), as a 1-tuple (the JAX package's
-        packed-table convention). Off the candidate path the dense
-        samplers read the planes themselves, which come back unchanged."""
+        """Pack planes once per frame for the unirow sampler, as a 1-tuple
+        (the JAX package's packed-table convention): bf16 planes into the
+        texel table (``ops/unirow.py::pack_texels``; the JAX package packs
+        quad rows), float32 planes into the feature table and bone-major
+        mask planes of ``pack_texels_f32`` (the JAX package packs quad
+        tables). Off the candidate path the dense samplers read the planes
+        themselves, which come back unchanged."""
         if not self.uses_candidate_sampling():
             return tri_plane_feature
         self._check_unirow()
         if _ablate_stage() == "sampler":
             return (AblatedTable(self.params.feat_dim),)
+        if self.texel_dtype == torch.float32:
+            return (pack_texels_f32(tri_plane_feature, self.params.feat_dim,
+                                    self.num_bone),)
         return (pack_texels(tri_plane_feature, self.params.feat_dim,
                             self.num_bone, dtype=self.texel_dtype),)
 

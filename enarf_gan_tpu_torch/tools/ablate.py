@@ -26,7 +26,10 @@ Kernel 1b (``unirow_bwd_stage``, built from ``csrc/unirow_combine_bwd.cu``
 with ``-DUNIROW_STAGE_ENTRY``; twin ``unirow_bwd_stage_plain``; timed by
 ``chip_smoke.py`` beside kernel 1b, no TPU probe asked it): "full",
 "scalar" (the feature adds as scalar atomics in place of 16-byte vector
-reductions), "nofeat" (no feature adds), "nomask" (no mask adds).
+reductions), "nofeat" (no feature adds), "nomask" (no mask adds). Kernel
+1bf likewise (``unirow_bwd_f32_stage``, ``csrc/unirow_combine_bwd_f32.cu``;
+twin ``unirow_bwd_f32_stage_plain``): "full", "nofeat", "nomask", and
+"blocks4" (the full kernel at 4 blocks an SM in place of 3).
 Kernel 2b's plain version (``tilewin_bwd_plain``) is what ``chip_smoke.py``
 holds the kernel to.
 
@@ -44,6 +47,7 @@ from enarf_gan_tpu_torch.ops.tilewin_kernel import (
     HAT_STAGES, NTEX, WIN, _check_inputs, _check_kernel_shapes,
     _check_window_inputs, texel_cells, texel_corners,
     tilewin_combine_texels_plain)
+from enarf_gan_tpu_torch.ops.triplane import PLANE_COORDS
 from enarf_gan_tpu_torch.tools.timing import (BF16_FLOPS, F32_FLOPS, Case,
                                               run_cli)
 
@@ -65,6 +69,13 @@ KERNEL_UNIROW_BWD_STAGES = KernelLibrary(
     "unirow_combine_bwd_stages", "unirow_combine_bwd_stage_bf16",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     keys=UNIROW_BWD_STAGES, source="unirow_combine_bwd.cu",
+    flags=("-DUNIROW_STAGE_ENTRY",))
+# kernel 1bf's stages, in the order of the C enum
+UNIROW_BWD_F32_STAGES = ("full", "nofeat", "nomask", "blocks4")
+KERNEL_UNIROW_BWD_F32_STAGES = KernelLibrary(
+    "unirow_combine_bwd_f32_stages", "unirow_combine_bwd_stage_f32",
+    unirow.F32_BWD_ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p],
+    keys=UNIROW_BWD_F32_STAGES, source="unirow_combine_bwd_f32.cu",
     flags=("-DUNIROW_STAGE_ENTRY",))
 F_ = 32
 TRI_PLANE_SIZE, RAY_CHUNK, TILE_PATCH = 256, 4096, 4
@@ -207,6 +218,72 @@ def unirow_bwd_stage_plain(texels, rows, wq4, cand_idx, valid, dfeature,
     return dtexels, dwq4
 
 
+def unirow_bwd_f32_stage(tables, cand_pos, cand_idx, cand_valid, dfeature,
+                         dcand_w, stage):
+    """Kernel 1bf with its adds doctored (``UNIROW_BWD_F32_STAGES``):
+    (dfeat, dmask, dcand_pos), as ``ops/unirow.py::launch_backward_f32``;
+    on the CPU the twin."""
+    if stage not in UNIROW_BWD_F32_STAGES:
+        raise ValueError(f"stage must be one of {UNIROW_BWD_F32_STAGES}, "
+                         f"got {stage!r}")
+    inputs = (cand_pos, cand_idx, cand_valid)
+    unirow._check_f32_inputs(tables, *inputs)
+    if not tables.feature.is_cuda:
+        return unirow_bwd_f32_stage_plain(tables, *inputs, dfeature, dcand_w,
+                                          stage)
+    B, H, W, K, M, n = unirow._f32_kernel_shape(tables, inputs, F_)
+    dfeat = torch.zeros_like(tables.feature)
+    dmask = torch.zeros_like(tables.mask)
+    dpos = torch.empty_like(cand_pos)
+    dfeature = dfeature.float().contiguous()
+    dcand_w = dcand_w.float().contiguous()
+    stream = torch.cuda.current_stream(cand_pos.device).cuda_stream
+    ptrs = [t.data_ptr() for t in tuple(tables) + inputs
+            + (dfeature, dcand_w, dfeat, dmask, dpos)]
+    lib = KERNEL_UNIROW_BWD_F32_STAGES
+    err = lib.load()(*ptrs, B, H, W, K, M, n, 0,
+                     UNIROW_BWD_F32_STAGES.index(stage), stream)
+    if err != 0:
+        raise RuntimeError(f"{lib.name} ({stage}) launch failed: CUDA error "
+                           f"{err}")
+    lib.count(stage)
+    return dfeat, dmask, dpos
+
+
+def unirow_bwd_f32_plain(tables, cand_pos, cand_idx, cand_valid, dfeature,
+                         dcand_w):
+    """Kernel 1bf's function by autograd through ``sample_f32_plain``,
+    image by image (images share no texels): (dfeat, dmask, dcand_pos)."""
+    out = ([], [], [])
+    with torch.enable_grad():
+        for b in range(cand_pos.shape[0]):
+            sl = slice(b, b + 1)
+            leaves = [t[sl].detach().clone().requires_grad_(True)
+                      for t in (*tables, cand_pos)]
+            f, w = unirow.sample_f32_plain(
+                unirow.Float32Texels(*leaves[:2]), leaves[2], cand_idx[sl],
+                cand_valid[sl], F_, False)
+            grads = torch.autograd.grad(
+                (f * dfeature[sl]).sum() + (w * dcand_w[sl]).sum(), leaves)
+            for acc, g in zip(out, grads):
+                acc.append(g)
+    return tuple(torch.cat(g) for g in out)
+
+
+def unirow_bwd_f32_stage_plain(tables, cand_pos, cand_idx, cand_valid,
+                               dfeature, dcand_w, stage):
+    """The twin of ``unirow_bwd_f32_stage``: ``unirow_bwd_f32_plain`` with
+    the feature table's gradient ("nofeat") or the mask table's ("nomask")
+    left at zero ("full" and "blocks4": the whole gradients)."""
+    dfeat, dmask, dpos = unirow_bwd_f32_plain(tables, cand_pos, cand_idx,
+                                              cand_valid, dfeature, dcand_w)
+    if stage == "nofeat":
+        dfeat.zero_()
+    elif stage == "nomask":
+        dmask.zero_()
+    return dfeat, dmask, dpos
+
+
 def tilewin_bwd_plain(texels, bases, bones, xt, xs, valid, dfeature, dcand_w,
                       S):
     """Kernel 2b's function by autograd through
@@ -343,19 +420,25 @@ def unirow_inputs(device, B, n, H=TRI_PLANE_SIZE, M=4, K=23, seed=0,
                   dtype=torch.bfloat16):
     """The unirow kernels' inputs at random positions (``chip_smoke.py``'s
     checks): B images of n points, M candidates (about 30% invalid), 256²
-    planes by default, a texel table of ``dtype`` (bf16: kernels 1 and 1b;
-    float32: 1f and 1bf): (texels, rows, wq4, cand_idx, valid, dfeature,
-    dcand_w), the last two the backward's cotangents."""
+    planes by default. bf16 (kernels 1 and 1b): (texels, rows, wq4,
+    cand_idx, valid, dfeature, dcand_w (B, M, n)), the texel table and
+    ``candidate_rows``' inputs; float32 (kernels 1f and 1bf): (tables,
+    cand_pos, cand_idx, cand_valid, dfeature, dcand_w (B, n, M)), the
+    ``pack_texels_f32`` tables and the candidates themselves. The last two
+    are the backward's cotangents; both draw the same numbers."""
     g = torch.Generator().manual_seed(seed)
     planes = torch.randn((B, (F_ + K) * 3, H, H), generator=g).to(device)
     pos = (torch.rand((B, n, M, 3), generator=g) * 2.4 - 1.2).to(device)
     idx = torch.randint(0, K, (B, n, M), generator=g,
                         dtype=torch.int32).to(device)
     valid = (torch.rand((B, n, M), generator=g) > 0.3).to(device)
-    texels = unirow.pack_texels(planes, F_, K, dtype=dtype)
-    rows, wq4, ci, cv = unirow.candidate_rows(pos, idx, valid, H, H)
     dfeature = torch.randn((B, F_, n), generator=g).to(device)
     dcand_w = torch.randn((B, M, n), generator=g).to(device)
+    if dtype == torch.float32:
+        return (unirow.pack_texels_f32(planes, F_, K), pos, idx, valid,
+                dfeature, dcand_w.transpose(1, 2).contiguous())
+    texels = unirow.pack_texels(planes, F_, K, dtype=dtype)
+    rows, wq4, ci, cv = unirow.candidate_rows(pos, idx, valid, H, H)
     return texels, rows, wq4, ci, cv, dfeature, dcand_w
 
 
@@ -380,6 +463,76 @@ def texel_table_bytes(texels, rows, cand_idx, valid, feat_dim):
     d_sec = int(torch.unique(sectors).numel())
     return d_tex * feat_dim * texels.element_size() + d_sec * 32, d_tex, \
         d_sec
+
+
+def _corners_with_gradient(cand_pos, H, W):
+    """(B, 3, M, n, 4): whether the weight of corner q of each (plane,
+    candidate, point)'s cell or the weight's derivative is nonzero: the
+    corner lies inside the plane (``_quad_cells_weights``' range masks) and
+    not both of its weight's factors are 0."""
+    cp = cand_pos.permute(0, 3, 2, 1)                         # (B, 3, M, n)
+    planes = []
+    for i, j in PLANE_COORDS:
+        x = (cp[:, i] + 1) * (W / 2) - 0.5
+        y = (cp[:, j] + 1) * (H / 2) - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        fx, fy = x - x0, y - y0
+        in_x = ((x0 >= 0) & (x0 <= W - 1), (x0 >= -1) & (x0 <= W - 2))
+        in_y = ((y0 >= 0) & (y0 <= H - 1), (y0 >= -1) & (y0 <= H - 2))
+        cx = (1 - fx != 0, fx != 0)              # the weight's factors
+        wy = (1 - fy != 0, fy != 0)
+        planes.append(torch.stack(
+            [in_x[q % 2] & in_y[q // 2] & (cx[q % 2] | wy[q // 2])
+             for q in range(4)], dim=-1))
+    return torch.stack(planes, dim=1)
+
+
+def f32_table_bytes(tables, cand_pos, cand_idx, cand_valid, grad=False):
+    """Bytes of the float32 tables (``pack_texels_f32``) one launch of
+    kernel 1f must read: the 128-byte feature line of each distinct texel
+    at a corner of nonzero weight of a valid candidate (an invalid one's
+    feature is weighted by 0), and each distinct 32-byte sector of the
+    bone-major mask planes holding a corner of nonzero weight of any
+    candidate (every candidate's cand_w needs it). With ``grad`` (kernel
+    1bf) a corner of weight 0 counts too where the weight's derivative is
+    not 0 (on a cell's edge): it enters the positions' gradient. Returns
+    (bytes, distinct feature texels, distinct mask sectors)."""
+    ft, mt = tables
+    B, _, Hp, Wp, _ = ft.shape
+    K = mt.shape[2]
+    dev = cand_pos.device
+    cells, wq = unirow._quad_cells_weights(cand_pos.permute(0, 3, 2, 1),
+                                           Hp - 2, Wp - 2)
+    t, s = cells // (Wp - 1), cells % (Wp - 1)                # (B, 3, M, n)
+    corners = (t * Wp + s).long()[..., None] \
+        + torch.tensor([0, 1, Wp, Wp + 1], device=dev)        # (…, 4)
+    plane = (torch.arange(B, device=dev).view(B, 1, 1, 1, 1) * 3
+             + torch.arange(3, device=dev).view(1, 3, 1, 1, 1))
+    nonzero = torch.stack(wq, dim=-1) != 0
+    if grad:
+        nonzero |= _corners_with_gradient(cand_pos, Hp - 2, Wp - 2)
+    keep = nonzero & cand_valid.permute(0, 2, 1)[:, None, :, :, None]
+    d_tex = int(torch.unique((plane * Hp * Wp + corners)[keep]).numel())
+    bone = cand_idx.permute(0, 2, 1).long()[:, None, :, :, None]
+    mask_at = (plane * K + bone) * (Hp * Wp) + corners
+    d_sec = int(torch.unique(mask_at[nonzero] // 8).numel())  # 8 floats
+    return d_tex * 32 * 4 + d_sec * 32, d_tex, d_sec
+
+
+def parent_f32_table_bytes(tables, cand_pos, cand_idx, cand_valid):
+    """The earlier float32 design's bytes for the same candidates (the
+    earlier kernel 1f, the bf16 kernel's template on a 64-lane float32 texel
+    table, fed ``candidate_rows``): ``texel_table_bytes`` on that table's
+    shape, and the streamed rows, wq4, cand_idx and valid. Returns (table
+    bytes, streamed input bytes)."""
+    B, _, Hp, Wp, _ = tables.feature.shape
+    rows, wq4, ci, cv = unirow.candidate_rows(cand_pos, cand_idx, cand_valid,
+                                              Hp - 2, Wp - 2)
+    shape = torch.empty((B, 3, Hp, Wp, unirow.TEXEL_WIDTH),
+                        dtype=torch.float32, device="meta")
+    nbytes = texel_table_bytes(shape, rows, ci, cv, F_)[0]
+    return nbytes, sum(t.numel() * t.element_size()
+                       for t in (rows, wq4, ci, cv))
 
 
 def probe_inputs(device, U=12288, S=48, Mp=4, m=16, seed=0):

@@ -9,8 +9,9 @@ warm-up, ending in a synchronise) and on the device's (one more call under
   latents+transform   ``get_latents`` and ``transform_pose``
   tri-plane gen       the flow StyleGAN2 and its warp of the planes
                       (``compute_tri_plane_feature``)
-  pack                ``pack_planes`` (``pack_texels``), or on the tiled
-                      path ``pack_planes_tiled`` (``pack_tilewin_texels``)
+  pack                ``pack_planes`` (``pack_texels``; on float32 planes
+                      ``pack_texels_f32``), or on the tiled path
+                      ``pack_planes_tiled`` (``pack_tilewin_texels``)
   chunk               one 4096-ray chunk, coarse and fine passes
                       (``render_rays`` / ``render_rays_tiled``), rows 40 on
   density_color       the point network on one chunk's coarse points
@@ -25,8 +26,11 @@ warm-up, ending in a synchronise) and on the device's (one more call under
 and the sampler's own stages on the chunk's fine and coarse passes as it
 rendered them (every piece is timed on the host clock before the first
 profile): exact ``select_candidate_bones``, ``candidate_rows`` and
-``unirow_combine`` (kernel 1); tiled ``select_patch_slots``,
-``texel_plan`` and ``tilewin_combine`` (kernel 2).
+``unirow_combine`` (kernel 1), or on float32 planes
+(``BENCH_PLANE_DTYPE=float32``) ``select_candidate_bones`` and
+``sample_f32`` (kernel 1f, from the positions); tiled
+``select_patch_slots``, ``texel_plan`` and ``tilewin_combine`` (kernel
+2).
 
     python -m enarf_gan_tpu_torch.tools.frame_parts [--device cpu]
 
@@ -126,6 +130,8 @@ def parts(device, tile_patch: int):
            ("tri-plane gen (flow StyleGAN2 + warp)",
             lambda: gen.compute_tri_plane_feature(z, bl_t)),
            ("pack_planes_tiled (pack_tilewin_texels)" if tile_patch
+            else "pack_planes (pack_texels_f32)"
+            if isinstance(tables[0], unirow.Float32Texels)
             else "pack_planes (pack_texels)", lambda: pack(planes)),
            (f"frustum ({size}² rays x {pose_s.shape[1]} bones x 32 depths)",
             lambda: decide_frustum_range(frame_coords, pose_s, inv_K,
@@ -167,11 +173,17 @@ def parts(device, tile_patch: int):
             canonical, validity = nerf._canonical_validity(pts, pose_s, bl_t)
             cand = select_candidate_bones(canonical, validity,
                                           p.max_bones_per_point)
+            out.append((f"select_candidate_bones {label}",
+                        lambda c=canonical, v=validity: select_candidate_bones(
+                            c, v, p.max_bones_per_point)))
+            if isinstance(texels, unirow.Float32Texels):
+                out.append((f"sample_f32 {label} (kernel 1f)",
+                            lambda c=cand: unirow.sample_f32(
+                                texels, c[2], c[0], c[1], p.feat_dim,
+                                p.clamp_mask)))
+                continue
             rows = unirow.candidate_rows(cand[2], cand[0], cand[1], ts, ts)
             out += [
-                (f"select_candidate_bones {label}",
-                 lambda c=canonical, v=validity: select_candidate_bones(
-                     c, v, p.max_bones_per_point)),
                 (f"candidate_rows {label}",
                  lambda c=cand: unirow.candidate_rows(c[2], c[0], c[1], ts,
                                                       ts)),

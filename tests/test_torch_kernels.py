@@ -7,9 +7,10 @@ machine with a GPU and no jax; there, skip the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 Tolerance, kernel vs plain: both compute in float32 from the same bf16
-(or float32: kernels 1f and 1bf) rows; the sums run in another order and
-the exp is another implementation, so 1e-4 relative / 1e-5 absolute (the
-forward kernels).
+rows (kernels 1f and 1bf: float32 tables, and the cells and corner
+weights computed from the positions, rounded alike); the sums run in
+another order and the exp is another implementation, so 1e-4 relative /
+1e-5 absolute (the forward kernels).
 The backward kernels add into the table gradients with atomics, in an
 order that changes from run to run, and the plain gradients come from
 autograd's scatter-adds: relative L2 error 1e-4 per gradient.
@@ -51,21 +52,60 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     assert unirow.KERNEL.launches == before
 
 
+def _f32_args(B, n, M, H=16, F=32, K=23, seed=2, device="cpu"):
+    """The float32 tables (``pack_texels_f32``) and the candidates of
+    ``sample_f32``: positions in range, on the plane edges and outside
+    every bone (at 2), about 30% invalid."""
+    rng = np.random.default_rng(seed)
+    planes = rng.normal(size=(B, (F + K) * 3, H, H)).astype(np.float32)
+    pos = rng.uniform(-1.4, 1.4, (B, n, M, 3)).astype(np.float32)
+    pos[:, :2] = 2.0                     # points outside every bone
+    if n > 3:
+        pos[:, 2, 0] = (-1.0, 1.0, -1.0)
+        pos[:, 3, 0] = (1.0, -1.0, 0.999)
+    idx = rng.integers(0, K, (B, n, M)).astype(np.int32)
+    valid = rng.random((B, n, M)) > 0.3
+    tables = unirow.pack_texels_f32(torch.from_numpy(planes), F, K)
+    args = (torch.from_numpy(pos), torch.from_numpy(idx),
+            torch.from_numpy(valid))
+    return (unirow.Float32Texels(*(t.to(device) for t in tables)),) \
+        + tuple(a.to(device) for a in args)
+
+
 def test_float32_table_runs_plain_on_cpu_and_counts_no_launch():
-    args = _combine_args(1, 50, 4, dtype=torch.float32)
-    counts = [k.launches for k in (unirow.KERNEL, unirow.KERNEL_F32)]
-    got = unirow.unirow_combine(*args, 32, False)
-    ref = unirow.gather_combine_texels_plain(*args, 32, False)
+    """Float32 planes go through ``sample_f32``: on CPU tensors it is its
+    plain twin, launching nothing; kernels 1f and 1bf are libraries of
+    their own sources, each with its own count."""
+    args = _f32_args(1, 50, 4)
+    kernels = (unirow.KERNEL, unirow.KERNEL_F32, unirow.KERNEL_BWD_F32)
+    counts = [k.launches for k in kernels]
+    got = unirow.sample_f32(*args, 32, False)
+    ref = unirow.sample_f32_plain(*args, 32, False)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert [k.launches for k in (unirow.KERNEL, unirow.KERNEL_F32)] == counts
-    assert unirow.kernels_for(torch.float32) == (unirow.KERNEL_F32,
-                                                 unirow.KERNEL_BWD_F32)
-    assert unirow.kernels_for(torch.bfloat16) == (unirow.KERNEL,
-                                                  unirow.KERNEL_BWD)
-    # the float32 entry points share their libraries' builds
-    assert unirow.KERNEL_F32.owner is unirow.KERNEL
-    assert unirow.KERNEL_BWD_F32.owner is unirow.KERNEL_BWD
+    assert [k.launches for k in kernels] == counts
+    assert (unirow.KERNEL_F32.source, unirow.KERNEL_BWD_F32.source) == \
+        ("unirow_combine_f32.cu", "unirow_combine_bwd_f32.cu")
+    assert unirow.KERNEL_F32.owner is None and \
+        unirow.KERNEL_BWD_F32.owner is None
+
+
+def test_float32_wrapper_rejects_what_the_kernel_does_not_take():
+    tables, pos, idx, valid = _f32_args(1, 20, 3)
+    with pytest.raises(ValueError, match="float32 tables"):      # bf16
+        unirow.sample_f32(unirow.Float32Texels(tables.feature.bfloat16(),
+                                               tables.mask), pos, idx,
+                          valid, 32, False)
+    with pytest.raises(ValueError, match="float32 tables"):      # 64 lanes
+        unirow.sample_f32(unirow.Float32Texels(
+            torch.zeros(1, 3, 18, 18, 64), tables.mask), pos, idx, valid,
+            32, False)
+    with pytest.raises(ValueError, match="cand_pos"):
+        unirow.sample_f32(tables, pos[..., :2], idx, valid, 32, False)
+    with pytest.raises(ValueError, match="cand_idx"):
+        unirow.sample_f32(tables, pos, idx.long(), valid, 32, False)
+    with pytest.raises(ValueError, match="cand_valid"):
+        unirow.sample_f32(tables, pos, idx, valid.float(), 32, False)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -184,14 +224,14 @@ def test_unirow_backward_kernel_matches_plain_on_card(cuda_device, B, n, M,
 @pytest.mark.parametrize("B,n,M,clamp", UNIROW_CASES)
 def test_unirow_f32_kernel_matches_plain_on_card(cuda_device, B, n, M,
                                                  clamp):
-    """Kernel 1f on a float32 texel table: launched (its own count, not
-    kernel 1's) and equal to the plain twin."""
-    args = _combine_args(B, n, M, device=cuda_device, dtype=torch.float32)
+    """Kernel 1f on the float32 tables, from the positions: launched (its
+    own count, not kernel 1's) and equal to the plain twin."""
+    args = _f32_args(B, n, M, device=cuda_device)
     before = (unirow.KERNEL.launches, unirow.KERNEL_F32.launches)
     with torch.no_grad():
-        f, w = unirow.unirow_combine(*args, 32, clamp)
+        f, w = unirow.sample_f32(*args, 32, clamp)
         torch.cuda.synchronize()
-        f_ref, w_ref = unirow.gather_combine_texels_plain(*args, 32, clamp)
+        f_ref, w_ref = unirow.sample_f32_plain(*args, 32, clamp)
     assert (unirow.KERNEL.launches, unirow.KERNEL_F32.launches) == \
         (before[0], before[1] + 1)
     torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=1e-5)
@@ -202,37 +242,46 @@ def test_unirow_f32_kernel_matches_plain_on_card(cuda_device, B, n, M,
 @pytest.mark.parametrize("B,n,M,clamp", UNIROW_CASES)
 def test_unirow_f32_backward_kernel_matches_plain_on_card(cuda_device, B, n,
                                                           M, clamp):
-    """Kernel 1bf against autograd through the plain twin; through the
-    autograd Function the float32 table takes the kernel's gradient as it
-    is."""
-    table, rows, wq4, idx, valid = _combine_args(B, n, M, device=cuda_device,
-                                                 dtype=torch.float32)
-    table.requires_grad_(True)
-    wq4.requires_grad_(True)
-    outs = unirow.unirow_combine(table, rows, wq4, idx, valid, 32, clamp)
+    """Kernel 1bf against autograd through the plain twin: both tables'
+    gradients and the positions'; through the autograd Function too."""
+    tables, pos, idx, valid = _f32_args(B, n, M, device=cuda_device)
+    leaves = [tables.feature.requires_grad_(True),
+              tables.mask.requires_grad_(True), pos.requires_grad_(True)]
+    outs = unirow.sample_f32(tables, pos, idx, valid, 32, clamp)
     cots = _cotangents(outs, 5)
-    before = (unirow.KERNEL_BWD.launches, unirow.KERNEL_BWD_F32.launches)
-    dtable, dwq4 = unirow.launch_backward(table.detach(), rows, wq4.detach(),
-                                          idx, valid, *cots, 32, clamp)
+    before = unirow.KERNEL_BWD_F32.launches
+    got = unirow.launch_backward_f32(
+        unirow.Float32Texels(*(t.detach() for t in tables)), pos.detach(),
+        idx, valid, *cots, 32, clamp)
     torch.cuda.synchronize()
-    assert (unirow.KERNEL_BWD.launches, unirow.KERNEL_BWD_F32.launches) == \
-        (before[0], before[1] + 1)
-    assert dtable.dtype == torch.float32 and dtable.shape == table.shape
-    tf = table.detach().clone().requires_grad_(True)
-    wf = wq4.detach().clone().requires_grad_(True)
-    ref = unirow.gather_combine_texels_plain(tf, rows, wf, idx, valid, 32,
-                                             clamp)
-    r_table, r_wq4 = torch.autograd.grad(
-        sum((o * c).sum() for o, c in zip(ref, cots)), [tf, wf])
-    assert _rel_l2(dtable, r_table) <= 1e-4
-    assert _rel_l2(dwq4, r_wq4) <= 1e-4
-    assert not dtable[..., unirow.FEAT_BLOCK + 23:].any()   # bones >= K
-    g_table, g_wq4 = torch.autograd.grad(
-        sum((o * c).sum() for o, c in zip(outs, cots)), [table, wq4])
-    assert g_table.dtype == torch.float32
-    assert unirow.KERNEL_BWD_F32.launches == before[1] + 2
-    assert _rel_l2(g_table, r_table) <= 1e-4
-    torch.testing.assert_close(g_wq4, dwq4, rtol=1e-4, atol=1e-5)
+    assert unirow.KERNEL_BWD_F32.launches == before + 1
+    copies = [t.detach().clone().requires_grad_(True) for t in leaves]
+    ref = unirow.sample_f32_plain(unirow.Float32Texels(*copies[:2]),
+                                  copies[2], idx, valid, 32, clamp)
+    want = torch.autograd.grad(sum((o * c).sum() for o, c in zip(ref, cots)),
+                               copies)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel_l2(a, b) <= 1e-4
+    through = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(outs, cots)), leaves)
+    assert unirow.KERNEL_BWD_F32.launches == before + 2
+    for a, b in zip(through, want):
+        assert _rel_l2(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_unirow_kernel_refuses_a_float32_table(cuda_device):
+    """Kernels 1 and 1b take the bf16 texel table only: float32 planes go
+    through sample_f32, and nothing falls back."""
+    args = _combine_args(1, 40, 4, device=cuda_device, dtype=torch.float32)
+    before = (unirow.KERNEL.launches, unirow.KERNEL_BWD.launches)
+    with pytest.raises(ValueError, match="bf16"):
+        unirow.unirow_combine(*args, 32, False)
+    dcot = torch.zeros((1, 32, 40), device=cuda_device)
+    with pytest.raises(ValueError, match="bf16"):
+        unirow.launch_backward(*args, dcot, torch.zeros_like(args[4]), 32,
+                               False)
+    assert (unirow.KERNEL.launches, unirow.KERNEL_BWD.launches) == before
 
 
 def test_unirow_bwd_stages_run_their_twins_on_cpu():
@@ -272,6 +321,45 @@ def test_unirow_bwd_stage_kernels_match_their_twins_on_card(cuda_device):
         ref = ablate.unirow_bwd_stage_plain(*args, stage)
         for a, b in zip(got, ref):
             assert _rel_l2(a, b) <= 1e-4, stage
+
+
+def test_unirow_bwd_f32_stages_run_their_twins_on_cpu():
+    """Kernel 1bf's stage ablations (tools/ablate.py): on the CPU each runs
+    its twin, the full gradients with the feature table's ("nofeat") or the
+    mask table's ("nomask") left at zero ("blocks4": all whole); the
+    positions' always whole."""
+    args = ablate.unirow_inputs("cpu", 2, 40, H=12, seed=3,
+                                dtype=torch.float32)
+    full = ablate.unirow_bwd_f32_plain(*args)
+    assert all(float(g.abs().max()) > 0 for g in full)
+    for stage in ablate.UNIROW_BWD_F32_STAGES:
+        got = ablate.unirow_bwd_f32_stage(*args, stage)
+        zeroed = {"nofeat": 0, "nomask": 1}.get(stage)
+        for i, (a, b) in enumerate(zip(got, full)):
+            if i == zeroed:
+                assert not a.any()
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="stage"):
+        ablate.unirow_bwd_f32_stage(*args, "scalar")
+
+
+@pytest.mark.cuda
+def test_unirow_bwd_f32_stage_kernels_match_their_twins_on_card(cuda_device):
+    args = ablate.unirow_inputs(cuda_device, 2, 333, H=16, M=3, seed=4,
+                                dtype=torch.float32)
+    lib = ablate.KERNEL_UNIROW_BWD_F32_STAGES
+    for stage in ablate.UNIROW_BWD_F32_STAGES:
+        before = lib.launches_by[stage]
+        got = ablate.unirow_bwd_f32_stage(*args, stage)
+        torch.cuda.synchronize()
+        assert lib.launches_by[stage] == before + 1
+        ref = ablate.unirow_bwd_f32_stage_plain(*args, stage)
+        for a, b in zip(got, ref):
+            if b.any():
+                assert _rel_l2(a, b) <= 1e-4, stage
+            else:
+                assert not a.any(), stage
 
 
 def test_tilewin_bwd_plain_is_autograd_through_the_combine():

@@ -187,10 +187,12 @@ def test_models_default_to_the_gpu():
 
 def test_plane_dtype_picks_the_texel_table():
     """bf16 planes pack a bf16 texel table, float32 planes (the default,
-    where the JAX package samples its quad tables) a float32 one; what the
-    port does not sample yet raises with its ROADMAP item."""
+    where the JAX package samples its quad tables) the float32 sampler's
+    feature table and bone-major mask planes; what the port does not
+    sample yet raises with its ROADMAP item."""
     from enarf_gan_tpu_torch.models.narf import NARFParams as TNARFParams
     from enarf_gan_tpu_torch.models.narf import TriPlaneNARF
+    from enarf_gan_tpu_torch.ops.unirow import Float32Texels
     from _torch_parity import SMALL
     assert TNARFParams().plane_sample_dtype == "float32"
     planes = torch.randn(1, (32 + 23) * 3, 32, 32)
@@ -201,7 +203,12 @@ def test_plane_dtype_picks_the_texel_table():
                             16, 8, 23, device="cpu")
         (table,) = nerf.pack_planes(planes)
         assert nerf.texel_dtype == want and table.dtype == want
-        assert table.shape == (1, 3, 34, 34, 64)
+        if want == torch.float32:
+            assert isinstance(table, Float32Texels)
+            assert table.feature.shape == (1, 3, 34, 34, 32)
+            assert table.mask.shape == (1, 3, 23, 34, 34)
+        else:
+            assert table.shape == (1, 3, 34, 34, 64)
     tiled = TriPlaneNARF(TNARFParams(**{**SMALL, "tile_patch": 4,
                                         "plane_sample_dtype": "float32"}),
                          16, 8, 23, device="cpu")

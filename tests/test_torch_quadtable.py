@@ -57,7 +57,7 @@ def _jax(planes, pos, idx, valid, F, K, H, W, clamp):
 
 
 def _port(planes, pos, idx, valid, F, K, H, W, clamp):
-    texels = unirow.pack_texels(planes, F, K, dtype=torch.float32)
+    texels = unirow.pack_texels_f32(planes, F, K)
     assert texels.dtype == torch.float32
     return unirow.sample_candidates_unirow(texels, pos, idx, valid, F, K, H,
                                            W, clamp_mask=clamp)

@@ -90,6 +90,20 @@ def test_frame_parts(monkeypatch, capsys):
     assert all({"ms_host", "reps"} | DEVICE_KEYS <= set(r) for r in lines)
 
 
+def test_frame_parts_float32(monkeypatch, capsys):
+    """On float32 planes the exact path's sampler is the candidate choice
+    and kernel 1f's ``sample_f32`` from the positions: no candidate rows."""
+    _env(monkeypatch, {**SMALL_DSO, "BENCH_RENDER_SIZE": 16, "BENCH_TILED": 0,
+                       "BENCH_PLANE_DTYPE": "float32"})
+    frame_parts.main(["--device", "cpu"])
+    names = [r["piece"] for r in _lines(capsys, "frame_parts")]
+    assert "pack_planes (pack_texels_f32)" in names
+    for label in ("fine", "coarse"):
+        assert f"sample_f32 {label} (kernel 1f)" in names
+    assert not any("candidate_rows" in n or "unirow_combine" in n
+                   for n in names)
+
+
 def test_production(monkeypatch, capsys):
     _env(monkeypatch, {**SMALL_DSO, "BENCH_IMAGE_SIZE": 16, "BENCH_BS": 2,
                        "BENCH_ITERS": 1, "BENCH_REPS": 1,
